@@ -19,6 +19,11 @@ import pytest  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_per_module():
     """Release compiled executables between test modules.

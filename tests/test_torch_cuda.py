@@ -1,0 +1,187 @@
+"""The port on a card: the CUDA K1 against its plain version, the
+cancellation at r -> 0, and a short run on the card against the CPU path.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no jax, so it also runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(``--noconftest`` skips ``tests/conftest.py``, which configures jax.)
+Tolerance, kernel vs plain: ``2e-5 * (1 + max|ref|)``, the f32 rounding of
+per-slot sums of a few hundred terms taken in another order.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from chemlab_tpu_torch import testsystems
+from chemlab_tpu_torch.engine import cell_pair, integrate, neighbor, runner
+
+MODES = [(True, True), (False, True), (False, False)]   # (uniform, all_lj)
+CH3 = (cell_pair.CH3_NONE, cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL)
+
+
+def _tol(ref):
+    return 2e-5 * (1.0 + ref.abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def melt():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    built, systop, _ = testsystems.build_melt(n_mols=70, reactive=True,
+                                              thermostat="no")
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = testsystems.warmup(built, st, steps=50)
+    return built, systop, st
+
+
+def _mixed(spec, n_types, islj_gate):
+    """Per-type-pair sigma/epsilon, optionally one non-LJ type pair."""
+    rng = np.random.RandomState(5)
+    s = rng.uniform(0.9, 1.1, (n_types, n_types)).astype(np.float32)
+    e = rng.uniform(0.7, 1.3, (n_types, n_types)).astype(np.float32)
+    kind = spec.pair_kind.reshape(n_types, n_types).clone()
+    if islj_gate:
+        kind[0, 1] = kind[1, 0] = 0
+    return dataclasses.replace(
+        spec, pair_sig=torch.from_numpy(((s + s.T) / 2).reshape(-1)),
+        pair_eps=torch.from_numpy(((e + e.T) / 2).reshape(-1)),
+        pair_kind=kind.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform,all_lj", MODES,
+                         ids=["uniform", "all_lj", "islj"])
+def test_cuda_k1_matches_plain(melt, uniform, all_lj):
+    built, _, st = melt
+    cfg, spec = built.cfg, built.spec
+    if not uniform:
+        spec = _mixed(spec, cfg.n_types, not all_lj)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    params = cell_pair.pair_params(spec, cfg.n_types)
+    dev = [t.cuda() for t in (cells, counts, st.box, params)]
+    for mode in CH3:
+        n0 = cell_pair.K1.launches
+        got = cell_pair.colt_cells(*dev, cfg.cell_dims, uniform, all_lj, mode)
+        assert cell_pair.K1.launches == n0 + 1
+        ref = cell_pair.cell_pair_forces_colt_ref(
+            cells, counts, st.box, params, cfg.cell_dims, uniform, all_lj,
+            mode)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_tol(ref))
+        if mode == cell_pair.CH3_NONE:
+            assert (got[..., 3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [8, 40])
+def test_cuda_k1_ragged_cells(cap):
+    """Random occupancy per cell (holes past each count), and a cap that is
+    not a multiple of the warp (40 slots: 64 threads per block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    rng = np.random.RandomState(cap)
+    dims = (3, 4, 5)
+    n_cells = int(np.prod(dims))
+    box = np.array([3.3, 4.4, 5.5], np.float32)
+    cells = np.zeros((n_cells, cap, 4), np.float32)
+    counts = rng.randint(0, cap + 1, n_cells).astype(np.int32)
+    for c in range(n_cells):
+        cx, cy, cz = c // 20, (c // 5) % 4, c % 5
+        lo = np.array([cx, cy, cz]) * 1.1
+        k = counts[c]
+        cells[c, :k, :3] = lo + rng.uniform(0, 1.1, (k, 3))
+        cells[c, :k, 3] = rng.randint(1, 3, k)
+    params = np.zeros((5, 2, 2), np.float32)
+    params[0], params[1], params[2] = 0.35, 1.0, 1.1 ** 2
+    params[3], params[4] = 0.01, 1.0
+    ops = [torch.from_numpy(a) for a in (cells, counts, box, params)]
+    for uniform, all_lj in MODES:
+        for mode in CH3:
+            got = cell_pair.colt_cells(*(t.cuda() for t in ops), dims,
+                                       uniform, all_lj, mode)
+            ref = cell_pair.cell_pair_forces_colt_ref(*ops, dims, uniform,
+                                                      all_lj, mode)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                                       atol=_tol(ref))
+
+
+@pytest.mark.cuda
+def test_cuda_cancellation_at_short_range(melt):
+    """An excluded pair at r = 0.05 sigma: kernel minus correction is finite
+    and equals plain minus correction.  The clamped term (~2.4e3 eps/sigma
+    times 0.05 sigma) sits in both sums before it cancels, so the tolerance
+    scales with it."""
+    built, _, st = melt
+    cfg, spec = built.cfg, built.spec
+    i, j = (int(x) for x in st.excl[0].tolist())
+    pos = st.pos.clone()
+    pos[j] = pos[i] + torch.tensor([0.05, 0.0, 0.0])
+    pos = pos - torch.floor(pos / st.box) * st.box
+    out = []
+    for dev in ("cpu", "cuda"):
+        p = pos.to(dev)
+        sp = spec.to(dev)
+        buckets, _, ovf, slot_of = neighbor.build_cell_buckets(
+            p, st.box.to(dev), st.active.to(dev), cfg.cell_dims,
+            cfg.cell_cap)
+        assert not bool(ovf)
+        f_all = cell_pair.cell_pair_forces(
+            p, st.type_id.to(dev), st.active.to(dev), st.box.to(dev),
+            buckets, slot_of, cfg.cell_dims, sp, cfg.n_types,
+            uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj)[0]
+        f_ex = cell_pair.excluded_pair_correction(
+            sp, cfg.n_types, p, st.box.to(dev), st.type_id.to(dev),
+            st.excl.to(dev), active=st.active.to(dev))[0]
+        out.append((f_all - f_ex).cpu())
+        big = f_ex.abs().max().item()
+    plain, kern = out
+    assert torch.isfinite(kern).all()
+    torch.testing.assert_close(kern, plain, rtol=0, atol=2e-5 * (1.0 + big))
+
+
+@pytest.mark.cuda
+def test_cuda_run_matches_cpu(melt):
+    """20 NVE steps with a reaction step every 10, on the card and on the
+    CPU from one state: events identical, positions to f32 rounding."""
+    built, systop, st = melt
+    cfg = dataclasses.replace(built.cfg, reaction_interval=10)
+    st = testsystems.activate_initiators(built, systop, st, n=20)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
+    c = runner.run_block(built.spec, cfg, st, 20)
+    g = runner.run_block(built.spec.to("cuda"), cfg, st.to("cuda"), 20)
+    assert int(c.reaction_counts.sum()) > 0
+    torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-5)
+    for name in ("ev_log_a", "ev_log_b", "ev_log_r", "type_id", "n_excl"):
+        torch.testing.assert_close(getattr(g, name).cpu(), getattr(c, name),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(g.bonds.idx.cpu(), c.bonds.idx, rtol=0, atol=0)
+    f, _, _ = integrate.compute_forces(built.spec.to("cuda"), cfg, g)
+    assert torch.isfinite(f).all()
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_checks_its_inputs(melt):
+    built, _, st = melt
+    cfg = built.cfg
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    params = cell_pair.pair_params(built.spec, cfg.n_types)
+    args = [t.cuda() for t in (cells, counts, st.box, params)]
+    k = cell_pair.cell_pair_forces_colt_kernel
+    with pytest.raises(TypeError):
+        k(args[0].double(), *args[1:], cfg.cell_dims, True, True, 0)
+    with pytest.raises(ValueError):
+        k(args[0].transpose(0, 1), *args[1:], cfg.cell_dims, True, True, 0)
+    with pytest.raises(ValueError):
+        k(*args, (3, 3, 2), True, True, 0)
+    with pytest.raises(ValueError):
+        k(args[0], args[1].cpu(), *args[2:], cfg.cell_dims, True, True, 0)

@@ -1,15 +1,16 @@
 """Build and load the hand-written CUDA kernels (route: nvcc + ctypes).
 
-Each ``csrc/*.cu`` file exposes a plain C function that launches its
-kernel on the stream it is given and returns ``cudaGetLastError()``.  At
-first use the source is compiled by ``nvcc`` for ``sm_90a`` into
+Each ``csrc/*.cu`` file exposes plain C functions that launch its kernel
+on the stream they are given and return ``cudaGetLastError()``.  At first
+use the source is compiled by ``nvcc`` for ``sm_90a`` into
 ``chemlab_tpu_torch/_build/`` (named by a hash of the source and flags, so
-an edited source rebuilds) and loaded with ``ctypes``.  Nothing is built or
+an edited source rebuilds) and loaded with ``ctypes``; ``build_all``
+compiles several sources at once, one ``nvcc`` each.  Nothing is built or
 loaded when this module is imported: the CPU tests import every module.
 
 Flags: ``--fmad=false`` keeps ``a*b + c`` as two rounded operations, the
 op sequence of the torch correction the kernel's sum must cancel against;
-no fast-math flag, so division and ``rintf`` stay IEEE.
+no fast-math flag, so division, ``sqrtf`` and ``rintf`` stay IEEE.
 """
 
 from __future__ import annotations
@@ -64,19 +65,7 @@ class CudaKernel:
 
     def build(self) -> float:
         """Compile if the library is missing; returns the seconds spent."""
-        lib = self.library_path()
-        if lib.exists():
-            return 0.0
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(".tmp%d.so" % os.getpid())
-        t0 = time.perf_counter()
-        proc = subprocess.run(nvcc_command(find_nvcc(), self.source, tmp),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for %s:\n%s%s" % (
-                self.source.name, proc.stdout, proc.stderr))
-        os.replace(tmp, lib)
-        return time.perf_counter() - t0
+        return build_all([self])
 
     def function(self):
         if self._fn is None:
@@ -94,3 +83,34 @@ class CudaKernel:
             raise RuntimeError("%s launch failed: cudaError %d"
                                % (self.symbol, rc))
         self.launches += 1
+
+
+def build_all(kernels) -> float:
+    """Compile every missing library among ``kernels``, one ``nvcc`` per
+    source, all started together; returns the seconds spent."""
+    todo = {}
+    for k in kernels:
+        lib = k.library_path()
+        if not lib.exists():
+            todo[lib] = k.source
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for lib, source in todo.items():
+        tmp = lib.with_suffix(".tmp%d.so" % os.getpid())
+        procs.append((lib, tmp, source, subprocess.Popen(
+            nvcc_command(nvcc, source, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for lib, tmp, source, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append("nvcc failed for %s:\n%s" % (source.name, log))
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0

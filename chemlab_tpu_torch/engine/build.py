@@ -1,13 +1,15 @@
 """System assembly: SystemTopology + Coordinates (+ reactions) -> tensors.
 
 Port of ``chemlab_tpu/engine/build.py`` ``build_system`` for the slice the
-port runs: LJ nonbonded pairs on the cell-tile kernel path (K1), harmonic
+port runs: LJ nonbonded pairs on the cell-tile kernel path (K1), or
+tabulated pairs (func 8, the func 10/12 two-table blends, auto-tabulated
+``table_groups``) on the kernel's Chebyshev modes (K1c/K1d/K1e), harmonic
 (and FENE) bonds, harmonic and cosine angles, the dense-static bonded and
 exclusion operands, Langevin or NVE, and normal reaction channels on the
 batched event path.  The lowering is the reference's numpy code; only the
-last step differs: arrays become torch tensors on ``device`` through the
-bridge, and the build-time neighbor rows are made by the port's
-``neighbor.build_neighbor_state``.
+last step differs: arrays become torch tensors on ``device`` (the card
+unless the caller asks for another) through the bridge, and the build-time
+neighbor rows are made by the port's ``neighbor.build_neighbor_state``.
 
 A configuration outside the slice raises ``NotImplementedError`` naming
 the ROADMAP item that will bring it; nothing falls back to another path.
@@ -25,11 +27,12 @@ import math
 import numpy as np
 import torch
 
-from chemlab_tpu.topology import SystemTopology, combine_lj
-
-from .. import bridge
-from . import bonded_dense, excl_dense, neighbor, reaction_compile, tables
-from .spec import PAIR_LJ, EngineConfig, SimSpec
+from .. import bridge, files_io
+from ..topology import SystemTopology, combine_lj
+from . import (bonded_dense, excl_dense, neighbor, reaction_compile, tables,
+               tab_cheb)
+from .spec import (MIX_MULTIRANGE, MIX_OBS, PAIR_LJ, PAIR_TAB, EngineConfig,
+                   SimSpec)
 from .state import N_BOND_PARAMS, MDState, TermTable
 
 logger = logging.getLogger(__name__)
@@ -97,14 +100,31 @@ class BuiltSystem:
 
 
 class ObsRegistry:
-    """Conversion-observable registry (reference: build.ObsRegistry).  The
-    slice registers none, so ``arrays`` yields the reference's one-entry
-    placeholder."""
+    """Conversion-observable registry (reference: build.ObsRegistry), keyed
+    by ((type, state), ...), total); func 10 pairs register one each."""
 
     def __init__(self):
         self.keys = []
         self.entries = []   # (obs_idx, type_id, state)
         self.totals = []
+
+    def register(self, type_states, total) -> int:
+        """type_states: list of (type_id, state_or_None)."""
+        key = (tuple(type_states), total)
+        if key in self.keys:
+            return self.keys.index(key)
+        idx = len(self.keys)
+        self.keys.append(key)
+        self.totals.append(float(total))
+        for tid, st in type_states:
+            self.entries.append((idx, tid, -1 if st is None else st))
+        return idx
+
+    def label(self, idx: int) -> str:
+        type_states, _ = self.keys[idx]
+        parts = "_".join(str(t) for t, _ in type_states)
+        states = [s for _, s in type_states if s is not None]
+        return "cr_%s%s" % (parts, "_%d" % states[0] if states else "")
 
     def arrays(self):
         n = max(len(self.keys), 1)
@@ -174,9 +194,28 @@ def _pack_angle_params(func, fields):
     return p
 
 
-def _build_pair_tables(systop: SystemTopology, opts: SimOptions):
-    """LJ type-pair dispatch arrays (reference: build._build_pair_tables,
-    restricted to LJ from [ atomtypes ] combination or func-1 entries)."""
+def _load_nb_table(name, nb_tb, table_dirs):
+    path = files_io.resolve_table(name, table_dirs)
+    r, e, f, _ = files_io.read_table(path, kind="nonbonded")
+    return nb_tb.add(path, r, e, f)
+
+
+def _load_auto_nb_table(s1, s2, nb_tb, table_dirs):
+    """Auto filename table_T1_T2; published files may use either symbol
+    order, so try both."""
+    try:
+        return _load_nb_table("table_%s_%s" % (s1, s2), nb_tb, table_dirs)
+    except FileNotFoundError:
+        return _load_nb_table("table_%s_%s" % (s2, s1), nb_tb, table_dirs)
+
+
+def _build_pair_tables(systop: SystemTopology, opts: SimOptions, nb_tb,
+                       obs: ObsRegistry):
+    """Per-type-pair dispatch arrays (reference: build._build_pair_tables)
+    for the nonbonded funcs of the slice: LJ (combination or func 1),
+    tables (func 8 and auto-tabulated ``table_groups`` pairs) and the
+    two-table blends (func 10 by a conversion observable, func 12 by a
+    static factor).  The other funcs need the row path (M10)."""
     T = systop.next_type_id
     n2 = T * T
     out = {
@@ -199,19 +238,20 @@ def _build_pair_tables(systop: SystemTopology, opts: SimOptions):
     atomtypes = systop.top.atomtypes
     sym2id = systop.atomsym_atomtype
     tab_groups = set(opts.table_groups or ())
-    lj_cut = opts.lj_cutoff
+    lj_cut, tab_cut = opts.lj_cutoff, opts.cg_cutoff
+
+    def set_pair(t1, t2, **kw):
+        for p in (t1 * T + t2, t2 * T + t1):
+            for k, v in kw.items():
+                out["pair_%s" % k][p] = v
 
     def set_lj(t1, t2, sig, eps):
         shift = 0.0
         if eps != 0.0 and sig > 0.0:
             sr6 = (sig / lj_cut) ** 6
             shift = 4.0 * eps * (sr6 * sr6 - sr6)
-        for p in (t1 * T + t2, t2 * T + t1):
-            out["pair_kind"][p] = PAIR_LJ
-            out["pair_sig"][p] = sig
-            out["pair_eps"][p] = eps
-            out["pair_cutoff2"][p] = lj_cut ** 2
-            out["pair_shift"][p] = shift
+        set_pair(t1, t2, kind=PAIR_LJ, sig=sig, eps=eps, cutoff2=lj_cut**2,
+                 shift=shift)
 
     def raw_combination(s1, s2):
         a, b = atomtypes.get(s1), atomtypes.get(s2)
@@ -227,18 +267,104 @@ def _build_pair_tables(systop: SystemTopology, opts: SimOptions):
             param = systop.top.nonbond_params.get(tuple(sorted((s1, s2))))
             if param is None:
                 if s1 in tab_groups and s2 in tab_groups:
-                    _not_in_slice("tabulated nonbonded pairs", "M9")
-                sig, eps = raw_combination(s1, s2)
-            elif param["func"] == 1:
-                pp = param["params"]
+                    tab = _load_auto_nb_table(s1, s2, nb_tb, opts.table_dirs)
+                    set_pair(t1, t2, kind=PAIR_TAB, tab_a=tab, tab_b=tab,
+                             cutoff2=tab_cut**2)
+                else:
+                    sig, eps = raw_combination(s1, s2)
+                    if sig > 0.0:
+                        set_lj(t1, t2, sig, eps)
+                continue
+            func, pp = param["func"], param["params"]
+            if func == 1:
                 sig, eps = ((float(pp[0]), float(pp[1])) if pp
                             else raw_combination(s1, s2))
+                if sig > 0.0:
+                    set_lj(t1, t2, sig, eps)
+            elif func == 8:
+                tab = (_load_nb_table(pp[0], nb_tb, opts.table_dirs) if pp
+                       else _load_auto_nb_table(s1, s2, nb_tb,
+                                                opts.table_dirs))
+                set_pair(t1, t2, kind=PAIR_TAB, tab_a=tab, tab_b=tab,
+                         cutoff2=tab_cut**2)
+            elif func == 10:
+                ta = _load_nb_table(pp[0], nb_tb, opts.table_dirs)
+                tb_ = _load_nb_table(pp[1], nb_tb, opts.table_dirs)
+                o = obs.register([(sym2id[pp[2]], None)], int(pp[3]))
+                set_pair(t1, t2, kind=PAIR_TAB, tab_a=ta, tab_b=tb_,
+                         cutoff2=tab_cut**2, mix_mode=MIX_OBS, obs=o)
+            elif func == 12:
+                ta = _load_nb_table(pp[0], nb_tb, opts.table_dirs)
+                tb_ = _load_nb_table(pp[1], nb_tb, opts.table_dirs)
+                set_pair(t1, t2, kind=PAIR_TAB, tab_a=ta, tab_b=tb_,
+                         cutoff2=tab_cut**2, mix_x=float(pp[2]))
+            elif func == 18:
+                logger.warning("func 18 (connectivity-scaled) is a no-op, "
+                               "as in the reference")
             else:
-                _not_in_slice("nonbonded func %d" % param["func"],
-                              "M9 (tables) / M10 (row path)")
-            if sig > 0.0:
-                set_lj(t1, t2, sig, eps)
+                _not_in_slice("nonbonded func %d" % func, "M10 (row path)")
     return out
+
+
+def supports_cheb(pair_arrays) -> bool:
+    """The reference's gate of the kernel's Chebyshev modes
+    (``pallas_pair.supports_cheb``): tabulated-only systems, no caps, force
+    caps, lambda scaling, multi-range mixing or pair-age ramps; the func
+    10/12 two-table blends are admitted."""
+    kinds = pair_arrays["pair_kind"]
+    if not (kinds == PAIR_TAB).any():
+        return False
+    return not ((kinds == PAIR_LJ).any()
+                or (kinds > PAIR_TAB).any()
+                or (pair_arrays["pair_caprad"] > 0).any()
+                or (pair_arrays["pair_max_force"] > 0).any()
+                or pair_arrays["pair_lam_scale"].any()
+                or (pair_arrays["pair_mix_mode"] == MIX_MULTIRANGE).any()
+                or (pair_arrays["pair_pps_incr"] > 0).any())
+
+
+def _cheb_tables(pair_arrays, nb_stack):
+    """Fit every used table and choose the kernel mode (reference:
+    build.py:1388-1466).  Returns (fit, ntab, slot, slot_b, sc, mix):
+    table-scalar mode (K1c, K1d when mixed) when at most 8 distinct fits
+    fill at most 128 coefficients, else coefficient-plane mode (K1e,
+    ``ntab`` 0).  A failed fit, or mixed tables with more than 8 distinct
+    fits, sends the reference to its row path; here it raises."""
+    is_tab_pair = pair_arrays["pair_kind"] == PAIR_TAB
+    used_tabs = np.zeros(nb_stack.ef.shape[0], bool)
+    used_tabs[pair_arrays["pair_tab_a"][is_tab_pair]] = True
+    used_tabs[pair_arrays["pair_tab_b"][is_tab_pair]] = True
+    fit = tab_cheb.fit_stack(tables.interleave4(nb_stack.ef), nb_stack.r0,
+                             nb_stack.dr, used_tabs)
+    if fit is None:
+        _not_in_slice("a pair table that fails the Chebyshev fit (the exact "
+                      "row path)", "M10")
+    logger.info("tabulated pairs: %d tables fit (kw=%d ko=%d, worst err "
+                "%.2e)", int(used_tabs.sum()), fit.kw, fit.ko,
+                float(fit.err[used_tabs].max()))
+    is_mixed = is_tab_pair & (pair_arrays["pair_tab_b"]
+                              != pair_arrays["pair_tab_a"])
+    used_ids = np.unique(np.concatenate(
+        [pair_arrays["pair_tab_a"][is_tab_pair],
+         pair_arrays["pair_tab_b"][is_tab_pair]]))
+    # dedupe by fit content: pairs that share a table's values share a slot
+    pack_all = tab_cheb.pack_table_scalars(fit, used_ids)
+    uniq_rows, inv = np.unique(pack_all, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    if len(uniq_rows) <= 8 and len(uniq_rows) * (fit.kw + fit.ko) <= 128:
+        slot = np.zeros(pair_arrays["pair_tab_a"].shape, F32)
+        slot_b = np.zeros_like(slot)
+        for i, t in enumerate(used_ids):
+            slot[is_tab_pair & (pair_arrays["pair_tab_a"] == t)] = inv[i] + 1
+            # pure pairs keep slot_b = 0 (blend weight forced to 1)
+            slot_b[is_mixed & (pair_arrays["pair_tab_b"] == t)] = inv[i] + 1
+        mix = bool(is_mixed.any())
+        return fit, int(len(uniq_rows)), slot, (slot_b if mix else None), \
+            uniq_rows, mix
+    if is_mixed.any():
+        _not_in_slice("mixed tables with more than 8 distinct fits (the "
+                      "row path)", "M10")
+    return fit, 0, None, None, None, False
 
 
 def _host_components(n, bonds):
@@ -298,8 +424,9 @@ def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
 
 def build_system(systop: SystemTopology, coords, opts: SimOptions,
                  reaction_config: dict | None = None,
-                 device="cpu") -> BuiltSystem:
-    """Assemble the system on ``device`` (reference: build.build_system)."""
+                 device="cuda") -> BuiltSystem:
+    """Assemble the system on ``device`` (reference: build.build_system);
+    the card by default, ``device="cpu"`` for the plain versions."""
     T = systop.next_type_id
     n = systop.n_atoms
     if coords.n_atoms != n:
@@ -326,7 +453,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     n_real = n
 
     # ---- nonbonded ----
-    pair_arrays = _build_pair_tables(systop, opts)
+    pair_arrays = _build_pair_tables(systop, opts, nb_tb, obs)
 
     # ---- bonded type-lookup tables ----
     bond_func_tt = np.zeros((T, T), I32)
@@ -410,10 +537,14 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     rc_skin = max_cutoff + opts.skin
     density = n / float(np.prod(box))
     cell_dims = neighbor.choose_cell_grid(box, rc_skin, margin=1.02)
-    if ((pair_arrays["pair_caprad"] > 0).any()
-            or pair_arrays["pair_lam_scale"].any()
-            or (pair_arrays["pair_mix_mode"] != 0).any()
-            or (pair_arrays["pair_pps_incr"] > 0).any()):
+    has_tab = bool((pair_arrays["pair_kind"] == PAIR_TAB).any())
+    if has_tab and not supports_cheb(pair_arrays):
+        _not_in_slice("tabulated pairs beside LJ pairs, or capped / lambda "
+                      "/ multi-range / scaled tabulated pairs", "M10")
+    if not has_tab and ((pair_arrays["pair_caprad"] > 0).any()
+                        or pair_arrays["pair_lam_scale"].any()
+                        or (pair_arrays["pair_mix_mode"] != 0).any()
+                        or (pair_arrays["pair_pps_incr"] > 0).any()):
         _not_in_slice("capped / lambda / mixed / scaled pairs", "M10")
     use_pallas = True
 
@@ -545,6 +676,12 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         vel[:n_real] = v
 
     nb_stack = nb_tb.build()
+    cheb_fit = None
+    cheb_ntab, cheb_mix = 0, False
+    cheb_tab_slot = cheb_sc = cheb_tab_slot_b = None
+    if has_tab:
+        (cheb_fit, cheb_ntab, cheb_tab_slot, cheb_tab_slot_b, cheb_sc,
+         cheb_mix) = _cheb_tables(pair_arrays, nb_stack)
     bond_stack = bond_tb.build()
     angle_stack = angle_tb.build()
     dih_stack = dih_tb.build()
@@ -640,9 +777,16 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         nearest_mode=compiled.nearest if compiled else False,
         max_per_interval=compiled.max_per_interval if compiled else -1,
         exclude_new_bonds=opts.exclude_new_bonds, n_mix_entries=0,
-        has_mixed_tables=False, needs_conversions=False,
-        use_pallas=use_pallas, lazy_rows=use_pallas, tab_cheb=False,
-        cheb_kw=0, cheb_ko=0, cheb_ntab=0, cheb_mix=False,
+        has_mixed_tables=bool(
+            (pair_arrays["pair_mix_mode"] != 0).any()
+            or (pair_arrays["pair_tab_b"] != pair_arrays["pair_tab_a"]).any()),
+        needs_conversions=bool(
+            (pair_arrays["pair_mix_mode"] == MIX_OBS).any()),
+        use_pallas=use_pallas, lazy_rows=use_pallas,
+        tab_cheb=cheb_fit is not None,
+        cheb_kw=cheb_fit.kw if cheb_fit is not None else 0,
+        cheb_ko=cheb_fit.ko if cheb_fit is not None else 0,
+        cheb_ntab=cheb_ntab, cheb_mix=cheb_mix,
         uniform_lj=bool(
             (pair_arrays["pair_kind"] == PAIR_LJ).all()
             and all(np.unique(pair_arrays[k]).size == 1
@@ -652,7 +796,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         rx_dims=rx_dims, rx_cell_cap=rx_cell_cap, rx_k=rx_k, rx_rc=rc_rx,
         rx_compact=rx_compact, rx_rows_cap=rx_rows_cap,
         has_lj=bool((pair_arrays["pair_kind"] == PAIR_LJ).any()),
-        has_tabulated=False, has_caps=False, has_pps=False,
+        has_tabulated=has_tab, has_caps=False, has_pps=False,
         has_lambda_pairs=False, use_thermal_group=bool(opts.thermal_groups),
         nb_bins=opts.n_bins, max_ppnb=n_pp,
         max_nb_level=compiled.max_nb_level if compiled else 0,
@@ -693,6 +837,16 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         mix_tab_b=np.zeros(0, I32), mix_obs=np.zeros(0, I32),
         nb_ef=nb_stack.ef, nb_ef4=tables.interleave4(nb_stack.ef),
         nb_r0=nb_stack.r0, nb_dr=nb_stack.dr,
+        **({} if cheb_fit is None else dict(
+            cheb_wall_g=cheb_fit.wall_g, cheb_wall_e=cheb_fit.wall_e,
+            cheb_well_g=cheb_fit.well_g, cheb_well_e=cheb_fit.well_e,
+            cheb_ay=cheb_fit.ay, cheb_by=cheb_fit.by, cheb_ax=cheb_fit.ax,
+            cheb_bx=cheb_fit.bx, cheb_rs2=cheb_fit.rs2,
+            cheb_rcap2=cheb_fit.rcap2,
+            **({} if cheb_ntab == 0 else dict(
+                cheb_tab_slot=cheb_tab_slot, cheb_sc=cheb_sc)),
+            **({} if not cheb_mix else dict(
+                cheb_tab_slot_b=cheb_tab_slot_b)))),
         bond_ef=bond_stack.ef, bond_r0=bond_stack.r0, bond_dr=bond_stack.dr,
         angle_ef=angle_stack.ef, angle_r0=angle_stack.r0,
         angle_dr=angle_stack.dr,

@@ -1,8 +1,9 @@
-"""Cell-tile LJ pair forces (K1) and the excluded-pair correction.
+"""Cell-tile pair forces (K1 and its Chebyshev modes K1c/K1d/K1e) and the
+excluded-pair correction.
 
 Port of ``chemlab_tpu/engine/pallas_pair.py``: ``cell_pair_forces_colt``
-(the wrapper of the TPU kernel ``_colt2_kernel``, LJ mode), ``_pair_eval``
-and ``excluded_pair_correction``.
+(the wrapper of the TPU kernel ``_colt2_kernel``, in its LJ modes and its
+Chebyshev-tabulated modes), ``_pair_eval`` and ``excluded_pair_correction``.
 
 The pair sum runs over every pair on the cell grid, excluded pairs
 included; the correction subtracts the exclusion list afterwards.  That
@@ -11,11 +12,20 @@ image ``d - box * round(d * (1/box))`` (round half to even), ``r2`` summed
 x, y, z in that order, the self-pair drop at ``r2 > 1e-12`` (kernel) or the
 ``1e-12`` floor (correction), and LJ with the 0.75-sigma soft-core clamp.
 
-``colt_cells`` is the kernel's wrapper.  A CPU tensor takes the plain
-torch version ``cell_pair_forces_colt_ref``; a CUDA tensor launches the
-hand-written kernel in ``csrc/cell_pair.cu`` (built at first use) or
-raises.  The operand packing and the ``slot_of`` epilogue stay here as
-torch indexing, as they stay outside the kernel in the reference.
+The tabulated modes evaluate a Chebyshev fit per pair
+(``tab_cheb.eval_planes``) from a coefficient row chosen by a (T, T) map:
+K1c takes the deduplicated table-scalar rows (``cheb_sc``, map
+``cheb_tab_slot``), K1d blends two rows ``x*g_a + (1-x)*g_b`` (func 10/12),
+K1e takes the per-table rows through the table id (``cheb_ntab == 0``).
+A tabulated system is pure-tabulated (``build.supports_cheb``), so the
+spare channel carries the tabulated energy ``e_tab``.
+
+``colt_cells`` and ``cheb_cells`` are the kernels' wrappers.  A CPU tensor
+takes the plain torch version; a CUDA tensor launches the hand-written
+kernel in ``csrc/cell_pair.cu`` or ``csrc/cell_pair_cheb.cu`` (built at
+first use) or raises.  The operand packing and the ``slot_of`` epilogue
+stay here as torch indexing, as they stay outside the kernel in the
+reference.
 """
 
 from __future__ import annotations
@@ -25,8 +35,8 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _kernels
-from .spec import PAIR_LJ
+from . import _kernels, tab_cheb
+from .spec import MIX_OBS, PAIR_LJ, PAIR_TAB
 
 # ch3 channel of the kernel's [fx, fy, fz, ch3] rows
 CH3_NONE, CH3_ENERGY, CH3_VIRIAL = 0, 1, 2
@@ -34,6 +44,15 @@ CH3_NONE, CH3_ENERGY, CH3_VIRIAL = 0, 1, 2
 K1 = _kernels.CudaKernel(
     "cell_pair.cu", "cell_pair_colt",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+# the Chebyshev modes, one source: K1c and K1e share the unblended entry
+# point (they differ only in the map and the pack), each with its own count
+_CHEB_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+K1C = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
+K1D = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
+                          _CHEB_ARGS)
+K1E = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
+KERNELS = (K1, K1C, K1D, K1E)
 
 
 def pack_rows(pos, type_id, active=None):
@@ -77,34 +96,45 @@ def _stencil(dims, device):
             + (cz[:, None] + off[:, 2]) % nz)
 
 
+def stencil_pairs(cells, box, dims):
+    """Every slot of each cell against every slot of its 27 neighbour cells,
+    in the kernels' op order: (minimum-image d per axis, r2 summed x, y, z,
+    the valid-pair mask, the (C, 27*cap, 4) neighbour rows)."""
+    C, cap, _ = cells.shape
+    xj = cells[_stencil(dims, cells.device)].reshape(C, 27 * cap, 4)
+    ibox = 1.0 / box
+    dr = []
+    r2 = None
+    for ax in range(3):
+        d = cells[:, :, None, ax] - xj[:, None, :, ax]
+        d = d - box[ax] * torch.round(d * ibox[ax])
+        dr.append(d)
+        r2 = d * d if r2 is None else r2 + d * d
+    valid = ((cells[:, :, 3] > 0.5)[:, :, None]
+             & (xj[:, :, 3] > 0.5)[:, None, :] & (r2 > 1e-12))
+    return dr, r2, valid, xj
+
+
+def type_pairs(cells, xj, n_types: int):
+    """(C, cap, 27*cap) type-pair index ti * T + tj of ``stencil_pairs``."""
+    ti = torch.clamp(cells[:, :, 3].long() - 1, min=0)
+    tj = torch.clamp(xj[:, :, 3].long() - 1, min=0)
+    return ti[:, :, None] * n_types + tj[:, None, :]
+
+
 def cell_pair_forces_colt_ref(cells, counts, box, params, dims,
                               uniform_lj: bool, all_lj: bool, ch3_mode: int):
     """Plain torch K1: every slot i of a cell against every slot of its 27
     neighbour cells, vectorised over (C, cap, 27*cap).  Returns the kernel's
     (C, cap, 4) [fx, fy, fz, ch3] rows; ``counts`` is unused here (empty
     slots are zero rows, which the validity test drops)."""
-    C, cap, _ = cells.shape
-    xj = cells[_stencil(dims, cells.device)].reshape(C, 27 * cap, 4)
-    xi = cells
-    ibox = 1.0 / box
-    dr = []
-    r2 = None
-    for ax in range(3):
-        d = xi[:, :, None, ax] - xj[:, None, :, ax]
-        d = d - box[ax] * torch.round(d * ibox[ax])
-        dr.append(d)
-        r2 = d * d if r2 is None else r2 + d * d
-    valid = ((xi[:, :, 3] > 0.5)[:, :, None] & (xj[:, :, 3] > 0.5)[:, None, :]
-             & (r2 > 1e-12))
+    dr, r2, valid, xj = stencil_pairs(cells, box, dims)
     r2s = torch.where(valid, r2, 1.0)
     if uniform_lj:
         sig, eps, cut2, shift = (params[k, 0, 0] for k in range(4))
         in_cut = valid & (r2s < cut2)
     else:
-        n_types = params.shape[1]
-        ti = torch.clamp(xi[:, :, 3].long() - 1, min=0)
-        tj = torch.clamp(xj[:, :, 3].long() - 1, min=0)
-        pid = ti[:, :, None] * n_types + tj[:, None, :]
+        pid = type_pairs(cells, xj, params.shape[1])
         flat = params.reshape(5, -1)
         sig, eps, cut2, shift = (flat[k][pid] for k in range(4))
         in_cut = valid & (r2s < cut2)
@@ -136,13 +166,11 @@ def _check(t, name, dtype, shape=None):
         raise ValueError("%s must be contiguous" % name)
 
 
-def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
-                                 uniform_lj: bool, all_lj: bool,
-                                 ch3_mode: int):
-    """Launch the CUDA K1 on the current stream (CUDA tensors only)."""
+def _check_grid(cells, dims):
+    """The kernels' common launch conditions on the (C, cap, 4) cell rows;
+    returns the grid (nx, ny, nz)."""
     nx, ny, nz = (int(d) for d in dims)
     C, cap, _ = cells.shape
-    n_types = params.shape[1]
     if C != nx * ny * nz or min(nx, ny, nz) < 3:
         raise ValueError("K1 needs a full 27-cell stencil: dims %s for %d "
                          "cells" % (dims, C))
@@ -151,6 +179,19 @@ def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
                          % cells.device)
     if cap > 1024:
         raise ValueError("K1: cell_cap %d exceeds one block" % cap)
+    _check(cells, "cells", torch.float32, (C, cap, 4))
+    if cells.data_ptr() % 16:
+        raise ValueError("cells must be 16-byte aligned (float4 rows)")
+    return nx, ny, nz
+
+
+def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
+                                 uniform_lj: bool, all_lj: bool,
+                                 ch3_mode: int):
+    """Launch the CUDA K1 on the current stream (CUDA tensors only)."""
+    nx, ny, nz = _check_grid(cells, dims)
+    C, cap, _ = cells.shape
+    n_types = params.shape[1]
     if cap * 16 + 5 * n_types * n_types * 4 > 48 * 1024:
         raise ValueError("K1: shared-memory stage exceeds 48 KiB")
     dev = cells.device
@@ -158,12 +199,9 @@ def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
         if t.device != dev:
             raise ValueError("%s is on %s, cells on %s" % (name, t.device,
                                                           dev))
-    _check(cells, "cells", torch.float32, (C, cap, 4))
     _check(counts, "counts", torch.int32, (C,))
     _check(box, "box", torch.float32, (3,))
     _check(params, "params", torch.float32, (5, n_types, n_types))
-    if cells.data_ptr() % 16:
-        raise ValueError("cells must be 16-byte aligned (float4 rows)")
     out = torch.empty_like(cells)
     stream = torch.cuda.current_stream(dev).cuda_stream
     K1.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
@@ -185,23 +223,176 @@ def colt_cells(cells, counts, box, params, dims, uniform_lj: bool,
     raise ValueError("K1 has no version for device %s" % cells.device)
 
 
+def mix_weights(spec, obs_x):
+    """(T*T,) float32 blend weight of table a per type pair: the
+    conversion observable for func 10, the static factor for func 12, and
+    1 on every pair without a second table (so the blend is exact there)."""
+    x = torch.where(spec.pair_mix_mode == MIX_OBS,
+                    obs_x[spec.pair_obs.long()], spec.pair_mix_x)
+    return torch.where(spec.cheb_tab_slot_b > 0.5, x,
+                       torch.ones_like(x)).to(torch.float32)
+
+
+def cheb_operands(spec, n_types: int, ko: int, ntab: int, mix: bool,
+                  obs_x=None):
+    """The Chebyshev modes' operands: (cut2 (T, T) f32, tmap (T, T) int32
+    row index + 1 into ``coef`` (0: no table), tmap_b and xmat (T, T) for
+    the blend or None, coef (rows, 2kw + 2ko + 6) f32).  Table-scalar mode
+    (``ntab > 0``) maps through the deduplicated slots to ``cheb_sc``;
+    coefficient-plane mode maps the table id to the per-table fit rows."""
+    tt = (n_types, n_types)
+    cut2 = spec.pair_cutoff2.to(torch.float32).reshape(tt).contiguous()
+    tmap_b = xmat = None
+    if ntab:
+        tmap = spec.cheb_tab_slot.to(torch.int32).reshape(tt).contiguous()
+        coef = spec.cheb_sc.to(torch.float32).contiguous()
+        if mix:
+            tmap_b = spec.cheb_tab_slot_b.to(torch.int32).reshape(
+                tt).contiguous()
+            xmat = mix_weights(spec, obs_x).reshape(tt).contiguous()
+    else:
+        if mix:
+            raise ValueError("the two-table blend needs table-scalar mode")
+        tmap = (torch.clamp(spec.pair_tab_a, min=0) + 1).to(
+            torch.int32).reshape(tt).contiguous()
+        coef = tab_cheb.table_rows(spec, ko)
+    return cut2, tmap, tmap_b, xmat, coef
+
+
+def _cheb_rows_eval(coef, tmap_flat, pid, r2s, kw, ko, want_e):
+    """(G, E) of the row ``tmap[pid] - 1`` of ``coef`` (zero where the map
+    is 0)."""
+    m = tmap_flat[pid].long()
+    c = tab_cheb.split_rows(coef[torch.clamp(m - 1, min=0)], kw, ko)
+    g, e = tab_cheb.eval_planes(r2s, c["wall_g"], c["wall_e"], c["well_g"],
+                                c["well_e"], c["ay"], c["by"], c["ax"],
+                                c["bx"], c["rs2"], c["rcap2"], kw, ko,
+                                want_e=want_e)
+    return torch.where(m > 0, g, 0.0), torch.where(m > 0, e, 0.0)
+
+
+def cell_pair_forces_cheb_ref(cells, counts, box, cut2, tmap, tmap_b, xmat,
+                              coef, dims, kw: int, ko: int, ch3_mode: int):
+    """Plain torch K1c/K1d/K1e, vectorised over (C, cap, 27*cap) like the
+    LJ version: per pair the minimum image and r2 of the LJ mode, the fit
+    row(s) of the type pair's map, ``eval_planes``, the blend
+    ``x*g_a + (1-x)*g_b`` when ``tmap_b`` is given, and the cut
+    ``valid & (r2s < cut2)``.  ch3 carries half the tabulated energy
+    (mode 1) or half the pair virial (mode 2)."""
+    dr, r2, valid, xj = stencil_pairs(cells, box, dims)
+    r2s = torch.where(valid, r2, 1.0)
+    pid = type_pairs(cells, xj, cut2.shape[0])
+    in_cut = valid & (r2s < cut2.reshape(-1)[pid])
+    want_e = ch3_mode == CH3_ENERGY
+    g, e = _cheb_rows_eval(coef, tmap.reshape(-1), pid, r2s, kw, ko, want_e)
+    if tmap_b is not None:
+        g_b, e_b = _cheb_rows_eval(coef, tmap_b.reshape(-1), pid, r2s, kw,
+                                   ko, want_e)
+        x = xmat.reshape(-1)[pid]
+        g = x * g + (1.0 - x) * g_b
+        e = x * e + (1.0 - x) * e_b
+    f = torch.where(in_cut, g, 0.0)
+    fxyz = [torch.sum(f * d, dim=2) for d in dr]
+    if ch3_mode == CH3_ENERGY:
+        ch3 = 0.5 * torch.sum(torch.where(in_cut, e, 0.0), dim=2)
+    elif ch3_mode == CH3_VIRIAL:
+        ch3 = 0.5 * torch.sum(f * r2s, dim=2)
+    else:
+        ch3 = torch.zeros_like(fxyz[0])
+    return torch.stack(fxyz + [ch3], dim=-1)
+
+
+def cheb_kernel_for(tmap_b, ntab: int):
+    """The kernel handle (entry point and launch count) of a Chebyshev
+    mode."""
+    return K1D if tmap_b is not None else (K1C if ntab else K1E)
+
+
+def cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap, tmap_b,
+                                 xmat, coef, dims, kw: int, ko: int,
+                                 ch3_mode: int, ntab: int = 1):
+    """Launch the CUDA K1c (``ntab > 0``), K1d (``tmap_b`` given) or K1e
+    (``ntab == 0``) on the current stream (CUDA tensors only)."""
+    nx, ny, nz = _check_grid(cells, dims)
+    C, cap, _ = cells.shape
+    n_types = cut2.shape[0]
+    n_rows, n_p = coef.shape
+    if n_p != 2 * kw + 2 * ko + 6 or kw < 2 or (ko and ko < 2):
+        raise ValueError("K1 cheb: %d coefficients per row for kw=%d ko=%d"
+                         % (n_p, kw, ko))
+    if (tmap_b is None) != (xmat is None):
+        raise ValueError("the blend needs both tmap_b and xmat")
+    smem = cap * 16 + 4 * (n_rows * n_p + n_types * n_types
+                           * (4 if tmap_b is not None else 2))
+    if smem > 227 * 1024:
+        raise ValueError("K1 cheb: shared-memory stage of %d bytes exceeds "
+                         "227 KiB" % smem)
+    dev = cells.device
+    ops = [(counts, "counts", torch.int32, (C,)),
+           (box, "box", torch.float32, (3,)),
+           (cut2, "cut2", torch.float32, (n_types, n_types)),
+           (tmap, "tmap", torch.int32, (n_types, n_types)),
+           (coef, "coef", torch.float32, None)]
+    if tmap_b is not None:
+        ops += [(tmap_b, "tmap_b", torch.int32, (n_types, n_types)),
+                (xmat, "xmat", torch.float32, (n_types, n_types))]
+    for t, name, dtype, shape in ops:
+        if t.device != dev:
+            raise ValueError("%s is on %s, cells on %s" % (name, t.device,
+                                                          dev))
+        _check(t, name, dtype, shape)
+    out = torch.empty_like(cells)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cheb_kernel_for(tmap_b, ntab).launch(
+        cells.data_ptr(), counts.data_ptr(), box.data_ptr(), cut2.data_ptr(),
+        tmap.data_ptr(), 0 if tmap_b is None else tmap_b.data_ptr(),
+        0 if xmat is None else xmat.data_ptr(), coef.data_ptr(),
+        out.data_ptr(), nx, ny, nz, cap, n_types, n_rows, kw, ko,
+        int(ch3_mode), stream)
+    return out
+
+
+def cheb_cells(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,
+               kw: int, ko: int, ch3_mode: int, ntab: int = 1):
+    """K1c/K1d/K1e wrapper: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors."""
+    if cells.device.type == "cuda":
+        return cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap,
+                                            tmap_b, xmat, coef, dims, kw, ko,
+                                            ch3_mode, ntab)
+    if cells.device.type == "cpu":
+        return cell_pair_forces_cheb_ref(cells, counts, box, cut2, tmap,
+                                         tmap_b, xmat, coef, dims, kw, ko,
+                                         ch3_mode)
+    raise ValueError("K1 has no version for device %s" % cells.device)
+
+
 def cell_pair_forces(pos, type_id, active, box, buckets, slot_of, dims, spec,
                      n_types: int, uniform_lj: bool = False,
                      all_lj: bool = False, want_energy: bool = True,
-                     want_virial: bool = False):
-    """Unexcluded all-pairs LJ on the cell grid (reference:
-    ``cell_pair_forces_colt``).  Returns (force (N, 3), e_lj, e_tab, w):
-    the spare channel carries either the pair energy (``want_energy``) or
-    the pair virial (``want_virial``), never both."""
+                     want_virial: bool = False, cheb_kw: int = 0,
+                     cheb_ko: int = 0, cheb_ntab: int = 0,
+                     cheb_mix: bool = False, obs_x=None):
+    """Unexcluded all-pairs sum on the cell grid (reference:
+    ``cell_pair_forces_colt``): LJ, or the Chebyshev-tabulated pairs when
+    ``cheb_kw > 0``.  Returns (force (N, 3), e_lj, e_tab, w): the spare
+    channel carries either the pair energy (``want_energy``; ``e_tab`` on a
+    tabulated system) or the pair virial (``want_virial``), never both."""
     n_cells = int(np.prod(dims))
     cap = buckets.shape[1]
     cells, counts = colt_operands(pack_rows(pos, type_id, active), buckets,
                                   n_cells)
     mode = (CH3_VIRIAL if want_virial
             else CH3_ENERGY if want_energy else CH3_NONE)
-    out = colt_cells(cells, counts, box.contiguous(),
-                     pair_params(spec, n_types), dims, uniform_lj, all_lj,
-                     mode)
+    if cheb_kw:
+        cut2, tmap, tmap_b, xmat, coef = cheb_operands(
+            spec, n_types, cheb_ko, cheb_ntab, cheb_mix, obs_x)
+        out = cheb_cells(cells, counts, box.contiguous(), cut2, tmap, tmap_b,
+                         xmat, coef, dims, cheb_kw, cheb_ko, mode, cheb_ntab)
+    else:
+        out = colt_cells(cells, counts, box.contiguous(),
+                         pair_params(spec, n_types), dims, uniform_lj, all_lj,
+                         mode)
     out_flat = out.reshape(n_cells * cap, 4)
     in_grid = slot_of < n_cells * cap
     rows_f = out_flat[torch.where(in_grid, slot_of, 0).long()]
@@ -210,13 +401,31 @@ def cell_pair_forces(pos, type_id, active, box, buckets, slot_of, dims, spec,
     s3 = torch.sum(out_flat[:, 3])
     if want_virial:
         return force, zero, zero, s3
+    if cheb_kw:
+        return force, zero, s3, zero
     return force, s3, zero, zero
 
 
-def _pair_eval(spec, n_types: int, pi, pj, box, valid):
+def cheb_pair_operands(spec, cheb=None, cheb_mix: bool = False,
+                       obs_x=None):
+    """The correction's Chebyshev operands, built once per correction:
+    None (``cheb`` None) or (kw, ko, the per-table fit rows, the (T*T,)
+    blend weights of table a or None)."""
+    if cheb is None:
+        return None
+    kw, ko = cheb
+    x = mix_weights(spec, obs_x) if cheb_mix else None
+    return kw, ko, tab_cheb.table_rows(spec, ko), x
+
+
+def _pair_eval(spec, n_types: int, pi, pj, box, valid, tab=None):
     """Per-pair correction terms for packed endpoint rows of any leading
-    shape.  Returns (d, f_scalar, e_lj, r2s, valid) elementwise, in exactly
-    the kernel's op sequence (the cancellation contract)."""
+    shape.  Returns (d, f_scalar, e_lj, e_tab, r2s, valid) elementwise, in
+    exactly the kernel's op sequence (the cancellation contract).  With
+    ``tab`` (``cheb_pair_operands``) the pairs are evaluated by their
+    Chebyshev fit (``tab_cheb.eval_pairs``), blended ``x*g_a + (1-x)*g_b``
+    when the blend weights are given; a tabulated system has no LJ pair
+    (``build.supports_cheb``), so the LJ terms are zero there."""
     valid = valid & (pi[..., 3] > 0.5) & (pj[..., 3] > 0.5)
     d = pi[..., :3] - pj[..., :3]
     d = d - box * torch.round(d * (1.0 / box))
@@ -226,35 +435,60 @@ def _pair_eval(spec, n_types: int, pi, pj, box, valid):
     tj = torch.clamp(pj[..., 3].long() - 1, min=0)
     pid = ti * n_types + tj
     in_cut = valid & (r2s < spec.pair_cutoff2[pid])
-    sig = spec.pair_sig[pid]
-    eps = spec.pair_eps[pid]
-    r2c = torch.maximum(r2s, 0.5625 * (sig * sig))
-    inv_r2c = 1.0 / r2c
-    s2 = (sig * sig) * inv_r2c
-    s6 = s2 * s2 * s2
-    lj_m = in_cut & (spec.pair_kind[pid] == PAIR_LJ)
-    e_lj = torch.where(lj_m, 4.0 * eps * (s6 * s6 - s6) - spec.pair_shift[pid],
-                       0.0)
-    f_lj = torch.where(lj_m, 48.0 * eps * (s6 * s6 - 0.5 * s6) * inv_r2c, 0.0)
-    return d, f_lj, e_lj, r2s, valid
+    kind = spec.pair_kind[pid]
+    if tab is None:
+        sig = spec.pair_sig[pid]
+        eps = spec.pair_eps[pid]
+        r2c = torch.maximum(r2s, 0.5625 * (sig * sig))
+        inv_r2c = 1.0 / r2c
+        s2 = (sig * sig) * inv_r2c
+        s6 = s2 * s2 * s2
+        lj_m = in_cut & (kind == PAIR_LJ)
+        e_lj = torch.where(lj_m, 4.0 * eps * (s6 * s6 - s6)
+                           - spec.pair_shift[pid], 0.0)
+        f_lj = torch.where(lj_m, 48.0 * eps * (s6 * s6 - 0.5 * s6) * inv_r2c,
+                           0.0)
+        return d, f_lj, e_lj, torch.zeros_like(e_lj), r2s, valid
+    kw, ko, rows, x = tab
+    g, e = tab_cheb.eval_pairs(rows, torch.clamp(spec.pair_tab_a[pid], min=0),
+                               r2s, kw, ko)
+    if x is not None:
+        g_b, e_b = tab_cheb.eval_pairs(
+            rows, torch.clamp(spec.pair_tab_b[pid], min=0), r2s, kw, ko)
+        x = x[pid]
+        g = x * g + (1.0 - x) * g_b
+        e = x * e + (1.0 - x) * e_b
+    tab_m = in_cut & (kind == PAIR_TAB)
+    f_tab = torch.where(tab_m, g, 0.0)
+    return (d, f_tab, torch.zeros_like(f_tab), torch.where(tab_m, e, 0.0),
+            r2s, valid)
 
 
 def excluded_pair_correction(spec, n_types: int, pos, box, type_id, excl,
-                             active=None):
+                             active=None, cheb=None, cheb_mix: bool = False,
+                             obs_x=None):
     """Energy/force of the exclusion-list pairs, to subtract from the
-    all-pairs sum.  Returns (force (N, 3), e_lj, e_tab, w)."""
+    all-pairs sum (``cheb=(kw, ko)`` on a tabulated system, ``cheb_mix``
+    and ``obs_x`` for the blend).  Returns (force (N, 3), e_lj, e_tab, w)."""
+    return flat_correction(spec, n_types, pos, box, type_id, excl, active,
+                           cheb_pair_operands(spec, cheb, cheb_mix, obs_x))
+
+
+def flat_correction(spec, n_types: int, pos, box, type_id, excl, active,
+                    tab):
+    """``excluded_pair_correction`` with the Chebyshev operands already
+    built (``tab`` from ``cheb_pair_operands``)."""
     i, j = excl[:, 0], excl[:, 1]
     valid = (i >= 0) & (j >= 0)
     ic = torch.clamp(i, min=0).long()
     jc = torch.clamp(j, min=0).long()
     packed = pack_rows(pos, type_id, active)
-    d, f_s, e_lj, r2s, valid = _pair_eval(spec, n_types, packed[ic],
-                                          packed[jc], box, valid)
+    d, f_s, e_lj, e_tab, r2s, valid = _pair_eval(
+        spec, n_types, packed[ic], packed[jc], box, valid, tab)
     f_over_r = f_s[:, None] * d
     n = pos.shape[0]
     force = torch.zeros((n + 1, 3), dtype=pos.dtype, device=pos.device)
     force.index_add_(0, torch.where(valid, ic, n), f_over_r)
     force.index_add_(0, torch.where(valid, jc, n), -f_over_r)
     w = torch.sum(f_s * r2s)
-    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-    return force[:n], torch.sum(e_lj), zero, w
+    return force[:n], torch.sum(e_lj), torch.sum(e_tab), w

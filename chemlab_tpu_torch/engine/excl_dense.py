@@ -85,27 +85,31 @@ def rederive(cfg, state, create: bool = False):
 
 
 def correction(spec, cfg, pos, box, type_id, excl_masks, excl_irr,
-               active=None):
+               active=None, cheb=None, cheb_mix: bool = False, obs_x=None):
     """Excluded-pair correction via mask planes + rolled packed rows, plus
-    the flat correction over the irregular remainder.  Returns
+    the flat correction over the irregular remainder (``cheb``,
+    ``cheb_mix`` and ``obs_x`` as in ``cell_pair.excluded_pair_correction``;
+    the Chebyshev operands are built once for every leg).  Returns
     (force (N,3), e_lj, e_tab, w) like ``cell_pair.excluded_pair_correction``.
     """
     n_types = cfg.n_types
+    tab = cell_pair.cheb_pair_operands(spec, cheb, cheb_mix, obs_x)
     packed = cell_pair.pack_rows(pos, type_id, active)
     force = torch.zeros_like(pos)
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-    e_lj, w = zero, zero
+    e_lj, e_tab, w = zero, zero, zero
     for k, off in enumerate(cfg.excl_offsets):
         pj = torch.roll(packed, -off, dims=0)
-        d, f_s, el, r2s, valid = cell_pair._pair_eval(
-            spec, n_types, packed, pj, box, excl_masks[k])
+        d, f_s, el, et, r2s, valid = cell_pair._pair_eval(
+            spec, n_types, packed, pj, box, excl_masks[k], tab)
         fv = torch.where(valid[:, None], f_s[:, None] * d, 0.0)
         # base endpoint gains +f, partner (base+off) gains -f: the inverse
         # roll of the same plane
         force = force + fv - torch.roll(fv, off, dims=0)
         e_lj = e_lj + torch.sum(torch.where(valid, el, 0.0))
+        e_tab = e_tab + torch.sum(torch.where(valid, et, 0.0))
         w = w + torch.sum(torch.where(valid, f_s * r2s, 0.0))
 
-    f_i, el_i, _, w_i = cell_pair.excluded_pair_correction(
-        spec, n_types, pos, box, type_id, excl_irr, active=active)
-    return force + f_i, e_lj + el_i, zero, w + w_i
+    f_i, el_i, et_i, w_i = cell_pair.flat_correction(
+        spec, n_types, pos, box, type_id, excl_irr, active, tab)
+    return force + f_i, e_lj + el_i, e_tab + et_i, w + w_i

@@ -2,7 +2,9 @@
 
 Port of ``chemlab_tpu/engine/integrate.py`` for the slice: ``compute_forces``
 on the cell-tile path (kernel sum minus the excluded-pair correction, plus
-bonded forces, plus the global CapForce), ``_langevin_adjust``,
+bonded forces, plus the global CapForce; LJ or Chebyshev-tabulated pairs,
+with the conversion observables computed on the device when a func-10
+blend reads them), ``_langevin_adjust``,
 ``maybe_rebuild_neighbors`` in its lazy-row branch, and ``md_step``.
 
 The Langevin noise is an argument: ``md_step`` takes either the noise
@@ -16,7 +18,7 @@ import dataclasses
 
 import torch
 
-from . import bonded_forces, cell_pair, excl_dense, neighbor
+from . import bonded_forces, cell_pair, excl_dense, neighbor, observables
 
 
 def _dense_of(cfg, state):
@@ -27,16 +29,19 @@ def _dense_of(cfg, state):
     return None
 
 
-def _excl_correction(spec, cfg, state):
+def _excl_correction(spec, cfg, state, obs_x):
     """Excluded-pair correction: the dense-static leg when derived operands
     exist, else the flat-list correction."""
+    kwargs = dict(active=state.active,
+                  cheb=(cfg.cheb_kw, cfg.cheb_ko) if cfg.tab_cheb else None,
+                  cheb_mix=cfg.cheb_mix, obs_x=obs_x)
     if cfg.excl_offsets and state.excl_masks is not None:
         return excl_dense.correction(spec, cfg, state.pos, state.box,
                                      state.type_id, state.excl_masks,
-                                     state.excl_irr, active=state.active)
+                                     state.excl_irr, **kwargs)
     return cell_pair.excluded_pair_correction(
         spec, cfg.n_types, state.pos, state.box, state.type_id, state.excl,
-        active=state.active)
+        **kwargs)
 
 
 def compute_forces(spec, cfg, state, want_energy: bool = True):
@@ -44,13 +49,19 @@ def compute_forces(spec, cfg, state, want_energy: bool = True):
 
     ``want_energy=False`` (the per-step call) skips the pair-energy channel;
     the returned pair energies are then zeros."""
-    obs_x = torch.zeros(spec.obs_total.shape[0], dtype=torch.float32,
-                        device=state.pos.device)
+    if cfg.needs_conversions:
+        obs_x = observables.conversions(spec, state.type_id, state.chem_state,
+                                        state.active)
+    else:
+        obs_x = torch.zeros(spec.obs_total.shape[0], dtype=torch.float32,
+                            device=state.pos.device)
     f_all, e_lj_all, e_tab_all, _ = cell_pair.cell_pair_forces(
         state.pos, state.type_id, state.active, state.box, state.nbr.buckets,
         state.nbr.slot_of, cfg.cell_dims, spec, cfg.n_types,
-        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj, want_energy=want_energy)
-    f_ex, e_lj_ex, e_tab_ex, _ = _excl_correction(spec, cfg, state)
+        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj, want_energy=want_energy,
+        cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
+        cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix, obs_x=obs_x)
+    f_ex, e_lj_ex, e_tab_ex, _ = _excl_correction(spec, cfg, state, obs_x)
     f_pair = f_all - f_ex
     e_pair = {"lj": e_lj_all - e_lj_ex, "lj-tab": e_tab_all - e_tab_ex,
               "coulomb": torch.zeros((), dtype=state.pos.dtype,

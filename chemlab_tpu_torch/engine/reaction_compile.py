@@ -1,8 +1,9 @@
 """Lower a parsed reaction .cfg into flat channel/extension tables.
 
 Port of ``chemlab_tpu/engine/reaction_compile.py``, copied because the
-reference module reaches jax through its ``.state`` import; the only change
-is that ``N_BOND_PARAMS`` comes from the port's ``state``.
+reference module reaches jax through its ``.state`` import.  The changes:
+``N_BOND_PARAMS`` comes from the port's ``state``, and the parser, topology
+and table reader are the port's own copies.
 
 Host-side equivalent of the reference's SetupReactions + PostProcessSetup
 (ref: src/chemlab/reaction_setup.py, src/chemlab/reaction_post_process.py):
@@ -30,9 +31,9 @@ import re
 
 import numpy as np
 
-from chemlab_tpu import reaction_parser as rp
-from chemlab_tpu.topology import SystemTopology
-
+from .. import files_io
+from .. import reaction_parser as rp
+from ..topology import SystemTopology
 from .state import N_BOND_PARAMS
 
 logger = logging.getLogger(__name__)
@@ -80,8 +81,6 @@ class CompiledReactions:
 def _pack_group_potential(group, table_builder, table_dirs):
     """Map a group 'potential' + options to (func, params)
     (ref: reaction_setup.py:444-467)."""
-    from chemlab_tpu import files_io
-
     pot = group["potential"]
     opts = {k: v for k, v in group["potential_options"].items()}
     params = np.zeros(N_BOND_PARAMS, dtype=np.float32)

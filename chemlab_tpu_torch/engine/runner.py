@@ -62,10 +62,11 @@ def _fire_reactions(spec, cfg, state, rng_seed: int):
 
 
 def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
-                         fire=None):
+                         fire=None, noise=None):
     """One MD step + the interval-gated reaction step.  ``fire`` is the
-    host's reaction gate; None reads it from the state."""
-    state = integrate.md_step(spec, cfg, state, gen=gen)
+    host's reaction gate; None reads it from the state.  The Langevin noise
+    is ``noise`` when given, else drawn from ``gen``."""
+    state = integrate.md_step(spec, cfg, state, noise=noise, gen=gen)
     if cfg.has_reactions:
         state = _hybrid_lambda_ramp(spec, state, cfg)
         if fire is None:

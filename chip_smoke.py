@@ -3,25 +3,31 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one NVIDIA GPU, ``nvcc`` and PyTorch built for CUDA.  It builds the CUDA
-kernel from ``chemlab_tpu_torch/csrc`` and drives the port's main path, the
-reactive ATRP-style trimer LJ melt at 10k particles:
+kernels from ``chemlab_tpu_torch/csrc`` (one ``nvcc`` per source, all at
+once) and drives the port's paths at 10k particles:
 
-  1. prints the card's name and power limit, builds the kernel;
-  2. K1 against its plain torch version on the warmed 10k melt, in every
-     parameter mode (uniform, all-LJ, per-pair lookup) and every ch3
-     channel (none, energy, virial), and the kernel's and the plain
-     version's times;
-  3. the cancellation check: an excluded pair at r = 0.05 sigma;
-  4. a small melt stepped on the GPU and on the CPU (the plain path the
-     CPU tests hold against the JAX reference) from one state;
-  5. the main path: one untimed and three timed 200-step Langevin blocks
-     with reaction steps, checking that K1 ran on every step, that events
-     fired, that the topology grew by exactly the accepted events, that
-     no capacity overflowed and that the temperature held.
+  1. prints the card's name and power limit, builds the kernels;
+  2. the reactive trimer LJ melt (K1): K1 against its plain torch version
+     in every parameter mode (uniform, all-LJ, per-pair lookup) and every
+     ch3 channel (none, energy, virial), the cancellation check at an
+     excluded pair 0.05 sigma apart, a small melt stepped on the GPU and on
+     the CPU from one state, and the main path: one untimed and three
+     timed 200-step Langevin blocks with reaction steps;
+  3. the tabulated melt (every type pair a func-8 table, K1c) and the
+     blended tabulated melt (func 10/12 pairs, K1d): K1c, K1d and the
+     coefficient-plane mode K1e against their plain versions in every ch3
+     channel, the cancellation check in the wall, a small tabulated melt
+     stepped on the GPU and on the CPU, and the main path: one untimed and
+     three timed reactive blocks of the tabulated melt; then one untimed
+     and one timed block of the blended melt (K1d) and of the tabulated
+     melt in plane mode (K1e).
+  Each path checks that its kernel ran on every step, that events fired,
+  that the topology grew by exactly the accepted events, that no capacity
+  overflowed and that the temperature held.
 
 Any failed check raises and the script exits non-zero; without a GPU it
-exits non-zero at once.  The last two lines are a JSON object with the
-kernel's numbers and a JSON object ``{"ok": true, "device": ...}``.
+exits non-zero at once.  The last lines are the card line, a JSON object
+with every kernel's numbers and a JSON object ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,25 @@ N_MOLS = 3334           # 10 002 particles
 BLOCK_STEPS = 200
 TIMED_BLOCKS = 3
 MODES = [(True, True), (False, True), (False, False)]   # (uniform, all_lj)
+CH3 = ((0, "none"), (1, "energy"), (2, "virial"))
+DEVICE = "cuda"
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
+# outside the tensor cores, the units every kernel here computes in
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations per candidate pair (minimum image, r2, validity, cut) and
+# per pair inside the cutoff (LJ: soft core, s6, force; accumulate)
+OPS_CANDIDATE = 22
+OPS_LJ = 24
+
+
+def _ops_cheb(kw: int, ko: int, mix: bool) -> int:
+    """f32 operations of one Chebyshev evaluation and its accumulation:
+    clamp and y (5), two terms (2), 5 per further term; the well piece the
+    same in x; the blend 5 more and a second chain; accumulation 6."""
+    chain = 7 + 5 * (kw - 2) + (7 + 5 * (ko - 2) if ko else 0)
+    return (2 * chain + 5 if mix else chain) + 6
 
 
 def _tol(ref):
@@ -65,6 +90,50 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def _no_reference_modules() -> bool:
+    return not any(m == "jax" or m.startswith("jax.") or m == "chemlab_tpu"
+                   or m.startswith("chemlab_tpu.") for m in sys.modules)
+
+
+def pair_counts(cells, box, cut2, dims):
+    """(candidate pairs the kernel loop visits, pairs inside the cutoff) on
+    these cells: the data-dependent work of one call."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+
+    _, r2, valid, xj = cell_pair.stencil_pairs(cells, box, dims)
+    vi = cells[:, :, 3] > 0.5
+    vj = xj[:, :, 3] > 0.5
+    cand = int((vi.sum(1).to(torch.int64) * vj.sum(1)).sum())
+    pid = cell_pair.type_pairs(cells, xj, cut2.shape[0])
+    inside = valid & (r2 < cut2.reshape(-1)[pid])
+    return cand, int(inside.sum())
+
+
+def bound_ms(cells, small_bytes: int, cand: int, inside: int,
+             ops_pair: int):
+    """The least time for the call: each input read once and the output
+    written once over HBM, or its f32 operations over the f32 peak."""
+    n_bytes = 2 * cells.numel() * 4 + cells.shape[0] * 4 + small_bytes
+    ops = cand * OPS_CANDIDATE + inside * ops_pair
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _cells(built, state):
+    import numpy as np
+
+    from chemlab_tpu_torch.engine import cell_pair
+
+    return cell_pair.colt_operands(
+        cell_pair.pack_rows(state.pos, state.type_id, state.active),
+        state.nbr.buckets, int(np.prod(built.cfg.cell_dims)))
+
+
+# ---- K1 (LJ) ------------------------------------------------------------------
+
 def mixed_params(spec, n_types: int, islj_gate: bool):
     """(5, T, T) K1 parameters with per-type-pair sigma and epsilon (seeded),
     and with one non-LJ type pair when ``islj_gate``: the inputs of the
@@ -89,24 +158,19 @@ def mixed_params(spec, n_types: int, islj_gate: bool):
 
 
 def check_kernel(built, state):
-    """K1 vs plain in every mode on ``state``; returns (max_abs_err, ms,
-    plain_ms)."""
-    import numpy as np
+    """K1 vs plain in every mode on ``state``; returns the kernel's numbers
+    (launches filled in later)."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
 
     cfg, spec = built.cfg, built.spec
-    cells, counts = cell_pair.colt_operands(
-        cell_pair.pack_rows(state.pos, state.type_id, state.active),
-        state.nbr.buckets, int(np.prod(cfg.cell_dims)))
+    cells, counts = _cells(built, state)
     worst = 0.0
     for uniform, all_lj in MODES:
         params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
                   else mixed_params(spec, cfg.n_types, not all_lj))
-        for mode, label in ((cell_pair.CH3_NONE, "none"),
-                            (cell_pair.CH3_ENERGY, "energy"),
-                            (cell_pair.CH3_VIRIAL, "virial")):
+        for mode, label in CH3:
             args = (cells, counts, state.box, params, cfg.cell_dims, uniform,
                     all_lj, mode)
             got = cell_pair.cell_pair_forces_colt_kernel(*args)
@@ -121,18 +185,29 @@ def check_kernel(built, state):
             if not (err_f <= tol_f and err_3 <= tol_3):
                 raise AssertionError("K1 disagrees with its plain version")
             worst = max(worst, err_f, err_3)
-    args = (cells, counts, state.box, cell_pair.pair_params(spec, cfg.n_types),
-            cfg.cell_dims, cfg.uniform_lj, cfg.all_lj, cell_pair.CH3_NONE)
+    params = cell_pair.pair_params(spec, cfg.n_types)
+    args = (cells, counts, state.box, params, cfg.cell_dims, cfg.uniform_lj,
+            cfg.all_lj, cell_pair.CH3_NONE)
     ms = _time_ms(lambda: cell_pair.cell_pair_forces_colt_kernel(*args), 50)
     plain_ms = _time_ms(lambda: cell_pair.cell_pair_forces_colt_ref(*args), 5)
-    print("K1 time at %s cells x cap %d: kernel %.4f ms, plain %.4f ms"
-          % (cfg.cell_dims, cfg.cell_cap, ms, plain_ms))
-    return worst, ms, plain_ms
+    cand, inside = pair_counts(cells, state.box, params[2], cfg.cell_dims)
+    b_ms, b_by = bound_ms(cells, params.numel() * 4 + 12, cand, inside,
+                          OPS_LJ)
+    print("K1 time at %s cells x cap %d: kernel %.4f ms, plain %.4f ms; "
+          "%d candidate pairs, %d inside the cutoff, bound %.6f ms (%s)"
+          % (cfg.cell_dims, cfg.cell_cap, ms, plain_ms, cand, inside, b_ms,
+             b_by))
+    return {"name": "K1 cell_pair_colt (LJ)", "route": "cuda",
+            "source": "chemlab_tpu_torch/csrc/cell_pair.cu",
+            "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
-def check_cancellation(built, state):
+def check_cancellation(built, state, obs_x=None):
     """One excluded pair at r = 0.05 sigma: kernel minus correction is
-    finite and equals plain minus correction."""
+    finite and equals plain minus correction (LJ or tabulated)."""
     import numpy as np
     import torch
 
@@ -150,15 +225,29 @@ def check_cancellation(built, state):
     cells, counts = cell_pair.colt_operands(
         cell_pair.pack_rows(pos, state.type_id, state.active), buckets,
         n_cells)
-    args = (cells, counts, state.box, cell_pair.pair_params(spec, cfg.n_types),
-            cfg.cell_dims, cfg.uniform_lj, cfg.all_lj, cell_pair.CH3_NONE)
+    if cfg.tab_cheb:
+        ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko,
+                                      cfg.cheb_ntab, cfg.cheb_mix, obs_x)
+        args = (cells, counts, state.box, *ops, cfg.cell_dims, cfg.cheb_kw,
+                cfg.cheb_ko, cell_pair.CH3_NONE)
+        fns = (lambda *a: cell_pair.cell_pair_forces_cheb_kernel(
+                   *a, ntab=cfg.cheb_ntab),
+               cell_pair.cell_pair_forces_cheb_ref)
+        cheb = (cfg.cheb_kw, cfg.cheb_ko)
+    else:
+        args = (cells, counts, state.box,
+                cell_pair.pair_params(spec, cfg.n_types), cfg.cell_dims,
+                cfg.uniform_lj, cfg.all_lj, cell_pair.CH3_NONE)
+        fns = (cell_pair.cell_pair_forces_colt_kernel,
+               cell_pair.cell_pair_forces_colt_ref)
+        cheb = None
     in_grid = slot_of < n_cells * cfg.cell_cap
     f_ex = cell_pair.excluded_pair_correction(
         spec, cfg.n_types, pos, state.box, state.type_id, state.excl,
-        active=state.active)[0]
+        active=state.active, cheb=cheb, cheb_mix=cfg.cheb_mix,
+        obs_x=obs_x)[0]
     out = []
-    for fn in (cell_pair.cell_pair_forces_colt_kernel,
-               cell_pair.cell_pair_forces_colt_ref):
+    for fn in fns:
         rows = fn(*args).reshape(-1, 4)[torch.where(in_grid, slot_of, 0)
                                         .long()]
         out.append(torch.where(in_grid[:, None], rows[:, :3], 0.0) - f_ex)
@@ -166,27 +255,26 @@ def check_cancellation(built, state):
     big = max(ref.abs().max().item(), f_ex.abs().max().item())
     err = (got - ref).abs().max().item()
     tol = 2e-5 * (1.0 + big)
-    print("cancellation at r=0.05 sigma: pair (%d, %d) max|dF| %.3e (tol "
-          "%.3e), |F_i| kernel %.4f plain %.4f" % (
-              i, j, err, tol, got[i].norm().item(), ref[i].norm().item()))
+    print("cancellation at r=0.05 sigma (%s): pair (%d, %d) max|dF| %.3e "
+          "(tol %.3e), |F_i| kernel %.4f plain %.4f, |F_ex| %.1f" % (
+              "tabulated" if cheb else "LJ", i, j, err, tol,
+              got[i].norm().item(), ref[i].norm().item(),
+              f_ex.abs().max().item()))
     if not (torch.isfinite(got).all() and err <= tol):
         raise AssertionError("kernel minus correction does not cancel")
 
 
-def check_small_melt_against_cpu():
-    """The 70-trimer melt on the GPU and on the CPU from one state: forces
-    and 20 NVE steps agree."""
-    import torch
-
+def check_small_melt_against_cpu(builder, label: str, kernel):
+    """A 70-trimer melt on the GPU and on the CPU from one state: forces
+    and 20 NVE steps agree, and the GPU steps launched ``kernel``."""
     from chemlab_tpu_torch import testsystems
     from chemlab_tpu_torch.engine import cell_pair, integrate, runner
 
-    built, _, _ = testsystems.build_melt(n_mols=70, thermostat="no",
-                                         device="cpu")
+    built, _, _ = builder(n_mols=70, thermostat="no", device="cpu")
     cfg = built.cfg
     st_c = runner.initial_forces(built.spec, cfg, built.state)
     st_c = testsystems.warmup(built, st_c, steps=50)
-    spec_g, st_g = built.spec.to("cuda"), st_c.to("cuda")
+    spec_g, st_g = built.spec.to(DEVICE), st_c.to(DEVICE)
     f_c, e_c, _ = integrate.compute_forces(built.spec, cfg, st_c)
     f_g, e_g, _ = integrate.compute_forces(spec_g, cfg, st_g)
     err = (f_g.cpu() - f_c).abs().max().item()
@@ -195,76 +283,229 @@ def check_small_melt_against_cpu():
     f_all = cell_pair.cell_pair_forces(
         st_c.pos, st_c.type_id, st_c.active, st_c.box, st_c.nbr.buckets,
         st_c.nbr.slot_of, cfg.cell_dims, built.spec, cfg.n_types,
-        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj)[0]
+        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj,
+        cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
+        cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix)[0]
     tol = _tol(f_all)
-    print("small melt GPU vs CPU: max|dF| %.3e (tol %.3e), lj %.5f vs %.5f"
-          % (err, tol, float(e_g["lj"]), float(e_c["lj"])))
+    key = "lj-tab" if cfg.tab_cheb else "lj"
+    print("small %s melt GPU vs CPU: max|dF| %.3e (tol %.3e), %s %.5f vs "
+          "%.5f" % (label, err, tol, key, float(e_g[key]), float(e_c[key])))
     if err > tol:
         raise AssertionError("GPU forces disagree with the CPU path")
+    n0 = kernel.launches
     for _ in range(20):
         st_c = integrate.md_step(built.spec, cfg, st_c)
         st_g = integrate.md_step(spec_g, cfg, st_g)
     err = (st_g.pos.cpu() - st_c.pos).abs().max().item()
-    print("small melt 20 NVE steps GPU vs CPU: max|dpos| %.3e (tol 1e-4)"
-          % err)
-    if not err <= 1e-4:
+    print("small %s melt 20 NVE steps GPU vs CPU: max|dpos| %.3e (tol 1e-4)"
+          % (label, err))
+    if not (err <= 1e-4 and kernel.launches >= n0 + 20):
         raise AssertionError("GPU trajectory disagrees with the CPU path")
 
 
-def main_path(built, systop, state, card: str):
-    """Untimed + timed reactive blocks; returns the launch count."""
+def run_path(built, systop, state, card: str, kernel, label: str,
+             timed_blocks: int, cfg=None):
+    """Reactive blocks (one untimed, then ``timed_blocks`` timed) with the
+    launch counts set to 0 just before; checks and returns (launches,
+    particle-steps/s or None)."""
     import torch
 
     from chemlab_tpu_torch import testsystems
     from chemlab_tpu_torch.engine import cell_pair, runner
 
-    cfg, spec = built.cfg, built.spec
+    cfg = cfg or built.cfg
+    spec = built.spec
     n_bonds0 = int(state.bonds.valid.sum())
     state = testsystems.activate_initiators(
         built, systop, state, n=max(cfg.n_particles // 300, 4))
-    gen = runner.make_generator(1234, "cuda")
+    gen = runner.make_generator(1234, DEVICE)
 
-    cell_pair.K1.launches = 0
+    for k in cell_pair.KERNELS:
+        k.launches = 0
     state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
     torch.cuda.synchronize()
     events0 = int(state.reaction_counts.sum())
     t0 = time.perf_counter()
-    for _ in range(TIMED_BLOCKS):
+    for _ in range(timed_blocks):
         state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cell_pair.K1.launches
+    launches = kernel.launches
+    others = sum(k.launches for k in cell_pair.KERNELS if k is not kernel)
 
     m = {k: v.cpu() for k, v in runner.measure_cheap(spec, cfg,
                                                       state).items()}
-    steps = (TIMED_BLOCKS + 1) * BLOCK_STEPS
+    steps = (timed_blocks + 1) * BLOCK_STEPS
     events = int(m["reaction_counts"].sum())
     T = float(runner.measure(spec, cfg, state)["T"])
-    pps = cfg.n_particles * TIMED_BLOCKS * BLOCK_STEPS / wall
-    print("main path: %d particles, %d timed steps in %.3f s: %.1f "
-          "particle-steps/s on %s" % (cfg.n_particles,
-                                      TIMED_BLOCKS * BLOCK_STEPS, wall, pps,
-                                      card))
-    print("reaction events: %d (%d in the timed blocks), per channel %s"
-          % (events, events - events0, m["reaction_counts"].tolist()))
-    print("final T %.4f kT; n_bonds %d (%d at build), n_angles %d, n_excl %d;"
-          " K1 launches %d over %d steps; overflow %s"
-          % (T, int(m["n_bonds"]), n_bonds0, int(m["n_angles"]),
-             int(m["n_excl"]), launches, steps, bool(m["overflow"])))
+    pps = (cfg.n_particles * timed_blocks * BLOCK_STEPS / wall
+           if timed_blocks else None)
+    if pps is not None:
+        print("%s: %d particles, %d timed steps in %.3f s: %.1f "
+              "particle-steps/s on %s" % (label, cfg.n_particles,
+                                          timed_blocks * BLOCK_STEPS, wall,
+                                          pps, card))
+    print("%s: reaction events %d (%d after the first block), per channel "
+          "%s, conversions %s" % (label, events, events - events0,
+                                  m["reaction_counts"].tolist(),
+                                  m["conversions"].tolist()))
+    print("%s: final T %.4f kT; n_bonds %d (%d at build), n_angles %d, "
+          "n_excl %d; %s launches %d over %d steps (others %d); overflow %s"
+          % (label, T, int(m["n_bonds"]), n_bonds0, int(m["n_angles"]),
+             int(m["n_excl"]), kernel.symbol, launches, steps, others,
+             bool(m["overflow"])))
     kT = float(spec.kT)
     checks = {
-        "K1 launched on every step": launches >= steps,
+        "kernel launched on every step": launches >= steps and others == 0,
         "no capacity overflow": not bool(m["overflow"]),
         "T finite and within 0.5-1.5 kT": 0.5 * kT <= T <= 1.5 * kT,
         "reaction events fired": events > 0,
         "one new bond per event": int(m["n_bonds"]) - n_bonds0 == events,
-        "jax never imported": "jax" not in sys.modules,
+        "no jax, no JAX package": _no_reference_modules(),
     }
     for name, ok in checks.items():
         print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
     if not all(checks.values()):
-        raise AssertionError("main-path checks failed")
-    return launches
+        raise AssertionError("%s checks failed" % label)
+    return launches, pps
+
+
+def lj_path(card: str):
+    """The LJ path: the reactive LJ melt through K1."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import cell_pair, runner
+
+    t0 = time.perf_counter()
+    built, systop, _ = testsystems.build_melt(n_mols=N_MOLS, device=DEVICE)
+    state = runner.initial_forces(built.spec, built.cfg, built.state)
+    state = testsystems.warmup(built, state, steps=600)
+    torch.cuda.synchronize()
+    print("10k LJ melt: %d particles, grid %s, cell_cap %d; build + warmup "
+          "%.1f s" % (built.cfg.n_particles, built.cfg.cell_dims,
+                      built.cfg.cell_cap, time.perf_counter() - t0))
+    row = check_kernel(built, state)
+    check_cancellation(built, state)
+    check_small_melt_against_cpu(testsystems.build_melt, "LJ", cell_pair.K1)
+    row["launches"], _ = run_path(built, systop, state, card, cell_pair.K1,
+                                  "LJ main path", TIMED_BLOCKS)
+    return row
+
+
+# ---- K1c / K1d / K1e (Chebyshev tabulated) ------------------------------------
+
+def check_cheb(built, state, mode: str, obs_x):
+    """K1c/K1d/K1e vs plain in every ch3 channel on ``state``; returns the
+    kernel's numbers (launches filled in later)."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+
+    cfg, spec = built.cfg, built.spec
+    ntab = 0 if mode == "K1e" else cfg.cheb_ntab
+    mix = mode == "K1d"
+    cells, counts = _cells(built, state)
+    ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko, ntab, mix,
+                                  obs_x)
+    kern = cell_pair.cheb_kernel_for(ops[2], ntab)
+    worst = 0.0
+    for mode_3, label in CH3:
+        args = (cells, counts, state.box, *ops, cfg.cell_dims, cfg.cheb_kw,
+                cfg.cheb_ko, mode_3)
+        got = cell_pair.cell_pair_forces_cheb_kernel(*args, ntab=ntab)
+        ref = cell_pair.cell_pair_forces_cheb_ref(*args)
+        torch.cuda.synchronize()
+        err_f = (got[..., :3] - ref[..., :3]).abs().max().item()
+        err_3 = (got[..., 3] - ref[..., 3]).abs().max().item()
+        tol_f, tol_3 = _tol(ref[..., :3]), _tol(ref[..., 3])
+        print("%s vs plain (kw %d, ko %d, %d rows) ch3=%-6s max|dF| %.3e "
+              "(tol %.3e)  max|dch3| %.3e (tol %.3e)"
+              % (mode, cfg.cheb_kw, cfg.cheb_ko, ops[4].shape[0], label,
+                 err_f, tol_f, err_3, tol_3))
+        if not (err_f <= tol_f and err_3 <= tol_3):
+            raise AssertionError("%s disagrees with its plain version" % mode)
+        worst = max(worst, err_f, err_3)
+    args = (cells, counts, state.box, *ops, cfg.cell_dims, cfg.cheb_kw,
+            cfg.cheb_ko, cell_pair.CH3_NONE)
+    ms = _time_ms(lambda: cell_pair.cell_pair_forces_cheb_kernel(
+        *args, ntab=ntab), 50)
+    plain_ms = _time_ms(lambda: cell_pair.cell_pair_forces_cheb_ref(*args), 3)
+    cand, inside = pair_counts(cells, state.box, ops[0], cfg.cell_dims)
+    small = sum(t.numel() * 4 for t in ops if t is not None) + 12
+    b_ms, b_by = bound_ms(cells, small, cand, inside,
+                          _ops_cheb(cfg.cheb_kw, cfg.cheb_ko, mix))
+    print("%s time at %s cells x cap %d: kernel %.4f ms, plain %.4f ms; %d "
+          "candidate pairs, %d inside the cutoff, bound %.6f ms (%s)"
+          % (mode, cfg.cell_dims, cfg.cell_cap, ms, plain_ms, cand, inside,
+             b_ms, b_by))
+    name = {"K1c": "K1c cell_pair_cheb (table-scalar)",
+            "K1d": "K1d cell_pair_cheb_mix (two-table blend)",
+            "K1e": "K1e cell_pair_cheb (coefficient planes)"}[mode]
+    return kern, {"name": name, "route": "cuda",
+                  "source": "chemlab_tpu_torch/csrc/cell_pair_cheb.cu",
+                  "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
+                  "launches": 0, "max_abs_err": worst, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": None}
+
+
+def tab_paths(card: str):
+    """The tabulated melts: K1c, K1e (plane mode) and K1d (blend)."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import cell_pair, observables, runner
+
+    t0 = time.perf_counter()
+    built, systop, _ = testsystems.build_tabulated_melt(
+        n_mols=N_MOLS, reactive=True, device=DEVICE)
+    cfg = built.cfg
+    if not (cfg.tab_cheb and cfg.cheb_ntab == 1 and cfg.cheb_kw == 8
+            and not cfg.cheb_mix):
+        raise AssertionError("the tabulated melt did not take K1c: %s"
+                             % ((cfg.tab_cheb, cfg.cheb_kw, cfg.cheb_ko,
+                                 cfg.cheb_ntab, cfg.cheb_mix),))
+    state = runner.initial_forces(built.spec, cfg, built.state)
+    state = testsystems.warmup(built, state, steps=600)
+    torch.cuda.synchronize()
+    print("10k tabulated melt: %d particles, grid %s, cell_cap %d, kw %d, "
+          "ko %d, ntab %d; build + warmup %.1f s"
+          % (cfg.n_particles, cfg.cell_dims, cfg.cell_cap, cfg.cheb_kw,
+             cfg.cheb_ko, cfg.cheb_ntab, time.perf_counter() - t0))
+    x0 = torch.zeros(1, device=DEVICE)
+    k1c, row_c = check_cheb(built, state, "K1c", x0)
+    k1e, row_e = check_cheb(built, state, "K1e", x0)
+    check_cancellation(built, state, x0)
+    check_small_melt_against_cpu(testsystems.build_tabulated_melt,
+                                 "tabulated", cell_pair.K1C)
+    row_c["launches"], pps = run_path(built, systop, state, card, k1c,
+                                      "tabulated main path", TIMED_BLOCKS)
+    plane = dataclasses.replace(cfg, cheb_ntab=0)
+    row_e["launches"], _ = run_path(built, systop, state, card, k1e,
+                                    "tabulated plane-mode path", 1,
+                                    cfg=plane)
+
+    t0 = time.perf_counter()
+    mbuilt, msystop, _ = testsystems.build_mixed_tab_melt(
+        n_mols=N_MOLS, reactive=True, device=DEVICE)
+    mst = runner.initial_forces(mbuilt.spec, mbuilt.cfg, mbuilt.state)
+    mst = testsystems.warmup(mbuilt, mst, steps=300)
+    torch.cuda.synchronize()
+    mcfg = mbuilt.cfg
+    print("10k blended tabulated melt: ntab %d, mix %s, conversions %s; "
+          "build + warmup %.1f s" % (mcfg.cheb_ntab, mcfg.cheb_mix,
+                                     observables.conversions(
+                                         mbuilt.spec, mst.type_id,
+                                         mst.chem_state, mst.active).tolist(),
+                                     time.perf_counter() - t0))
+    x = observables.conversions(mbuilt.spec, mst.type_id, mst.chem_state,
+                                mst.active)
+    k1d, row_d = check_cheb(mbuilt, mst, "K1d", x)
+    check_cancellation(mbuilt, mst, x)
+    row_d["launches"], _ = run_path(mbuilt, msystop, mst, card, k1d,
+                                    "blended path", 1)
+    return [row_c, row_d, row_e], pps
 
 
 def main() -> int:
@@ -273,8 +514,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from chemlab_tpu_torch import testsystems
-    from chemlab_tpu_torch.engine import cell_pair, runner
+    from chemlab_tpu_torch.engine import _kernels, cell_pair
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -282,29 +522,16 @@ def main() -> int:
     print(card)
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
-    build_s = cell_pair.K1.build()
-    print("K1 build: %.2f s" % build_s)
+    build_s = _kernels.build_all(cell_pair.KERNELS)
+    print("kernel build (%d sources in parallel): %.2f s"
+          % (len({k.source for k in cell_pair.KERNELS}), build_s))
 
-    t0 = time.perf_counter()
-    built, systop, _ = testsystems.build_melt(n_mols=N_MOLS, device="cuda")
-    state = runner.initial_forces(built.spec, built.cfg, built.state)
-    state = testsystems.warmup(built, state, steps=600)
-    torch.cuda.synchronize()
-    print("10k melt: %d particles, grid %s, cell_cap %d; build + warmup "
-          "%.1f s" % (built.cfg.n_particles, built.cfg.cell_dims,
-                      built.cfg.cell_cap, time.perf_counter() - t0))
-
-    err, ms, plain_ms = check_kernel(built, state)
-    check_cancellation(built, state)
-    check_small_melt_against_cpu()
-    launches = main_path(built, systop, state, card)
-
-    print(json.dumps({"kernels": [{
-        "name": "K1 cell_pair_colt (LJ)", "route": "cuda",
-        "source": "chemlab_tpu_torch/csrc/cell_pair.cu",
-        "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    rows = [lj_path(card)]
+    tab_rows, pps = tab_paths(card)
+    rows += tab_rows
+    print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
+    print(card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

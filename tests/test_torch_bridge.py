@@ -32,7 +32,7 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def builds():
     rb, _, _ = rts.build_melt(n_mols=70, reactive=True, use_pallas=True)
-    pb, _, _ = pts.build_melt(n_mols=70, reactive=True)
+    pb, _, _ = pts.build_melt(n_mols=70, reactive=True, device="cpu")
     return rb, pb
 
 
@@ -109,10 +109,10 @@ def test_port_state_dtypes(builds):
 ], ids=["csvr", "row_path", "coulomb", "barostat", "pressure"])
 def test_out_of_slice_configs_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.build_melt(n_mols=70, reactive=True, **override)
+        pts.build_melt(n_mols=70, reactive=True, device="cpu", **override)
 
 
 def test_non_colt_grid_raises():
     """A grid below 3 cells per axis needs K2, which is not ported yet."""
     with pytest.raises(NotImplementedError, match="K2"):
-        pts.build_melt(n_mols=30, reactive=True)
+        pts.build_melt(n_mols=30, reactive=True, device="cpu")

@@ -1,5 +1,6 @@
-"""The port on a card: the CUDA K1 against its plain version, the
-cancellation at r -> 0, and a short run on the card against the CPU path.
+"""The port on a card: the CUDA K1 (LJ) and K1c/K1d/K1e (Chebyshev
+tabulated) against their plain versions, the cancellation at r -> 0, and
+short runs on the card against the CPU path, LJ and tabulated.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -33,7 +34,7 @@ def melt():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU build)")
     built, systop, _ = testsystems.build_melt(n_mols=70, reactive=True,
-                                              thermostat="no")
+                                              thermostat="no", device="cpu")
     st = runner.initial_forces(built.spec, built.cfg, built.state)
     st = testsystems.warmup(built, st, steps=50)
     return built, systop, st
@@ -185,3 +186,149 @@ def test_cuda_wrapper_checks_its_inputs(melt):
         k(*args, (3, 3, 2), True, True, 0)
     with pytest.raises(ValueError):
         k(args[0], args[1].cpu(), *args[2:], cfg.cell_dims, True, True, 0)
+
+
+@pytest.fixture(scope="module")
+def tab_melts():
+    """The tabulated and the blended tabulated 70-trimer melts, warmed on
+    the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    out = {}
+    for kind, fn in (("tab", testsystems.build_tabulated_melt),
+                     ("mixed", testsystems.build_mixed_tab_melt)):
+        built, systop, _ = fn(n_mols=70, reactive=True, thermostat="no",
+                              device="cpu")
+        st = runner.initial_forces(built.spec, built.cfg, built.state)
+        out[kind] = (built, systop, testsystems.warmup(built, st, steps=50))
+    return out
+
+
+def _cheb_args(built, st, ntab, obs_x):
+    cfg, spec = built.cfg, built.spec
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko, ntab,
+                                  cfg.cheb_mix and ntab > 0, obs_x)
+    return cells, counts, st.box, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["K1c", "K1d", "K1e"])
+def test_cuda_cheb_matches_plain(tab_melts, mode):
+    built, _, st = tab_melts["mixed" if mode == "K1d" else "tab"]
+    cfg = built.cfg
+    ntab = 0 if mode == "K1e" else cfg.cheb_ntab
+    x = torch.tensor([0.4])
+    cells, counts, box, ops = _cheb_args(built, st, ntab, x)
+    kern = {"K1c": cell_pair.K1C, "K1d": cell_pair.K1D,
+            "K1e": cell_pair.K1E}[mode]
+    for ch3 in CH3:
+        n0 = kern.launches
+        got = cell_pair.cheb_cells(
+            *(t.cuda() for t in (cells, counts, box)),
+            *(None if t is None else t.cuda() for t in ops), cfg.cell_dims,
+            cfg.cheb_kw, cfg.cheb_ko, ch3, ntab)
+        assert kern.launches == n0 + 1
+        ref = cell_pair.cell_pair_forces_cheb_ref(
+            cells, counts, box, *ops, cfg.cell_dims, cfg.cheb_kw,
+            cfg.cheb_ko, ch3)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_tol(ref))
+        if ch3 != cell_pair.CH3_NONE:
+            assert ref[..., 3].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tab", "mixed"])
+def test_cuda_cheb_cancellation_at_short_range(tab_melts, kind):
+    """An excluded pair at r = 0.05 sigma, inside the wall clamp: the
+    kernel's and the plain version's all-pairs sums minus the correction
+    agree, and for the two endpoints the kernel's pair term equals the
+    correction's bit for bit (the op sequences are the same)."""
+    built, _, st = tab_melts[kind]
+    cfg, spec = built.cfg, built.spec
+    i, j = (int(x) for x in st.excl[0].tolist())
+    pos = st.pos.clone()
+    pos[j] = pos[i] + torch.tensor([0.05, 0.0, 0.0])
+    pos = pos - torch.floor(pos / st.box) * st.box
+    x = torch.tensor([0.4])
+    out = []
+    for dev in ("cpu", "cuda"):
+        p, sp = pos.to(dev), spec.to(dev)
+        box, act, tid = (t.to(dev) for t in (st.box, st.active, st.type_id))
+        buckets, _, ovf, slot_of = neighbor.build_cell_buckets(
+            p, box, act, cfg.cell_dims, cfg.cell_cap)
+        assert not bool(ovf)
+        f_all = cell_pair.cell_pair_forces(
+            p, tid, act, box, buckets, slot_of, cfg.cell_dims, sp,
+            cfg.n_types, cheb_kw=cfg.cheb_kw, cheb_ko=cfg.cheb_ko,
+            cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix,
+            obs_x=x.to(dev))[0]
+        f_ex = cell_pair.excluded_pair_correction(
+            sp, cfg.n_types, p, box, tid, st.excl.to(dev), active=act,
+            cheb=(cfg.cheb_kw, cfg.cheb_ko), cheb_mix=cfg.cheb_mix,
+            obs_x=x.to(dev))[0]
+        out.append((f_all - f_ex).cpu())
+        big = f_ex.abs().max().item()
+    plain, kern = out
+    assert big > 100.0 and torch.isfinite(kern).all()
+    torch.testing.assert_close(kern, plain, rtol=0, atol=2e-5 * (1.0 + big))
+
+
+@pytest.mark.cuda
+def test_cuda_tab_run_matches_cpu(tab_melts):
+    """20 NVE steps of the tabulated melt with a reaction step every 10, on
+    the card and on the CPU from one state: events identical, positions to
+    f32 rounding."""
+    built, systop, st = tab_melts["tab"]
+    cfg = dataclasses.replace(built.cfg, reaction_interval=10)
+    st = testsystems.activate_initiators(built, systop, st, n=20)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
+    n0 = cell_pair.K1C.launches
+    c = runner.run_block(built.spec, cfg, st, 20)
+    g = runner.run_block(built.spec.to("cuda"), cfg, st.to("cuda"), 20)
+    assert cell_pair.K1C.launches >= n0 + 20
+    assert int(c.reaction_counts.sum()) > 0
+    torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-5)
+    for name in ("ev_log_a", "ev_log_b", "ev_log_r", "type_id", "n_excl"):
+        torch.testing.assert_close(getattr(g, name).cpu(), getattr(c, name),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_builders_default_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    built, _, _ = testsystems.build_melt(n_mols=70, reactive=False)
+    assert built.state.pos.device.type == "cuda"
+    assert built.spec.pair_sig.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_cuda_cheb_pack_above_48k_opts_in(tab_melts):
+    """A plane-mode coefficient pack above the default 48 KiB of shared
+    memory takes the opt-in path and still matches the plain version; a
+    pack above the card's 227 KiB raises."""
+    built, _, st = tab_melts["tab"]
+    cfg = built.cfg
+    cells, counts, box, (cut2, tmap, _, _, coef) = _cheb_args(
+        built, st, 0, torch.zeros(1))
+    args = dict(dims=cfg.cell_dims, kw=cfg.cheb_kw, ko=cfg.cheb_ko,
+                ch3_mode=cell_pair.CH3_VIRIAL)
+    for rows, fits in ((700, True), (3000, False)):
+        big = coef.repeat(-(-rows // coef.shape[0]), 1).contiguous()
+        dev = [t.cuda() for t in (cells, counts, box, cut2, tmap, big)]
+        if not fits:
+            with pytest.raises(ValueError, match="227 KiB"):
+                cell_pair.cheb_cells(*dev[:5], None, None, dev[5], ntab=0,
+                                     **args)
+            continue
+        assert big.numel() * 4 > 48 * 1024
+        got = cell_pair.cheb_cells(*dev[:5], None, None, dev[5], ntab=0,
+                                   **args)
+        ref = cell_pair.cell_pair_forces_cheb_ref(
+            cells, counts, box, cut2, tmap, None, None, big, **args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_tol(ref))

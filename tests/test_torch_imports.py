@@ -1,5 +1,6 @@
-"""Packaging rules of the port: no jax, a kernel build that keeps the
-cancellation contract, and wrappers that never fall back on a card.
+"""Packaging rules of the port: no jax and nothing of the JAX package, the
+card as the default device, a kernel build that keeps the cancellation
+contract, and wrappers that never fall back on a card.
 
 These run without a GPU; the card's own tests are in ``test_torch_cuda.py``.
 """
@@ -26,19 +27,28 @@ def _modules():
 
 
 def test_every_module_imports_without_jax():
+    """Every module of the port and ``chip_smoke`` import, in a fresh
+    interpreter, neither jax nor any module of the JAX package."""
     mods = _modules()
-    assert "chemlab_tpu_torch.engine.cell_pair" in mods and len(mods) >= 18
+    assert "chemlab_tpu_torch.engine.cell_pair" in mods and len(mods) >= 23
+    for m in ("topfile", "topology", "reaction_parser", "files_io",
+              "engine.tab_cheb"):
+        assert "chemlab_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r: importlib.import_module(m)\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
-            "print('JAX', bad)\n" % (mods,))
+            "ref = sorted(m for m in sys.modules if m == 'chemlab_tpu' "
+            "or m.startswith('chemlab_tpu.'))\n"
+            "print('JAX', bad)\n"
+            "print('REF', ref)\n" % (mods,))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     assert "JAX []" in out.stdout, out.stdout
+    assert "REF []" in out.stdout, out.stdout
 
 
 def test_no_jax_import_in_sources():
@@ -49,6 +59,36 @@ def test_no_jax_import_in_sources():
                 (path, line)
 
 
+def test_no_reference_package_import_in_sources():
+    """No line of the port or of ``chip_smoke.py`` imports the JAX package
+    (``chemlab_tpu_torch`` itself is allowed)."""
+    paths = list((REPO / "chemlab_tpu_torch").rglob("*.py"))
+    paths.append(REPO / "chip_smoke.py")
+    for path in paths:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            for head in ("import chemlab_tpu", "from chemlab_tpu"):
+                if s.startswith(head):
+                    assert s[len(head):].startswith("_torch"), (path, line)
+
+
+def test_builders_default_to_the_card():
+    """Without ``device`` the builders build on ``cuda``: where there is no
+    card that raises, never falls back to the CPU."""
+    import inspect
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import build
+    for fn in (build.build_system, testsystems.build_melt,
+               testsystems.build_tabulated_melt,
+               testsystems.build_mixed_tab_melt):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU (the card test covers it)")
+    with pytest.raises((RuntimeError, AssertionError)):
+        testsystems.build_melt(n_mols=70, reactive=False)
+
+
 def test_kernel_build_flags():
     cmd = _kernels.nvcc_command("nvcc", cell_pair.K1.source, Path("x.so"))
     flags = " ".join(cmd)
@@ -57,15 +97,24 @@ def test_kernel_build_flags():
     for bad in ("fast_math", "fast-math", "--ftz=true", "--prec-div=false",
                 "--prec-sqrt=false"):
         assert bad not in flags
-    assert cell_pair.K1.source.is_file()
-    assert cell_pair.K1.library_path().parent == _kernels.BUILD_DIR
+    for k in cell_pair.KERNELS:
+        assert k.source.is_file()
+        assert k.library_path().parent == _kernels.BUILD_DIR
+        assert 'extern "C" int %s(' % k.symbol in k.source.read_text()
+    # one launch count per mode, K1c and K1e on one entry point
+    assert len({id(k) for k in cell_pair.KERNELS}) == 4
+    assert cell_pair.K1C.symbol == cell_pair.K1E.symbol
 
 
 def test_kernel_source_rounds_half_to_even():
     """``jnp.round`` rounds half to even: the kernel's minimum image must use
     rintf, never roundf (half away from zero)."""
-    src = cell_pair.K1.source.read_text()
-    assert "rintf(" in src and "roundf(" not in src
+    for k in (cell_pair.K1, cell_pair.K1C):
+        src = k.source.read_text()
+        assert "rintf(" in src and "roundf(" not in src
+    # the well piece's r is the correctly rounded sqrtf, never rsqrtf
+    src = cell_pair.K1C.source.read_text()
+    assert "sqrtf(r2)" in src and "rsqrtf(" not in src
     # and the plain version's torch.round agrees with numpy's half-to-even
     x = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5], np.float32)
     np.testing.assert_array_equal(torch.round(torch.from_numpy(x)).numpy(),
@@ -111,3 +160,27 @@ def test_chip_smoke_refuses_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_cheb_wrapper_takes_plain_version_on_cpu_only():
+    """K1c/K1d/K1e: CPU tensors take the plain version (no launch counted),
+    the CUDA entry refuses CPU tensors, and each mode has its own count."""
+    (cells, counts, box, _), dims = _tiny_operands()
+    kw, ko = 2, 0
+    coef = torch.zeros((1, 2 * kw + 2 * ko + 6))
+    coef[0, :kw] = torch.tensor([1.0, 0.5])
+    coef[0, 2 * kw + 5] = 0.25                       # rcap2
+    cut2 = torch.full((1, 1), 0.81)
+    tmap = torch.ones((1, 1), dtype=torch.int32)
+    n0 = [k.launches for k in cell_pair.KERNELS]
+    out = cell_pair.cheb_cells(cells, counts, box, cut2, tmap, None, None,
+                               coef, dims, kw, ko, cell_pair.CH3_VIRIAL)
+    assert out.shape == cells.shape and torch.isfinite(out).all()
+    assert out[..., :3].abs().max() > 0
+    assert [k.launches for k in cell_pair.KERNELS] == n0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cell_pair.cell_pair_forces_cheb_kernel(
+            cells, counts, box, cut2, tmap, None, None, coef, dims, kw, ko, 0)
+    assert cell_pair.cheb_kernel_for(None, 1) is cell_pair.K1C
+    assert cell_pair.cheb_kernel_for(tmap, 2) is cell_pair.K1D
+    assert cell_pair.cheb_kernel_for(None, 0) is cell_pair.K1E

@@ -10,7 +10,8 @@ forms (parameters arrive pre-converted by the build):
           func 11 cosine   U = K (1 + cos(theta - theta0))
 
 Per-entry lambda scales each term.  Forces are ``-torch.autograd.grad`` of
-the total energy, where the reference uses ``jax.value_and_grad``.
+the total energy, where the reference uses ``jax.value_and_grad``; the
+bonded virial is the strain derivative of the same energy.
 Tabulated terms, dihedrals and 1-4 pairs are later ROADMAP items (M4, M9).
 """
 
@@ -156,3 +157,26 @@ def bonded_forces(spec, cfg, pos, box, type_id, bonds, angles, dense=None):
             total = total + v
         (grad,) = torch.autograd.grad(total, p)
     return -grad, {k: v.detach() for k, v in terms.items()}
+
+
+def bonded_strain_derivative(spec, cfg, pos, box, type_id, bonds, angles,
+                             dense=None):
+    """dU_bonded/ds at s = 1, with positions and box scaled by s (the
+    bonded half of the virial W = -dU/ds; reference ``integrate.py:184-192``
+    under ``jax.grad``).  The minimum image's ``round`` has zero gradient,
+    so the box enters through ``box * round(d / box)`` alone; with no
+    bonded term the derivative is 0 (not the ``None`` of a graph that does
+    not reach ``s``)."""
+    with torch.enable_grad():
+        s = torch.ones((), dtype=pos.dtype, device=pos.device,
+                       requires_grad=True)
+        terms = bonded_energy_terms(spec, cfg, pos.detach() * s,
+                                    box.detach() * s, type_id, bonds, angles,
+                                    dense=dense)
+        total = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        for v in terms.values():
+            total = total + v
+        if not total.requires_grad:     # no bonded term: total is 0
+            return total
+        (grad,) = torch.autograd.grad(total, s)
+    return grad

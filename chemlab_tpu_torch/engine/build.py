@@ -1,12 +1,14 @@
 """System assembly: SystemTopology + Coordinates (+ reactions) -> tensors.
 
 Port of ``chemlab_tpu/engine/build.py`` ``build_system`` for the slice the
-port runs: LJ nonbonded pairs on the cell-tile kernel path (K1), or
-tabulated pairs (func 8, the func 10/12 two-table blends, auto-tabulated
-``table_groups``) on the kernel's Chebyshev modes (K1c/K1d/K1e), harmonic
-(and FENE) bonds, harmonic and cosine angles, the dense-static bonded and
-exclusion operands, Langevin or NVE, and normal reaction channels on the
-batched event path.  The lowering is the reference's numpy code; only the
+port runs: LJ nonbonded pairs on the cell-tile kernel path (K1 on a colt2
+grid, the per-cell K2 on any other), or tabulated pairs (func 8, the func
+10/12 two-table blends, auto-tabulated ``table_groups``) on the kernel's
+Chebyshev modes (K1c/K1d/K1e, colt2 grids only), harmonic (and FENE)
+bonds, harmonic and cosine angles, the dense-static bonded and exclusion
+operands, Langevin or NVE, the Berendsen and Langevin barostats and the
+pressure observable, and normal reaction channels on the batched event
+path.  The lowering is the reference's numpy code; only the
 last step differs: arrays become torch tensors on ``device`` (the card
 unless the caller asks for another) through the bridge, and the build-time
 neighbor rows are made by the port's ``neighbor.build_neighbor_state``.
@@ -29,8 +31,8 @@ import torch
 
 from .. import bridge, files_io
 from ..topology import SystemTopology, combine_lj
-from . import (bonded_dense, excl_dense, neighbor, reaction_compile, tables,
-               tab_cheb)
+from . import (bonded_dense, cell_pair, excl_dense, neighbor,
+               reaction_compile, tables, tab_cheb)
 from .spec import (MIX_MULTIRANGE, MIX_OBS, PAIR_LJ, PAIR_TAB, EngineConfig,
                    SimSpec)
 from .state import N_BOND_PARAMS, MDState, TermTable
@@ -398,12 +400,8 @@ def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
         _not_in_slice("the Verlet row force path", "M10")
     if opts.coulomb_cutoff > 0:
         _not_in_slice("Coulomb", "M10")
-    if opts.barostat != "no" and opts.pressure > 0:
-        _not_in_slice("barostats", "M11")
     if opts.thermostat not in ("lv", "no"):
         _not_in_slice("thermostat %r" % opts.thermostat, "M12")
-    if opts.store_pressure:
-        _not_in_slice("pressure observables", "M11")
     if opts.slab_devices > 1:
         _not_in_slice("slab decomposition over devices", "M14")
     if systop.dihedrals or systop.dihedralparams:
@@ -536,7 +534,11 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     max_cutoff = max(opts.lj_cutoff, opts.cg_cutoff, opts.coulomb_cutoff)
     rc_skin = max_cutoff + opts.skin
     density = n / float(np.prod(box))
-    cell_dims = neighbor.choose_cell_grid(box, rc_skin, margin=1.02)
+    # under a barostat the box drifts: size cells with extra margin so the
+    # static grid stays valid (cell edge >= cutoff + skin) as the box shrinks
+    has_barostat = opts.barostat != "no" and opts.pressure > 0
+    margin = 1.10 if has_barostat else 1.02
+    cell_dims = neighbor.choose_cell_grid(box, rc_skin, margin=margin)
     has_tab = bool((pair_arrays["pair_kind"] == PAIR_TAB).any())
     if has_tab and not supports_cheb(pair_arrays):
         _not_in_slice("tabulated pairs beside LJ pairs, or capped / lambda "
@@ -586,11 +588,12 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                                  int(obs_cell_max * 1.3) + 4, 8), 8)
     else:
         cell_cap = opts.cell_cap
-    if cell_cap % 8 != 0 or min(cell_dims) < 3:
-        # colt2 geometry (reference: pallas_pair.cell_pair_forces); the
-        # per-cell kernel that serves other grids is K2
-        _not_in_slice("cell grid %s with cap %d (needs min dim >= 3 and "
-                      "cap %% 8 == 0)" % (cell_dims, cell_cap), "K2")
+    if has_tab and not cell_pair.colt_legal(cell_cap, cell_dims):
+        # the Chebyshev modes exist only in colt2; the reference sends such
+        # a system to its row path (build.py:428-434), K2 takes LJ only
+        _not_in_slice("a tabulated system on cell grid %s with cap %d (the "
+                      "Chebyshev modes need min dim >= 3 and cap %% 8 == 0; "
+                      "the row path)" % (cell_dims, cell_cap), "M10")
 
     # ---- lazy-row reaction geometry ----
     rc_rx = 0.0
@@ -603,7 +606,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
             rc_rx = float(np.max(np.where(ch["r_sigma"][pair_ch] > 0.0,
                                           np.maximum(gauss, hard), hard)))
     rc_rx = min(max(rc_rx, 0.5), rc_skin)
-    rx_dims = neighbor.choose_cell_grid(box, rc_rx, margin=1.02)
+    rx_dims = neighbor.choose_cell_grid(box, rc_rx, margin=margin)
     rx_cell_vol = float(np.prod(box / np.asarray(rx_dims)))
     cell_vol_f = float(np.prod(box / np.asarray(cell_dims)))
     rx_cell_cap = _round_up(
@@ -771,7 +774,8 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         n_obs=max(len(obs.keys), 1),
         bond_funcs=bond_funcs, angle_funcs=angle_funcs, dihedral_funcs=(),
         thermostat=opts.thermostat, iso_coupling=1,
-        store_pressure=opts.store_pressure, barostat="no",
+        store_pressure=opts.store_pressure,
+        barostat=opts.barostat if opts.pressure > 0 else "no",
         has_coulomb=False, has_reactions=has_reactions,
         reaction_interval=compiled.interval if compiled else 0,
         nearest_mode=compiled.nearest if compiled else False,

@@ -1,9 +1,13 @@
-"""Cell-tile pair forces (K1 and its Chebyshev modes K1c/K1d/K1e) and the
-excluded-pair correction.
+"""Cell-tile pair forces (K1 and its Chebyshev modes K1c/K1d/K1e, the
+per-cell K2) and the excluded-pair correction.
 
-Port of ``chemlab_tpu/engine/pallas_pair.py``: ``cell_pair_forces_colt``
-(the wrapper of the TPU kernel ``_colt2_kernel``, in its LJ modes and its
-Chebyshev-tabulated modes), ``_pair_eval`` and ``excluded_pair_correction``.
+Port of ``chemlab_tpu/engine/pallas_pair.py``: ``cell_pair_forces`` (the
+dispatcher), ``cell_pair_forces_colt`` (the wrapper of the TPU kernel
+``_colt2_kernel``, in its LJ modes and its Chebyshev-tabulated modes), the
+per-cell kernel ``_kernel`` (K2) with ``stencil_table``, ``_pair_eval`` and
+``excluded_pair_correction``.  K1 takes the grids colt2 takes (``cap % 8 ==
+0`` and at least 3 cells per axis); K2 takes every other LJ grid, against
+the deduplicated stencil of ``neighbor.neighbor_cell_offsets``.
 
 The pair sum runs over every pair on the cell grid, excluded pairs
 included; the correction subtracts the exclusion list afterwards.  That
@@ -20,10 +24,11 @@ K1e takes the per-table rows through the table id (``cheb_ntab == 0``).
 A tabulated system is pure-tabulated (``build.supports_cheb``), so the
 spare channel carries the tabulated energy ``e_tab``.
 
-``colt_cells`` and ``cheb_cells`` are the kernels' wrappers.  A CPU tensor
-takes the plain torch version; a CUDA tensor launches the hand-written
-kernel in ``csrc/cell_pair.cu`` or ``csrc/cell_pair_cheb.cu`` (built at
-first use) or raises.  The operand packing and the ``slot_of`` epilogue
+``colt_cells``, ``cheb_cells`` and ``cell_cells`` are the kernels'
+wrappers.  A CPU tensor takes the plain torch version; a CUDA tensor
+launches the hand-written kernel in ``csrc/cell_pair.cu``,
+``csrc/cell_pair_cheb.cu`` or ``csrc/cell_pair_cell.cu`` (built at first
+use) or raises.  The operand packing and the ``slot_of`` epilogue
 stay here as torch indexing, as they stay outside the kernel in the
 reference.
 """
@@ -31,19 +36,23 @@ reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from . import _kernels, tab_cheb
+from .neighbor import neighbor_cell_offsets
 from .spec import MIX_OBS, PAIR_LJ, PAIR_TAB
 
 # ch3 channel of the kernel's [fx, fy, fz, ch3] rows
 CH3_NONE, CH3_ENERGY, CH3_VIRIAL = 0, 1, 2
 
-K1 = _kernels.CudaKernel(
-    "cell_pair.cu", "cell_pair_colt",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+# K1 and its virial channel K1b share an entry point, each with its own
+# launch count (the pressure pass of an NPT step launches K1b)
+_COLT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+K1 = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
+K1B = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 
 # the Chebyshev modes, one source: K1c and K1e share the unblended entry
 # point (they differ only in the map and the pack), each with its own count
@@ -52,7 +61,10 @@ K1C = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
 K1D = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
                           _CHEB_ARGS)
 K1E = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
-KERNELS = (K1, K1C, K1D, K1E)
+K2 = _kernels.CudaKernel(
+    "cell_pair_cell.cu", "cell_pair_cell",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+KERNELS = (K1, K1B, K1C, K1D, K1E, K2)
 
 
 def pack_rows(pos, type_id, active=None):
@@ -82,26 +94,29 @@ def colt_operands(packed, buckets, n_cells: int):
     return cells.contiguous(), counts
 
 
-def _stencil(dims, device):
-    """(C, 27) neighbour cell ids, offsets ordered dx, dy, dz in (-1, 0, 1)
-    (the kernel's loop order)."""
-    nx, ny, nz = dims
-    c = torch.arange(nx * ny * nz, device=device)
-    cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
-    off = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1)
-                        for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
-                       device=device)
-    return ((((cx[:, None] + off[:, 0]) % nx) * ny
-             + (cy[:, None] + off[:, 1]) % ny) * nz
-            + (cz[:, None] + off[:, 2]) % nz)
+def stencil_table(dims) -> np.ndarray:
+    """(C, S) neighbour cell ids over the deduplicated stencil, S <= 27
+    (reference: ``pallas_pair.stencil_table``); on a full grid the 27
+    offsets come in the kernels' loop order dx, dy, dz in (-1, 0, 1)."""
+    offs = neighbor_cell_offsets(dims)
+    nx, ny, nz = (int(d) for d in dims)
+    ids = np.arange(nx * ny * nz)
+    cx, cy, cz = ids // (ny * nz), (ids // nz) % ny, ids % nz
+    out = np.empty((len(ids), len(offs)), np.int32)
+    for s, (dx, dy, dz) in enumerate(offs):
+        out[:, s] = (((cx + dx) % nx) * ny + (cy + dy) % ny) * nz \
+            + (cz + dz) % nz
+    return out
 
 
 def stencil_pairs(cells, box, dims):
-    """Every slot of each cell against every slot of its 27 neighbour cells,
-    in the kernels' op order: (minimum-image d per axis, r2 summed x, y, z,
-    the valid-pair mask, the (C, 27*cap, 4) neighbour rows)."""
+    """Every slot of each cell against every slot of its S neighbour cells
+    (the deduplicated stencil), in the kernels' op order: (minimum-image d
+    per axis, r2 summed x, y, z, the valid-pair mask, the (C, S*cap, 4)
+    neighbour rows)."""
     C, cap, _ = cells.shape
-    xj = cells[_stencil(dims, cells.device)].reshape(C, 27 * cap, 4)
+    nbr = torch.from_numpy(stencil_table(dims)).to(cells.device).long()
+    xj = cells[nbr].reshape(C, -1, 4)
     ibox = 1.0 / box
     dr = []
     r2 = None
@@ -116,18 +131,19 @@ def stencil_pairs(cells, box, dims):
 
 
 def type_pairs(cells, xj, n_types: int):
-    """(C, cap, 27*cap) type-pair index ti * T + tj of ``stencil_pairs``."""
+    """(C, cap, S*cap) type-pair index ti * T + tj of ``stencil_pairs``."""
     ti = torch.clamp(cells[:, :, 3].long() - 1, min=0)
     tj = torch.clamp(xj[:, :, 3].long() - 1, min=0)
     return ti[:, :, None] * n_types + tj[:, None, :]
 
 
-def cell_pair_forces_colt_ref(cells, counts, box, params, dims,
+def cell_pair_forces_cell_ref(cells, counts, box, params, dims,
                               uniform_lj: bool, all_lj: bool, ch3_mode: int):
-    """Plain torch K1: every slot i of a cell against every slot of its 27
-    neighbour cells, vectorised over (C, cap, 27*cap).  Returns the kernel's
-    (C, cap, 4) [fx, fy, fz, ch3] rows; ``counts`` is unused here (empty
-    slots are zero rows, which the validity test drops)."""
+    """Plain torch K2: every slot i of a cell against every slot of its S
+    deduplicated neighbour cells, vectorised over (C, cap, S*cap), in
+    stencil order then slot order.  Returns the kernel's (C, cap, 4)
+    [fx, fy, fz, ch3] rows; ``counts`` is unused here (empty slots are zero
+    rows, which the validity test drops)."""
     dr, r2, valid, xj = stencil_pairs(cells, box, dims)
     r2s = torch.where(valid, r2, 1.0)
     if uniform_lj:
@@ -154,6 +170,11 @@ def cell_pair_forces_colt_ref(cells, counts, box, params, dims,
     else:
         ch3 = torch.zeros_like(fxyz[0])
     return torch.stack(fxyz + [ch3], dim=-1)
+
+
+# Plain K1 is plain K2: on a full grid the deduplicated stencil is the 27
+# offsets in K1's loop order.
+cell_pair_forces_colt_ref = cell_pair_forces_cell_ref
 
 
 def _check(t, name, dtype, shape=None):
@@ -204,9 +225,10 @@ def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
     _check(params, "params", torch.float32, (5, n_types, n_types))
     out = torch.empty_like(cells)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    K1.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
-              params.data_ptr(), out.data_ptr(), nx, ny, nz, cap, n_types,
-              int(uniform_lj), int(all_lj), int(ch3_mode), stream)
+    kernel = K1B if ch3_mode == CH3_VIRIAL else K1
+    kernel.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
+                  params.data_ptr(), out.data_ptr(), nx, ny, nz, cap, n_types,
+                  int(uniform_lj), int(all_lj), int(ch3_mode), stream)
     return out
 
 
@@ -221,6 +243,76 @@ def colt_cells(cells, counts, box, params, dims, uniform_lj: bool,
         return cell_pair_forces_colt_ref(cells, counts, box, params, dims,
                                          uniform_lj, all_lj, ch3_mode)
     raise ValueError("K1 has no version for device %s" % cells.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _stencil_offsets(dims, device):
+    """K2's (S, 3) int32 offset table on ``device``, made once per grid: a
+    copy from the host on every call would synchronise the stream."""
+    return torch.from_numpy(neighbor_cell_offsets(dims)).to(device)
+
+
+def cell_pair_forces_cell_kernel(cells, counts, box, params, dims,
+                                 uniform_lj: bool, all_lj: bool,
+                                 ch3_mode: int):
+    """Launch the CUDA K2 on the current stream (CUDA tensors only): any
+    grid, any cap, against the deduplicated stencil."""
+    nx, ny, nz = (int(d) for d in dims)
+    C, cap, _ = cells.shape
+    if C != nx * ny * nz:
+        raise ValueError("K2: dims %s for %d cells" % (dims, C))
+    if cells.device.type != "cuda":
+        raise ValueError("K2's CUDA kernel takes CUDA tensors, not %s"
+                         % cells.device)
+    if not 0 < cap <= 1024:
+        raise ValueError("K2: cell_cap %d does not fit one block" % cap)
+    _check(cells, "cells", torch.float32, (C, cap, 4))
+    if cells.data_ptr() % 16:
+        raise ValueError("cells must be 16-byte aligned (float4 rows)")
+    dev = cells.device
+    n_types = params.shape[1]
+    offsets = _stencil_offsets((nx, ny, nz), dev)
+    n_stencil = offsets.shape[0]
+    # dynamic stage (rows, parameters, occupancies) + the static cell ids
+    smem = 16 * n_stencil * cap + 4 * (5 * n_types * n_types + n_stencil) \
+        + 4 * 27
+    if smem > 227 * 1024:
+        raise ValueError("K2: shared-memory stage of %d bytes exceeds "
+                         "227 KiB" % smem)
+    for t, name in ((counts, "counts"), (box, "box"), (params, "params")):
+        if t.device != dev:
+            raise ValueError("%s is on %s, cells on %s" % (name, t.device,
+                                                          dev))
+    _check(counts, "counts", torch.int32, (C,))
+    _check(box, "box", torch.float32, (3,))
+    _check(params, "params", torch.float32, (5, n_types, n_types))
+    out = torch.empty_like(cells)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    K2.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
+              params.data_ptr(), offsets.data_ptr(), out.data_ptr(), nx, ny,
+              nz, cap, n_types, n_stencil, int(uniform_lj), int(all_lj),
+              int(ch3_mode), stream)
+    return out
+
+
+def cell_cells(cells, counts, box, params, dims, uniform_lj: bool,
+               all_lj: bool, ch3_mode: int):
+    """K2 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    if cells.device.type == "cuda":
+        return cell_pair_forces_cell_kernel(cells, counts, box, params, dims,
+                                            uniform_lj, all_lj, ch3_mode)
+    if cells.device.type == "cpu":
+        return cell_pair_forces_cell_ref(cells, counts, box, params, dims,
+                                         uniform_lj, all_lj, ch3_mode)
+    raise ValueError("K2 has no version for device %s" % cells.device)
+
+
+def colt_legal(cap: int, dims) -> bool:
+    """The reference's rule for colt2 (K1) over the per-cell K2
+    (``pallas_pair.py:844-847``): cap a multiple of 8, a full 27-cell
+    stencil."""
+    return cap % 8 == 0 and min(int(d) for d in dims) >= 3
 
 
 def mix_weights(spec, obs_x):
@@ -374,12 +466,19 @@ def cell_pair_forces(pos, type_id, active, box, buckets, slot_of, dims, spec,
                      cheb_ko: int = 0, cheb_ntab: int = 0,
                      cheb_mix: bool = False, obs_x=None):
     """Unexcluded all-pairs sum on the cell grid (reference:
-    ``cell_pair_forces_colt``): LJ, or the Chebyshev-tabulated pairs when
-    ``cheb_kw > 0``.  Returns (force (N, 3), e_lj, e_tab, w): the spare
+    ``cell_pair_forces``): LJ through K1 on a grid colt2 takes
+    (``colt_legal``) and through K2 on any other, or the Chebyshev-tabulated
+    pairs through K1c/K1d/K1e when ``cheb_kw > 0`` (colt2 grids only, as in
+    the reference).  Returns (force (N, 3), e_lj, e_tab, w): the spare
     channel carries either the pair energy (``want_energy``; ``e_tab`` on a
     tabulated system) or the pair virial (``want_virial``), never both."""
     n_cells = int(np.prod(dims))
     cap = buckets.shape[1]
+    legal = colt_legal(cap, dims)
+    if cheb_kw and not legal:
+        raise ValueError("the Chebyshev tabulated path needs a colt2 grid "
+                         "(cap %% 8 == 0, min(dims) >= 3): cap %d, dims %s"
+                         % (cap, dims))
     cells, counts = colt_operands(pack_rows(pos, type_id, active), buckets,
                                   n_cells)
     mode = (CH3_VIRIAL if want_virial
@@ -390,9 +489,10 @@ def cell_pair_forces(pos, type_id, active, box, buckets, slot_of, dims, spec,
         out = cheb_cells(cells, counts, box.contiguous(), cut2, tmap, tmap_b,
                          xmat, coef, dims, cheb_kw, cheb_ko, mode, cheb_ntab)
     else:
-        out = colt_cells(cells, counts, box.contiguous(),
-                         pair_params(spec, n_types), dims, uniform_lj, all_lj,
-                         mode)
+        lj_cells = colt_cells if legal else cell_cells
+        out = lj_cells(cells, counts, box.contiguous(),
+                       pair_params(spec, n_types), dims, uniform_lj, all_lj,
+                       mode)
     out_flat = out.reshape(n_cells * cap, 4)
     in_grid = slot_of < n_cells * cap
     rows_f = out_flat[torch.where(in_grid, slot_of, 0).long()]

@@ -1,15 +1,19 @@
-"""Velocity-Verlet integration with a Langevin thermostat.
+"""Velocity-Verlet integration with a Langevin thermostat and barostats.
 
 Port of ``chemlab_tpu/engine/integrate.py`` for the slice: ``compute_forces``
 on the cell-tile path (kernel sum minus the excluded-pair correction, plus
 bonded forces, plus the global CapForce; LJ or Chebyshev-tabulated pairs,
 with the conversion observables computed on the device when a func-10
-blend reads them), ``_langevin_adjust``,
-``maybe_rebuild_neighbors`` in its lazy-row branch, and ``md_step``.
+blend reads them), ``_langevin_adjust``, ``virial_pressure`` in its kernel
+branch (the kernel's pair-virial channel minus the excluded pairs' share,
+minus the bonded strain derivative), ``_barostat_step`` (Berendsen and the
+Langevin piston), ``maybe_rebuild_neighbors`` in its lazy-row branch, and
+``md_step``.
 
-The Langevin noise is an argument: ``md_step`` takes either the noise
-tensor itself (the tests pass the reference's draw) or a ``torch.Generator``
-to draw it from.  The rebuild trigger is read on the host each step.
+The noise is an argument: ``md_step`` takes the Langevin noise tensor and
+the Langevin barostat's scalar draw (the tests pass the reference's draws)
+or a ``torch.Generator`` to draw them from, the thermostat's first.  The
+rebuild trigger is read on the host each step; the box stays on the device.
 """
 
 from __future__ import annotations
@@ -90,6 +94,58 @@ def _langevin_adjust(spec, state, force, noise):
     return force + torch.where(sel[:, None], adj, 0.0)
 
 
+def virial_pressure(spec, cfg, state):
+    """Instantaneous pressure P = (2 Ekin + W) / 3V (reference: the kernel
+    branch of ``integrate.virial_pressure``).  W is the pair virial from
+    the kernel's virial channel (K1/K1b or K2; K1c/K1d/K1e on a tabulated
+    system) minus the excluded pairs' share, minus the bonded strain
+    derivative dU_bonded/ds.  The row path's branch waits for M10."""
+    obs_x = (observables.conversions(spec, state.type_id, state.chem_state,
+                                     state.active) if cfg.cheb_mix else None)
+    _, _, _, w_all = cell_pair.cell_pair_forces(
+        state.pos, state.type_id, state.active, state.box, state.nbr.buckets,
+        state.nbr.slot_of, cfg.cell_dims, spec, cfg.n_types,
+        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj, want_virial=True,
+        cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
+        cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix, obs_x=obs_x)
+    _, _, _, w_ex = _excl_correction(spec, cfg, state, obs_x)
+    w = (w_all - w_ex) - bonded_forces.bonded_strain_derivative(
+        spec, cfg, state.pos, state.box, state.type_id, state.bonds,
+        state.angles, dense=_dense_of(cfg, state))
+    ekin = observables.kinetic_energy(state.mass, state.vel, state.active)
+    return (2.0 * ekin + w) / (3.0 * torch.prod(state.box))
+
+
+def _barostat_step(spec, cfg, state, noise=None):
+    """Isotropic box scaling (reference ``integrate._barostat_step``).
+
+    'br': Berendsen, mu = clip(1 - dt/tau (P0 - P), 0.9, 1.1)^(1/3);
+    'lv': Langevin piston on ``baro_v`` with friction gammaP and the scalar
+    standard normal ``noise``, mu = exp(dt baro_v).  Either way mu is
+    clipped to 0.98-1.02 per step; active positions and the box scale by
+    it."""
+    p_now = virial_pressure(spec, cfg, state)
+    dt = spec.dt
+    if cfg.barostat == "br":
+        base = torch.clamp(1.0 - dt / spec.barostat_tau
+                           * (spec.pressure - p_now), 0.9, 1.1)
+        mu = base ** (1.0 / 3.0)
+        baro_v = state.baro_v
+    else:  # 'lv'
+        w = torch.clamp(spec.barostat_mass, min=1e-6)
+        vol = torch.prod(state.box)
+        dv = (dt * 3.0 * vol * (p_now - spec.pressure) / w
+              - dt * spec.barostat_gammaP * state.baro_v
+              + torch.sqrt(2.0 * spec.kT * spec.barostat_gammaP * dt / w)
+              * noise)
+        baro_v = state.baro_v + dv
+        mu = torch.exp(dt * baro_v)
+    mu = torch.clamp(mu, 0.98, 1.02)
+    pos = torch.where(state.active[:, None], state.pos * mu, state.pos)
+    return dataclasses.replace(state, pos=pos, box=state.box * mu,
+                               baro_v=baro_v)
+
+
 def maybe_rebuild_neighbors(spec, cfg, state):
     """Refresh the cell buckets when the skin criterion fires (read on the
     host)."""
@@ -102,9 +158,18 @@ def maybe_rebuild_neighbors(spec, cfg, state):
     return dataclasses.replace(state, nbr=nbr)
 
 
-def md_step(spec, cfg, state, noise=None, gen=None):
-    """One velocity-Verlet step.  With the Langevin thermostat the noise is
-    ``noise`` when given, else a standard normal draw from ``gen``."""
+def _draw(gen, shape, like, what: str):
+    if gen is None:
+        raise ValueError("%s needs its noise or a torch.Generator" % what)
+    return torch.randn(shape, generator=gen, dtype=like.dtype,
+                       device=like.device)
+
+
+def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None):
+    """One velocity-Verlet step, then the barostat.  With the Langevin
+    thermostat the noise is ``noise`` when given, else a standard normal
+    draw from ``gen``; the Langevin barostat's scalar draw is
+    ``baro_noise`` when given, else drawn from ``gen`` after it."""
     dt = spec.dt
     inv_m = torch.where(state.active, 1.0 / state.mass, 0.0)[:, None]
 
@@ -121,13 +186,16 @@ def md_step(spec, cfg, state, noise=None, gen=None):
     force, _, _ = compute_forces(spec, cfg, state, want_energy=False)
     if cfg.thermostat == "lv":
         if noise is None:
-            if gen is None:
-                raise ValueError("Langevin md_step needs noise or a "
-                                 "torch.Generator")
-            noise = torch.randn(state.vel.shape, generator=gen,
-                                dtype=state.vel.dtype, device=state.device)
+            noise = _draw(gen, state.vel.shape, state.vel,
+                          "the Langevin md_step")
         force = _langevin_adjust(spec, state, force, noise)
 
     vel = state.vel + 0.5 * dt * force * inv_m
-    return dataclasses.replace(state, vel=vel, force=force,
-                               step=state.step + 1)
+    state = dataclasses.replace(state, vel=vel, force=force,
+                                step=state.step + 1)
+    if cfg.barostat != "no":
+        if cfg.barostat != "br" and baro_noise is None:
+            baro_noise = _draw(gen, (), state.baro_v,
+                               "the Langevin barostat")
+        state = _barostat_step(spec, cfg, state, baro_noise)
+    return state

@@ -7,8 +7,9 @@ host.  The reaction gate needs no per-step read: ``reactions_on`` and the
 step counter are read once per block and the step is counted on the host.
 The rebuild trigger is read every step (``integrate.maybe_rebuild_neighbors``).
 
-The Langevin noise comes from a ``torch.Generator`` that the caller owns
-and passes to ``run_block`` (``make_generator``).
+The Langevin noise (and the Langevin barostat's draw) comes from a
+``torch.Generator`` that the caller owns and passes to ``run_block``
+(``make_generator``).
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
                          fire=None, noise=None):
     """One MD step + the interval-gated reaction step.  ``fire`` is the
     host's reaction gate; None reads it from the state.  The Langevin noise
-    is ``noise`` when given, else drawn from ``gen``."""
+    is ``noise`` when given, else drawn from ``gen`` (as is the Langevin
+    barostat's draw)."""
     state = integrate.md_step(spec, cfg, state, noise=noise, gen=gen)
     if cfg.has_reactions:
         state = _hybrid_lambda_ramp(spec, state, cfg)
@@ -120,7 +122,8 @@ def measure_cheap(spec, cfg, state):
 
 
 def measure(spec, cfg, state):
-    """One observable pass: energies, temperature, counters."""
+    """One observable pass: energies, temperature, counters, and the
+    pressure and box edge under a barostat or ``store_pressure``."""
     force, energies, _ = integrate.compute_forces(spec, cfg, state)
     out = dict(energies)
     out["T"] = observables.temperature(state.mass, state.vel, state.active,
@@ -130,6 +133,9 @@ def measure(spec, cfg, state):
     out["epot"] = sum(energies.values())
     out["conversions"] = observables.conversions(
         spec, state.type_id, state.chem_state, state.active)
+    if cfg.barostat != "no" or cfg.store_pressure:
+        out["P"] = integrate.virial_pressure(spec, cfg, state)
+        out["boxL"] = state.box[0]
     _counts(cfg, state, out)
     out["n_part"] = state.active.sum(dtype=torch.int32)
     out["max_force"] = observables.max_force(force, state.active)

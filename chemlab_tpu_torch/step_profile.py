@@ -2,10 +2,12 @@
 
 Usage (on a machine with an NVIDIA GPU):
 
-    python -m chemlab_tpu_torch.step_profile [--melt lj|tab]
+    python -m chemlab_tpu_torch.step_profile [--melt lj|tab|npt]
 
 Builds the 10k melt (``lj``: ``build_melt``; ``tab``:
-``build_tabulated_melt``), warms it up, runs one 200-step reactive block,
+``build_tabulated_melt``; ``npt``: ``build_melt`` under the Berendsen
+barostat at pressure 0.15, tau 2.0), warms it up, runs one 200-step
+reactive block,
 then times each layer of the step ``CALLS`` times (the reaction step 5
 times) with the host clock and with
 CUDA events, each series ending in a synchronize, and records 40 steps
@@ -74,6 +76,17 @@ def layers(spec, cfg, st):
              **cheb), 1),
         ("needs_rebuild + host read", lambda: bool(neighbor.needs_rebuild(
             st.pos, st.nbr, st.box, spec.skin)), 1),
+        ("virial_pressure", lambda: integrate.virial_pressure(spec, cfg, st),
+         1),
+        ("  kernel virial pass", lambda: cell_pair.cell_pair_forces(
+            st.pos, st.type_id, st.active, st.box, st.nbr.buckets,
+            st.nbr.slot_of, cfg.cell_dims, spec, cfg.n_types,
+            uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj, want_virial=True,
+            **cheb), 1),
+        ("  bonded strain derivative (autograd)",
+         lambda: bonded_forces.bonded_strain_derivative(
+             spec, cfg, st.pos, st.box, st.type_id, st.bonds, st.angles,
+             dense=integrate._dense_of(cfg, st)), 1),
         ("reaction_step + re-derivation (1 per interval)",
          lambda: excl_dense.rederive(cfg, bonded_dense.rederive(
              cfg, reactions.reaction_step(spec, cfg, st, 0))), 0.1),
@@ -82,7 +95,7 @@ def layers(spec, cfg, st):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="step_profile")
-    p.add_argument("--melt", choices=("lj", "tab"), default="tab")
+    p.add_argument("--melt", choices=("lj", "tab", "npt"), default="tab")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: no CUDA device")
@@ -91,6 +104,9 @@ def main(argv=None) -> int:
                          text=True).stdout.strip())
     if a.melt == "lj":
         built, systop, _ = testsystems.build_melt(n_mols=N_MOLS)
+    elif a.melt == "npt":
+        built, systop, _ = testsystems.build_melt(
+            n_mols=N_MOLS, barostat="br", pressure=0.15, barostat_tau=2.0)
     else:
         built, systop, _ = testsystems.build_tabulated_melt(n_mols=N_MOLS,
                                                             reactive=True)

@@ -9,11 +9,23 @@ once) and drives the port's paths at 10k particles:
   1. prints the card's name and power limit, builds the kernels;
   2. the reactive trimer LJ melt (K1): K1 against its plain torch version
      in every parameter mode (uniform, all-LJ, per-pair lookup) and every
-     ch3 channel (none, energy, virial), the cancellation check at an
-     excluded pair 0.05 sigma apart, a small melt stepped on the GPU and on
-     the CPU from one state, and the main path: one untimed and three
-     timed 200-step Langevin blocks with reaction steps;
-  3. the tabulated melt (every type pair a func-8 table, K1c) and the
+     ch3 channel (none, energy, virial), K2 against K1 on the same
+     operands (difference, bitwise or not, both times), the cancellation
+     check at an excluded pair 0.05 sigma apart, a small melt stepped on
+     the GPU and on the CPU from one state, and the main path: one untimed
+     and three timed 200-step Langevin blocks with reaction steps;
+  3. K2, the per-cell kernel for grids colt2 cannot take: on the 10k melt
+     built with cell_cap=36 (11x11x11, S = 27) and on the 40-trimer melt at
+     density 0.3 (2x2x2, S = 8), K2 against its plain version in every
+     mode and channel and the cancellation check; then the K2 main path:
+     one untimed and one timed reactive block of the cap-36 melt;
+  4. NPT: the 10k reactive melt under the Berendsen barostat (pressure
+     0.15, tau 2.0) with Langevin, one untimed and three timed blocks, K1
+     for the forces and K1b (the virial channel) for the pressure on every
+     step; K1b against its plain version; then the 40-trimer melt: 20 NVE
+     steps under 'br' on the GPU and on the CPU from one state (K2 in both
+     channels), and 200 Langevin steps under the Langevin barostat 'lv';
+  5. the tabulated melt (every type pair a func-8 table, K1c) and the
      blended tabulated melt (func 10/12 pairs, K1d): K1c, K1d and the
      coefficient-plane mode K1e against their plain versions in every ch3
      channel, the cancellation check in the wall, a small tabulated melt
@@ -23,7 +35,9 @@ once) and drives the port's paths at 10k particles:
      melt in plane mode (K1e).
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
-  overflowed and that the temperature held.
+  overflowed and that the temperature held; the NPT path also that the
+  pressure is finite, that the box moved and that the static cell grid
+  still holds (box / cell_dims >= cutoff + skin).
 
 Any failed check raises and the script exits non-zero; without a GPU it
 exits non-zero at once.  The last lines are the card line, a JSON object
@@ -41,6 +55,9 @@ import time
 N_MOLS = 3334           # 10 002 particles
 BLOCK_STEPS = 200
 TIMED_BLOCKS = 3
+# the reference NPT test's settings and its 2x2x2 melt
+NPT = dict(barostat="br", pressure=0.15, barostat_tau=2.0)
+SMALL_GRID = dict(n_mols=40, density=0.3, seed=3, reactive=False)
 MODES = [(True, True), (False, True), (False, False)]   # (uniform, all_lj)
 CH3 = ((0, "none"), (1, "energy"), (2, "virial"))
 DEVICE = "cuda"
@@ -53,6 +70,7 @@ F32_FLOPS = 67e12
 # per pair inside the cutoff (LJ: soft core, s6, force; accumulate)
 OPS_CANDIDATE = 22
 OPS_LJ = 24
+OPS_VIRIAL = 2          # the virial channel's f * r2 and its accumulation
 
 
 def _ops_cheb(kw: int, ko: int, mix: bool) -> int:
@@ -157,52 +175,117 @@ def mixed_params(spec, n_types: int, islj_gate: bool):
     return cell_pair.pair_params(mixed, n_types)
 
 
-def check_kernel(built, state):
-    """K1 vs plain in every mode on ``state``; returns the kernel's numbers
-    (launches filled in later)."""
+# name, source, TPU kernel replaced, of each LJ kernel's row
+LJ_ROWS = {
+    "K1": ("K1 cell_pair_colt (LJ)", "chemlab_tpu_torch/csrc/cell_pair.cu",
+           "chemlab_tpu/engine/pallas_pair.py:211"),
+    "K1b": ("K1b cell_pair_colt (LJ, virial channel)",
+            "chemlab_tpu_torch/csrc/cell_pair.cu",
+            "chemlab_tpu/engine/pallas_pair.py:211"),
+    "K2": ("K2 cell_pair_cell (LJ, per cell, any grid)",
+           "chemlab_tpu_torch/csrc/cell_pair_cell.cu",
+           "chemlab_tpu/engine/pallas_pair.py:97"),
+}
+
+
+def lj_fns(cfg):
+    """(kernel launcher, plain version) of the LJ kernel the grid takes:
+    K1 on a colt2 grid, K2 on any other."""
+    from chemlab_tpu_torch.engine import cell_pair
+
+    if cell_pair.colt_legal(cfg.cell_cap, cfg.cell_dims):
+        return (cell_pair.cell_pair_forces_colt_kernel,
+                cell_pair.cell_pair_forces_colt_ref)
+    return (cell_pair.cell_pair_forces_cell_kernel,
+            cell_pair.cell_pair_forces_cell_ref)
+
+
+def check_kernel(built, state, label: str, channels=CH3, time_mode=0,
+                 timed: bool = True):
+    """The grid's LJ kernel vs plain in every parameter mode and in
+    ``channels`` on ``state``; with ``timed``, times both in ``time_mode``
+    and returns the row of ``label`` (launches filled in later)."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
 
     cfg, spec = built.cfg, built.spec
+    kern, plain = lj_fns(cfg)
     cells, counts = _cells(built, state)
     worst = 0.0
     for uniform, all_lj in MODES:
         params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
                   else mixed_params(spec, cfg.n_types, not all_lj))
-        for mode, label in CH3:
+        for mode, name in channels:
             args = (cells, counts, state.box, params, cfg.cell_dims, uniform,
                     all_lj, mode)
-            got = cell_pair.cell_pair_forces_colt_kernel(*args)
-            ref = cell_pair.cell_pair_forces_colt_ref(*args)
+            got = kern(*args)
+            ref = plain(*args)
             torch.cuda.synchronize()
             err_f = (got[..., :3] - ref[..., :3]).abs().max().item()
             err_3 = (got[..., 3] - ref[..., 3]).abs().max().item()
             tol_f, tol_3 = _tol(ref[..., :3]), _tol(ref[..., 3])
-            print("K1 vs plain uniform=%d all_lj=%d ch3=%-6s max|dF| %.3e "
-                  "(tol %.3e)  max|dch3| %.3e (tol %.3e)"
-                  % (uniform, all_lj, label, err_f, tol_f, err_3, tol_3))
+            print("%s vs plain at %s x cap %d uniform=%d all_lj=%d ch3=%-6s "
+                  "max|dF| %.3e (tol %.3e)  max|dch3| %.3e (tol %.3e)"
+                  % (label, cfg.cell_dims, cfg.cell_cap, uniform, all_lj,
+                     name, err_f, tol_f, err_3, tol_3))
             if not (err_f <= tol_f and err_3 <= tol_3):
-                raise AssertionError("K1 disagrees with its plain version")
+                raise AssertionError("%s disagrees with its plain version"
+                                     % label)
             worst = max(worst, err_f, err_3)
+    if not timed:
+        return None
     params = cell_pair.pair_params(spec, cfg.n_types)
     args = (cells, counts, state.box, params, cfg.cell_dims, cfg.uniform_lj,
-            cfg.all_lj, cell_pair.CH3_NONE)
-    ms = _time_ms(lambda: cell_pair.cell_pair_forces_colt_kernel(*args), 50)
-    plain_ms = _time_ms(lambda: cell_pair.cell_pair_forces_colt_ref(*args), 5)
+            cfg.all_lj, time_mode)
+    ms = _time_ms(lambda: kern(*args), 50)
+    plain_ms = _time_ms(lambda: plain(*args), 5)
     cand, inside = pair_counts(cells, state.box, params[2], cfg.cell_dims)
-    b_ms, b_by = bound_ms(cells, params.numel() * 4 + 12, cand, inside,
-                          OPS_LJ)
-    print("K1 time at %s cells x cap %d: kernel %.4f ms, plain %.4f ms; "
-          "%d candidate pairs, %d inside the cutoff, bound %.6f ms (%s)"
-          % (cfg.cell_dims, cfg.cell_cap, ms, plain_ms, cand, inside, b_ms,
-             b_by))
-    return {"name": "K1 cell_pair_colt (LJ)", "route": "cuda",
-            "source": "chemlab_tpu_torch/csrc/cell_pair.cu",
-            "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    n_stencil = cell_pair.stencil_table(cfg.cell_dims).shape[1]
+    ops_pair = OPS_LJ + (OPS_VIRIAL if time_mode == 2 else 0)
+    b_ms, b_by = bound_ms(cells, params.numel() * 4 + 12 + 12 * n_stencil,
+                          cand, inside, ops_pair)
+    print("%s time at %s cells x cap %d (S = %d): kernel %.4f ms, plain "
+          "%.4f ms; %d candidate pairs, %d inside the cutoff, bound %.6f ms "
+          "(%s)" % (label, cfg.cell_dims, cfg.cell_cap, n_stencil, ms,
+                    plain_ms, cand, inside, b_ms, b_by))
+    name, source, replaces = LJ_ROWS[label]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def compare_k1_k2(built, state):
+    """K1 and K2 on the same colt2 operands: the largest difference in
+    every channel, whether it is bitwise, and both times, taken in turns
+    (K1, K2, K2, K1)."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+
+    cfg = built.cfg
+    cells, counts = _cells(built, state)
+    params = cell_pair.pair_params(built.spec, cfg.n_types)
+    fns = (cell_pair.cell_pair_forces_colt_kernel,
+           cell_pair.cell_pair_forces_cell_kernel)
+    for mode, name in CH3:
+        args = (cells, counts, state.box, params, cfg.cell_dims,
+                cfg.uniform_lj, cfg.all_lj, mode)
+        k1, k2 = (fn(*args) for fn in fns)
+        torch.cuda.synchronize()
+        diff = (k1 - k2).abs().max().item()
+        print("K1 vs K2 on identical operands (%s x cap %d) ch3=%-6s "
+              "max|diff| %.3e, bitwise %s" % (cfg.cell_dims, cfg.cell_cap,
+                                              name, diff, torch.equal(k1, k2)))
+        if diff > _tol(k1):
+            raise AssertionError("K1 and K2 disagree")
+    args = (cells, counts, state.box, params, cfg.cell_dims, cfg.uniform_lj,
+            cfg.all_lj, cell_pair.CH3_NONE)
+    t = [_time_ms(lambda fn=fn: fn(*args), 50)
+         for fn in (fns[0], fns[1], fns[1], fns[0])]
+    print("K1 vs K2 A/B on identical operands: K1 %.6f / %.6f ms, K2 %.6f / "
+          "%.6f ms" % (t[0], t[3], t[1], t[2]))
 
 
 def check_cancellation(built, state, obs_x=None):
@@ -238,8 +321,7 @@ def check_cancellation(built, state, obs_x=None):
         args = (cells, counts, state.box,
                 cell_pair.pair_params(spec, cfg.n_types), cfg.cell_dims,
                 cfg.uniform_lj, cfg.all_lj, cell_pair.CH3_NONE)
-        fns = (cell_pair.cell_pair_forces_colt_kernel,
-               cell_pair.cell_pair_forces_colt_ref)
+        fns = lj_fns(cfg)
         cheb = None
     in_grid = slot_of < n_cells * cfg.cell_cap
     f_ex = cell_pair.excluded_pair_correction(
@@ -255,11 +337,11 @@ def check_cancellation(built, state, obs_x=None):
     big = max(ref.abs().max().item(), f_ex.abs().max().item())
     err = (got - ref).abs().max().item()
     tol = 2e-5 * (1.0 + big)
-    print("cancellation at r=0.05 sigma (%s): pair (%d, %d) max|dF| %.3e "
-          "(tol %.3e), |F_i| kernel %.4f plain %.4f, |F_ex| %.1f" % (
-              "tabulated" if cheb else "LJ", i, j, err, tol,
-              got[i].norm().item(), ref[i].norm().item(),
-              f_ex.abs().max().item()))
+    print("cancellation at r=0.05 sigma (%s, grid %s, cap %d): pair (%d, %d) "
+          "max|dF| %.3e (tol %.3e), |F_i| kernel %.4f plain %.4f, |F_ex| %.1f"
+          % ("tabulated" if cheb else "LJ", cfg.cell_dims, cfg.cell_cap, i,
+             j, err, tol, got[i].norm().item(), ref[i].norm().item(),
+             f_ex.abs().max().item()))
     if not (torch.isfinite(got).all() and err <= tol):
         raise AssertionError("kernel minus correction does not cancel")
 
@@ -304,10 +386,14 @@ def check_small_melt_against_cpu(builder, label: str, kernel):
 
 
 def run_path(built, systop, state, card: str, kernel, label: str,
-             timed_blocks: int, cfg=None):
+             timed_blocks: int, cfg=None, virial=None):
     """Reactive blocks (one untimed, then ``timed_blocks`` timed) with the
     launch counts set to 0 just before; checks and returns (launches,
-    particle-steps/s or None)."""
+    particle-steps/s or None, launches of ``virial``).  Under a barostat
+    ``virial`` is the kernel of the pressure pass, which must run on every
+    step too, and the box must move while the cell grid stays valid."""
+    import math
+
     import torch
 
     from chemlab_tpu_torch import testsystems
@@ -319,6 +405,7 @@ def run_path(built, systop, state, card: str, kernel, label: str,
     state = testsystems.activate_initiators(
         built, systop, state, n=max(cfg.n_particles // 300, 4))
     gen = runner.make_generator(1234, DEVICE)
+    box0 = state.box.clone()
 
     for k in cell_pair.KERNELS:
         k.launches = 0
@@ -331,13 +418,16 @@ def run_path(built, systop, state, card: str, kernel, label: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel.launches
-    others = sum(k.launches for k in cell_pair.KERNELS if k is not kernel)
+    v_launches = virial.launches if virial is not None else 0
+    others = sum(k.launches for k in cell_pair.KERNELS
+                 if k is not kernel and k is not virial)
 
     m = {k: v.cpu() for k, v in runner.measure_cheap(spec, cfg,
                                                       state).items()}
     steps = (timed_blocks + 1) * BLOCK_STEPS
     events = int(m["reaction_counts"].sum())
-    T = float(runner.measure(spec, cfg, state)["T"])
+    full = runner.measure(spec, cfg, state)
+    T = float(full["T"])
     pps = (cfg.n_particles * timed_blocks * BLOCK_STEPS / wall
            if timed_blocks else None)
     if pps is not None:
@@ -363,11 +453,31 @@ def run_path(built, systop, state, card: str, kernel, label: str,
         "one new bond per event": int(m["n_bonds"]) - n_bonds0 == events,
         "no jax, no JAX package": _no_reference_modules(),
     }
+    if virial is not None:
+        rc_skin = math.sqrt(float(spec.pair_cutoff2.max())) + float(spec.skin)
+        edge = min(float(b) / d for b, d in zip(state.box.tolist(),
+                                                 cfg.cell_dims))
+        rx_edge = min(float(b) / d for b, d in zip(state.box.tolist(),
+                                                    cfg.rx_dims))
+        P = float(full["P"])
+        print("%s: pressure-pass launches %d over %d steps; P %.6f (target "
+              "%.4f), box %.6f -> %.6f, baro_v %.6f, cell edge %.6f (cutoff "
+              "+ skin %.4f), reaction cell edge %.6f (reaction cutoff %.4f)"
+              % (label, v_launches, steps, P, float(spec.pressure),
+                 float(box0[0]), float(state.box[0]), float(state.baro_v),
+                 edge, rc_skin, rx_edge, cfg.rx_rc))
+        checks.update({
+            "pressure pass on every step": v_launches >= steps,
+            "P finite": math.isfinite(P),
+            "the box moved": not torch.equal(state.box, box0),
+            "cell grid still valid": edge >= rc_skin,
+            "reaction grid still valid": rx_edge >= cfg.rx_rc,
+        })
     for name, ok in checks.items():
         print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
     if not all(checks.values()):
         raise AssertionError("%s checks failed" % label)
-    return launches, pps
+    return launches, pps, v_launches
 
 
 def lj_path(card: str):
@@ -385,12 +495,128 @@ def lj_path(card: str):
     print("10k LJ melt: %d particles, grid %s, cell_cap %d; build + warmup "
           "%.1f s" % (built.cfg.n_particles, built.cfg.cell_dims,
                       built.cfg.cell_cap, time.perf_counter() - t0))
-    row = check_kernel(built, state)
+    row = check_kernel(built, state, "K1")
+    compare_k1_k2(built, state)
     check_cancellation(built, state)
     check_small_melt_against_cpu(testsystems.build_melt, "LJ", cell_pair.K1)
-    row["launches"], _ = run_path(built, systop, state, card, cell_pair.K1,
-                                  "LJ main path", TIMED_BLOCKS)
+    row["launches"], _, _ = run_path(built, systop, state, card,
+                                     cell_pair.K1, "LJ main path",
+                                     TIMED_BLOCKS)
     return row
+
+
+# ---- K2 (per-cell LJ, any grid) --------------------------------------------------
+
+def _warm_melt(label: str, steps: int = 600, **kw):
+    """A melt built on the card and warmed up."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import cell_pair, runner
+
+    t0 = time.perf_counter()
+    built, systop, _ = testsystems.build_melt(device=DEVICE, **kw)
+    cfg = built.cfg
+    state = runner.initial_forces(built.spec, cfg, built.state)
+    state = testsystems.warmup(built, state, steps=steps)
+    torch.cuda.synchronize()
+    print("%s: %d particles, grid %s (S = %d), cell_cap %d, barostat %s; "
+          "build + warmup %.1f s" % (
+              label, cfg.n_particles, cfg.cell_dims,
+              cell_pair.stencil_table(cfg.cell_dims).shape[1], cfg.cell_cap,
+              cfg.barostat, time.perf_counter() - t0))
+    return built, systop, state
+
+
+def k2_path(card: str):
+    """K2 on the grids colt2 cannot take: the 10k melt at cell_cap 36 and
+    the 2x2x2 melt, then the K2 main path."""
+    from chemlab_tpu_torch.engine import cell_pair
+
+    built, systop, state = _warm_melt("10k LJ melt at cell_cap 36",
+                                      n_mols=N_MOLS, cell_cap=36)
+    if cell_pair.colt_legal(built.cfg.cell_cap, built.cfg.cell_dims):
+        raise AssertionError("the cap-36 melt did not take K2")
+    row = check_kernel(built, state, "K2")
+    check_cancellation(built, state)
+    small, _, st_s = _warm_melt("small-grid melt", steps=50, **SMALL_GRID)
+    if small.cfg.cell_dims != (2, 2, 2):
+        raise AssertionError("the small melt is not on a 2x2x2 grid")
+    check_kernel(small, st_s, "K2", timed=False)
+    check_cancellation(small, st_s)
+    row["launches"], _, _ = run_path(built, systop, state, card,
+                                     cell_pair.K2, "K2 main path", 1)
+    return row
+
+
+# ---- NPT (pressure pass K1b, barostats) --------------------------------------
+
+def check_small_npt():
+    """The 2x2x2 melt: 20 NVE steps under 'br' on the GPU and on the CPU
+    from one state (K2 for the force and for the virial), then 200
+    Langevin steps under the Langevin barostat 'lv' on the card."""
+    import math
+
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import cell_pair, integrate, runner
+
+    built, _, _ = testsystems.build_melt(thermostat="no", device="cpu",
+                                         **SMALL_GRID, **NPT)
+    cfg = built.cfg
+    st_c = runner.initial_forces(built.spec, cfg, built.state)
+    st_c = testsystems.warmup(built, st_c, steps=50)
+    box0 = st_c.box.clone()
+    spec_g, st_g = built.spec.to(DEVICE), st_c.to(DEVICE)
+    n0 = cell_pair.K2.launches
+    for _ in range(20):
+        st_c = integrate.md_step(built.spec, cfg, st_c)
+        st_g = integrate.md_step(spec_g, cfg, st_g)
+    launches = cell_pair.K2.launches - n0
+    box_err = ((st_g.box.cpu() - st_c.box).abs() / st_c.box).max().item()
+    pos_err = (st_g.pos.cpu() - st_c.pos).abs().max().item()
+    print("small-grid NPT ('br', NVE) 20 steps GPU vs CPU: box %.6f -> %.6f, "
+          "max rel|dbox| %.3e (tol 1e-5), max|dpos| %.3e (tol 1e-4), K2 "
+          "launches %d" % (float(box0[0]), float(st_c.box[0]), box_err,
+                           pos_err, launches))
+    if not (box_err <= 1e-5 and pos_err <= 1e-4 and launches >= 40
+            and not torch.equal(st_c.box, box0)):
+        raise AssertionError("the small NPT run disagrees with the CPU path")
+
+    lv, _, st = _warm_melt("small-grid melt under 'lv'", steps=50,
+                           **SMALL_GRID, **dict(NPT, barostat="lv"))
+    box0 = st.box.clone()
+    st = runner.run_block(lv.spec, lv.cfg, st, 200,
+                          gen=runner.make_generator(5, DEVICE))
+    P = float(integrate.virial_pressure(lv.spec, lv.cfg, st))
+    print("small-grid 'lv' 200 steps: box %.6f -> %.6f, baro_v %.6f, P %.6f"
+          % (float(box0[0]), float(st.box[0]), float(st.baro_v), P))
+    if not (torch.isfinite(st.pos).all() and math.isfinite(P)
+            and not torch.equal(st.box, box0)):
+        raise AssertionError("the 'lv' run is not finite or the box did not "
+                             "move")
+
+
+def npt_path(card: str):
+    """The 10k reactive melt under the Berendsen barostat: K1b against its
+    plain version, the small-grid NPT runs, then the NPT main path."""
+    from chemlab_tpu_torch.engine import cell_pair, integrate
+
+    built, systop, state = _warm_melt("10k NPT melt", n_mols=N_MOLS, **NPT)
+    cfg = built.cfg
+    if cfg.barostat != "br" or not cell_pair.colt_legal(cfg.cell_cap,
+                                                         cfg.cell_dims):
+        raise AssertionError("the NPT melt is not a 'br' melt on a K1 grid")
+    print("10k NPT melt after warmup: P %.6f"
+          % float(integrate.virial_pressure(built.spec, cfg, state)))
+    row = check_kernel(built, state, "K1b", channels=CH3[2:],
+                       time_mode=cell_pair.CH3_VIRIAL)
+    check_small_npt()
+    _, pps, row["launches"] = run_path(built, systop, state, card,
+                                       cell_pair.K1, "NPT main path",
+                                       TIMED_BLOCKS, virial=cell_pair.K1B)
+    return row, pps
 
 
 # ---- K1c / K1d / K1e (Chebyshev tabulated) ------------------------------------
@@ -479,12 +705,12 @@ def tab_paths(card: str):
     check_cancellation(built, state, x0)
     check_small_melt_against_cpu(testsystems.build_tabulated_melt,
                                  "tabulated", cell_pair.K1C)
-    row_c["launches"], pps = run_path(built, systop, state, card, k1c,
-                                      "tabulated main path", TIMED_BLOCKS)
+    row_c["launches"], pps, _ = run_path(built, systop, state, card, k1c,
+                                         "tabulated main path", TIMED_BLOCKS)
     plane = dataclasses.replace(cfg, cheb_ntab=0)
-    row_e["launches"], _ = run_path(built, systop, state, card, k1e,
-                                    "tabulated plane-mode path", 1,
-                                    cfg=plane)
+    row_e["launches"], _, _ = run_path(built, systop, state, card, k1e,
+                                       "tabulated plane-mode path", 1,
+                                       cfg=plane)
 
     t0 = time.perf_counter()
     mbuilt, msystop, _ = testsystems.build_mixed_tab_melt(
@@ -503,8 +729,8 @@ def tab_paths(card: str):
                                 mst.active)
     k1d, row_d = check_cheb(mbuilt, mst, "K1d", x)
     check_cancellation(mbuilt, mst, x)
-    row_d["launches"], _ = run_path(mbuilt, msystop, mst, card, k1d,
-                                    "blended path", 1)
+    row_d["launches"], _, _ = run_path(mbuilt, msystop, mst, card, k1d,
+                                       "blended path", 1)
     return [row_c, row_d, row_e], pps
 
 
@@ -526,9 +752,12 @@ def main() -> int:
     print("kernel build (%d sources in parallel): %.2f s"
           % (len({k.source for k in cell_pair.KERNELS}), build_s))
 
-    rows = [lj_path(card)]
+    rows = [lj_path(card), k2_path(card)]
+    npt_row, npt_pps = npt_path(card)
+    rows.append(npt_row)
     tab_rows, pps = tab_paths(card)
     rows += tab_rows
+    print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print(card)
     print(json.dumps({"kernels": rows}))

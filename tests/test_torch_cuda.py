@@ -1,6 +1,7 @@
-"""The port on a card: the CUDA K1 (LJ) and K1c/K1d/K1e (Chebyshev
-tabulated) against their plain versions, the cancellation at r -> 0, and
-short runs on the card against the CPU path, LJ and tabulated.
+"""The port on a card: the CUDA K1 (LJ), K1c/K1d/K1e (Chebyshev tabulated)
+and K2 (per-cell LJ, any grid) against their plain versions, K2 against K1
+on a full grid, the cancellation at r -> 0, and short runs on the card
+against the CPU path: LJ, tabulated, and NPT on the K2 grid.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -68,9 +69,12 @@ def test_cuda_k1_matches_plain(melt, uniform, all_lj):
     params = cell_pair.pair_params(spec, cfg.n_types)
     dev = [t.cuda() for t in (cells, counts, st.box, params)]
     for mode in CH3:
-        n0 = cell_pair.K1.launches
+        # the virial channel (K1b) has its own launch count
+        kern = (cell_pair.K1B if mode == cell_pair.CH3_VIRIAL
+                else cell_pair.K1)
+        n0 = kern.launches
         got = cell_pair.colt_cells(*dev, cfg.cell_dims, uniform, all_lj, mode)
-        assert cell_pair.K1.launches == n0 + 1
+        assert kern.launches == n0 + 1
         ref = cell_pair.cell_pair_forces_colt_ref(
             cells, counts, st.box, params, cfg.cell_dims, uniform, all_lj,
             mode)
@@ -332,3 +336,134 @@ def test_cuda_cheb_pack_above_48k_opts_in(tab_melts):
             cells, counts, box, cut2, tmap, None, None, big, **args)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_tol(ref))
+
+
+# ---- K2 (per-cell kernel, any grid) and the NPT path -------------------------
+
+@pytest.fixture(scope="module")
+def k2_melts():
+    """The 70-trimer melt at cell_cap=36 (3x3x3, S = 27) and the 40-trimer
+    melt at density 0.3 under the Berendsen barostat (2x2x2, S = 8), warmed
+    on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    out = {}
+    for name, kw in (("cap36", dict(n_mols=70, reactive=True, cell_cap=36)),
+                     ("grid222", dict(n_mols=40, density=0.3, seed=3,
+                                      reactive=False, barostat="br",
+                                      pressure=0.15, barostat_tau=2.0))):
+        built, systop, _ = testsystems.build_melt(thermostat="no",
+                                                  device="cpu", **kw)
+        st = runner.initial_forces(built.spec, built.cfg, built.state)
+        out[name] = (built, systop, testsystems.warmup(built, st, steps=50))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["cap36", "grid222"])
+@pytest.mark.parametrize("uniform,all_lj", MODES,
+                         ids=["uniform", "all_lj", "islj"])
+def test_cuda_k2_matches_plain(k2_melts, grid, uniform, all_lj):
+    built, _, st = k2_melts[grid]
+    cfg, spec = built.cfg, built.spec
+    assert not cell_pair.colt_legal(cfg.cell_cap, cfg.cell_dims)
+    if not uniform:
+        spec = _mixed(spec, cfg.n_types, not all_lj)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    params = cell_pair.pair_params(spec, cfg.n_types)
+    dev = [t.cuda() for t in (cells, counts, st.box, params)]
+    for mode in CH3:
+        n0 = cell_pair.K2.launches
+        got = cell_pair.cell_cells(*dev, cfg.cell_dims, uniform, all_lj, mode)
+        assert cell_pair.K2.launches == n0 + 1
+        ref = cell_pair.cell_pair_forces_cell_ref(
+            cells, counts, st.box, params, cfg.cell_dims, uniform, all_lj,
+            mode)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_tol(ref))
+
+
+@pytest.mark.cuda
+def test_cuda_k2_against_k1_on_a_full_grid(melt):
+    """On a colt2 grid both kernels take the same operands and sum in the
+    same order (stencil, then slot)."""
+    built, _, st = melt
+    cfg = built.cfg
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    params = cell_pair.pair_params(built.spec, cfg.n_types)
+    dev = [t.cuda() for t in (cells, counts, st.box, params)]
+    for mode in CH3:
+        k1 = cell_pair.colt_cells(*dev, cfg.cell_dims, True, True, mode)
+        k2 = cell_pair.cell_cells(*dev, cfg.cell_dims, True, True, mode)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k2, k1, rtol=0, atol=_tol(k1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((2, 3, 1), 13), ((3, 3, 3), 120),
+                                      ((2, 2, 2), 400)])
+def test_cuda_k2_ragged_cells(dims, cap):
+    """Random occupancy per cell on small and odd grids and caps: 13 slots
+    (one warp), 120 slots at S = 27 (a 51 840-byte stage: the opt-in above
+    48 KiB), and 400 slots at S = 8 (51 200 bytes); a stage above the
+    card's 227 KiB raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    rng = np.random.RandomState(cap)
+    n_cells = int(np.prod(dims))
+    edge = 1.1
+    box = np.array(dims, np.float32) * edge
+    cells = np.zeros((n_cells, cap, 4), np.float32)
+    counts = rng.randint(0, min(cap, 40) + 1, n_cells).astype(np.int32)
+    for c in range(n_cells):
+        cx, cy, cz = c // (dims[1] * dims[2]), (c // dims[2]) % dims[1], \
+            c % dims[2]
+        k = counts[c]
+        cells[c, :k, :3] = np.array([cx, cy, cz]) * edge \
+            + rng.uniform(0, edge, (k, 3))
+        cells[c, :k, 3] = rng.randint(1, 3, k)
+    params = np.zeros((5, 2, 2), np.float32)
+    params[0], params[1], params[2] = 0.35, 1.0, 1.1 ** 2
+    params[3], params[4] = 0.01, 1.0
+    ops = [torch.from_numpy(a) for a in (cells, counts, box, params)]
+    for uniform, all_lj in MODES:
+        for mode in CH3:
+            got = cell_pair.cell_cells(*(t.cuda() for t in ops), dims,
+                                       uniform, all_lj, mode)
+            ref = cell_pair.cell_pair_forces_cell_ref(*ops, dims, uniform,
+                                                      all_lj, mode)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                                       atol=_tol(ref))
+    big = torch.zeros((27, 600, 4), device="cuda")
+    with pytest.raises(ValueError, match="227 KiB"):
+        cell_pair.cell_cells(big, torch.zeros(27, dtype=torch.int32,
+                                              device="cuda"),
+                             ops[2].cuda(), ops[3].cuda(), (3, 3, 3), True,
+                             True, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_npt_run_matches_cpu(k2_melts):
+    """20 NVE steps under the Berendsen barostat on the 2x2x2 grid (K2 in
+    its force and virial modes), on the card and on the CPU from one
+    state: the box and the positions agree to f32 rounding."""
+    built, _, st = k2_melts["grid222"]
+    cfg = built.cfg
+    assert cfg.barostat == "br"
+    n0 = cell_pair.K2.launches
+    c, g = st, st.to("cuda")
+    spec_g = built.spec.to("cuda")
+    for _ in range(20):
+        c = integrate.md_step(built.spec, cfg, c)
+        g = integrate.md_step(spec_g, cfg, g)
+    assert cell_pair.K2.launches == n0 + 40
+    assert not torch.equal(c.box, st.box)
+    torch.testing.assert_close(g.box.cpu(), c.box, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-4)
+    p = integrate.virial_pressure(spec_g, cfg, g)
+    assert torch.isfinite(p) and p.device.type == "cuda"

@@ -90,26 +90,33 @@ def test_builders_default_to_the_card():
 
 
 def test_kernel_build_flags():
-    cmd = _kernels.nvcc_command("nvcc", cell_pair.K1.source, Path("x.so"))
-    flags = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in flags
-    assert "--fmad=false" in cmd
-    for bad in ("fast_math", "fast-math", "--ftz=true", "--prec-div=false",
-                "--prec-sqrt=false"):
-        assert bad not in flags
+    sources = {k.source for k in cell_pair.KERNELS}
+    assert {s.name for s in sources} == {"cell_pair.cu", "cell_pair_cheb.cu",
+                                         "cell_pair_cell.cu"}
+    for source in sources:
+        cmd = _kernels.nvcc_command("nvcc", source, Path("x.so"))
+        flags = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert "--fmad=false" in cmd
+        for bad in ("fast_math", "fast-math", "--ftz=true",
+                    "--prec-div=false", "--prec-sqrt=false"):
+            assert bad not in flags
     for k in cell_pair.KERNELS:
         assert k.source.is_file()
         assert k.library_path().parent == _kernels.BUILD_DIR
         assert 'extern "C" int %s(' % k.symbol in k.source.read_text()
-    # one launch count per mode, K1c and K1e on one entry point
-    assert len({id(k) for k in cell_pair.KERNELS}) == 4
+    # one launch count per mode: K1 and its virial channel K1b on one entry
+    # point, K1c and K1e on another, K2 its own
+    assert len({id(k) for k in cell_pair.KERNELS}) == 6
+    assert cell_pair.K1.symbol == cell_pair.K1B.symbol
     assert cell_pair.K1C.symbol == cell_pair.K1E.symbol
+    assert cell_pair.K2.source.name == "cell_pair_cell.cu"
 
 
 def test_kernel_source_rounds_half_to_even():
     """``jnp.round`` rounds half to even: the kernel's minimum image must use
     rintf, never roundf (half away from zero)."""
-    for k in (cell_pair.K1, cell_pair.K1C):
+    for k in (cell_pair.K1, cell_pair.K1C, cell_pair.K2):
         src = k.source.read_text()
         assert "rintf(" in src and "roundf(" not in src
     # the well piece's r is the correctly rounded sqrtf, never rsqrtf
@@ -150,6 +157,26 @@ def test_wrapper_takes_plain_version_on_cpu_only():
                                                dims, True, True, 0)
     with pytest.raises(ValueError, match="no version"):
         cell_pair.colt_cells(cells.to("meta"), counts, box, params, dims,
+                             True, True, 0)
+
+
+def test_k2_wrapper_takes_plain_version_on_cpu_only():
+    """K2: CPU tensors take the plain version (no launch counted), the CUDA
+    entry refuses CPU tensors; on a full grid plain K2 is plain K1."""
+    (cells, counts, box, params), dims = _tiny_operands()
+    n0 = cell_pair.K2.launches
+    out = cell_pair.cell_cells(cells, counts, box, params, dims, True, True,
+                               cell_pair.CH3_VIRIAL)
+    assert out.shape == cells.shape and torch.isfinite(out).all()
+    assert cell_pair.K2.launches == n0
+    torch.testing.assert_close(out, cell_pair.colt_cells(
+        cells, counts, box, params, dims, True, True, cell_pair.CH3_VIRIAL),
+        rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cell_pair.cell_pair_forces_cell_kernel(cells, counts, box, params,
+                                               dims, True, True, 0)
+    with pytest.raises(ValueError, match="no version"):
+        cell_pair.cell_cells(cells.to("meta"), counts, box, params, dims,
                              True, True, 0)
 
 

@@ -5,8 +5,10 @@ config dict and nested dicts of numpy arrays; ``from_numpy`` is its
 inverse.  ``tree_to_numpy`` flattens any dataclass tree whose leaves
 convert with ``np.asarray`` — the reference's dataclasses included — so a
 test can hand a reference state to the port without this module importing
-jax.  A leaf the port does not model (the reference's PRNG ``key`` and the
-config's ``mesh``) is dropped on the way in.
+jax.  A leaf the port does not model (the reference's PRNG ``key``) is
+dropped on the way in, and so is the config's ``mesh`` either way: it
+names a process's own devices or process group, and
+``parallel.sharding.meshed_cfg`` puts the rank's mesh back.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def tree_to_numpy(obj):
 
 def config_to_dict(cfg) -> dict:
     """Static config fields the port models (``mesh`` is dropped)."""
-    names = {f.name for f in dataclasses.fields(EngineConfig)}
+    names = {f.name for f in dataclasses.fields(EngineConfig)} - {"mesh"}
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
             if f.name in names}
 

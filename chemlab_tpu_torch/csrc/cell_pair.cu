@@ -27,6 +27,16 @@
 //   params (5, T, T)     sigma, epsilon, cutoff^2, shift, is_lj
 //   out    (C, cap, 4)   [fx, fy, fz, ch3]; ch3 = 0 (mode 0), half the pair
 //                        energy (mode 1) or half the pair virial (mode 2)
+//
+// K1f, the x_halo mode (pallas_pair.py:682-699, 755-756, run per slab by
+// chemlab_tpu/engine/pallas_halo.py): cells holds a slab of nx = w + 2
+// x-layers, the w inner layers with one halo layer on each side.  The grid
+// runs over the w * ny * nz inner cells only, the x neighbour is cx + dx
+// with no wrap (the halo layers already hold the periodic neighbours), y
+// and z still wrap, and out is (w * ny * nz, cap, 4), one row per inner
+// slot.  The 27 cells are visited in K1's order and each pair runs K1's
+// op sequence, so the D slabs' outputs laid side by side equal K1's output
+// on the full grid bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -36,23 +46,24 @@ __global__ void cell_pair_colt_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
-    int uniform_lj, int all_lj, int ch3_mode) {
+    int uniform_lj, int all_lj, int ch3_mode, int x_halo) {
   extern __shared__ float4 smem[];
   float4* rows = smem;                                   // cap rows
   float* par = reinterpret_cast<float*>(smem + cap);    // 5 * T * T
   const int tt = n_types * n_types;
   for (int k = threadIdx.x; k < 5 * tt; k += blockDim.x) par[k] = params[k];
 
-  const int c = blockIdx.x;
+  const int c = blockIdx.x;                  // output cell
+  const int ci = x_halo ? c + ny * nz : c;   // the same cell in `cells`
   const int i = threadIdx.x;
-  const int cx = c / (ny * nz);
-  const int cy = (c / nz) % ny;
-  const int cz = c % nz;
+  const int cx = ci / (ny * nz);
+  const int cy = (ci / nz) % ny;
+  const int cz = ci % nz;
   const float bx = box[0], by = box[1], bz = box[2];
   const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
 
   const bool own = i < cap;
-  const float4 xi = own ? cells[c * cap + i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 xi = own ? cells[ci * cap + i] : make_float4(0.f, 0.f, 0.f, 0.f);
   const bool vi = xi.w > 0.5f;
   const int ti = max(static_cast<int>(xi.w) - 1, 0);
 
@@ -60,7 +71,8 @@ __global__ void cell_pair_colt_kernel(
   for (int dx = -1; dx <= 1; ++dx) {
     for (int dy = -1; dy <= 1; ++dy) {
       for (int dz = -1; dz <= 1; ++dz) {
-        const int nc = (((cx + dx + nx) % nx) * ny + (cy + dy + ny) % ny) * nz
+        const int ncx = x_halo ? cx + dx : (cx + dx + nx) % nx;
+        const int nc = (ncx * ny + (cy + dy + ny) % ny) * nz
                        + (cz + dz + nz) % nz;
         const int cnt = counts[nc];
         __syncthreads();  // previous cell's rows are no longer read
@@ -126,8 +138,8 @@ extern "C" int cell_pair_colt(const void* cells, const void* counts,
                               const void* box, const void* params, void* out,
                               int nx, int ny, int nz, int cap, int n_types,
                               int uniform_lj, int all_lj, int ch3_mode,
-                              void* stream) {
-  const int n_cells = nx * ny * nz;
+                              int x_halo, void* stream) {
+  const int n_cells = (x_halo ? nx - 2 : nx) * ny * nz;
   const int threads = ((cap + 31) / 32) * 32;
   const size_t shmem = static_cast<size_t>(cap) * sizeof(float4)
                        + 5 * static_cast<size_t>(n_types) * n_types * sizeof(float);
@@ -136,6 +148,6 @@ extern "C" int cell_pair_colt(const void* cells, const void* counts,
       static_cast<const float4*>(cells), static_cast<const int*>(counts),
       static_cast<const float*>(box), static_cast<const float*>(params),
       static_cast<float4*>(out), nx, ny, nz, cap, n_types, uniform_lj, all_lj,
-      ch3_mode);
+      ch3_mode, x_halo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,6 +57,12 @@
 //   out    (C, cap, 4)      [fx, fy, fz, ch3]; ch3 = 0 (mode 0), half the
 //                           tabulated pair energy (mode 1) or half the pair
 //                           virial (mode 2)
+//
+// K1f in these modes (x_halo, as in cell_pair.cu): cells holds a slab of
+// nx = w + 2 x-layers; the grid runs over the w * ny * nz inner cells, the
+// x neighbour is cx + dx with no wrap, y and z wrap, and out has one row
+// per inner slot.  Same visiting order and op sequence as the full grid,
+// so the slabs laid side by side equal K1c/K1d/K1e's output bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -112,7 +118,7 @@ __global__ void cell_pair_cheb_kernel(
     const int* __restrict__ tmap_g, const int* __restrict__ tmap_b_g,
     const float* __restrict__ xmat_g, const float* __restrict__ coef_g,
     float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
-    int n_rows, int kw, int ko, int ch3_mode) {
+    int n_rows, int kw, int ko, int ch3_mode, int x_halo) {
   extern __shared__ float4 smem[];
   const int tt = n_types * n_types;
   const int n_p = 2 * kw + 2 * ko + 6;
@@ -134,17 +140,18 @@ __global__ void cell_pair_cheb_kernel(
     }
   }
 
-  const int c = blockIdx.x;
+  const int c = blockIdx.x;                  // output cell
+  const int ci = x_halo ? c + ny * nz : c;   // the same cell in `cells`
   const int i = threadIdx.x;
-  const int cx = c / (ny * nz);
-  const int cy = (c / nz) % ny;
-  const int cz = c % nz;
+  const int cx = ci / (ny * nz);
+  const int cy = (ci / nz) % ny;
+  const int cz = ci % nz;
   const float bx = box[0], by = box[1], bz = box[2];
   const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
   const bool want_e = ch3_mode == 1;
 
   const bool own = i < cap;
-  const float4 xi = own ? cells[c * cap + i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 xi = own ? cells[ci * cap + i] : make_float4(0.f, 0.f, 0.f, 0.f);
   const bool vi = xi.w > 0.5f;
   const int ti = max(static_cast<int>(xi.w) - 1, 0);
 
@@ -152,7 +159,8 @@ __global__ void cell_pair_cheb_kernel(
   for (int dx = -1; dx <= 1; ++dx) {
     for (int dy = -1; dy <= 1; ++dy) {
       for (int dz = -1; dz <= 1; ++dz) {
-        const int nc = (((cx + dx + nx) % nx) * ny + (cy + dy + ny) % ny) * nz
+        const int ncx = x_halo ? cx + dx : (cx + dx + nx) % nx;
+        const int nc = (ncx * ny + (cy + dy + ny) % ny) * nz
                        + (cz + dz + nz) % nz;
         const int cnt = counts[nc];
         __syncthreads();  // previous cell's rows are no longer read
@@ -211,8 +219,8 @@ int launch(const void* cells, const void* counts, const void* box,
            const void* cut2, const void* tmap, const void* tmap_b,
            const void* xmat, const void* coef, void* out, int nx, int ny,
            int nz, int cap, int n_types, int n_rows, int kw, int ko,
-           int ch3_mode, void* stream) {
-  const int n_cells = nx * ny * nz;
+           int ch3_mode, int x_halo, void* stream) {
+  const int n_cells = (x_halo ? nx - 2 : nx) * ny * nz;
   const int threads = ((cap + 31) / 32) * 32;
   const size_t tt = static_cast<size_t>(n_types) * n_types;
   const size_t shmem = static_cast<size_t>(cap) * sizeof(float4)
@@ -231,7 +239,7 @@ int launch(const void* cells, const void* counts, const void* box,
       static_cast<const int*>(tmap), static_cast<const int*>(tmap_b),
       static_cast<const float*>(xmat), static_cast<const float*>(coef),
       static_cast<float4*>(out), nx, ny, nz, cap, n_types, n_rows, kw, ko,
-      ch3_mode);
+      ch3_mode, x_halo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,10 +252,10 @@ extern "C" int cell_pair_cheb(
     const void* cells, const void* counts, const void* box, const void* cut2,
     const void* tmap, const void* tmap_b, const void* xmat, const void* coef,
     void* out, int nx, int ny, int nz, int cap, int n_types, int n_rows,
-    int kw, int ko, int ch3_mode, void* stream) {
+    int kw, int ko, int ch3_mode, int x_halo, void* stream) {
   return launch<false>(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, out,
                        nx, ny, nz, cap, n_types, n_rows, kw, ko, ch3_mode,
-                       stream);
+                       x_halo, stream);
 }
 
 // K1d: table-scalar mode with the two-table blend
@@ -255,8 +263,8 @@ extern "C" int cell_pair_cheb_mix(
     const void* cells, const void* counts, const void* box, const void* cut2,
     const void* tmap, const void* tmap_b, const void* xmat, const void* coef,
     void* out, int nx, int ny, int nz, int cap, int n_types, int n_rows,
-    int kw, int ko, int ch3_mode, void* stream) {
+    int kw, int ko, int ch3_mode, int x_halo, void* stream) {
   return launch<true>(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, out,
                       nx, ny, nz, cap, n_types, n_rows, kw, ko, ch3_mode,
-                      stream);
+                      x_halo, stream);
 }

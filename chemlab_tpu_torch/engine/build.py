@@ -86,7 +86,8 @@ class SimOptions:
     use_pallas: bool | None = None    # None = on: the port's only force path
     bonded_dense: bool | None = None  # None = on
     excl_dense: bool | None = None    # None = on
-    slab_devices: int = 0
+    slab_devices: int = 0  # >1: round the grid's x-layer count down to a
+                           # multiple, for the slab path (cell_pair_halo)
 
 
 @dataclasses.dataclass
@@ -402,8 +403,6 @@ def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
         _not_in_slice("Coulomb", "M10")
     if opts.thermostat not in ("lv", "no"):
         _not_in_slice("thermostat %r" % opts.thermostat, "M12")
-    if opts.slab_devices > 1:
-        _not_in_slice("slab decomposition over devices", "M14")
     if systop.dihedrals or systop.dihedralparams:
         _not_in_slice("dihedrals", "M4")
     if systop.pairs:
@@ -539,6 +538,13 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     has_barostat = opts.barostat != "no" and opts.pressure > 0
     margin = 1.10 if has_barostat else 1.02
     cell_dims = neighbor.choose_cell_grid(box, rc_skin, margin=margin)
+    if opts.slab_devices > 1:
+        # the slab path needs an x-layer count the ranks divide: fewer,
+        # wider layers stay legal (cell edge >= cutoff + skin), as long as
+        # K1 keeps its full 27-cell stencil (reference build.py:1184-1192)
+        nx_r = (cell_dims[0] // opts.slab_devices) * opts.slab_devices
+        if nx_r >= 3:
+            cell_dims = (nx_r,) + tuple(cell_dims[1:])
     has_tab = bool((pair_arrays["pair_kind"] == PAIR_TAB).any())
     if has_tab and not supports_cheb(pair_arrays):
         _not_in_slice("tabulated pairs beside LJ pairs, or capped / lambda "

@@ -24,6 +24,14 @@ K1e takes the per-table rows through the table id (``cheb_ntab == 0``).
 A tabulated system is pure-tabulated (``build.supports_cheb``), so the
 spare channel carries the tabulated energy ``e_tab``.
 
+K1f is K1 (and K1c/K1d/K1e) in the reference's ``x_halo`` mode
+(``pallas_pair.py:682-699, 755-756``), which ``cell_pair_halo`` runs on
+one x-slab per rank: the operand is a slab of w + 2 x-layers (the w inner
+layers and one halo layer on each side), the sum runs over the inner
+cells only, the x neighbour is indexed without a wrap, and the raw
+(w * ny * nz, cap, 4) slot rows come back.  Its launches have their own
+counts, ``K1F`` (LJ) and ``K1F_CHEB`` / ``K1F_CHEB_MIX`` (Chebyshev).
+
 ``colt_cells``, ``cheb_cells`` and ``cell_cells`` are the kernels'
 wrappers.  A CPU tensor takes the plain torch version; a CUDA tensor
 launches the hand-written kernel in ``csrc/cell_pair.cu``,
@@ -48,23 +56,33 @@ from .spec import MIX_OBS, PAIR_LJ, PAIR_TAB
 # ch3 channel of the kernel's [fx, fy, fz, ch3] rows
 CH3_NONE, CH3_ENERGY, CH3_VIRIAL = 0, 1, 2
 
-# K1 and its virial channel K1b share an entry point, each with its own
-# launch count (the pressure pass of an NPT step launches K1b)
-_COLT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# K1, its virial channel K1b and its slab mode K1f share an entry point,
+# each with its own launch count (the pressure pass of an NPT step launches
+# K1b, a rank of the slab decomposition K1f)
+_COLT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 K1 = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 K1B = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
+K1F = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 
 # the Chebyshev modes, one source: K1c and K1e share the unblended entry
 # point (they differ only in the map and the pack), each with its own count
-_CHEB_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_CHEB_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 K1C = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
 K1D = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
                           _CHEB_ARGS)
 K1E = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
+# K1f in the Chebyshev modes: K1c/K1e's entry point and K1d's
+K1F_CHEB = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb",
+                               _CHEB_ARGS)
+K1F_CHEB_MIX = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
+                                   _CHEB_ARGS)
 K2 = _kernels.CudaKernel(
     "cell_pair_cell.cu", "cell_pair_cell",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-KERNELS = (K1, K1B, K1C, K1D, K1E, K2)
+BY_NAME = {"K1": K1, "K1b": K1B, "K1c": K1C, "K1d": K1D, "K1e": K1E,
+           "K2": K2, "K1f": K1F, "K1f-cheb": K1F_CHEB,
+           "K1f-cheb-mix": K1F_CHEB_MIX}
+KERNELS = tuple(BY_NAME.values())
 
 
 def pack_rows(pos, type_id, active=None):
@@ -94,40 +112,50 @@ def colt_operands(packed, buckets, n_cells: int):
     return cells.contiguous(), counts
 
 
-def stencil_table(dims) -> np.ndarray:
+def stencil_table(dims, x_halo: bool = False) -> np.ndarray:
     """(C, S) neighbour cell ids over the deduplicated stencil, S <= 27
     (reference: ``pallas_pair.stencil_table``); on a full grid the 27
-    offsets come in the kernels' loop order dx, dy, dz in (-1, 0, 1)."""
+    offsets come in the kernels' loop order dx, dy, dz in (-1, 0, 1).
+    With ``x_halo`` (K1f), ``dims`` is a slab of nx = w + 2 layers: the rows
+    are its w * ny * nz inner cells and x is offset without a wrap."""
     offs = neighbor_cell_offsets(dims)
     nx, ny, nz = (int(d) for d in dims)
-    ids = np.arange(nx * ny * nz)
+    if x_halo:
+        ids = np.arange((nx - 2) * ny * nz) + ny * nz
+    else:
+        ids = np.arange(nx * ny * nz)
     cx, cy, cz = ids // (ny * nz), (ids // nz) % ny, ids % nz
     out = np.empty((len(ids), len(offs)), np.int32)
     for s, (dx, dy, dz) in enumerate(offs):
-        out[:, s] = (((cx + dx) % nx) * ny + (cy + dy) % ny) * nz \
-            + (cz + dz) % nz
+        # the offsets are residues mod dims: nx - 1 stands for -1
+        x = cx + (dx + 1) % nx - 1 if x_halo else (cx + dx) % nx
+        out[:, s] = (x * ny + (cy + dy) % ny) * nz + (cz + dz) % nz
     return out
 
 
-def stencil_pairs(cells, box, dims):
+def stencil_pairs(cells, box, dims, x_halo: bool = False):
     """Every slot of each cell against every slot of its S neighbour cells
     (the deduplicated stencil), in the kernels' op order: (minimum-image d
-    per axis, r2 summed x, y, z, the valid-pair mask, the (C, S*cap, 4)
-    neighbour rows)."""
-    C, cap, _ = cells.shape
-    nbr = torch.from_numpy(stencil_table(dims)).to(cells.device).long()
-    xj = cells[nbr].reshape(C, -1, 4)
+    per axis, r2 summed x, y, z, the valid-pair mask, the (C', cap, 4) rows
+    of the summed cells (all C, or the inner cells of an ``x_halo`` slab),
+    the (C', S*cap, 4) neighbour rows)."""
+    nbr = torch.from_numpy(stencil_table(dims, x_halo)).to(
+        cells.device).long()
+    n_out = nbr.shape[0]
+    first = int(dims[1]) * int(dims[2]) if x_halo else 0
+    xi = cells[first:first + n_out]
+    xj = cells[nbr].reshape(n_out, -1, 4)
     ibox = 1.0 / box
     dr = []
     r2 = None
     for ax in range(3):
-        d = cells[:, :, None, ax] - xj[:, None, :, ax]
+        d = xi[:, :, None, ax] - xj[:, None, :, ax]
         d = d - box[ax] * torch.round(d * ibox[ax])
         dr.append(d)
         r2 = d * d if r2 is None else r2 + d * d
-    valid = ((cells[:, :, 3] > 0.5)[:, :, None]
+    valid = ((xi[:, :, 3] > 0.5)[:, :, None]
              & (xj[:, :, 3] > 0.5)[:, None, :] & (r2 > 1e-12))
-    return dr, r2, valid, xj
+    return dr, r2, valid, xi, xj
 
 
 def type_pairs(cells, xj, n_types: int):
@@ -138,19 +166,22 @@ def type_pairs(cells, xj, n_types: int):
 
 
 def cell_pair_forces_cell_ref(cells, counts, box, params, dims,
-                              uniform_lj: bool, all_lj: bool, ch3_mode: int):
+                              uniform_lj: bool, all_lj: bool, ch3_mode: int,
+                              x_halo: bool = False):
     """Plain torch K2: every slot i of a cell against every slot of its S
     deduplicated neighbour cells, vectorised over (C, cap, S*cap), in
     stencil order then slot order.  Returns the kernel's (C, cap, 4)
     [fx, fy, fz, ch3] rows; ``counts`` is unused here (empty slots are zero
-    rows, which the validity test drops)."""
-    dr, r2, valid, xj = stencil_pairs(cells, box, dims)
+    rows, which the validity test drops).  With ``x_halo`` (plain K1f) the
+    cells are a slab of ``dims`` = (w + 2, ny, nz) and the rows are those
+    of its w * ny * nz inner cells."""
+    dr, r2, valid, xi, xj = stencil_pairs(cells, box, dims, x_halo)
     r2s = torch.where(valid, r2, 1.0)
     if uniform_lj:
         sig, eps, cut2, shift = (params[k, 0, 0] for k in range(4))
         in_cut = valid & (r2s < cut2)
     else:
-        pid = type_pairs(cells, xj, params.shape[1])
+        pid = type_pairs(xi, xj, params.shape[1])
         flat = params.reshape(5, -1)
         sig, eps, cut2, shift = (flat[k][pid] for k in range(4))
         in_cut = valid & (r2s < cut2)
@@ -188,8 +219,9 @@ def _check(t, name, dtype, shape=None):
 
 
 def _check_grid(cells, dims):
-    """The kernels' common launch conditions on the (C, cap, 4) cell rows;
-    returns the grid (nx, ny, nz)."""
+    """The kernels' common launch conditions on the (C, cap, 4) cell rows
+    (a full grid, or a K1f slab of nx = w + 2 layers); returns the grid
+    (nx, ny, nz)."""
     nx, ny, nz = (int(d) for d in dims)
     C, cap, _ = cells.shape
     if C != nx * ny * nz or min(nx, ny, nz) < 3:
@@ -206,10 +238,20 @@ def _check_grid(cells, dims):
     return nx, ny, nz
 
 
+def _out_rows(cells, dims, x_halo: bool):
+    """The kernels' (C', cap, 4) output: every cell, or the inner cells of
+    a K1f slab."""
+    nx, ny, nz = (int(d) for d in dims)
+    n_out = (nx - 2 if x_halo else nx) * ny * nz
+    return torch.empty((n_out,) + tuple(cells.shape[1:]), dtype=cells.dtype,
+                       device=cells.device)
+
+
 def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
                                  uniform_lj: bool, all_lj: bool,
-                                 ch3_mode: int):
-    """Launch the CUDA K1 on the current stream (CUDA tensors only)."""
+                                 ch3_mode: int, x_halo: bool = False):
+    """Launch the CUDA K1 (K1f with ``x_halo``) on the current stream (CUDA
+    tensors only)."""
     nx, ny, nz = _check_grid(cells, dims)
     C, cap, _ = cells.shape
     n_types = params.shape[1]
@@ -223,25 +265,27 @@ def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
     _check(counts, "counts", torch.int32, (C,))
     _check(box, "box", torch.float32, (3,))
     _check(params, "params", torch.float32, (5, n_types, n_types))
-    out = torch.empty_like(cells)
+    out = _out_rows(cells, dims, x_halo)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel = K1B if ch3_mode == CH3_VIRIAL else K1
+    kernel = K1F if x_halo else K1B if ch3_mode == CH3_VIRIAL else K1
     kernel.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
                   params.data_ptr(), out.data_ptr(), nx, ny, nz, cap, n_types,
-                  int(uniform_lj), int(all_lj), int(ch3_mode), stream)
+                  int(uniform_lj), int(all_lj), int(ch3_mode), int(x_halo),
+                  stream)
     return out
 
 
 def colt_cells(cells, counts, box, params, dims, uniform_lj: bool,
-               all_lj: bool, ch3_mode: int):
-    """K1 wrapper: the plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors."""
+               all_lj: bool, ch3_mode: int, x_halo: bool = False):
+    """K1 (K1f with ``x_halo``) wrapper: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
     if cells.device.type == "cuda":
         return cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
-                                            uniform_lj, all_lj, ch3_mode)
+                                            uniform_lj, all_lj, ch3_mode,
+                                            x_halo)
     if cells.device.type == "cpu":
         return cell_pair_forces_colt_ref(cells, counts, box, params, dims,
-                                         uniform_lj, all_lj, ch3_mode)
+                                         uniform_lj, all_lj, ch3_mode, x_halo)
     raise ValueError("K1 has no version for device %s" % cells.device)
 
 
@@ -364,16 +408,18 @@ def _cheb_rows_eval(coef, tmap_flat, pid, r2s, kw, ko, want_e):
 
 
 def cell_pair_forces_cheb_ref(cells, counts, box, cut2, tmap, tmap_b, xmat,
-                              coef, dims, kw: int, ko: int, ch3_mode: int):
+                              coef, dims, kw: int, ko: int, ch3_mode: int,
+                              x_halo: bool = False):
     """Plain torch K1c/K1d/K1e, vectorised over (C, cap, 27*cap) like the
     LJ version: per pair the minimum image and r2 of the LJ mode, the fit
     row(s) of the type pair's map, ``eval_planes``, the blend
     ``x*g_a + (1-x)*g_b`` when ``tmap_b`` is given, and the cut
     ``valid & (r2s < cut2)``.  ch3 carries half the tabulated energy
-    (mode 1) or half the pair virial (mode 2)."""
-    dr, r2, valid, xj = stencil_pairs(cells, box, dims)
+    (mode 1) or half the pair virial (mode 2).  ``x_halo`` as in the LJ
+    version (plain K1f)."""
+    dr, r2, valid, xi, xj = stencil_pairs(cells, box, dims, x_halo)
     r2s = torch.where(valid, r2, 1.0)
-    pid = type_pairs(cells, xj, cut2.shape[0])
+    pid = type_pairs(xi, xj, cut2.shape[0])
     in_cut = valid & (r2s < cut2.reshape(-1)[pid])
     want_e = ch3_mode == CH3_ENERGY
     g, e = _cheb_rows_eval(coef, tmap.reshape(-1), pid, r2s, kw, ko, want_e)
@@ -394,17 +440,21 @@ def cell_pair_forces_cheb_ref(cells, counts, box, cut2, tmap, tmap_b, xmat,
     return torch.stack(fxyz + [ch3], dim=-1)
 
 
-def cheb_kernel_for(tmap_b, ntab: int):
+def cheb_kernel_for(tmap_b, ntab: int, x_halo: bool = False):
     """The kernel handle (entry point and launch count) of a Chebyshev
     mode."""
+    if x_halo:
+        return K1F_CHEB_MIX if tmap_b is not None else K1F_CHEB
     return K1D if tmap_b is not None else (K1C if ntab else K1E)
 
 
 def cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap, tmap_b,
                                  xmat, coef, dims, kw: int, ko: int,
-                                 ch3_mode: int, ntab: int = 1):
+                                 ch3_mode: int, ntab: int = 1,
+                                 x_halo: bool = False):
     """Launch the CUDA K1c (``ntab > 0``), K1d (``tmap_b`` given) or K1e
-    (``ntab == 0``) on the current stream (CUDA tensors only)."""
+    (``ntab == 0``), or K1f in that mode with ``x_halo``, on the current
+    stream (CUDA tensors only)."""
     nx, ny, nz = _check_grid(cells, dims)
     C, cap, _ = cells.shape
     n_types = cut2.shape[0]
@@ -433,29 +483,30 @@ def cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap, tmap_b,
             raise ValueError("%s is on %s, cells on %s" % (name, t.device,
                                                           dev))
         _check(t, name, dtype, shape)
-    out = torch.empty_like(cells)
+    out = _out_rows(cells, dims, x_halo)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cheb_kernel_for(tmap_b, ntab).launch(
+    cheb_kernel_for(tmap_b, ntab, x_halo).launch(
         cells.data_ptr(), counts.data_ptr(), box.data_ptr(), cut2.data_ptr(),
         tmap.data_ptr(), 0 if tmap_b is None else tmap_b.data_ptr(),
         0 if xmat is None else xmat.data_ptr(), coef.data_ptr(),
         out.data_ptr(), nx, ny, nz, cap, n_types, n_rows, kw, ko,
-        int(ch3_mode), stream)
+        int(ch3_mode), int(x_halo), stream)
     return out
 
 
 def cheb_cells(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,
-               kw: int, ko: int, ch3_mode: int, ntab: int = 1):
-    """K1c/K1d/K1e wrapper: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+               kw: int, ko: int, ch3_mode: int, ntab: int = 1,
+               x_halo: bool = False):
+    """K1c/K1d/K1e (K1f in those modes with ``x_halo``) wrapper: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if cells.device.type == "cuda":
         return cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap,
                                             tmap_b, xmat, coef, dims, kw, ko,
-                                            ch3_mode, ntab)
+                                            ch3_mode, ntab, x_halo)
     if cells.device.type == "cpu":
         return cell_pair_forces_cheb_ref(cells, counts, box, cut2, tmap,
                                          tmap_b, xmat, coef, dims, kw, ko,
-                                         ch3_mode)
+                                         ch3_mode, x_halo)
     raise ValueError("K1 has no version for device %s" % cells.device)
 
 
@@ -481,24 +532,43 @@ def cell_pair_forces(pos, type_id, active, box, buckets, slot_of, dims, spec,
                          % (cap, dims))
     cells, counts = colt_operands(pack_rows(pos, type_id, active), buckets,
                                   n_cells)
+    out_flat = pair_rows(cells, counts, box, dims, spec, n_types, uniform_lj,
+                         all_lj, want_energy, want_virial, cheb_kw, cheb_ko,
+                         cheb_ntab, cheb_mix, obs_x, lj_kernel=legal)
+    in_grid = slot_of < n_cells * cap
+    rows_f = out_flat[torch.where(in_grid, slot_of, 0).long()]
+    force = torch.where(in_grid[:, None], rows_f[:, :3], 0.0)
+    return pair_result(force, torch.sum(out_flat[:, 3]), want_virial,
+                       cheb_kw)
+
+
+def pair_rows(cells, counts, box, dims, spec, n_types: int, uniform_lj: bool,
+              all_lj: bool, want_energy: bool, want_virial: bool,
+              cheb_kw: int, cheb_ko: int, cheb_ntab: int, cheb_mix: bool,
+              obs_x, lj_kernel: bool = True, x_halo: bool = False):
+    """The pair kernel's flat (rows, 4) slot output on these cell operands:
+    the Chebyshev modes when ``cheb_kw > 0``, else LJ through K1
+    (``lj_kernel``) or K2; ``x_halo`` runs K1f on a slab."""
     mode = (CH3_VIRIAL if want_virial
             else CH3_ENERGY if want_energy else CH3_NONE)
     if cheb_kw:
         cut2, tmap, tmap_b, xmat, coef = cheb_operands(
             spec, n_types, cheb_ko, cheb_ntab, cheb_mix, obs_x)
         out = cheb_cells(cells, counts, box.contiguous(), cut2, tmap, tmap_b,
-                         xmat, coef, dims, cheb_kw, cheb_ko, mode, cheb_ntab)
+                         xmat, coef, dims, cheb_kw, cheb_ko, mode, cheb_ntab,
+                         x_halo)
     else:
-        lj_cells = colt_cells if legal else cell_cells
-        out = lj_cells(cells, counts, box.contiguous(),
-                       pair_params(spec, n_types), dims, uniform_lj, all_lj,
-                       mode)
-    out_flat = out.reshape(n_cells * cap, 4)
-    in_grid = slot_of < n_cells * cap
-    rows_f = out_flat[torch.where(in_grid, slot_of, 0).long()]
-    force = torch.where(in_grid[:, None], rows_f[:, :3], 0.0)
-    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-    s3 = torch.sum(out_flat[:, 3])
+        args = (cells, counts, box.contiguous(), pair_params(spec, n_types),
+                dims, uniform_lj, all_lj, mode)
+        out = colt_cells(*args, x_halo) if lj_kernel else cell_cells(*args)
+    return out.reshape(-1, 4)
+
+
+def pair_result(force, s3, want_virial: bool, cheb_kw: int):
+    """``cell_pair_forces``' return tuple (force, e_lj, e_tab, w): the
+    spare-channel sum ``s3`` is the virial, the tabulated or the LJ pair
+    energy."""
+    zero = torch.zeros((), dtype=force.dtype, device=force.device)
     if want_virial:
         return force, zero, zero, s3
     if cheb_kw:
@@ -586,9 +656,19 @@ def flat_correction(spec, n_types: int, pos, box, type_id, excl, active,
     d, f_s, e_lj, e_tab, r2s, valid = _pair_eval(
         spec, n_types, packed[ic], packed[jc], box, valid, tab)
     f_over_r = f_s[:, None] * d
-    n = pos.shape[0]
-    force = torch.zeros((n + 1, 3), dtype=pos.dtype, device=pos.device)
-    force.index_add_(0, torch.where(valid, ic, n), f_over_r)
-    force.index_add_(0, torch.where(valid, jc, n), -f_over_r)
+    n, m = pos.shape[0], excl.shape[0]
+    # One index_put_ with accumulate: it sorts the destinations (stably)
+    # and sums each one's terms in a fixed order, the i ends' then the j
+    # ends', so every call gives the same bits, on the card too (CUDA's
+    # index_add_ adds duplicates atomically, in no fixed order, and would
+    # let replicas of the state drift apart).  Each padding end gets a
+    # spare row of its own: one shared sentinel row would be a run of
+    # thousands of duplicates, which the card sums serially.
+    spare = n + torch.arange(2 * m, device=pos.device)
+    dest = torch.cat([torch.where(valid, ic, spare[:m]),
+                      torch.where(valid, jc, spare[m:])])
+    force = torch.zeros((n + 2 * m, 3), dtype=pos.dtype, device=pos.device)
+    force.index_put_((dest,), torch.cat([f_over_r, -f_over_r]),
+                     accumulate=True)
     w = torch.sum(f_s * r2s)
     return force[:n], torch.sum(e_lj), torch.sum(e_tab), w

@@ -4,7 +4,8 @@ Port of ``chemlab_tpu/engine/integrate.py`` for the slice: ``compute_forces``
 on the cell-tile path (kernel sum minus the excluded-pair correction, plus
 bonded forces, plus the global CapForce; LJ or Chebyshev-tabulated pairs,
 with the conversion observables computed on the device when a func-10
-blend reads them), ``_langevin_adjust``, ``virial_pressure`` in its kernel
+blend reads them; the kernel sum split by x-slab over the ranks of a mesh
+when ``cell_pair_halo.supports`` the config), ``_langevin_adjust``, ``virial_pressure`` in its kernel
 branch (the kernel's pair-virial channel minus the excluded pairs' share,
 minus the bonded strain derivative), ``_barostat_step`` (Berendsen and the
 Langevin piston), ``maybe_rebuild_neighbors`` in its lazy-row branch, and
@@ -22,7 +23,8 @@ import dataclasses
 
 import torch
 
-from . import bonded_forces, cell_pair, excl_dense, neighbor, observables
+from . import (bonded_forces, cell_pair, cell_pair_halo, excl_dense,
+               neighbor, observables)
 
 
 def _dense_of(cfg, state):
@@ -48,6 +50,21 @@ def _excl_correction(spec, cfg, state, obs_x):
         **kwargs)
 
 
+def _pair_sum(spec, cfg, state, **kw):
+    """The unexcluded all-pairs sum: slab by slab over the mesh's ranks
+    (K1f) where the slab path takes the config, else on the whole grid."""
+    args = (state.pos, state.type_id, state.active, state.box,
+            state.nbr.buckets, state.nbr.slot_of, cfg.cell_dims, spec,
+            cfg.n_types)
+    kw.update(uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj,
+              cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
+              cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix)
+    if cell_pair_halo.supports(cfg):
+        return cell_pair_halo.cell_pair_forces_halo(*args, mesh=cfg.mesh,
+                                                    **kw)
+    return cell_pair.cell_pair_forces(*args, **kw)
+
+
 def compute_forces(spec, cfg, state, want_energy: bool = True):
     """All conservative forces + per-term potential energies + conversions.
 
@@ -59,12 +76,9 @@ def compute_forces(spec, cfg, state, want_energy: bool = True):
     else:
         obs_x = torch.zeros(spec.obs_total.shape[0], dtype=torch.float32,
                             device=state.pos.device)
-    f_all, e_lj_all, e_tab_all, _ = cell_pair.cell_pair_forces(
-        state.pos, state.type_id, state.active, state.box, state.nbr.buckets,
-        state.nbr.slot_of, cfg.cell_dims, spec, cfg.n_types,
-        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj, want_energy=want_energy,
-        cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
-        cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix, obs_x=obs_x)
+    f_all, e_lj_all, e_tab_all, _ = _pair_sum(spec, cfg, state,
+                                              want_energy=want_energy,
+                                              obs_x=obs_x)
     f_ex, e_lj_ex, e_tab_ex, _ = _excl_correction(spec, cfg, state, obs_x)
     f_pair = f_all - f_ex
     e_pair = {"lj": e_lj_all - e_lj_ex, "lj-tab": e_tab_all - e_tab_ex,
@@ -99,15 +113,12 @@ def virial_pressure(spec, cfg, state):
     branch of ``integrate.virial_pressure``).  W is the pair virial from
     the kernel's virial channel (K1/K1b or K2; K1c/K1d/K1e on a tabulated
     system) minus the excluded pairs' share, minus the bonded strain
-    derivative dU_bonded/ds.  The row path's branch waits for M10."""
+    derivative dU_bonded/ds; on a mesh the kernel's channel is summed slab
+    by slab (K1f).  The row path's branch waits for M10."""
     obs_x = (observables.conversions(spec, state.type_id, state.chem_state,
                                      state.active) if cfg.cheb_mix else None)
-    _, _, _, w_all = cell_pair.cell_pair_forces(
-        state.pos, state.type_id, state.active, state.box, state.nbr.buckets,
-        state.nbr.slot_of, cfg.cell_dims, spec, cfg.n_types,
-        uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj, want_virial=True,
-        cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
-        cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix, obs_x=obs_x)
+    _, _, _, w_all = _pair_sum(spec, cfg, state, want_virial=True,
+                               obs_x=obs_x)
     _, _, _, w_ex = _excl_correction(spec, cfg, state, obs_x)
     w = (w_all - w_ex) - bonded_forces.bonded_strain_derivative(
         spec, cfg, state.pos, state.box, state.type_id, state.bonds,

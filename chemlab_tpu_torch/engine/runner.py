@@ -10,6 +10,14 @@ The rebuild trigger is read every step (``integrate.maybe_rebuild_neighbors``).
 The Langevin noise (and the Langevin barostat's draw) comes from a
 ``torch.Generator`` that the caller owns and passes to ``run_block``
 (``make_generator``).
+
+Under a mesh (``parallel.sharding``) every rank holds the whole state and
+runs the same step; only the pair sum is split by slab.  The host reads
+(the rebuild trigger, the reaction gate) then agree on every rank as long
+as the replicas do, which takes the same seed for every rank's generator
+and float sums that give the same bits on every call.  ``run_block``
+checks at each block's end that the replicas still agree
+(``check_replicas``) and raises if they do not.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from . import bonded_dense, excl_dense, integrate, observables, reactions
 
@@ -80,14 +89,62 @@ def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
 
 
 def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None):
-    """Run ``n_steps`` steps (one outer-loop iteration)."""
+    """Run ``n_steps`` steps (one outer-loop iteration); under a mesh, then
+    check that the ranks' replicas still agree."""
     on = cfg.has_reactions and bool(state.reactions_on)
     step0 = int(state.step)
     for k in range(n_steps):
         fire = on and (step0 + k + 1) % cfg.reaction_interval == 0
         state = step_with_extensions(spec, cfg, state, rng_seed, gen=gen,
                                      fire=fire)
+    check_replicas(cfg, state)
     return state
+
+
+def _replica_fields(state):
+    """(name, tensor) of the state the replicas must agree on, in the
+    order ``check_replicas`` names the first that differs."""
+    return [("pos", state.pos), ("vel", state.vel), ("force", state.force),
+            ("box", state.box), ("bonds.idx", state.bonds.idx),
+            ("bonds.valid", state.bonds.valid),
+            ("bonds.lam", state.bonds.lam), ("type_id", state.type_id),
+            ("chem_state", state.chem_state),
+            ("reaction_counts", state.reaction_counts),
+            ("n_excl", state.n_excl)]
+
+
+def _bits_hash(t):
+    """A 0-d int64 hash of a tensor's bits, below 2**62: the sum of each
+    element's bits plus a constant, weighted by 2k + 1 at position k, so
+    any change of one element (one ulp included) changes it."""
+    if t.is_floating_point():
+        v = t.contiguous().view(torch.int32 if t.element_size() == 4
+                                else torch.int64).to(torch.int64)
+    else:
+        v = t.to(torch.int64)
+    v = v.reshape(-1) + 0x5BD1E995
+    w = 2 * torch.arange(v.numel(), dtype=torch.int64, device=v.device) + 1
+    return torch.sum(v * w) & ((1 << 62) - 1)
+
+
+def check_replicas(cfg, state):
+    """Under a mesh of two or more ranks: one ``all_reduce`` (MAX of each
+    field's hash and of its negation, so the MAX and the MIN) tells
+    whether every rank holds the same bits; raises naming the first field
+    that differs.  A no-op without a mesh."""
+    mesh = cfg.mesh
+    if mesh is None or mesh.world_size < 2:
+        return
+    fields = _replica_fields(state)
+    h = torch.stack([_bits_hash(t) for _, t in fields])
+    both = torch.cat([h, -h])
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group)
+    differs = (both[:len(fields)] != -both[len(fields):]).tolist()
+    if any(differs):
+        raise RuntimeError(
+            "the %d ranks' replicas of the state differ, first in %s "
+            "(rank %d)" % (mesh.world_size, fields[differs.index(True)][0],
+                           mesh.rank))
 
 
 def initial_forces(spec, cfg, state):

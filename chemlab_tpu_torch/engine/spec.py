@@ -1,8 +1,9 @@
 """EngineConfig and SimSpec.
 
 Port of ``chemlab_tpu/engine/spec.py``.  ``EngineConfig`` keeps the
-reference's static fields (frozen, hashable) except ``mesh``, which
-belonged to JAX's sharding.  ``SimSpec`` is a dataclass of torch tensors
+reference's static fields (frozen, hashable); its ``mesh`` is the port's
+own, a ``parallel.sharding.SlabMesh`` (the rank's process group) in place
+of the reference's JAX mesh.  ``SimSpec`` is a dataclass of torch tensors
 with the reference's field names, dtypes and shapes; the port's build fills
 every field so a spec can be compared with the reference leaf for leaf,
 although the slice reads only the fields of the reactive LJ melt.
@@ -114,6 +115,9 @@ class EngineConfig:
     angle_irr_cap: int = 0
     excl_offsets: tuple = ()
     excl_irr_cap: int = 0
+    # the rank's SlabMesh (parallel.sharding.meshed_cfg) or None: with two
+    # or more ranks the pair sum is split by x-slab (engine.cell_pair_halo)
+    mesh: object = None
 
 
 T = torch.Tensor

@@ -208,7 +208,9 @@ def build_melt(n_mols: int = 2000, density: float = 0.27, kT: float = 1.0,
                reactive: bool = True, seed: int = 42, device="cuda",
                **opt_overrides):
     """Build the reactive melt on ``device``; returns (BuiltSystem,
-    SystemTopology, Coordinates) like the reference."""
+    SystemTopology, Coordinates) like the reference.  ``opt_overrides``
+    go to ``SimOptions`` (``slab_devices=D`` for the slab path, as in the
+    reference)."""
     top = topfile.parse_lines(_melt_topology_text(n_mols).splitlines(),
                               "<generated>")
     systop = compile_system_topology(top)
@@ -260,7 +262,8 @@ def build_tabulated_melt(n_mols: int = 2000, density: float = 0.27,
                          **opt_overrides):
     """The melt with every nonbonded type pair served by a func-8 table
     (the rim135/dacron workload class); tables go to a fresh temporary
-    directory unless ``table_dir`` holds them."""
+    directory unless ``table_dir`` holds them.  ``opt_overrides`` go to
+    ``SimOptions`` (``slab_devices=D`` for the slab path)."""
     if table_dir is None:
         table_dir = tempfile.mkdtemp(prefix="chemlab_tab_")
         write_lj_pair_tables(table_dir, rough=rough)

@@ -32,7 +32,16 @@ once) and drives the port's paths at 10k particles:
      stepped on the GPU and on the CPU, and the main path: one untimed and
      three timed reactive blocks of the tabulated melt; then one untimed
      and one timed block of the blended melt (K1d) and of the tabulated
-     melt in plane mode (K1e).
+     melt in plane mode (K1e);
+  6. the slab decomposition (K1f): on the 10k LJ melts built with
+     slab_devices=2 (10x11x11) and 4 (8x11x11) and the tabulated and
+     blended melts built with slab_devices=2, K1f on every slab against its
+     plain version in every mode and ch3 channel, the slabs laid side by
+     side against the full-grid K1, K1c, K1d and K1e bit for bit, and the
+     cancellation check; then two gloo ranks of ``parallel.launch``, both
+     on cuda:0, run the reactive LJ melt (one untimed and one timed block),
+     one tabulated block and one NPT pressure, each against one rank from
+     the same state and seed (positions, replicas, launches, pressure).
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -113,27 +122,31 @@ def _no_reference_modules() -> bool:
                    or m.startswith("chemlab_tpu.") for m in sys.modules)
 
 
-def pair_counts(cells, box, cut2, dims):
+def pair_counts(cells, box, cut2, dims, x_halo: bool = False):
     """(candidate pairs the kernel loop visits, pairs inside the cutoff) on
-    these cells: the data-dependent work of one call."""
+    these cells (a K1f slab with ``x_halo``): the data-dependent work of
+    one call."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
 
-    _, r2, valid, xj = cell_pair.stencil_pairs(cells, box, dims)
-    vi = cells[:, :, 3] > 0.5
+    _, r2, valid, xi, xj = cell_pair.stencil_pairs(cells, box, dims, x_halo)
+    vi = xi[:, :, 3] > 0.5
     vj = xj[:, :, 3] > 0.5
     cand = int((vi.sum(1).to(torch.int64) * vj.sum(1)).sum())
-    pid = cell_pair.type_pairs(cells, xj, cut2.shape[0])
+    pid = cell_pair.type_pairs(xi, xj, cut2.shape[0])
     inside = valid & (r2 < cut2.reshape(-1)[pid])
     return cand, int(inside.sum())
 
 
 def bound_ms(cells, small_bytes: int, cand: int, inside: int,
-             ops_pair: int):
+             ops_pair: int, out_rows=None):
     """The least time for the call: each input read once and the output
-    written once over HBM, or its f32 operations over the f32 peak."""
-    n_bytes = 2 * cells.numel() * 4 + cells.shape[0] * 4 + small_bytes
+    (``out_rows`` cells, every cell by default) written once over HBM, or
+    its f32 operations over the f32 peak."""
+    out_rows = cells.shape[0] if out_rows is None else out_rows
+    n_bytes = (cells.numel() + out_rows * cells.shape[1] * 4) * 4 \
+        + cells.shape[0] * 4 + small_bytes
     ops = cand * OPS_CANDIDATE + inside * ops_pair
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -733,6 +746,372 @@ def tab_paths(card: str):
                                        "blended path", 1)
     return [row_c, row_d, row_e], pps
 
+# ---- K1f (the slab decomposition over ranks) ----------------------------------
+
+SLAB_RANKS = 2          # the path's ranks, time-sharing the one card
+K1F_ROWS = {
+    "K1f": ("K1f cell_pair_colt x_halo (LJ, one x-slab)",
+            "chemlab_tpu_torch/csrc/cell_pair.cu"),
+    "K1f-cheb": ("K1f cell_pair_cheb x_halo (Chebyshev modes, one x-slab)",
+                 "chemlab_tpu_torch/csrc/cell_pair_cheb.cu"),
+}
+
+
+def slab_operands(cfg, pos, type_id, active, buckets, n_ranks: int,
+                  rank: int):
+    """Rank ``rank``'s haloed slab of the bucket table, as
+    ``cell_pair_halo`` builds it: (cells, counts, slab dims)."""
+    from chemlab_tpu_torch.engine import cell_pair, cell_pair_halo
+
+    nx, ny, nz = cfg.cell_dims
+    ids = cell_pair_halo.slab_cells(tuple(cfg.cell_dims), n_ranks, rank,
+                                    pos.device)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(pos, type_id, active), buckets[ids], ids.numel())
+    return cells, counts, (nx // n_ranks + 2, ny, nz)
+
+
+def k1f_fns(built, mode: str, obs_x=None, uniform=None, all_lj=None,
+            params=None):
+    """(kernel, plain) row functions of (cells, counts, box, dims, ch3,
+    x_halo) for LJ (``mode`` "K1") or a Chebyshev mode ("K1c", "K1d",
+    "K1e"): K1f with ``x_halo``, else the full-grid K1, K1c, K1d or K1e."""
+    from chemlab_tpu_torch.engine import cell_pair
+
+    cfg, spec = built.cfg, built.spec
+    if mode == "K1":
+        params = (cell_pair.pair_params(spec, cfg.n_types) if params is None
+                  else params)
+        uniform = cfg.uniform_lj if uniform is None else uniform
+        all_lj = cfg.all_lj if all_lj is None else all_lj
+
+        def make(fn):
+            return lambda cells, counts, box, dims, ch3, x_halo: fn(
+                cells, counts, box, params, dims, uniform, all_lj, ch3,
+                x_halo)
+        return (make(cell_pair.cell_pair_forces_colt_kernel),
+                make(cell_pair.cell_pair_forces_colt_ref))
+    ntab = 0 if mode == "K1e" else cfg.cheb_ntab
+    ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko, ntab,
+                                  mode == "K1d", obs_x)
+
+    def kern(cells, counts, box, dims, ch3, x_halo):
+        return cell_pair.cell_pair_forces_cheb_kernel(
+            cells, counts, box, *ops, dims, cfg.cheb_kw, cfg.cheb_ko, ch3,
+            ntab, x_halo)
+
+    def plain(cells, counts, box, dims, ch3, x_halo):
+        return cell_pair.cell_pair_forces_cheb_ref(
+            cells, counts, box, *ops, dims, cfg.cheb_kw, cfg.cheb_ko, ch3,
+            x_halo)
+    return kern, plain
+
+
+def check_k1f(built, state, n_ranks: int, mode: str, obs_x=None,
+              timed: bool = True):
+    """K1f in ``mode`` on each of the ``n_ranks`` slabs of ``state``: against
+    its plain version (every LJ parameter mode, or the Chebyshev mode, in
+    every ch3 channel), and the slabs laid side by side against the
+    full-grid kernel, bit for bit.  With ``timed``, times K1f and its plain
+    version on rank 0's slab and returns (ms, plain_ms, bound_ms, bound_by,
+    largest error against plain)."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+
+    cfg, spec = built.cfg, built.spec
+    slabs = [slab_operands(cfg, state.pos, state.type_id, state.active,
+                           state.nbr.buckets, n_ranks, r)
+             for r in range(n_ranks)]
+    full_cells, full_counts = _cells(built, state)
+    variants = ([dict(uniform=u, all_lj=a, params=(
+                    cell_pair.pair_params(spec, cfg.n_types) if u
+                    else mixed_params(spec, cfg.n_types, not a)))
+                 for u, a in MODES] if mode == "K1" else [{}])
+    worst = 0.0
+    for var in variants:
+        kern, plain = k1f_fns(built, mode, obs_x, **var)
+        label = ("uniform=%d all_lj=%d" % (var["uniform"], var["all_lj"])
+                 if var else mode)
+        for ch3, name in CH3:
+            rows = []
+            for cells, counts, dims in slabs:
+                got = kern(cells, counts, state.box, dims, ch3, True)
+                ref = plain(cells, counts, state.box, dims, ch3, True)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                tol = max(_tol(ref[..., :3]), _tol(ref[..., 3]))
+                if not err <= tol:
+                    raise AssertionError("K1f (%s) disagrees with its plain "
+                                         "version: %.3e > %.3e"
+                                         % (label, err, tol))
+                worst = max(worst, err)
+                rows.append(got)
+            full = kern(full_cells, full_counts, state.box, cfg.cell_dims,
+                        ch3, False)
+            torch.cuda.synchronize()
+            side = torch.cat(rows)
+            diff = (side - full).abs().max().item()
+            print("K1f (%s) on %d slabs of %s x cap %d ch3=%-6s: max|K1f - "
+                  "plain| %.3e; slabs side by side vs the full grid's "
+                  "kernel max|diff| %.3e, bitwise %s"
+                  % (label, n_ranks, cfg.cell_dims, cfg.cell_cap, name,
+                     worst, diff, torch.equal(side, full)))
+            if not torch.equal(side, full):
+                raise AssertionError("the K1f slabs differ from the full "
+                                     "grid's kernel")
+    if not timed:
+        return None
+    kern, plain = k1f_fns(built, mode, obs_x)
+    cells, counts, dims = slabs[0]
+    args = (cells, counts, state.box, dims, cell_pair.CH3_NONE, True)
+    ms = _time_ms(lambda: kern(*args), 50)
+    plain_ms = _time_ms(lambda: plain(*args), 5 if mode == "K1" else 3)
+    full_ms = _time_ms(lambda: kern(full_cells, full_counts, state.box,
+                                    cfg.cell_dims, cell_pair.CH3_NONE,
+                                    False), 50)
+    if mode == "K1":
+        params = cell_pair.pair_params(spec, cfg.n_types)
+        cut2, small, ops_pair = params[2], params.numel() * 4 + 12, OPS_LJ
+    else:
+        ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko,
+                                      cfg.cheb_ntab, mode == "K1d", obs_x)
+        cut2 = ops[0]
+        small = sum(t.numel() * 4 for t in ops if t is not None) + 12
+        ops_pair = _ops_cheb(cfg.cheb_kw, cfg.cheb_ko, mode == "K1d")
+    cand, inside = pair_counts(cells, state.box, cut2, dims, x_halo=True)
+    n_out = (dims[0] - 2) * dims[1] * dims[2]
+    b_ms, b_by = bound_ms(cells, small, cand, inside, ops_pair,
+                          out_rows=n_out)
+    print("K1f (%s) time on slab 0 of %d (%s x cap %d): kernel %.6f ms, "
+          "plain %.4f ms; %d candidate pairs, %d inside the cutoff, bound "
+          "%.6f ms (%s); the full-grid kernel on the same melt (%s): %.6f ms"
+          % (mode, n_ranks, dims, cfg.cell_cap, ms, plain_ms, cand, inside,
+             b_ms, b_by, cfg.cell_dims, full_ms))
+    return ms, plain_ms, b_ms, b_by, worst
+
+
+def check_k1f_cancellation(built, state, n_ranks: int, mode: str,
+                           obs_x=None):
+    """One excluded pair at r = 0.05 sigma: the K1f slabs' rows, gathered
+    through ``slot_of`` as ``cell_pair_halo`` gathers them, minus the
+    correction equal the plain slabs' minus the correction."""
+    import numpy as np
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair, neighbor
+
+    cfg, spec = built.cfg, built.spec
+    i, j = (int(x) for x in state.excl[0].tolist())
+    pos = state.pos.clone()
+    pos[j] = pos[i] + torch.tensor([0.05, 0.0, 0.0], device=pos.device)
+    pos = pos - torch.floor(pos / state.box) * state.box
+    buckets, _, ovf, slot_of = neighbor.build_cell_buckets(
+        pos, state.box, state.active, cfg.cell_dims, cfg.cell_cap)
+    assert not bool(ovf)
+    n_slots = int(np.prod(cfg.cell_dims)) * cfg.cell_cap
+    f_ex = cell_pair.excluded_pair_correction(
+        spec, cfg.n_types, pos, state.box, state.type_id, state.excl,
+        active=state.active,
+        cheb=(cfg.cheb_kw, cfg.cheb_ko) if cfg.tab_cheb else None,
+        cheb_mix=cfg.cheb_mix, obs_x=obs_x)[0]
+    in_grid = slot_of < n_slots
+    slabs = [slab_operands(cfg, pos, state.type_id, state.active, buckets,
+                           n_ranks, r) for r in range(n_ranks)]
+    out = []
+    for fn in k1f_fns(built, mode, obs_x):
+        rows = torch.cat([fn(cells, counts, state.box, dims,
+                             cell_pair.CH3_NONE, True)
+                          for cells, counts, dims in slabs]).reshape(-1, 4)
+        rows = rows[torch.where(in_grid, slot_of, 0).long()]
+        out.append(torch.where(in_grid[:, None], rows[:, :3], 0.0) - f_ex)
+    got, ref = out
+    big = max(ref.abs().max().item(), f_ex.abs().max().item())
+    err = (got - ref).abs().max().item()
+    tol = 2e-5 * (1.0 + big)
+    print("K1f cancellation at r=0.05 sigma (%s, %d slabs of %s): pair (%d, "
+          "%d) max|dF| %.3e (tol %.3e), |F_ex| %.1f"
+          % (mode, n_ranks, cfg.cell_dims, i, j, err, tol,
+             f_ex.abs().max().item()))
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError("K1f minus correction does not cancel")
+
+
+def _warm_tab(label: str, build_fn, steps: int, **kw):
+    """A 10k tabulated melt built on the card and warmed up."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import runner
+
+    t0 = time.perf_counter()
+    built, systop, _ = build_fn(n_mols=N_MOLS, reactive=True,
+                                device=DEVICE, **kw)
+    state = runner.initial_forces(built.spec, built.cfg, built.state)
+    state = testsystems.warmup(built, state, steps=steps)
+    torch.cuda.synchronize()
+    print("%s: grid %s, cell_cap %d; build + warmup %.1f s"
+          % (label, built.cfg.cell_dims, built.cfg.cell_cap,
+             time.perf_counter() - t0))
+    return built, systop, state
+
+
+def slab_kernels():
+    """K1f against plain and against the full-grid kernels on the 10k
+    melts built for 2 and 4 slabs; returns the melts the path runs and
+    the kernels' numbers."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import observables
+
+    lj2 = _warm_melt("10k LJ melt, slab_devices=2", n_mols=N_MOLS,
+                     slab_devices=2)
+    lj4 = _warm_melt("10k LJ melt, slab_devices=4", n_mols=N_MOLS,
+                     slab_devices=4)
+    if (lj2[0].cfg.cell_dims != (10, 11, 11)
+            or lj4[0].cfg.cell_dims != (8, 11, 11)):
+        raise AssertionError("unexpected slab grids: %s, %s"
+                             % (lj2[0].cfg.cell_dims, lj4[0].cfg.cell_dims))
+    k1f = check_k1f(lj2[0], lj2[2], 2, "K1")
+    check_k1f(lj4[0], lj4[2], 4, "K1")
+    check_k1f_cancellation(lj2[0], lj2[2], 2, "K1")
+
+    tab2 = _warm_tab("10k tabulated melt, slab_devices=2",
+                     testsystems.build_tabulated_melt, 300, slab_devices=2)
+    x0 = torch.zeros(1, device=DEVICE)
+    cheb = check_k1f(tab2[0], tab2[2], 2, "K1c", x0)
+    check_k1f(tab2[0], tab2[2], 2, "K1e", x0, timed=False)
+    check_k1f_cancellation(tab2[0], tab2[2], 2, "K1c", x0)
+    mix2 = _warm_tab("10k blended tabulated melt, slab_devices=2",
+                     testsystems.build_mixed_tab_melt, 100, slab_devices=2)
+    x = observables.conversions(mix2[0].spec, mix2[2].type_id,
+                                mix2[2].chem_state, mix2[2].active)
+    check_k1f(mix2[0], mix2[2], 2, "K1d", x, timed=False)
+    check_k1f_cancellation(mix2[0], mix2[2], 2, "K1d", x)
+    return lj2, tab2, k1f, cheb
+
+
+def slab_path(card: str):
+    """The slab decomposition on the one card: K1f against plain and the
+    full grid, then two gloo ranks (both on cuda:0) running the reactive LJ
+    melt with slab_devices=2 (one untimed and one timed block) and one
+    tabulated block, and the NPT melt's pressure, each against one rank."""
+    import numpy as np
+    import torch
+
+    from chemlab_tpu_torch import bridge, testsystems
+    from chemlab_tpu_torch.engine import _kernels, integrate, runner
+    from chemlab_tpu_torch.parallel import launch
+
+    (lj, lj_sys, lj_st), (tab, tab_sys, tab_st), k1f, cheb = slab_kernels()
+    npt, _, npt_st = _warm_melt("10k NPT melt, slab_devices=2", steps=100,
+                                n_mols=N_MOLS, slab_devices=2, **NPT)
+    starts = [testsystems.activate_initiators(
+                  b, systop, st, n=max(b.cfg.n_particles // 300, 4))
+              for b, systop, st in ((lj, lj_sys, lj_st),
+                                    (tab, tab_sys, tab_st))]
+    jobs = [("run_blocks", dict(system=bridge.to_numpy(lj.cfg, lj.spec,
+                                                       starts[0]),
+                                n_blocks=2, block_steps=BLOCK_STEPS,
+                                seed=1234)),
+            ("run_blocks", dict(system=bridge.to_numpy(tab.cfg, tab.spec,
+                                                       starts[1]),
+                                n_blocks=1, block_steps=BLOCK_STEPS,
+                                seed=1234)),
+            ("forces", dict(system=bridge.to_numpy(npt.cfg, npt.spec,
+                                                   npt_st))),
+            ("imported_modules", {})]
+    t0 = time.perf_counter()
+    lj_res, tab_res, npt_res, mods = launch.run_jobs(
+        jobs, SLAB_RANKS, _kernels.BUILD_DIR / "launch", backend="gloo",
+        device="cuda:0", timeout=900)
+    print("%d gloo ranks on cuda:0: %.1f s for the jobs, start-up included"
+          % (SLAB_RANKS, time.perf_counter() - t0))
+
+    # the same state and seed on one rank, on the card
+    gen = runner.make_generator(1234, DEVICE)
+    one = starts[0]
+    for _ in range(2):
+        one = runner.run_block(lj.spec, lj.cfg, one, BLOCK_STEPS, gen=gen)
+    torch.cuda.synchronize()
+    one_pos = one.pos.cpu().numpy()
+    p_one = float(integrate.virial_pressure(npt.spec, npt.cfg, npt_st))
+
+    steps = 2 * BLOCK_STEPS
+    n_bonds0 = int(starts[0].bonds.valid.sum())
+    kT = float(lj.spec.kT)
+    r0, t0 = lj_res[0], tab_res[0]
+    dpos = max(float(np.abs(r["pos"] - one_pos).max()) for r in lj_res)
+    wall = max(float(r["walls"][1]) for r in lj_res)
+    pps = lj.cfg.n_particles * BLOCK_STEPS / wall
+    events = int(r0["reaction_counts"].sum())
+    for r, res in enumerate(lj_res):
+        print("slab path rank %d: K1f launches %d over %d steps (other "
+              "kernels %s), events %d, n_bonds %d (%d before), T %.4f, "
+              "overflow %s, block walls %s s" % (
+                  r, res["launches"]["K1f"], steps,
+                  {k: v for k, v in res["launches"].items()
+                   if k != "K1f" and v}, int(res["reaction_counts"].sum()),
+                  int(res["n_bonds"]), n_bonds0, float(res["T"]),
+                  bool(res["overflow"]), res["walls"].tolist()))
+    print("slab path vs one rank from the same state and seed, %d steps: "
+          "max|dpos| %.3e, bitwise %s; one rank %d events"
+          % (steps, dpos, all(np.array_equal(r["pos"], one_pos)
+                              for r in lj_res),
+             int(one.reaction_counts.sum())))
+    print("slab path: %d particles, %d timed steps in %.3f s on the slowest "
+          "rank: %.1f particle-steps/s; %d ranks time-sharing one card over "
+          "host-staged gloo (a functional number, not a scaling result) on "
+          "%s" % (lj.cfg.n_particles, BLOCK_STEPS, wall, pps, SLAB_RANKS,
+                  card))
+    print("tabulated slab block, rank 0: K1f-cheb launches %d over %d steps, "
+          "events %d, T %.4f" % (t0["launches"]["K1f-cheb"], BLOCK_STEPS,
+                                 int(t0["reaction_counts"].sum()),
+                                 float(t0["T"])))
+    p_ranks = [float(r["P"]) for r in npt_res]
+    print("NPT melt (slab_devices=2, %s) virial_pressure: ranks %s, one rank "
+          "%.9g" % (npt.cfg.cell_dims, p_ranks, p_one))
+    others = sum(v for res in lj_res for k, v in res["launches"].items()
+                 if k != "K1f")
+    checks = {
+        "K1f on every step of every rank": all(
+            r["launches"]["K1f"] == steps for r in lj_res) and others == 0,
+        "replicas equal (bitwise)": all(
+            np.array_equal(r["pos"], r0["pos"])
+            and np.array_equal(r["bonds_idx"], r0["bonds_idx"])
+            for r in lj_res),
+        "reaction events fired": events > 0,
+        "one new bond per event": int(r0["n_bonds"]) - n_bonds0 == events,
+        "no capacity overflow": not any(bool(r["overflow"]) for r in lj_res),
+        "T within 0.5-1.5 kT": all(0.5 * kT <= float(r["T"]) <= 1.5 * kT
+                                   for r in lj_res),
+        "positions within f32 rounding of one rank": dpos <= 1e-4,
+        "K1f-cheb on every tabulated step": all(
+            r["launches"]["K1f-cheb"] == BLOCK_STEPS for r in tab_res),
+        "pressure within rel 1e-5 of one rank": all(
+            abs(p - p_one) <= 1e-5 * abs(p_one) for p in p_ranks),
+        "ranks import no jax": all(m["modules"] == [] for m in mods),
+        "no jax, no JAX package": _no_reference_modules(),
+    }
+    for name, ok in checks.items():
+        print("check %-42s %s" % (name, "ok" if ok else "FAILED"))
+    if not all(checks.values()):
+        raise AssertionError("slab path checks failed")
+    rows = []
+    for key, nums, launches in (
+            ("K1f", k1f, int(r0["launches"]["K1f"])),
+            ("K1f-cheb", cheb, int(t0["launches"]["K1f-cheb"]
+                                   + t0["launches"]["K1f-cheb-mix"]))):
+        ms, plain_ms, b_ms, b_by, worst = nums
+        name, source = K1F_ROWS[key]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
+                     "launches": launches, "max_abs_err": worst, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    return rows, pps
+
 
 def main() -> int:
     import torch
@@ -757,8 +1136,12 @@ def main() -> int:
     rows.append(npt_row)
     tab_rows, pps = tab_paths(card)
     rows += tab_rows
+    slab_rows, slab_pps = slab_path(card)
+    rows += slab_rows
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
+    print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
+          % (SLAB_RANKS, slab_pps, card))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

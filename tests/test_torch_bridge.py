@@ -62,8 +62,9 @@ def _assert_bit_equal(ref_tree, port_tree, skip=("key",)):
 
 def test_config_fields_and_values_match(builds):
     rb, pb = builds
-    ref_names = {f.name for f in dataclasses.fields(rb.cfg)} - {"mesh"}
+    ref_names = {f.name for f in dataclasses.fields(rb.cfg)}
     assert ref_names == {f.name for f in dataclasses.fields(EngineConfig)}
+    assert "mesh" not in bridge.config_to_dict(rb.cfg)
     assert bridge.config_to_dict(rb.cfg) == bridge.config_to_dict(pb.cfg)
     assert hash(pb.cfg) == hash(dataclasses.replace(pb.cfg))
 

@@ -467,3 +467,102 @@ def test_cuda_npt_run_matches_cpu(k2_melts):
     torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-4)
     p = integrate.virial_pressure(spec_g, cfg, g)
     assert torch.isfinite(p) and p.device.type == "cuda"
+
+
+# ---- K1f (the slab mode) and the deterministic correction ------------------
+
+def _slab_operands(built, st, n_ranks, rank):
+    from chemlab_tpu_torch.engine import cell_pair_halo
+
+    cfg = built.cfg
+    nx, ny, nz = cfg.cell_dims
+    ids = cell_pair_halo.slab_cells(tuple(cfg.cell_dims), n_ranks, rank,
+                                    st.pos.device)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active),
+        st.nbr.buckets[ids], ids.numel())
+    return cells, counts, (nx // n_ranks + 2, ny, nz)
+
+
+def _k1f_modes(built, st):
+    """(name, plain rows, kernel rows, launch count) of K1f on each slab of
+    3 ranks, in LJ (every parameter mode) or in the melt's Chebyshev mode
+    and plane mode, for every ch3 channel; and the full-grid kernel's."""
+    cfg, spec = built.cfg, built.spec
+    x = torch.tensor([0.4])
+    for ch3 in CH3:
+        if cfg.tab_cheb:
+            modes = [("cheb", cfg.cheb_ntab)] + (
+                [] if cfg.cheb_mix else [("plane", 0)])
+        else:
+            modes = [("lj", m) for m in MODES]
+        for name, m in modes:
+            def run(cells, counts, dims, x_halo, dev):
+                if name == "lj":
+                    sp = spec if m[0] else _mixed(spec, cfg.n_types, not m[1])
+                    return cell_pair.colt_cells(
+                        cells.to(dev), counts.to(dev), st.box.to(dev),
+                        cell_pair.pair_params(sp, cfg.n_types).to(dev), dims,
+                        m[0], m[1], ch3, x_halo)
+                ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko,
+                                              m, cfg.cheb_mix and m > 0, x)
+                return cell_pair.cheb_cells(
+                    cells.to(dev), counts.to(dev), st.box.to(dev),
+                    *(None if t is None else t.to(dev) for t in ops), dims,
+                    cfg.cheb_kw, cfg.cheb_ko, ch3, m, x_halo)
+            yield (name, m, ch3), run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lj", "tab", "mixed"])
+def test_cuda_k1f_matches_plain_and_slabs_equal_k1(melt, tab_melts, kind):
+    """K1f on each slab of 3 ranks (w = 1) against its plain version, and
+    the slabs laid side by side against the full-grid kernel (K1, K1c,
+    K1d, K1e) bit for bit; K1f counts its own launches."""
+    built, _, st = melt if kind == "lj" else tab_melts[kind]
+    cfg = built.cfg
+    assert cfg.cell_dims[0] == 3
+    full_cells, full_counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    kern = (cell_pair.K1F if kind == "lj" else cell_pair.K1F_CHEB_MIX
+            if kind == "mixed" else cell_pair.K1F_CHEB)
+    for label, run in _k1f_modes(built, st):
+        slabs = []
+        for r in range(3):
+            cells, counts, dims = _slab_operands(built, st, 3, r)
+            n0 = kern.launches
+            got = run(cells, counts, dims, True, "cuda")
+            assert kern.launches == n0 + 1
+            ref = run(cells, counts, dims, True, "cpu")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                                       atol=_tol(ref))
+            slabs.append(got)
+        full = run(full_cells, full_counts, cfg.cell_dims, False, "cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(slabs), full), label
+
+
+@pytest.mark.cuda
+def test_cuda_correction_scatter_gives_the_same_bits_twice(melt):
+    """The flat excluded-pair correction over a list with many duplicate
+    destinations (every particle in ~60 pairs): two calls on the card give
+    the same bits, and agree with the CPU to f32 rounding."""
+    built, _, st = melt
+    cfg, spec = built.cfg, built.spec
+    n = int(st.active.sum())
+    rng = np.random.RandomState(3)
+    i = rng.randint(0, n, 30 * n)
+    j = (i + rng.randint(1, 40, i.size)) % n
+    excl = torch.from_numpy(np.stack([i, j], 1).astype(np.int32))
+    args = (cfg.n_types, st.pos, st.box, st.type_id, excl)
+    out = []
+    for _ in range(2):
+        out.append(cell_pair.excluded_pair_correction(
+            spec.to("cuda"), cfg.n_types, *(t.cuda() for t in args[1:]),
+            active=st.active.cuda())[0].cpu())
+    assert torch.equal(out[0], out[1])
+    ref = cell_pair.excluded_pair_correction(spec, *args, active=st.active)[0]
+    torch.testing.assert_close(out[0], ref, rtol=0,
+                               atol=2e-5 * (1.0 + ref.abs().max().item()))

@@ -30,9 +30,10 @@ def test_every_module_imports_without_jax():
     """Every module of the port and ``chip_smoke`` import, in a fresh
     interpreter, neither jax nor any module of the JAX package."""
     mods = _modules()
-    assert "chemlab_tpu_torch.engine.cell_pair" in mods and len(mods) >= 23
+    assert "chemlab_tpu_torch.engine.cell_pair" in mods and len(mods) >= 28
     for m in ("topfile", "topology", "reaction_parser", "files_io",
-              "engine.tab_cheb"):
+              "engine.tab_cheb", "engine.cell_pair_halo", "parallel",
+              "parallel.sharding", "parallel.launch", "parallel.jobs"):
         assert "chemlab_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r: importlib.import_module(m)\n"
@@ -52,7 +53,11 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_jax_import_in_sources():
-    for path in (REPO / "chemlab_tpu_torch").rglob("*.py"):
+    paths = list((REPO / "chemlab_tpu_torch").rglob("*.py"))
+    assert REPO / "chemlab_tpu_torch" / "parallel" / "launch.py" in paths
+    assert REPO / "chemlab_tpu_torch" / "engine" / "cell_pair_halo.py" \
+        in paths
+    for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")), \
@@ -63,6 +68,7 @@ def test_no_reference_package_import_in_sources():
     """No line of the port or of ``chip_smoke.py`` imports the JAX package
     (``chemlab_tpu_torch`` itself is allowed)."""
     paths = list((REPO / "chemlab_tpu_torch").rglob("*.py"))
+    assert REPO / "chemlab_tpu_torch" / "parallel" / "jobs.py" in paths
     paths.append(REPO / "chip_smoke.py")
     for path in paths:
         for line in path.read_text().splitlines():
@@ -105,11 +111,15 @@ def test_kernel_build_flags():
         assert k.source.is_file()
         assert k.library_path().parent == _kernels.BUILD_DIR
         assert 'extern "C" int %s(' % k.symbol in k.source.read_text()
-    # one launch count per mode: K1 and its virial channel K1b on one entry
-    # point, K1c and K1e on another, K2 its own
-    assert len({id(k) for k in cell_pair.KERNELS}) == 6
-    assert cell_pair.K1.symbol == cell_pair.K1B.symbol
-    assert cell_pair.K1C.symbol == cell_pair.K1E.symbol
+    # one launch count per mode: K1, its virial channel K1b and its slab
+    # mode K1f on one entry point, K1c, K1e and K1f-cheb on another, K1d
+    # and K1f-cheb-mix on a third, K2 its own
+    assert len({id(k) for k in cell_pair.KERNELS}) == 9
+    assert cell_pair.K1.symbol == cell_pair.K1B.symbol \
+        == cell_pair.K1F.symbol
+    assert cell_pair.K1C.symbol == cell_pair.K1E.symbol \
+        == cell_pair.K1F_CHEB.symbol
+    assert cell_pair.K1D.symbol == cell_pair.K1F_CHEB_MIX.symbol
     assert cell_pair.K2.source.name == "cell_pair_cell.cu"
 
 
@@ -211,3 +221,36 @@ def test_cheb_wrapper_takes_plain_version_on_cpu_only():
     assert cell_pair.cheb_kernel_for(None, 1) is cell_pair.K1C
     assert cell_pair.cheb_kernel_for(tmap, 2) is cell_pair.K1D
     assert cell_pair.cheb_kernel_for(None, 0) is cell_pair.K1E
+
+
+def test_k1f_wrapper_takes_plain_version_on_cpu_only():
+    """K1f (``x_halo``): CPU tensors take the plain version and count no
+    launch, the CUDA entry refuses CPU tensors, and the slab of 3 layers
+    returns the rows of its one inner layer."""
+    (cells, counts, box, params), dims = _tiny_operands()
+    n0 = [k.launches for k in cell_pair.KERNELS]
+    out = cell_pair.colt_cells(cells, counts, box, params, dims, True, True,
+                               cell_pair.CH3_ENERGY, x_halo=True)
+    assert out.shape == (9,) + tuple(cells.shape[1:])
+    assert [k.launches for k in cell_pair.KERNELS] == n0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cell_pair.cell_pair_forces_colt_kernel(cells, counts, box, params,
+                                               dims, True, True, 0, True)
+    assert cell_pair.cheb_kernel_for(None, 1, True) is cell_pair.K1F_CHEB
+    assert cell_pair.cheb_kernel_for(None, 0, True) is cell_pair.K1F_CHEB
+    assert cell_pair.cheb_kernel_for(params, 1, True) \
+        is cell_pair.K1F_CHEB_MIX
+
+
+def test_launched_ranks_import_no_jax(tmp_path):
+    """``parallel.launch``'s ranks are fresh interpreters: started from
+    this process, which has jax imported, they import neither jax nor the
+    JAX package."""
+    import sys
+
+    from chemlab_tpu_torch.parallel import launch
+
+    assert "jax" in sys.modules
+    res = launch.run_jobs([("imported_modules", {})], 2, tmp_path,
+                          backend="gloo", device="cpu", timeout=120)
+    assert res == [[{"modules": []}, {"modules": []}]]

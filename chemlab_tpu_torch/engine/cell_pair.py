@@ -32,6 +32,11 @@ cells only, the x neighbour is indexed without a wrap, and the raw
 (w * ny * nz, cap, 4) slot rows come back.  Its launches have their own
 counts, ``K1F`` (LJ) and ``K1F_CHEB`` / ``K1F_CHEB_MIX`` (Chebyshev).
 
+``cell_pair_forces(kernel=...)`` picks the LJ kernel by name as the
+reference's CHEMLAB_KERNEL does (``PAIR_KERNELS``; "auto" is the rule
+above); the ladder's kernels (K1' and K3a-K3d, one launch count each in
+``BY_NAME``) live in ``cell_pair_variants``.
+
 ``colt_cells``, ``cheb_cells`` and ``cell_cells`` are the kernels'
 wrappers.  A CPU tensor takes the plain torch version; a CUDA tensor
 launches the hand-written kernel in ``csrc/cell_pair.cu``,
@@ -79,9 +84,21 @@ K1F_CHEB_MIX = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
 K2 = _kernels.CudaKernel(
     "cell_pair_cell.cu", "cell_pair_cell",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+# the ladder (``cell_pair_variants``): five entry points of one source with
+# one signature, each its own launch count
+_LADDER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+K1P = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_colt1", _LADDER_ARGS)
+K3A = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_packet",
+                          _LADDER_ARGS)
+K3B = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_resident",
+                          _LADDER_ARGS)
+K3C = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_colz", _LADDER_ARGS)
+K3D = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_column",
+                          _LADDER_ARGS)
 BY_NAME = {"K1": K1, "K1b": K1B, "K1c": K1C, "K1d": K1D, "K1e": K1E,
            "K2": K2, "K1f": K1F, "K1f-cheb": K1F_CHEB,
-           "K1f-cheb-mix": K1F_CHEB_MIX}
+           "K1f-cheb-mix": K1F_CHEB_MIX, "K1p": K1P, "K3a": K3A, "K3b": K3B,
+           "K3c": K3C, "K3d": K3D}
 KERNELS = tuple(BY_NAME.values())
 
 
@@ -133,14 +150,17 @@ def stencil_table(dims, x_halo: bool = False) -> np.ndarray:
     return out
 
 
-def stencil_pairs(cells, box, dims, x_halo: bool = False):
+def stencil_pairs(cells, box, dims, x_halo: bool = False, nbr=None):
     """Every slot of each cell against every slot of its S neighbour cells
     (the deduplicated stencil), in the kernels' op order: (minimum-image d
     per axis, r2 summed x, y, z, the valid-pair mask, the (C', cap, 4) rows
     of the summed cells (all C, or the inner cells of an ``x_halo`` slab),
-    the (C', S*cap, 4) neighbour rows)."""
-    nbr = torch.from_numpy(stencil_table(dims, x_halo)).to(
-        cells.device).long()
+    the (C', S*cap, 4) neighbour rows).  ``nbr`` is the (C', S) neighbour
+    table when the caller derives it its own way (``stencil_table``'s by
+    default)."""
+    if nbr is None:
+        nbr = torch.from_numpy(stencil_table(dims, x_halo))
+    nbr = nbr.to(cells.device).long()
     n_out = nbr.shape[0]
     first = int(dims[1]) * int(dims[2]) if x_halo else 0
     xi = cells[first:first + n_out]
@@ -165,17 +185,12 @@ def type_pairs(cells, xj, n_types: int):
     return ti[:, :, None] * n_types + tj[:, None, :]
 
 
-def cell_pair_forces_cell_ref(cells, counts, box, params, dims,
-                              uniform_lj: bool, all_lj: bool, ch3_mode: int,
-                              x_halo: bool = False):
-    """Plain torch K2: every slot i of a cell against every slot of its S
-    deduplicated neighbour cells, vectorised over (C, cap, S*cap), in
-    stencil order then slot order.  Returns the kernel's (C, cap, 4)
-    [fx, fy, fz, ch3] rows; ``counts`` is unused here (empty slots are zero
-    rows, which the validity test drops).  With ``x_halo`` (plain K1f) the
-    cells are a slab of ``dims`` = (w + 2, ny, nz) and the rows are those
-    of its w * ny * nz inner cells."""
-    dr, r2, valid, xi, xj = stencil_pairs(cells, box, dims, x_halo)
+def lj_pair_terms(cells, box, params, dims, uniform_lj: bool, all_lj: bool,
+                  want_e: bool, x_halo: bool = False, nbr=None):
+    """The LJ terms of every pair of ``stencil_pairs`` in the kernels' op
+    sequence: (d per axis, the force scalar f, the pair energy or None, the
+    clamped r2s), each (C', cap, S*cap), zero outside the cutoff."""
+    dr, r2, valid, xi, xj = stencil_pairs(cells, box, dims, x_halo, nbr)
     r2s = torch.where(valid, r2, 1.0)
     if uniform_lj:
         sig, eps, cut2, shift = (params[k, 0, 0] for k in range(4))
@@ -192,9 +207,25 @@ def cell_pair_forces_cell_ref(cells, counts, box, params, dims,
     s2 = (sig * sig) * inv_r2c
     s6 = s2 * s2 * s2
     f = torch.where(in_cut, 48.0 * eps * (s6 * s6 - 0.5 * s6) * inv_r2c, 0.0)
+    e = (torch.where(in_cut, 4.0 * eps * (s6 * s6 - s6) - shift, 0.0)
+         if want_e else None)
+    return dr, f, e, r2s
+
+
+def cell_pair_forces_cell_ref(cells, counts, box, params, dims,
+                              uniform_lj: bool, all_lj: bool, ch3_mode: int,
+                              x_halo: bool = False):
+    """Plain torch K2: every slot i of a cell against every slot of its S
+    deduplicated neighbour cells, vectorised over (C, cap, S*cap), in
+    stencil order then slot order.  Returns the kernel's (C, cap, 4)
+    [fx, fy, fz, ch3] rows; ``counts`` is unused here (empty slots are zero
+    rows, which the validity test drops).  With ``x_halo`` (plain K1f) the
+    cells are a slab of ``dims`` = (w + 2, ny, nz) and the rows are those
+    of its w * ny * nz inner cells."""
+    dr, f, e, r2s = lj_pair_terms(cells, box, params, dims, uniform_lj,
+                                  all_lj, ch3_mode == CH3_ENERGY, x_halo)
     fxyz = [torch.sum(f * d, dim=2) for d in dr]
     if ch3_mode == CH3_ENERGY:
-        e = torch.where(in_cut, 4.0 * eps * (s6 * s6 - s6) - shift, 0.0)
         ch3 = 0.5 * torch.sum(e, dim=2)
     elif ch3_mode == CH3_VIRIAL:
         ch3 = 0.5 * torch.sum(f * r2s, dim=2)
@@ -510,22 +541,70 @@ def cheb_cells(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,
     raise ValueError("K1 has no version for device %s" % cells.device)
 
 
+# the names ``cell_pair_forces`` takes (the reference's CHEMLAB_KERNEL
+# values); "colt" and "colt2" name K1, which the Chebyshev branch and the
+# slab path run anyway, the others a kernel of their own
+PAIR_KERNELS = ("auto", "cell", "colt", "colt1", "colt2", "packet", "column",
+                "resident")
+LADDER = ("cell", "colt1", "packet", "column", "resident")
+
+
+def check_pair_kernel(kernel: str, cheb_kw: int = 0, slab: bool = False):
+    """Raise ``ValueError`` on a name ``cell_pair_forces`` does not take,
+    and on a kernel of ``LADDER`` named for a tabulated system or a slab
+    mesh, which run only colt2 (where the reference ignores the name)."""
+    if kernel not in PAIR_KERNELS:
+        raise ValueError("unknown pair kernel %r: one of %s"
+                         % (kernel, ", ".join(PAIR_KERNELS)))
+    if kernel in LADDER and cheb_kw:
+        raise ValueError("pair kernel %r is LJ only: a tabulated system "
+                         "runs the Chebyshev modes of colt2" % kernel)
+    if kernel in LADDER and slab:
+        raise ValueError("pair kernel %r on a slab mesh: the slab path "
+                         "runs colt2 (K1f) only" % kernel)
+
+
 def cell_pair_forces(pos, type_id, active, box, buckets, slot_of, dims, spec,
                      n_types: int, uniform_lj: bool = False,
                      all_lj: bool = False, want_energy: bool = True,
                      want_virial: bool = False, cheb_kw: int = 0,
                      cheb_ko: int = 0, cheb_ntab: int = 0,
-                     cheb_mix: bool = False, obs_x=None):
+                     cheb_mix: bool = False, obs_x=None,
+                     kernel: str = "auto"):
     """Unexcluded all-pairs sum on the cell grid (reference:
     ``cell_pair_forces``): LJ through K1 on a grid colt2 takes
     (``colt_legal``) and through K2 on any other, or the Chebyshev-tabulated
     pairs through K1c/K1d/K1e when ``cheb_kw > 0`` (colt2 grids only, as in
     the reference).  Returns (force (N, 3), e_lj, e_tab, w): the spare
     channel carries either the pair energy (``want_energy``; ``e_tab`` on a
-    tabulated system) or the pair virial (``want_virial``), never both."""
+    tabulated system) or the pair virial (``want_virial``), never both.
+
+    ``kernel`` picks the LJ kernel by the reference's rule
+    (``pallas_pair.py:828-874``, its CHEMLAB_KERNEL): "auto" as above,
+    "cell" K2, "colt"/"colt2" K1 and "colt1" K1' where colt2 is legal,
+    "packet"/"resident" K3a/K3b where ``cap % 8 == 0``, "column" K3c (K3d
+    when ``cap % 8 != 0``); every illegal geometry takes K2.  K3a-K3d
+    return (force, e, 0, w) in one pass whatever the energy/virial flags,
+    as the reference's variants do (``cell_pair_variants``)."""
+    check_pair_kernel(kernel, cheb_kw)
     n_cells = int(np.prod(dims))
     cap = buckets.shape[1]
     legal = colt_legal(cap, dims)
+    if kernel not in ("auto", "colt", "colt2"):
+        from . import cell_pair_variants as variants
+
+        args = (pos, type_id, active, box, buckets, slot_of, dims, spec,
+                n_types, uniform_lj)
+        if kernel == "column":
+            return variants.cell_pair_forces_columns(*args)
+        if kernel == "colt1" and legal:
+            return variants.cell_pair_forces_colt1(*args,
+                                                   want_virial=want_virial)
+        if cap % 8 == 0 and kernel == "packet":
+            return variants.cell_pair_forces_packets(*args)
+        if cap % 8 == 0 and kernel == "resident":
+            return variants.cell_pair_forces_resident(*args)
+        legal = False       # "cell" and every illegal geometry: K2
     if cheb_kw and not legal:
         raise ValueError("the Chebyshev tabulated path needs a colt2 grid "
                          "(cap %% 8 == 0, min(dims) >= 3): cap %d, dims %s"

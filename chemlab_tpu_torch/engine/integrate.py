@@ -60,16 +60,21 @@ def _pair_sum(spec, cfg, state, **kw):
               cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
               cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix)
     if cell_pair_halo.supports(cfg):
+        cell_pair.check_pair_kernel(kw.pop("kernel"), slab=True)
         return cell_pair_halo.cell_pair_forces_halo(*args, mesh=cfg.mesh,
                                                     **kw)
     return cell_pair.cell_pair_forces(*args, **kw)
 
 
-def compute_forces(spec, cfg, state, want_energy: bool = True):
+def compute_forces(spec, cfg, state, want_energy: bool = True,
+                   pair_kernel: str = "auto"):
     """All conservative forces + per-term potential energies + conversions.
 
     ``want_energy=False`` (the per-step call) skips the pair-energy channel;
-    the returned pair energies are then zeros."""
+    the returned pair energies are then zeros (K1' and K3a-K3d fill it
+    anyway).  ``pair_kernel`` names the pair kernel
+    (``cell_pair.cell_pair_forces``' ``kernel``; the reference's
+    CHEMLAB_KERNEL)."""
     if cfg.needs_conversions:
         obs_x = observables.conversions(spec, state.type_id, state.chem_state,
                                         state.active)
@@ -78,7 +83,7 @@ def compute_forces(spec, cfg, state, want_energy: bool = True):
                             device=state.pos.device)
     f_all, e_lj_all, e_tab_all, _ = _pair_sum(spec, cfg, state,
                                               want_energy=want_energy,
-                                              obs_x=obs_x)
+                                              obs_x=obs_x, kernel=pair_kernel)
     f_ex, e_lj_ex, e_tab_ex, _ = _excl_correction(spec, cfg, state, obs_x)
     f_pair = f_all - f_ex
     e_pair = {"lj": e_lj_all - e_lj_ex, "lj-tab": e_tab_all - e_tab_ex,
@@ -108,17 +113,18 @@ def _langevin_adjust(spec, state, force, noise):
     return force + torch.where(sel[:, None], adj, 0.0)
 
 
-def virial_pressure(spec, cfg, state):
+def virial_pressure(spec, cfg, state, pair_kernel: str = "auto"):
     """Instantaneous pressure P = (2 Ekin + W) / 3V (reference: the kernel
     branch of ``integrate.virial_pressure``).  W is the pair virial from
     the kernel's virial channel (K1/K1b or K2; K1c/K1d/K1e on a tabulated
     system) minus the excluded pairs' share, minus the bonded strain
     derivative dU_bonded/ds; on a mesh the kernel's channel is summed slab
-    by slab (K1f).  The row path's branch waits for M10."""
+    by slab (K1f); ``pair_kernel`` as in ``compute_forces``.  The row
+    path's branch waits for M10."""
     obs_x = (observables.conversions(spec, state.type_id, state.chem_state,
                                      state.active) if cfg.cheb_mix else None)
     _, _, _, w_all = _pair_sum(spec, cfg, state, want_virial=True,
-                               obs_x=obs_x)
+                               obs_x=obs_x, kernel=pair_kernel)
     _, _, _, w_ex = _excl_correction(spec, cfg, state, obs_x)
     w = (w_all - w_ex) - bonded_forces.bonded_strain_derivative(
         spec, cfg, state.pos, state.box, state.type_id, state.bonds,
@@ -127,15 +133,15 @@ def virial_pressure(spec, cfg, state):
     return (2.0 * ekin + w) / (3.0 * torch.prod(state.box))
 
 
-def _barostat_step(spec, cfg, state, noise=None):
+def _barostat_step(spec, cfg, state, noise=None, pair_kernel: str = "auto"):
     """Isotropic box scaling (reference ``integrate._barostat_step``).
 
     'br': Berendsen, mu = clip(1 - dt/tau (P0 - P), 0.9, 1.1)^(1/3);
     'lv': Langevin piston on ``baro_v`` with friction gammaP and the scalar
     standard normal ``noise``, mu = exp(dt baro_v).  Either way mu is
     clipped to 0.98-1.02 per step; active positions and the box scale by
-    it."""
-    p_now = virial_pressure(spec, cfg, state)
+    it.  The pressure pass runs ``pair_kernel``."""
+    p_now = virial_pressure(spec, cfg, state, pair_kernel)
     dt = spec.dt
     if cfg.barostat == "br":
         base = torch.clamp(1.0 - dt / spec.barostat_tau
@@ -176,11 +182,13 @@ def _draw(gen, shape, like, what: str):
                        device=like.device)
 
 
-def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None):
+def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None,
+            pair_kernel: str = "auto"):
     """One velocity-Verlet step, then the barostat.  With the Langevin
     thermostat the noise is ``noise`` when given, else a standard normal
     draw from ``gen``; the Langevin barostat's scalar draw is
-    ``baro_noise`` when given, else drawn from ``gen`` after it."""
+    ``baro_noise`` when given, else drawn from ``gen`` after it.  The force
+    and the pressure passes run the pair kernel ``pair_kernel``."""
     dt = spec.dt
     inv_m = torch.where(state.active, 1.0 / state.mass, 0.0)[:, None]
 
@@ -194,7 +202,8 @@ def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None):
                                 image=state.image + shift)
 
     state = maybe_rebuild_neighbors(spec, cfg, state)
-    force, _, _ = compute_forces(spec, cfg, state, want_energy=False)
+    force, _, _ = compute_forces(spec, cfg, state, want_energy=False,
+                                 pair_kernel=pair_kernel)
     if cfg.thermostat == "lv":
         if noise is None:
             noise = _draw(gen, state.vel.shape, state.vel,
@@ -208,5 +217,5 @@ def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None):
         if cfg.barostat != "br" and baro_noise is None:
             baro_noise = _draw(gen, (), state.baro_v,
                                "the Langevin barostat")
-        state = _barostat_step(spec, cfg, state, baro_noise)
+        state = _barostat_step(spec, cfg, state, baro_noise, pair_kernel)
     return state

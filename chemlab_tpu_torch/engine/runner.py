@@ -72,12 +72,14 @@ def _fire_reactions(spec, cfg, state, rng_seed: int):
 
 
 def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
-                         fire=None, noise=None):
+                         fire=None, noise=None, pair_kernel: str = "auto"):
     """One MD step + the interval-gated reaction step.  ``fire`` is the
     host's reaction gate; None reads it from the state.  The Langevin noise
     is ``noise`` when given, else drawn from ``gen`` (as is the Langevin
-    barostat's draw)."""
-    state = integrate.md_step(spec, cfg, state, noise=noise, gen=gen)
+    barostat's draw).  ``pair_kernel`` names the pair kernel
+    (``integrate.compute_forces``)."""
+    state = integrate.md_step(spec, cfg, state, noise=noise, gen=gen,
+                              pair_kernel=pair_kernel)
     if cfg.has_reactions:
         state = _hybrid_lambda_ramp(spec, state, cfg)
         if fire is None:
@@ -88,15 +90,17 @@ def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
     return state
 
 
-def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None):
-    """Run ``n_steps`` steps (one outer-loop iteration); under a mesh, then
-    check that the ranks' replicas still agree."""
+def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None,
+              pair_kernel: str = "auto"):
+    """Run ``n_steps`` steps (one outer-loop iteration) with the pair kernel
+    ``pair_kernel``; under a mesh, then check that the ranks' replicas still
+    agree."""
     on = cfg.has_reactions and bool(state.reactions_on)
     step0 = int(state.step)
     for k in range(n_steps):
         fire = on and (step0 + k + 1) % cfg.reaction_interval == 0
         state = step_with_extensions(spec, cfg, state, rng_seed, gen=gen,
-                                     fire=fire)
+                                     fire=fire, pair_kernel=pair_kernel)
     check_replicas(cfg, state)
     return state
 

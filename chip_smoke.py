@@ -19,6 +19,15 @@ once) and drives the port's paths at 10k particles:
      density 0.3 (2x2x2, S = 8), K2 against its plain version in every
      mode and channel and the cancellation check; then the K2 main path:
      one untimed and one timed reactive block of the cap-36 melt;
+  3b. the ladder (K1' colt1, K3a packet, K3b resident, K3c colz, K3d
+     column) on the warmed 10k LJ melt: each against its plain version in
+     both parameter modes, K3a-K3d against K2 and K1 on the same operands
+     (forces bit for bit), K1' against K1, the cancellation check, times
+     and bounds; one untimed and one timed reactive block through
+     ``run_block(pair_kernel=...)`` for "colt1", "packet", "resident" and
+     "column" (K3c at cap 32; K3d on the cap-36 melt), each launching its
+     kernel exactly once a step and K1 never; then the kernel matrix
+     (``chemlab_tpu_torch.kernel_matrix.time_kernels``);
   4. NPT: the 10k reactive melt under the Berendsen barostat (pressure
      0.15, tau 2.0) with Langevin, one untimed and three timed blocks, K1
      for the forces and K1b (the virial channel) for the pressure on every
@@ -40,8 +49,9 @@ once) and drives the port's paths at 10k particles:
      side against the full-grid K1, K1c, K1d and K1e bit for bit, and the
      cancellation check; then two gloo ranks of ``parallel.launch``, both
      on cuda:0, run the reactive LJ melt (one untimed and one timed block),
-     one tabulated block and one NPT pressure, each against one rank from
-     the same state and seed (positions, replicas, launches, pressure).
+     one tabulated and one blended block and one NPT pressure, each against
+     one rank from the same state and seed (positions, replicas, launches,
+     pressure).
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -103,18 +113,11 @@ def card_line() -> str:
 
 
 def _time_ms(fn, reps: int) -> float:
-    import torch
+    """CUDA events around ``reps`` calls after one (the kernel matrix's
+    timer)."""
+    from chemlab_tpu_torch.kernel_matrix import time_ms
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return time_ms(fn, reps)
 
 
 def _no_reference_modules() -> bool:
@@ -140,12 +143,12 @@ def pair_counts(cells, box, cut2, dims, x_halo: bool = False):
 
 
 def bound_ms(cells, small_bytes: int, cand: int, inside: int,
-             ops_pair: int, out_rows=None):
+             ops_pair: int, out_rows=None, out_ch: int = 4):
     """The least time for the call: each input read once and the output
-    (``out_rows`` cells, every cell by default) written once over HBM, or
-    its f32 operations over the f32 peak."""
+    (``out_rows`` cells, every cell by default, ``out_ch`` floats a slot)
+    written once over HBM, or its f32 operations over the f32 peak."""
     out_rows = cells.shape[0] if out_rows is None else out_rows
-    n_bytes = (cells.numel() + out_rows * cells.shape[1] * 4) * 4 \
+    n_bytes = (cells.numel() + out_rows * cells.shape[1] * out_ch) * 4 \
         + cells.shape[0] * 4 + small_bytes
     ops = cand * OPS_CANDIDATE + inside * ops_pair
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / F32_FLOPS
@@ -301,13 +304,15 @@ def compare_k1_k2(built, state):
           "%.6f ms" % (t[0], t[3], t[1], t[2]))
 
 
-def check_cancellation(built, state, obs_x=None):
+def check_cancellation(built, state, obs_x=None, ladder=None):
     """One excluded pair at r = 0.05 sigma: kernel minus correction is
-    finite and equals plain minus correction (LJ or tabulated)."""
+    finite and equals plain minus correction (LJ or tabulated; the ladder
+    kernel of kind ``ladder`` when given)."""
     import numpy as np
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair, neighbor
+    from chemlab_tpu_torch.engine import cell_pair_variants as variants
 
     cfg, spec = built.cfg, built.spec
     i, j = (int(x) for x in state.excl[0].tolist())
@@ -321,7 +326,14 @@ def check_cancellation(built, state, obs_x=None):
     cells, counts = cell_pair.colt_operands(
         cell_pair.pack_rows(pos, state.type_id, state.active), buckets,
         n_cells)
-    if cfg.tab_cheb:
+    if ladder is not None:
+        args = (cells, counts, state.box,
+                cell_pair.pair_params(spec, cfg.n_types), cfg.cell_dims,
+                cfg.uniform_lj, cell_pair.CH3_ENERGY)
+        fns = (lambda *a: variants.ladder_kernel(ladder, *a),
+               lambda *a: variants.ladder_ref(ladder, *a))
+        cheb = None
+    elif cfg.tab_cheb:
         ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko,
                                       cfg.cheb_ntab, cfg.cheb_mix, obs_x)
         args = (cells, counts, state.box, *ops, cfg.cell_dims, cfg.cheb_kw,
@@ -343,16 +355,19 @@ def check_cancellation(built, state, obs_x=None):
         obs_x=obs_x)[0]
     out = []
     for fn in fns:
-        rows = fn(*args).reshape(-1, 4)[torch.where(in_grid, slot_of, 0)
-                                        .long()]
+        rows = fn(*args)
+        rows = rows.reshape(-1, rows.shape[-1])[
+            torch.where(in_grid, slot_of, 0).long()]
         out.append(torch.where(in_grid[:, None], rows[:, :3], 0.0) - f_ex)
     got, ref = out
     big = max(ref.abs().max().item(), f_ex.abs().max().item())
     err = (got - ref).abs().max().item()
     tol = 2e-5 * (1.0 + big)
+    label = ("ladder " + ladder if ladder else "tabulated" if cheb
+             else "LJ")
     print("cancellation at r=0.05 sigma (%s, grid %s, cap %d): pair (%d, %d) "
           "max|dF| %.3e (tol %.3e), |F_i| kernel %.4f plain %.4f, |F_ex| %.1f"
-          % ("tabulated" if cheb else "LJ", cfg.cell_dims, cfg.cell_cap, i,
+          % (label, cfg.cell_dims, cfg.cell_cap, i,
              j, err, tol, got[i].norm().item(), ref[i].norm().item(),
              f_ex.abs().max().item()))
     if not (torch.isfinite(got).all() and err <= tol):
@@ -399,12 +414,14 @@ def check_small_melt_against_cpu(builder, label: str, kernel):
 
 
 def run_path(built, systop, state, card: str, kernel, label: str,
-             timed_blocks: int, cfg=None, virial=None):
+             timed_blocks: int, cfg=None, virial=None,
+             pair_kernel: str = "auto"):
     """Reactive blocks (one untimed, then ``timed_blocks`` timed) with the
     launch counts set to 0 just before; checks and returns (launches,
     particle-steps/s or None, launches of ``virial``).  Under a barostat
     ``virial`` is the kernel of the pressure pass, which must run on every
-    step too, and the box must move while the cell grid stays valid."""
+    step too, and the box must move while the cell grid stays valid.  A
+    named ``pair_kernel`` (the ladder) must launch exactly once a step."""
     import math
 
     import torch
@@ -422,12 +439,14 @@ def run_path(built, systop, state, card: str, kernel, label: str,
 
     for k in cell_pair.KERNELS:
         k.launches = 0
-    state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+    state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen,
+                             pair_kernel=pair_kernel)
     torch.cuda.synchronize()
     events0 = int(state.reaction_counts.sum())
     t0 = time.perf_counter()
     for _ in range(timed_blocks):
-        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen,
+                                 pair_kernel=pair_kernel)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel.launches
@@ -466,6 +485,8 @@ def run_path(built, systop, state, card: str, kernel, label: str,
         "one new bond per event": int(m["n_bonds"]) - n_bonds0 == events,
         "no jax, no JAX package": _no_reference_modules(),
     }
+    if pair_kernel != "auto":
+        checks["named kernel exactly once a step"] = launches == steps
     if virial is not None:
         rc_skin = math.sqrt(float(spec.pair_cutoff2.max())) + float(spec.skin)
         edge = min(float(b) / d for b, d in zip(state.box.tolist(),
@@ -515,7 +536,7 @@ def lj_path(card: str):
     row["launches"], _, _ = run_path(built, systop, state, card,
                                      cell_pair.K1, "LJ main path",
                                      TIMED_BLOCKS)
-    return row
+    return row, (built, systop, state)
 
 
 # ---- K2 (per-cell LJ, any grid) --------------------------------------------------
@@ -559,7 +580,7 @@ def k2_path(card: str):
     check_cancellation(small, st_s)
     row["launches"], _, _ = run_path(built, systop, state, card,
                                      cell_pair.K2, "K2 main path", 1)
-    return row
+    return row, (built, systop, state)
 
 
 # ---- NPT (pressure pass K1b, barostats) --------------------------------------
@@ -631,6 +652,190 @@ def npt_path(card: str):
                                        TIMED_BLOCKS, virial=cell_pair.K1B)
     return row, pps
 
+
+# ---- the ladder: K1' (colt1) and K3a-K3d ------------------------------------
+
+LADDER_SOURCE = "chemlab_tpu_torch/csrc/cell_pair_ladder.cu"
+# launch count -> (row name, kind, TPU kernel replaced, the block's
+# pair_kernel)
+LADDER_ROWS = {
+    "K1p": ("K1p ladder_colt1 (colt1: per-column partial sums)", "colt1",
+            "chemlab_tpu/engine/pallas_pair_variants.py:617", "colt1"),
+    "K3a": ("K3a ladder_packet (cell x 8-row packet)", "packet",
+            "chemlab_tpu/engine/pallas_pair_variants.py:23", "packet"),
+    "K3b": ("K3b ladder_resident (packets, nothing staged)", "resident",
+            "chemlab_tpu/engine/pallas_pair_variants.py:131", "resident"),
+    "K3c": ("K3c ladder_colz (one block per xy column)", "colz",
+            "chemlab_tpu/engine/pallas_pair_variants.py:510", "column"),
+    "K3d": ("K3d ladder_column (one block per cell, by column)", "column",
+            "chemlab_tpu/engine/pallas_pair_variants.py:420", "column"),
+}
+
+
+def check_ladder(built, state, key: str):
+    """One ladder kernel on ``state``'s operands: against its plain version
+    in both parameter modes (K1' in both of its channels); K3a-K3d against
+    K2 and K1 on the same operands (bit for bit), K1' against K1 (to f32
+    rounding); then its time, its plain version's and its bound.  Returns
+    its row (launches filled in later)."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+    from chemlab_tpu_torch.engine import cell_pair_variants as variants
+
+    cfg, spec = built.cfg, built.spec
+    name, kind, replaces, _ = LADDER_ROWS[key]
+    cells, counts = _cells(built, state)
+    dims = cfg.cell_dims
+    worst = 0.0
+    for uniform in (True, False):
+        params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
+                  else mixed_params(spec, cfg.n_types, True))
+        k2 = [cell_pair.cell_pair_forces_cell_kernel(
+                  cells, counts, state.box, params, dims, uniform, False, m)
+              for m in (cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL)]
+        modes = ((cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL)
+                 if kind == "colt1" else (cell_pair.CH3_ENERGY,))
+        for mode in modes:
+            args = (cells, counts, state.box, params, dims, uniform, mode)
+            got = variants.ladder_kernel(kind, *args)
+            ref = variants.ladder_ref(kind, *args)
+            k1 = cell_pair.cell_pair_forces_colt_kernel(
+                cells, counts, state.box, params, dims, uniform, False, mode)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = max(_tol(ref[..., :3]), _tol(ref[..., 3:]))
+            line = ("%s vs plain at %s x cap %d uniform=%d ch3=%d: max|d| "
+                    "%.3e (tol %.3e)" % (key, dims, cfg.cell_cap, uniform,
+                                         mode, err, tol))
+            if not err <= tol:
+                raise AssertionError("%s disagrees with its plain version"
+                                     % key)
+            worst = max(worst, err)
+            if kind == "colt1":
+                d1 = (got - k1).abs().max().item()
+                print("%s; vs K1 max|d| %.3e (tol %.3e), bitwise %s"
+                      % (line, d1, _tol(k1), torch.equal(got, k1)))
+                if not d1 <= _tol(k1):
+                    raise AssertionError("K1p disagrees with K1")
+                continue
+            d_f = (got[..., :3] - k2[0][..., :3]).abs().max().item()
+            d_e = (got[..., 3] - k2[0][..., 3]).abs().max().item()
+            d_w = (got[..., 4] - k2[1][..., 3]).abs().max().item()
+            d_1 = (got[..., :3] - k1[..., :3]).abs().max().item()
+            same = (torch.equal(got[..., :3], k2[0][..., :3])
+                    and torch.equal(got[..., :3], k1[..., :3]))
+            print("%s; vs K2 max|dF| %.3e max|de| %.3e max|dw| %.3e, vs K1 "
+                  "max|dF| %.3e; forces bitwise %s"
+                  % (line, d_f, d_e, d_w, d_1, same))
+            if not (same and d_e <= _tol(k2[0][..., 3])
+                    and d_w <= _tol(k2[1][..., 3])):
+                raise AssertionError("%s differs from K2/K1" % key)
+    params = cell_pair.pair_params(spec, cfg.n_types)
+    args = (cells, counts, state.box, params, dims, cfg.uniform_lj,
+            cell_pair.CH3_ENERGY)
+    ms = _time_ms(lambda: variants.ladder_kernel(kind, *args), 50)
+    plain_ms = _time_ms(lambda: variants.ladder_ref(kind, *args), 3)
+    cand, inside = pair_counts(cells, state.box, params[2], dims)
+    table = variants.ladder_table(dims)
+    # K3a-K3d compute both channels: the virial's operations count too
+    ops_pair = OPS_LJ + (0 if kind == "colt1" else OPS_VIRIAL)
+    b_ms, b_by = bound_ms(cells, params.numel() * 4 + 12 + 4 * table.size,
+                          cand, inside, ops_pair,
+                          out_ch=4 if kind == "colt1" else 8)
+    print("%s time at %s cells x cap %d: kernel %.6f ms, plain %.4f ms; %d "
+          "candidate pairs, %d inside the cutoff, bound %.6f ms (%s)"
+          % (key, dims, cfg.cell_cap, ms, plain_ms, cand, inside, b_ms,
+             b_by))
+    return {"name": name, "route": "cuda", "source": LADDER_SOURCE,
+            "replaces": replaces, "launches": 0, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def _device_ms(fn, reps: int, kernel_name: str):
+    """Device time per call of the CUDA kernel whose name holds
+    ``kernel_name``, from ``torch.profiler`` over ``reps`` calls after one
+    (the host's time between launches left out); None when the profiler
+    does not see exactly one such kernel a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel_name in e.name]
+    return sum(times) / 1e3 / reps if len(times) == reps else None
+
+
+def ladder_ab(built, state):
+    """K1, K2 and the five ladder kernels on identical operands, device
+    time by the profiler, in turns (forward, then backward); K1 and K2 in
+    their energy mode, K3a-K3d filling both channels."""
+    from chemlab_tpu_torch.engine import cell_pair
+    from chemlab_tpu_torch.engine import cell_pair_variants as variants
+
+    cfg = built.cfg
+    cells, counts = _cells(built, state)
+    args = (cells, counts, state.box,
+            cell_pair.pair_params(built.spec, cfg.n_types), cfg.cell_dims,
+            cfg.uniform_lj)
+    mode = cell_pair.CH3_ENERGY
+    fns = [("K1", "cell_pair_colt_kernel",
+            lambda: cell_pair.cell_pair_forces_colt_kernel(
+                *args, cfg.all_lj, mode)),
+           ("K2", "cell_pair_cell_kernel",
+            lambda: cell_pair.cell_pair_forces_cell_kernel(
+                *args, cfg.all_lj, mode))]
+    for key, (_, kind, _, _) in LADDER_ROWS.items():
+        fns.append((key, "ladder_%s_kernel" % kind,
+                    lambda kind=kind: variants.ladder_kernel(kind, *args,
+                                                             mode)))
+    out = {key: [] for key, _, _ in fns}
+    for key, name, fn in fns + fns[::-1]:
+        out[key].append(_device_ms(fn, 50, name))
+    print("device time by the profiler, ms, in turns (%s cells x cap %d): %s"
+          % (cfg.cell_dims, cfg.cell_cap, json.dumps(out)))
+    return out
+
+
+def ladder_path(card: str, lj, cap36):
+    """The ladder on the warmed 10k LJ melt (cap 32) and the cap-36 melt:
+    each kernel against plain, K2 and K1, the cancellation, a reactive
+    block per choice (``run_block(pair_kernel=...)``: "column" takes K3c
+    at cap 32 and K3d at cap 36), then the kernel matrix."""
+    import torch
+
+    from chemlab_tpu_torch import kernel_matrix
+    from chemlab_tpu_torch.engine import cell_pair
+
+    built, systop, state = lj
+    rows = {key: check_ladder(built, state, key) for key in LADDER_ROWS}
+    ladder_ab(built, state)
+    for key in LADDER_ROWS:
+        check_cancellation(built, state, ladder=LADDER_ROWS[key][1])
+    for key, melt in (("K1p", lj), ("K3a", lj), ("K3b", lj), ("K3c", lj),
+                      ("K3d", cap36)):
+        name = LADDER_ROWS[key][3]
+        b, sys_, st = melt
+        if key == "K3d" and b.cfg.cell_cap % 8 == 0:
+            raise AssertionError("the K3d block needs the cap-36 melt")
+        rows[key]["launches"], _, _ = run_path(
+            b, sys_, st, card, cell_pair.BY_NAME[key],
+            "ladder block, pair_kernel=%r (%s, cap %d)"
+            % (name, key, b.cfg.cell_cap), 1, pair_kernel=name)
+    km = kernel_matrix.time_kernels(built, state)
+    torch.cuda.synchronize()
+    print("kernel matrix, whole pair call in ms (%d particles, %s cells, cap "
+          "%d, %s): %s" % (built.cfg.n_particles, built.cfg.cell_dims,
+                           built.cfg.cell_cap, card, json.dumps(km)))
+    return [rows[key] for key in LADDER_ROWS], km
 
 # ---- K1c / K1d / K1e (Chebyshev tabulated) ------------------------------------
 
@@ -754,6 +959,8 @@ K1F_ROWS = {
             "chemlab_tpu_torch/csrc/cell_pair.cu"),
     "K1f-cheb": ("K1f cell_pair_cheb x_halo (Chebyshev modes, one x-slab)",
                  "chemlab_tpu_torch/csrc/cell_pair_cheb.cu"),
+    "K1f-cheb-mix": ("K1f cell_pair_cheb_mix x_halo (two-table blend, one "
+                     "x-slab)", "chemlab_tpu_torch/csrc/cell_pair_cheb.cu"),
 }
 
 
@@ -987,9 +1194,9 @@ def slab_kernels():
                      testsystems.build_mixed_tab_melt, 100, slab_devices=2)
     x = observables.conversions(mix2[0].spec, mix2[2].type_id,
                                 mix2[2].chem_state, mix2[2].active)
-    check_k1f(mix2[0], mix2[2], 2, "K1d", x, timed=False)
+    cheb_mix = check_k1f(mix2[0], mix2[2], 2, "K1d", x)
     check_k1f_cancellation(mix2[0], mix2[2], 2, "K1d", x)
-    return lj2, tab2, k1f, cheb
+    return lj2, tab2, mix2, k1f, cheb, cheb_mix
 
 
 def slab_path(card: str):
@@ -1004,13 +1211,15 @@ def slab_path(card: str):
     from chemlab_tpu_torch.engine import _kernels, integrate, runner
     from chemlab_tpu_torch.parallel import launch
 
-    (lj, lj_sys, lj_st), (tab, tab_sys, tab_st), k1f, cheb = slab_kernels()
+    ((lj, lj_sys, lj_st), (tab, tab_sys, tab_st), (mix, mix_sys, mix_st),
+     k1f, cheb, cheb_mix) = slab_kernels()
     npt, _, npt_st = _warm_melt("10k NPT melt, slab_devices=2", steps=100,
                                 n_mols=N_MOLS, slab_devices=2, **NPT)
     starts = [testsystems.activate_initiators(
                   b, systop, st, n=max(b.cfg.n_particles // 300, 4))
               for b, systop, st in ((lj, lj_sys, lj_st),
-                                    (tab, tab_sys, tab_st))]
+                                    (tab, tab_sys, tab_st),
+                                    (mix, mix_sys, mix_st))]
     jobs = [("run_blocks", dict(system=bridge.to_numpy(lj.cfg, lj.spec,
                                                        starts[0]),
                                 n_blocks=2, block_steps=BLOCK_STEPS,
@@ -1019,11 +1228,15 @@ def slab_path(card: str):
                                                        starts[1]),
                                 n_blocks=1, block_steps=BLOCK_STEPS,
                                 seed=1234)),
+            ("run_blocks", dict(system=bridge.to_numpy(mix.cfg, mix.spec,
+                                                       starts[2]),
+                                n_blocks=1, block_steps=BLOCK_STEPS,
+                                seed=1234)),
             ("forces", dict(system=bridge.to_numpy(npt.cfg, npt.spec,
                                                    npt_st))),
             ("imported_modules", {})]
     t0 = time.perf_counter()
-    lj_res, tab_res, npt_res, mods = launch.run_jobs(
+    lj_res, tab_res, mix_res, npt_res, mods = launch.run_jobs(
         jobs, SLAB_RANKS, _kernels.BUILD_DIR / "launch", backend="gloo",
         device="cuda:0", timeout=900)
     print("%d gloo ranks on cuda:0: %.1f s for the jobs, start-up included"
@@ -1069,6 +1282,12 @@ def slab_path(card: str):
           "events %d, T %.4f" % (t0["launches"]["K1f-cheb"], BLOCK_STEPS,
                                  int(t0["reaction_counts"].sum()),
                                  float(t0["T"])))
+    m0 = mix_res[0]
+    print("blended slab block, rank 0: K1f-cheb-mix launches %d over %d "
+          "steps, events %d, T %.4f" % (m0["launches"]["K1f-cheb-mix"],
+                                        BLOCK_STEPS,
+                                        int(m0["reaction_counts"].sum()),
+                                        float(m0["T"])))
     p_ranks = [float(r["P"]) for r in npt_res]
     print("NPT melt (slab_devices=2, %s) virial_pressure: ranks %s, one rank "
           "%.9g" % (npt.cfg.cell_dims, p_ranks, p_one))
@@ -1089,6 +1308,9 @@ def slab_path(card: str):
         "positions within f32 rounding of one rank": dpos <= 1e-4,
         "K1f-cheb on every tabulated step": all(
             r["launches"]["K1f-cheb"] == BLOCK_STEPS for r in tab_res),
+        "K1f-cheb-mix on every blended step": all(
+            r["launches"]["K1f-cheb-mix"] == BLOCK_STEPS
+            and bool(np.isfinite(r["pos"]).all()) for r in mix_res),
         "pressure within rel 1e-5 of one rank": all(
             abs(p - p_one) <= 1e-5 * abs(p_one) for p in p_ranks),
         "ranks import no jax": all(m["modules"] == [] for m in mods),
@@ -1101,8 +1323,9 @@ def slab_path(card: str):
     rows = []
     for key, nums, launches in (
             ("K1f", k1f, int(r0["launches"]["K1f"])),
-            ("K1f-cheb", cheb, int(t0["launches"]["K1f-cheb"]
-                                   + t0["launches"]["K1f-cheb-mix"]))):
+            ("K1f-cheb", cheb, int(t0["launches"]["K1f-cheb"])),
+            ("K1f-cheb-mix", cheb_mix,
+             int(m0["launches"]["K1f-cheb-mix"]))):
         ms, plain_ms, b_ms, b_by, worst = nums
         name, source = K1F_ROWS[key]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -1131,7 +1354,11 @@ def main() -> int:
     print("kernel build (%d sources in parallel): %.2f s"
           % (len({k.source for k in cell_pair.KERNELS}), build_s))
 
-    rows = [lj_path(card), k2_path(card)]
+    lj_row, lj = lj_path(card)
+    k2_row, cap36 = k2_path(card)
+    rows = [lj_row, k2_row]
+    ladder_rows, km = ladder_path(card, lj, cap36)
+    rows += ladder_rows
     npt_row, npt_pps = npt_path(card)
     rows.append(npt_row)
     tab_rows, pps = tab_paths(card)
@@ -1142,6 +1369,13 @@ def main() -> int:
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
           % (SLAB_RANKS, slab_pps, card))
+    print("kernel matrix (ms): %s" % json.dumps(km))
+    if len(rows) != len(cell_pair.BY_NAME) or not all(
+            r["launches"] > 0 for r in rows):
+        raise AssertionError("the kernels line needs every launch count of "
+                             "cell_pair.BY_NAME (%d), each > 0: %s"
+                             % (len(cell_pair.BY_NAME),
+                                [(r["name"], r["launches"]) for r in rows]))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

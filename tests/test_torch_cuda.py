@@ -1,7 +1,8 @@
-"""The port on a card: the CUDA K1 (LJ), K1c/K1d/K1e (Chebyshev tabulated)
-and K2 (per-cell LJ, any grid) against their plain versions, K2 against K1
-on a full grid, the cancellation at r -> 0, and short runs on the card
-against the CPU path: LJ, tabulated, and NPT on the K2 grid.
+"""The port on a card: the CUDA K1 (LJ), K1c/K1d/K1e (Chebyshev tabulated),
+K2 (per-cell LJ, any grid) and the ladder (K1', K3a-K3d) against their
+plain versions, K2 against K1 on a full grid and K3a-K3d against K2 bit
+for bit, the cancellation at r -> 0, and short runs on the card against
+the CPU path: LJ, tabulated, and NPT on the K2 grid.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -21,6 +22,7 @@ import torch
 
 from chemlab_tpu_torch import testsystems
 from chemlab_tpu_torch.engine import cell_pair, integrate, neighbor, runner
+from chemlab_tpu_torch.engine import cell_pair_variants as variants
 
 MODES = [(True, True), (False, True), (False, False)]   # (uniform, all_lj)
 CH3 = (cell_pair.CH3_NONE, cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL)
@@ -566,3 +568,201 @@ def test_cuda_correction_scatter_gives_the_same_bits_twice(melt):
     ref = cell_pair.excluded_pair_correction(spec, *args, active=st.active)[0]
     torch.testing.assert_close(out[0], ref, rtol=0,
                                atol=2e-5 * (1.0 + ref.abs().max().item()))
+
+
+# ---- the ladder: K1' (colt1) and K3a-K3d ---------------------------------------
+
+LADDER = ("packet", "resident", "colz", "column", "colt1")
+
+
+def _random_cells(dims, cap, seed, fill=None, n_types=2):
+    """Random occupancy per cell (at most ``fill``), particles inside their
+    cell of edge 1.1, types 1..n_types: (cells, counts, box, params)."""
+    rng = np.random.RandomState(seed)
+    n_cells = int(np.prod(dims))
+    edge = 1.1
+    box = np.array(dims, np.float32) * edge
+    cells = np.zeros((n_cells, cap, 4), np.float32)
+    counts = rng.randint(0, min(cap, fill or cap) + 1,
+                         n_cells).astype(np.int32)
+    for c in range(n_cells):
+        cx, cy, cz = c // (dims[1] * dims[2]), (c // dims[2]) % dims[1], \
+            c % dims[2]
+        k = counts[c]
+        cells[c, :k, :3] = np.array([cx, cy, cz]) * edge \
+            + rng.uniform(0, edge, (k, 3))
+        cells[c, :k, 3] = rng.randint(1, n_types + 1, k)
+    params = np.zeros((5, n_types, n_types), np.float32)
+    params[0], params[1], params[2] = 0.35, 1.0, 1.1 ** 2
+    params[3], params[4] = 0.01, 1.0
+    params[4, 0, 1] = params[4, 1, 0] = 0.0       # one non-LJ type pair
+    return [torch.from_numpy(a) for a in (cells, counts, box, params)]
+
+
+@pytest.fixture(scope="module")
+def melt32():
+    """The 70-trimer melt built at cell_cap=32 (3x3x3: a grid every ladder
+    kernel takes), warmed on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    built, systop, _ = testsystems.build_melt(n_mols=70, reactive=True,
+                                              thermostat="no", cell_cap=32,
+                                              device="cpu")
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    return built, systop, testsystems.warmup(built, st, steps=50)
+
+
+def _melt_ops(built, st, spec=None):
+    cfg = built.cfg
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    params = cell_pair.pair_params(spec or built.spec, cfg.n_types)
+    return [cells, counts, st.box, params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", LADDER)
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "islj"])
+def test_cuda_ladder_matches_plain(melt32, kind, uniform):
+    """Each ladder kernel against its plain version on the melt, in both
+    parameter modes (K1' in both of its channels), one launch counted."""
+    built, _, st = melt32
+    cfg = built.cfg
+    spec = built.spec if uniform else _mixed(built.spec, cfg.n_types, True)
+    ops = _melt_ops(built, st, spec)
+    modes = ((cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL) if kind == "colt1"
+             else (cell_pair.CH3_ENERGY,))
+    for mode in modes:
+        kern = variants.KERNEL_OF[kind]
+        n0 = kern.launches
+        got = variants.ladder_cells(kind, *(t.cuda() for t in ops),
+                                    cfg.cell_dims, uniform, mode)
+        assert kern.launches == n0 + 1
+        ref = variants.ladder_ref(kind, *ops, cfg.cell_dims, uniform, mode)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=_tol(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "islj"])
+def test_cuda_k3_equal_k2_bit_for_bit(melt32, uniform):
+    """K3a-K3d on identical cap-32 operands: every channel equals K2's
+    (forces and energy from its energy mode, the virial from its virial
+    mode) bit for bit, K2 equals K1 there, and K1' agrees with K1 to f32
+    rounding."""
+    built, _, st = melt32
+    cfg = built.cfg
+    spec = built.spec if uniform else _mixed(built.spec, cfg.n_types, True)
+    dev = [t.cuda() for t in _melt_ops(built, st, spec)]
+    dims = cfg.cell_dims
+    k2_e = cell_pair.cell_cells(*dev, dims, uniform, False,
+                                cell_pair.CH3_ENERGY)
+    k2_w = cell_pair.cell_cells(*dev, dims, uniform, False,
+                                cell_pair.CH3_VIRIAL)
+    k1_e = cell_pair.colt_cells(*dev, dims, uniform, False,
+                                cell_pair.CH3_ENERGY)
+    for kind in ("packet", "resident", "colz", "column"):
+        got = variants.ladder_cells(kind, *dev, dims, uniform)
+        torch.cuda.synchronize()
+        assert torch.equal(got[..., :4], k2_e), kind
+        assert torch.equal(got[..., 4], k2_w[..., 3]), kind
+        assert torch.equal(got[..., :3], k1_e[..., :3]), kind
+    k1p = variants.ladder_cells("colt1", *dev, dims, uniform)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k1p, k1_e, rtol=0, atol=_tol(k1_e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", LADDER)
+def test_cuda_ladder_gives_the_same_bits_twice(melt32, kind):
+    built, _, st = melt32
+    dev = [t.cuda() for t in _melt_ops(built, st)]
+    a, b = (variants.ladder_cells(kind, *dev, built.cfg.cell_dims, True)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 4, 5), 16), ((2, 2, 2), 24),
+                                      ((2, 3, 1), 13)])
+def test_cuda_ladder_ragged_cells(dims, cap):
+    """Random occupancy on odd and small grids: every kernel the geometry
+    takes (K1' needs a full stencil, all but K3d a cap that is a multiple
+    of 8) against its plain version, both parameter modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    ops = _random_cells(dims, cap, cap)
+    kinds = [k for k in LADDER
+             if (k == "column" or cap % 8 == 0)
+             and (k != "colt1" or cell_pair.colt_legal(cap, dims))]
+    assert "column" in kinds
+    for kind in kinds:
+        for uniform in (True, False):
+            got = variants.ladder_cells(kind, *(t.cuda() for t in ops), dims,
+                                        uniform)
+            ref = variants.ladder_ref(kind, *ops, dims, uniform)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                                       atol=_tol(ref), msg=kind)
+
+
+@pytest.mark.cuda
+def test_cuda_ladder_opts_in_at_the_100k_grid():
+    """The 100k melt's grid (24^3 cells) at cap 40: K3c (140 120 bytes of
+    shared memory) and K1' (151 712 bytes) take the opt-in above 48 KiB;
+    K3a-K3d equal K2 bit for bit and K1' agrees with K1.  A stage above
+    227 KiB raises with its size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims, cap = (24, 24, 24), 40
+    dev = [t.cuda() for t in _random_cells(dims, cap, 7, fill=12)]
+    n_types = dev[3].shape[1]
+    assert variants._smem("colz", cap, dims, n_types) > 48 * 1024
+    assert variants._smem("colt1", cap, dims, n_types) > 48 * 1024
+    k2_e = cell_pair.cell_cells(*dev, dims, False, False,
+                                cell_pair.CH3_ENERGY)
+    k2_w = cell_pair.cell_cells(*dev, dims, False, False,
+                                cell_pair.CH3_VIRIAL)
+    for kind in ("packet", "resident", "colz", "column"):
+        got = variants.ladder_cells(kind, *dev, dims, False)
+        torch.cuda.synchronize()
+        assert torch.equal(got[..., :4], k2_e), kind
+        assert torch.equal(got[..., 4], k2_w[..., 3]), kind
+    k1 = cell_pair.colt_cells(*dev, dims, False, False, cell_pair.CH3_ENERGY)
+    k1p = variants.ladder_cells("colt1", *dev, dims, False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k1p, k1, rtol=0, atol=_tol(k1))
+    big = torch.zeros((24 * 24 * 24, 104, 4), device="cuda")
+    with pytest.raises(ValueError, match="227 KiB"):
+        variants.ladder_cells("colt1", big, dev[1], dev[2], dev[3], dims,
+                              False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel", [("colt1", "K1p"), ("packet", "K3a"),
+                                         ("resident", "K3b"),
+                                         ("column", "K3c")])
+def test_cuda_run_block_with_a_ladder_kernel(melt32, name, kernel):
+    """20 NVE steps with a reaction step every 10 through
+    ``run_block(pair_kernel=name)`` on the card: the named kernel launched
+    on every step and K1 never, the positions within f32 rounding of the
+    CPU run with the same kernel name, the same events."""
+    built, systop, st = melt32
+    cfg = dataclasses.replace(built.cfg, reaction_interval=10)
+    st = testsystems.activate_initiators(built, systop, st, n=20)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
+    c = runner.run_block(built.spec, cfg, st, 20, pair_kernel=name)
+    n_k, n_1 = cell_pair.BY_NAME[kernel].launches, cell_pair.K1.launches
+    g = runner.run_block(built.spec.to("cuda"), cfg, st.to("cuda"), 20,
+                         pair_kernel=name)
+    torch.cuda.synchronize()
+    assert cell_pair.BY_NAME[kernel].launches == n_k + 20
+    assert cell_pair.K1.launches == n_1
+    assert int(c.reaction_counts.sum()) > 0
+    torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-5)
+    for name_ in ("ev_log_a", "ev_log_b", "ev_log_r", "type_id"):
+        torch.testing.assert_close(getattr(g, name_).cpu(),
+                                   getattr(c, name_), rtol=0, atol=0)

@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax():
     assert "chemlab_tpu_torch.engine.cell_pair" in mods and len(mods) >= 28
     for m in ("topfile", "topology", "reaction_parser", "files_io",
               "engine.tab_cheb", "engine.cell_pair_halo", "parallel",
-              "parallel.sharding", "parallel.launch", "parallel.jobs"):
+              "parallel.sharding", "parallel.launch", "parallel.jobs",
+              "engine.cell_pair_variants", "kernel_matrix"):
         assert "chemlab_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r: importlib.import_module(m)\n"
@@ -57,6 +58,9 @@ def test_no_jax_import_in_sources():
     assert REPO / "chemlab_tpu_torch" / "parallel" / "launch.py" in paths
     assert REPO / "chemlab_tpu_torch" / "engine" / "cell_pair_halo.py" \
         in paths
+    assert REPO / "chemlab_tpu_torch" / "engine" / "cell_pair_variants.py" \
+        in paths
+    assert REPO / "chemlab_tpu_torch" / "kernel_matrix.py" in paths
     for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -69,6 +73,9 @@ def test_no_reference_package_import_in_sources():
     (``chemlab_tpu_torch`` itself is allowed)."""
     paths = list((REPO / "chemlab_tpu_torch").rglob("*.py"))
     assert REPO / "chemlab_tpu_torch" / "parallel" / "jobs.py" in paths
+    assert REPO / "chemlab_tpu_torch" / "engine" / "cell_pair_variants.py" \
+        in paths
+    assert REPO / "chemlab_tpu_torch" / "kernel_matrix.py" in paths
     paths.append(REPO / "chip_smoke.py")
     for path in paths:
         for line in path.read_text().splitlines():
@@ -98,7 +105,8 @@ def test_builders_default_to_the_card():
 def test_kernel_build_flags():
     sources = {k.source for k in cell_pair.KERNELS}
     assert {s.name for s in sources} == {"cell_pair.cu", "cell_pair_cheb.cu",
-                                         "cell_pair_cell.cu"}
+                                         "cell_pair_cell.cu",
+                                         "cell_pair_ladder.cu"}
     for source in sources:
         cmd = _kernels.nvcc_command("nvcc", source, Path("x.so"))
         flags = " ".join(cmd)
@@ -113,8 +121,13 @@ def test_kernel_build_flags():
         assert 'extern "C" int %s(' % k.symbol in k.source.read_text()
     # one launch count per mode: K1, its virial channel K1b and its slab
     # mode K1f on one entry point, K1c, K1e and K1f-cheb on another, K1d
-    # and K1f-cheb-mix on a third, K2 its own
-    assert len({id(k) for k in cell_pair.KERNELS}) == 9
+    # and K1f-cheb-mix on a third, K2 its own, and the ladder's five (K1p,
+    # K3a-K3d) one entry point each
+    assert len({id(k) for k in cell_pair.KERNELS}) == 14
+    ladder = (cell_pair.K1P, cell_pair.K3A, cell_pair.K3B, cell_pair.K3C,
+              cell_pair.K3D)
+    assert {k.source.name for k in ladder} == {"cell_pair_ladder.cu"}
+    assert len({k.symbol for k in ladder}) == 5
     assert cell_pair.K1.symbol == cell_pair.K1B.symbol \
         == cell_pair.K1F.symbol
     assert cell_pair.K1C.symbol == cell_pair.K1E.symbol \
@@ -126,9 +139,10 @@ def test_kernel_build_flags():
 def test_kernel_source_rounds_half_to_even():
     """``jnp.round`` rounds half to even: the kernel's minimum image must use
     rintf, never roundf (half away from zero)."""
-    for k in (cell_pair.K1, cell_pair.K1C, cell_pair.K2):
+    for k in (cell_pair.K1, cell_pair.K1C, cell_pair.K2, cell_pair.K3A):
         src = k.source.read_text()
         assert "rintf(" in src and "roundf(" not in src
+        assert "rsqrtf(" not in src and "__fdividef" not in src
     # the well piece's r is the correctly rounded sqrtf, never rsqrtf
     src = cell_pair.K1C.source.read_text()
     assert "sqrtf(r2)" in src and "rsqrtf(" not in src

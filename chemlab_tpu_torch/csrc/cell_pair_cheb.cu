@@ -2,7 +2,8 @@
 // over all pairs on a periodic cell grid.
 //
 // Replaces the Chebyshev modes of the TPU kernel
-// chemlab_tpu/engine/pallas_pair.py::_colt2_kernel:
+// chemlab_tpu/engine/pallas_pair.py:211 _colt2_kernel (its Chebyshev
+// branches at :405-458 and :469-520, its pallas_call at :740):
 //   K1c  table-scalar mode (cheb_ntab > 0): per-table fit scalars in SMEM,
 //        one Clenshaw chain per distinct table, selected by a table-id plane;
 //   K1d  the same with cheb_mix: x * T_a + (1 - x) * T_b per type pair
@@ -31,17 +32,54 @@
 // uses r = sqrtf(r2) (not rsqrtf, which is approximate) and selects it
 // where r2 >= rs2.
 //
-// What bounds it on an H100: at 10k particles (1331 cells x 32 slots) the
-// operands are ~0.7 MB and stay in the 50 MB L2; the work is ~27 x 32
-// candidates per slot, ~2 M pair evaluations within the cutoff per call,
-// each ~(kw + 10) flops plus one division, so the kernel is bound by
-// latency and issue, not by memory.  Design for that: one block per cell
-// and one thread per slot; the coefficient pack, the cutoffs and the
-// type-pair maps are staged in shared memory once per block; each of the
-// 27 neighbour cells is staged once (cap x 16 B) and read by every thread;
-// the loop stops at the cell's occupancy; each thread owns its output row
-// and sums in a fixed order, so there are no atomics and the result is
-// deterministic.  A pack above 48 KB opts in to more dynamic shared memory.
+// What bounds it on an H100: at 10k particles (11^3 cells, cap 32, ~7.5
+// particles a cell) the operands are ~0.7 MB and stay in the 50 MB L2; a
+// call visits ~2.07 M candidate pairs (~22 f32 operations each up to the
+// cut) and ~0.2 M pairs inside the cutoff (a Clenshaw chain each: ~43
+// operations at kw = 8, ~85 for the blend, and one IEEE division), so it is
+// bound by latency and by how many lanes issue useful work, not by bytes.
+//
+// Two kernels, the same sums bit for bit:
+//
+//   cheb_cellwise_kernel (the entry points *_cellwise; the first design,
+//   kept as the baseline the other is held and timed against): one block
+//   per cell, one thread per slot, the 27 neighbour cells staged one at a
+//   time between two barriers.  Only the ~7.5 occupied slots of a warp
+//   work (~23 % of the lanes at cap 32), and the chain runs inside the
+//   candidate loop, so a warp runs it whenever any of its lanes has a pair
+//   in the cutoff: ~5x the chains the pairs need.
+//
+//   cheb_packed_kernel (cell_pair_cheb, cell_pair_cheb_mix; the launch plan
+//   is cell_pair.cheb_launch_plan's; every step runs it):
+//   - columns: one block per (xy column, z segment of L cells); the 9
+//     xy-neighbour z-columns for z in [z0 - 1, z0 + L] are staged once,
+//     with every copy in flight at once (cp.async), then one barrier: the
+//     ladder's lesson (cell_pair_ladder.cu's K3c and K1': one stage per
+//     column beats 27 per cell);
+//   - packed lanes: a warp takes a batch of the block's occupied rows and
+//     gives each row in turn all 32 lanes: lane o < 27 takes stencil offset
+//     o, a scan of the 27 counts lays the row's candidates out in stencil
+//     order and slot order, and the lanes take 32 consecutive candidates a
+//     pass, so a lane idles only in a row's last pass;
+//   - filter, then evaluate: a pass runs the candidate ops up to the cut
+//     and a ballot appends the in-cut pairs, in order, to the warp's list;
+//     the chains then run over the list, 32 pairs at a time, and each
+//     row's lane adds its terms in list order.  That is the cellwise order
+//     per slot (stencil order, then slot order, in-cut pairs only), with
+//     the same operands in the same sequence, so the sums are the same
+//     bits, and a chain runs only for a pair inside the cutoff;
+//   - a cell whose bounding box lies beyond the row's largest cutoff (with
+//     a margin far above rounding) is dropped before its candidates are
+//     laid out: none of its pairs could pass the cut.
+//   No atomics and no order that depends on timing: each slot is written by
+//   one thread, which adds its terms in a fixed order.
+//   Measured on an H100 (PERF.md, chemlab_tpu_torch.kernel_matrix --tab):
+//   designs with 1, 3 or 9 lanes a row, each lane a range of offsets and a
+//   list of its own, ran at 0.070-0.09 ms on the 10k melt (a warp
+//   followed its slowest lane through rows of uneven candidates and chain
+//   counts) against the cellwise kernel's 0.086; the warp per row runs it
+//   at ~0.03 ms.  The choices of L, rows per batch, threads and list depth
+//   are cell_pair.py's CHEB_* constants, from that sweep.
 //
 // Layout (all float32 unless noted, contiguous):
 //   cells  (C, cap, 4)      [x, y, z, type+1 | 0] rows; empty slots are zero
@@ -57,6 +95,12 @@
 //   out    (C, cap, 4)      [fx, fy, fz, ch3]; ch3 = 0 (mode 0), half the
 //                           tabulated pair energy (mode 1) or half the pair
 //                           virial (mode 2)
+// Shared memory of the column-segment kernel, bytes: 16 * (9 ((L + 2) cap
+// + 1) + threads * depth) (stage and lists) + 4 * (n_rows P + T^2 (2, or 4
+// with the blend) + 9 (L + 3) + 9 (L + 2) 8 + T) (pack, maps, prefixes,
+// counts, offsets, boxes, cutoffs); above 48 KiB the launch opts in, and
+// the wrapper raises above 227 KiB.  The launcher refuses a plan whose
+// bytes differ from this layout's.
 //
 // K1f in these modes (x_halo, as in cell_pair.cu): cells holds a slab of
 // nx = w + 2 x-layers; the grid runs over the w * ny * nz inner cells, the
@@ -64,6 +108,7 @@
 // per inner slot.  Same visiting order and op sequence as the full grid,
 // so the slabs laid side by side equal K1c/K1d/K1e's output bit for bit.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -112,7 +157,7 @@ __device__ __forceinline__ void cheb_eval(const float* __restrict__ c,
 }
 
 template <bool MIX>
-__global__ void cell_pair_cheb_kernel(
+__global__ void cheb_cellwise_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ cut2_g,
     const int* __restrict__ tmap_g, const int* __restrict__ tmap_b_g,
@@ -215,11 +260,11 @@ __global__ void cell_pair_cheb_kernel(
 }
 
 template <bool MIX>
-int launch(const void* cells, const void* counts, const void* box,
-           const void* cut2, const void* tmap, const void* tmap_b,
-           const void* xmat, const void* coef, void* out, int nx, int ny,
-           int nz, int cap, int n_types, int n_rows, int kw, int ko,
-           int ch3_mode, int x_halo, void* stream) {
+int launch_cellwise(const void* cells, const void* counts, const void* box,
+                    const void* cut2, const void* tmap, const void* tmap_b,
+                    const void* xmat, const void* coef, void* out, int nx,
+                    int ny, int nz, int cap, int n_types, int n_rows, int kw,
+                    int ko, int ch3_mode, int x_halo, void* stream) {
   const int n_cells = (x_halo ? nx - 2 : nx) * ny * nz;
   const int threads = ((cap + 31) / 32) * 32;
   const size_t tt = static_cast<size_t>(n_types) * n_types;
@@ -228,12 +273,12 @@ int launch(const void* cells, const void* counts, const void* box,
       + tt * sizeof(int) + (MIX ? tt * (sizeof(int) + sizeof(float)) : 0);
   if (shmem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        cell_pair_cheb_kernel<MIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cheb_cellwise_kernel<MIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shmem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  cell_pair_cheb_kernel<MIX><<<n_cells, threads, shmem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  cheb_cellwise_kernel<MIX><<<n_cells, threads, shmem,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(cells), static_cast<const int*>(counts),
       static_cast<const float*>(box), static_cast<const float*>(cut2),
       static_cast<const int*>(tmap), static_cast<const int*>(tmap_b),
@@ -243,19 +288,380 @@ int launch(const void* cells, const void* counts, const void* box,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the column-segment kernel: packed lanes, filter then evaluate ----------
+
+// Minimum image and r2 of one candidate in the cellwise kernel's op order.
+__device__ __forceinline__ float pair_r2(const float4 xi, const float4 xj,
+                                         const float bx, const float by,
+                                         const float bz, const float ibx,
+                                         const float iby, const float ibz,
+                                         float& ddx, float& ddy, float& ddz) {
+  ddx = xi.x - xj.x;
+  ddx = ddx - bx * rintf(ddx * ibx);
+  ddy = xi.y - xj.y;
+  ddy = ddy - by * rintf(ddy * iby);
+  ddz = xi.z - xj.z;
+  ddz = ddz - bz * rintf(ddz * ibz);
+  float r2 = ddx * ddx;
+  r2 = r2 + ddy * ddy;
+  r2 = r2 + ddz * ddz;
+  return r2;
+}
+
+__device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
+
+// Periodic distance |d - b * rint(d / b)| at least, over d in [lo, hi]:
+// zero when the interval holds a multiple of b, else the nearer end's.
+__device__ __forceinline__ float axis_gap(float lo, float hi, float b,
+                                          float ib) {
+  if (ceilf(lo * ib) * b <= hi) return 0.f;
+  return fminf(fabsf(lo - b * rintf(lo * ib)), fabsf(hi - b * rintf(hi * ib)));
+}
+
+// A lower bound, less a margin gm on each axis, of the squared minimum-image
+// distance from xi to any point of the box c = [x0, y0, z0, x1, y1, z1]:
+// no pair of xi with a row in the box has r2 below it.
+__device__ __forceinline__ float min_gap2(const float4 xi, const float* c,
+                                          float bx, float by, float bz,
+                                          float ibx, float iby, float ibz,
+                                          float gm) {
+  const float gx = fmaxf(axis_gap(xi.x - c[3], xi.x - c[0], bx, ibx) - gm, 0.f);
+  const float gy = fmaxf(axis_gap(xi.y - c[4], xi.y - c[1], by, iby) - gm, 0.f);
+  const float gz = fmaxf(axis_gap(xi.z - c[5], xi.z - c[2], bz, ibz) - gm, 0.f);
+  return gx * gx + gy * gy + gz * gz;
+}
+
+constexpr unsigned kAll = 0xffffffffu;
+
+// One block per (xy column, z segment of `seg` cells) of the output grid.
+//
+// Stage: the 9 xy-neighbour z-columns for z in [z0 - 1, z0 + lb] (hz =
+// seg + 2 cells each), each column's occupied rows packed cell after cell
+// (cpre: the rows before each cell; a column every hz * cap + 1 rows), so
+// that the neighbours a row finds in one cell are one contiguous run; and
+// each staged cell's bounding box, from its rows.
+//
+// Work: the block's occupied rows (contiguous in column (0, 0)) in batches
+// of `rows_w`, one batch per warp at a time.  For each row of the batch in
+// turn, the whole warp:
+//   filters: lane o < 27 takes stencil offset o (dx, dy, dz from -1 to 1,
+//   dz fastest: the cellwise order) and drops its cell when the cell's
+//   bounding box lies beyond the row's largest cutoff (its pairs would all
+//   fail the cut; a margin keeps the test clear of rounding); a scan of the
+//   27 cell counts lays the row's candidates out in stencil order, then
+//   slot order, and the warp runs the candidate ops up to the cut on 32
+//   consecutive candidates at a time; a ballot appends the in-cut ones, in
+//   that order, to the warp's list (row, stage index).
+// When the list is full and after the batch's last row:
+//   evaluates: the lanes take the list's entries in turn, run the Clenshaw
+//   chains and leave the pair's terms (g dx, g dy, g dz, and e or g r2) in
+//   the entry;
+//   sums: lane r adds the terms of row r of the batch in list order.
+// So every slot adds its in-cut pairs in stencil order and then slot order,
+// as the cellwise kernel does, with the same operands: the same bits.  A
+// row whose pairs span two fills of the list adds the first fill's terms,
+// then the second's.
+template <bool MIX>
+__global__ void cheb_packed_kernel(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ cut2_g,
+    const int* __restrict__ tmap_g, const int* __restrict__ tmap_b_g,
+    const float* __restrict__ xmat_g, const float* __restrict__ coef_g,
+    float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
+    int n_rows, int kw, int ko, int ch3_mode, int x_halo, int seg,
+    int rows_w, int depth) {
+  extern __shared__ float4 smem[];
+  const int tt = n_types * n_types;
+  const int n_p = 2 * kw + 2 * ko + 6;
+  const int hz = seg + 2;
+  const int cstride = hz * cap + 1;        // stage rows per xy column
+  const int nthr = blockDim.x;
+  const int t = threadIdx.x;
+  float4* rows = smem;                                          // 9 cstride
+  float4* ent = rows + 9 * cstride;                             // depth nthr
+  float* coef = reinterpret_cast<float*>(ent + depth * nthr);   // n_rows P
+  float* cut2 = coef + n_rows * n_p;                            // T T
+  int* tmap = reinterpret_cast<int*>(cut2 + tt);                // T T
+  int* tmap_b = tmap + tt;                                      // T T (MIX)
+  float* xmat = reinterpret_cast<float*>(tmap_b + (MIX ? tt : 0));
+  int* cnt = reinterpret_cast<int*>(xmat + (MIX ? tt : 0));     // 9 hz
+  int* cpre = cnt + 9 * hz;                                     // 9 (hz + 1)
+  int* base_g = cpre + 9 * (hz + 1);                            // 9 hz
+  float* bbox = reinterpret_cast<float*>(base_g + 9 * hz);      // 9 hz 6
+  float* cmax = bbox + 9 * hz * 6;                              // T
+
+  const int n_seg = (nz + seg - 1) / seg;
+  const int col = blockIdx.x / n_seg;         // cx_out * ny + cy
+  const int z0 = (blockIdx.x % n_seg) * seg;
+  const int lb = min(seg, nz - z0);           // output cells of the block
+  const int cy = col % ny;
+  const int cx = col / ny + (x_halo ? 1 : 0);  // the column's x in `cells`
+  const int out0 = col * nz + z0;              // first output cell
+
+  for (int k = t; k < n_rows * n_p; k += nthr) coef[k] = coef_g[k];
+  for (int k = t; k < tt; k += nthr) {
+    cut2[k] = cut2_g[k];
+    tmap[k] = tmap_g[k];
+    if (MIX) {
+      tmap_b[k] = tmap_b_g[k];
+      xmat[k] = xmat_g[k];
+    }
+  }
+  // staged cell (u, h): xy column u = (dx + 1) * 3 + dy + 1, z = z0 - 1 + h;
+  // cells past the segment's lb + 2 stay empty
+  for (int k = t; k < 9 * hz; k += nthr) {
+    const int u = k / hz, h = k % hz;
+    const int ncx = x_halo ? cx + u / 3 - 1 : wrap(cx + u / 3 - 1, nx);
+    const int nc = (ncx * ny + wrap(cy + u % 3 - 1, ny)) * nz
+                   + wrap(z0 - 1 + h, nz);
+    cnt[k] = h < lb + 2 ? counts[nc] : 0;
+    base_g[k] = nc * cap;
+  }
+  __syncthreads();
+  if (t < 9) {
+    int acc = 0;
+    for (int h = 0; h < hz; ++h) {
+      cpre[t * (hz + 1) + h] = acc;
+      acc += cnt[t * hz + h];
+    }
+    cpre[t * (hz + 1) + hz] = acc;
+  }
+  // the largest cutoff^2 of a row of each type
+  for (int a = t; a < n_types; a += nthr) {
+    float m = cut2[a * n_types];
+    for (int k = 1; k < n_types; ++k) m = fmaxf(m, cut2[a * n_types + k]);
+    cmax[a] = m;
+  }
+  __syncthreads();
+  // the rows, a warp to a staged cell, every copy in flight at once
+  for (int sc = t >> 5; sc < 9 * hz; sc += nthr >> 5) {
+    const int u = sc / hz;
+    float4* dst = rows + u * cstride + cpre[sc + u];
+    const float4* src = cells + base_g[sc];
+    for (int slot = t & 31; slot < cnt[sc]; slot += 32) {
+      __pipeline_memcpy_async(dst + slot, src + slot, sizeof(float4));
+    }
+  }
+  __pipeline_commit();
+  // the slots past each output cell's occupancy are zero rows
+  for (int k = t; k < lb * cap; k += nthr) {
+    if (k % cap >= cnt[4 * hz + k / cap + 1]) {
+      out[out0 * cap + k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // each staged cell's bounding box [x0, y0, z0, x1, y1, z1]
+  for (int sc = t; sc < 9 * hz; sc += nthr) {
+    const int u = sc / hz;
+    const float4* r = rows + u * cstride + cpre[sc + u];
+    float b[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
+                  -INFINITY};
+    for (int k = 0; k < cnt[sc]; ++k) {
+      b[0] = fminf(b[0], r[k].x);
+      b[1] = fminf(b[1], r[k].y);
+      b[2] = fminf(b[2], r[k].z);
+      b[3] = fmaxf(b[3], r[k].x);
+      b[4] = fmaxf(b[4], r[k].y);
+      b[5] = fmaxf(b[5], r[k].z);
+    }
+    for (int k = 0; k < 6; ++k) bbox[sc * 6 + k] = b[k];
+  }
+  __syncthreads();
+
+  const float bx = box[0], by = box[1], bz = box[2];
+  const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
+  // the cull's margin on each axis' gap, far above the f32 rounding of a
+  // minimum-image difference
+  const float gm = 1e-5f * (bx + by + bz) + 1e-6f;
+  const bool want_e = ch3_mode == 1;
+  // the block's rows: column (0, 0), cells 1 .. lb
+  const int* own_pre = cpre + 4 * (hz + 1);
+  const int row0 = own_pre[1];
+  const int n_own = own_pre[lb + 1] - row0;
+  const float4* own_rows = rows + 4 * cstride + row0;
+  const int lane = t & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int cap_w = 32 * depth;               // entries of a warp's list
+  float4* wl = ent + (t - lane) * depth;      // this warp's list
+
+  for (int b0 = (t >> 5) * rows_w; b0 < n_own;
+       b0 += (nthr >> 5) * rows_w) {
+    const int nb = min(rows_w, n_own - b0);   // rows of this batch
+    float fx = 0.f, fy = 0.f, fz = 0.f, acc = 0.f;  // lane r: row b0 + r
+    int lo = 0, hi = 0;  // lane r: its row's entries in the list
+    int n = 0;           // entries in the list
+
+    // evaluate the list's entries, then each lane sums its row's terms
+    auto flush = [&]() {
+      __syncwarp();  // the list's entries, from every lane
+      for (int k = lane; k < n; k += 32) {
+        const float4 en = wl[k];
+        const float4 xi = own_rows[b0 + __float_as_int(en.x)];
+        const float4 xj = rows[__float_as_int(en.w)];
+        float ddx, ddy, ddz;
+        const float r2s = pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz, ddx, ddy,
+                                  ddz);
+        const int p = max(static_cast<int>(xi.w) - 1, 0) * n_types
+                      + max(static_cast<int>(xj.w) - 1, 0);
+        const int sa = tmap[p];
+        float g = 0.f, e = 0.f;
+        if (sa > 0) {
+          cheb_eval(coef + (sa - 1) * n_p, r2s, kw, ko, want_e, g, e);
+        }
+        if (MIX) {
+          const int sb = tmap_b[p];
+          float gb = 0.f, eb = 0.f;
+          if (sb > 0) {
+            cheb_eval(coef + (sb - 1) * n_p, r2s, kw, ko, want_e, gb, eb);
+          }
+          const float x = xmat[p];
+          g = x * g + (1.0f - x) * gb;
+          e = x * e + (1.0f - x) * eb;
+        }
+        wl[k] = make_float4(g * ddx, g * ddy, g * ddz, want_e ? e : g * r2s);
+      }
+      __syncwarp();
+      for (int k = lo; k < hi; ++k) {
+        const float4 en = wl[k];
+        fx = fx + en.x;
+        fy = fy + en.y;
+        fz = fz + en.z;
+        if (ch3_mode != 0) acc = acc + en.w;
+      }
+      __syncwarp();
+      lo = hi = n = 0;
+    };
+
+    for (int r = 0; r < nb; ++r) {
+      const float4 xi = own_rows[b0 + r];
+      if (!(xi.w > 0.5f)) continue;  // an inactive row has no pairs
+      const int ti = max(static_cast<int>(xi.w) - 1, 0);
+      int zl = 0;  // the row's cell
+      while (row0 + b0 + r >= own_pre[zl + 2]) ++zl;
+      // lane o < 27: offset o's cell, its candidates (none when culled)
+      int c_o = 0, start = 0;
+      if (lane < 27) {
+        const int u = lane / 3, sc = u * hz + zl + lane % 3;
+        start = u * cstride + cpre[sc + u];
+        c_o = cnt[sc];
+        if (c_o > 0 && min_gap2(xi, bbox + sc * 6, bx, by, bz, ibx, iby, ibz,
+                                gm) >= cmax[ti]) {
+          c_o = 0;
+        }
+      }
+      int pre = c_o;  // inclusive prefix over the offsets
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(kAll, pre, d);
+        if (lane >= d) pre += v;
+      }
+      const int total = __shfl_sync(kAll, pre, 31);
+      if (lane == r) lo = hi = n;
+      for (int k0 = 0; k0 < total; k0 += 32) {
+        if (n + 32 > cap_w) flush();
+        const int k = k0 + lane;
+        // the offset holding candidate k: the lanes whose prefix is <= k
+        int o = 0;
+        for (int step = 16; step > 0; step >>= 1) {
+          if (__shfl_sync(kAll, pre, o + step - 1) <= k) o += step;
+        }
+        const int o_start = __shfl_sync(kAll, start, o & 31);
+        const int o_first = __shfl_sync(kAll, pre - c_o, o & 31);
+        bool in = false;
+        int f = 0;
+        if (k < total) {
+          f = o_start + k - o_first;
+          const float4 xj = rows[f];
+          float ddx, ddy, ddz;
+          const float r2 = pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz, ddx, ddy,
+                                   ddz);
+          const bool valid = (xj.w > 0.5f) && (r2 > 1e-12f);
+          const float r2s = valid ? r2 : 1.0f;
+          const int p = ti * n_types + max(static_cast<int>(xj.w) - 1, 0);
+          in = valid && (r2s < cut2[p]) && (MIX || tmap[p] != 0);
+        }
+        const unsigned m = __ballot_sync(kAll, in);
+        if (in) {
+          wl[n + __popc(m & below)] =
+              make_float4(__int_as_float(r), 0.f, 0.f, __int_as_float(f));
+        }
+        n += __popc(m);
+        if (lane == r) hi = n;
+      }
+    }
+    flush();
+    if (lane < nb) {
+      const int row = row0 + b0 + lane;
+      int oz = 0;
+      while (row >= own_pre[oz + 2]) ++oz;
+      out[(out0 + oz) * cap + row - own_pre[oz + 1]] =
+          make_float4(fx, fy, fz, 0.5f * acc);
+    }
+  }
+}
+
+// Shared-memory bytes of cheb_packed_kernel's layout (the Python plan,
+// cell_pair.cheb_launch_plan, computes the same).
+size_t packed_smem(int cap, int n_types, int n_rows, int kw, int ko, bool mix,
+                   int seg, int threads, int depth) {
+  const size_t tt = static_cast<size_t>(n_types) * n_types;
+  const size_t hz = static_cast<size_t>(seg + 2);
+  return (9 * (hz * cap + 1) + static_cast<size_t>(threads) * depth)
+             * sizeof(float4)
+         + (static_cast<size_t>(n_rows) * (2 * kw + 2 * ko + 6)
+            + tt * (mix ? 4 : 2) + 9 * hz + 9 * (hz + 1) + 9 * hz
+            + 9 * hz * 6 + n_types) * sizeof(float);
+}
+
+template <bool MIX>
+int launch_packed(const void* cells, const void* counts, const void* box,
+                  const void* cut2, const void* tmap, const void* tmap_b,
+                  const void* xmat, const void* coef, void* out, int nx,
+                  int ny, int nz, int cap, int n_types, int n_rows, int kw,
+                  int ko, int ch3_mode, int x_halo, int seg, int rows_w,
+                  int threads, int depth, int smem_bytes, void* stream) {
+  // the plan must describe this layout: whole warps, a batch's rows one
+  // lane each, a warp's list room for one pass of 32 candidates
+  if (seg < 1 || rows_w < 1 || rows_w > 32 || threads < 32 || threads > 1024
+      || threads % 32 != 0 || depth < 1
+      || packed_smem(cap, n_types, n_rows, kw, ko, MIX, seg, threads, depth)
+             != static_cast<size_t>(smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_blocks = (x_halo ? nx - 2 : nx) * ny * ((nz + seg - 1) / seg);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        cheb_packed_kernel<MIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  cheb_packed_kernel<MIX><<<n_blocks, threads, smem_bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(cells), static_cast<const int*>(counts),
+      static_cast<const float*>(box), static_cast<const float*>(cut2),
+      static_cast<const int*>(tmap), static_cast<const int*>(tmap_b),
+      static_cast<const float*>(xmat), static_cast<const float*>(coef),
+      static_cast<float4*>(out), nx, ny, nz, cap, n_types, n_rows, kw, ko,
+      ch3_mode, x_halo, seg, rows_w, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1c (table-scalar mode: deduplicated table rows) and K1e
 // (coefficient-plane mode: per-table rows through the table id); the
-// wrapper builds the map and the pack of each mode
+// wrapper builds the map and the pack of each mode, and the launch plan
+// (seg, rows_w, threads, depth, smem_bytes: cell_pair.cheb_launch_plan)
 extern "C" int cell_pair_cheb(
     const void* cells, const void* counts, const void* box, const void* cut2,
     const void* tmap, const void* tmap_b, const void* xmat, const void* coef,
     void* out, int nx, int ny, int nz, int cap, int n_types, int n_rows,
-    int kw, int ko, int ch3_mode, int x_halo, void* stream) {
-  return launch<false>(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, out,
-                       nx, ny, nz, cap, n_types, n_rows, kw, ko, ch3_mode,
-                       x_halo, stream);
+    int kw, int ko, int ch3_mode, int x_halo, int seg, int rows_w,
+    int threads, int depth, int smem_bytes, void* stream) {
+  return launch_packed<false>(cells, counts, box, cut2, tmap, tmap_b, xmat,
+                              coef, out, nx, ny, nz, cap, n_types, n_rows, kw,
+                              ko, ch3_mode, x_halo, seg, rows_w, threads,
+                              depth, smem_bytes, stream);
 }
 
 // K1d: table-scalar mode with the two-table blend
@@ -263,8 +669,33 @@ extern "C" int cell_pair_cheb_mix(
     const void* cells, const void* counts, const void* box, const void* cut2,
     const void* tmap, const void* tmap_b, const void* xmat, const void* coef,
     void* out, int nx, int ny, int nz, int cap, int n_types, int n_rows,
+    int kw, int ko, int ch3_mode, int x_halo, int seg, int rows_w,
+    int threads, int depth, int smem_bytes, void* stream) {
+  return launch_packed<true>(cells, counts, box, cut2, tmap, tmap_b, xmat,
+                             coef, out, nx, ny, nz, cap, n_types, n_rows, kw,
+                             ko, ch3_mode, x_halo, seg, rows_w, threads,
+                             depth, smem_bytes, stream);
+}
+
+// The cellwise kernel of K1c/K1e and of K1d (one block per cell, one
+// thread per slot, 27 stages), kept as the baseline the column-segment
+// kernel is held and timed against; no step reaches these entry points
+extern "C" int cell_pair_cheb_cellwise(
+    const void* cells, const void* counts, const void* box, const void* cut2,
+    const void* tmap, const void* tmap_b, const void* xmat, const void* coef,
+    void* out, int nx, int ny, int nz, int cap, int n_types, int n_rows,
     int kw, int ko, int ch3_mode, int x_halo, void* stream) {
-  return launch<true>(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, out,
-                      nx, ny, nz, cap, n_types, n_rows, kw, ko, ch3_mode,
-                      x_halo, stream);
+  return launch_cellwise<false>(cells, counts, box, cut2, tmap, tmap_b, xmat,
+                                coef, out, nx, ny, nz, cap, n_types, n_rows,
+                                kw, ko, ch3_mode, x_halo, stream);
+}
+
+extern "C" int cell_pair_cheb_mix_cellwise(
+    const void* cells, const void* counts, const void* box, const void* cut2,
+    const void* tmap, const void* tmap_b, const void* xmat, const void* coef,
+    void* out, int nx, int ny, int nz, int cap, int n_types, int n_rows,
+    int kw, int ko, int ch3_mode, int x_halo, void* stream) {
+  return launch_cellwise<true>(cells, counts, box, cut2, tmap, tmap_b, xmat,
+                               coef, out, nx, ny, nz, cap, n_types, n_rows,
+                               kw, ko, ch3_mode, x_halo, stream);
 }

@@ -22,7 +22,11 @@ K1c takes the deduplicated table-scalar rows (``cheb_sc``, map
 ``cheb_tab_slot``), K1d blends two rows ``x*g_a + (1-x)*g_b`` (func 10/12),
 K1e takes the per-table rows through the table id (``cheb_ntab == 0``).
 A tabulated system is pure-tabulated (``build.supports_cheb``), so the
-spare channel carries the tabulated energy ``e_tab``.
+spare channel carries the tabulated energy ``e_tab``.  On the card these
+modes run the column-segment kernel of ``csrc/cell_pair_cheb.cu`` with the
+launch plan of ``cheb_launch_plan`` (from the shapes alone); the source's
+first, cellwise kernel stays beside it as the baseline it is held to bit
+for bit (``cell_pair_forces_cheb_cellwise``), which no step runs.
 
 K1f is K1 (and K1c/K1d/K1e) in the reference's ``x_halo`` mode
 (``pallas_pair.py:682-699, 755-756``), which ``cell_pair_halo`` runs on
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,8 +75,10 @@ K1B = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 K1F = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 
 # the Chebyshev modes, one source: K1c and K1e share the unblended entry
-# point (they differ only in the map and the pack), each with its own count
-_CHEB_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# point (they differ only in the map and the pack), each with its own count;
+# the entry points take the launch plan (``cheb_launch_plan``) after the
+# operands
+_CHEB_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 K1C = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb", _CHEB_ARGS)
 K1D = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
                           _CHEB_ARGS)
@@ -81,6 +88,16 @@ K1F_CHEB = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb",
                                _CHEB_ARGS)
 K1F_CHEB_MIX = _kernels.CudaKernel("cell_pair_cheb.cu", "cell_pair_cheb_mix",
                                    _CHEB_ARGS)
+# the cellwise kernel, the first design of the Chebyshev modes (one block
+# per cell, 27 stages), kept as the baseline the column-segment kernel is
+# held and timed against: outside BY_NAME, and no step reaches it
+_CELLWISE_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
+    + [ctypes.c_void_p]
+K1C_CELLWISE = _kernels.CudaKernel("cell_pair_cheb.cu",
+                                   "cell_pair_cheb_cellwise", _CELLWISE_ARGS)
+K1D_CELLWISE = _kernels.CudaKernel("cell_pair_cheb.cu",
+                                   "cell_pair_cheb_mix_cellwise",
+                                   _CELLWISE_ARGS)
 K2 = _kernels.CudaKernel(
     "cell_pair_cell.cu", "cell_pair_cell",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
@@ -479,27 +496,100 @@ def cheb_kernel_for(tmap_b, ntab: int, x_halo: bool = False):
     return K1D if tmap_b is not None else (K1C if ntab else K1E)
 
 
-def cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap, tmap_b,
-                                 xmat, coef, dims, kw: int, ko: int,
-                                 ch3_mode: int, ntab: int = 1,
-                                 x_halo: bool = False):
-    """Launch the CUDA K1c (``ntab > 0``), K1d (``tmap_b`` given) or K1e
-    (``ntab == 0``), or K1f in that mode with ``x_halo``, on the current
-    stream (CUDA tensors only)."""
-    nx, ny, nz = _check_grid(cells, dims)
-    C, cap, _ = cells.shape
+class ChebPlan(NamedTuple):
+    """The column-segment kernel's launch plan: z cells per block (L), rows
+    per warp batch, threads per block, list entries per thread (a warp's
+    list holds 32 times as many), and the shared-memory bytes of that
+    layout."""
+    seg: int
+    rows: int
+    threads: int
+    depth: int
+    smem: int
+
+
+# The plan's choices, measured on an H100 (PERF.md; the sweep of
+# ``python -m chemlab_tpu_torch.kernel_matrix --tab``): at least two
+# blocks per SM of the card's 132 (the segment shrinks to reach them),
+# segments of at most CHEB_SEG cells, batches of CHEB_ROWS rows a warp,
+# CHEB_THREADS threads a block, lists of CHEB_DEPTH entries a thread.
+CHEB_MIN_BLOCKS = 2 * 132
+CHEB_SEG = 2
+CHEB_ROWS = 4
+CHEB_THREADS = 128
+CHEB_DEPTH = 8
+SMEM_MAX = 227 * 1024
+
+
+def cheb_smem(cap: int, n_types: int, n_rows: int, kw: int, ko: int,
+              mix: bool, seg: int, threads: int, depth: int) -> int:
+    """Shared-memory bytes of the column-segment kernel: the stage of 9
+    z-columns of seg + 2 cells (hz cap + 1 rows of 16 B a column),
+    ``depth`` 16-byte list entries per thread, the coefficient pack, the
+    (T, T) cutoffs and maps (two more with the blend), each column's row
+    prefix (hz + 1), each staged cell's count, row offset and bounding box
+    (6 floats), and the largest cutoff^2 per type."""
+    hz = seg + 2
+    words = (n_rows * (2 * kw + 2 * ko + 6) + n_types * n_types
+             * (4 if mix else 2) + 9 * (hz + 1) + 9 * hz * (1 + 1 + 6)
+             + n_types)
+    return 16 * (9 * (hz * cap + 1) + threads * depth) + 4 * words
+
+
+def cheb_launch_plan(dims, cap: int, n_types: int, n_rows: int, kw: int,
+                     ko: int, mix: bool, x_halo: bool = False, *,
+                     seg=None, rows=None, threads=None,
+                     depth=None) -> ChebPlan:
+    """The launch plan of ``cell_pair_cheb`` / ``cell_pair_cheb_mix`` on a
+    grid ``dims`` (a K1f slab of w + 2 layers with ``x_halo``): from the
+    shapes alone, never from the counts, which the host cannot read without
+    a sync.  The segment is the longest of at most ``CHEB_SEG`` cells that
+    leaves ``CHEB_MIN_BLOCKS`` blocks (or one cell a block), split evenly
+    over nz; ``seg``, ``rows``, ``threads`` and ``depth`` override the
+    measured choices (the kernel matrix's sweep).  Raises ``ValueError``
+    above 227 KiB of shared memory, naming the size."""
+    return _plan(tuple(int(d) for d in dims), int(cap), int(n_types),
+                 int(n_rows), int(kw), int(ko), bool(mix), bool(x_halo), seg,
+                 rows, threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(dims, cap, n_types, n_rows, kw, ko, mix, x_halo, seg, rows,
+          threads, depth):
+    """``cheb_launch_plan``, made once per set of shapes: the step's wrapper
+    asks for it on every call."""
+    nx, ny, nz = dims
+    n_cols = (nx - 2 if x_halo else nx) * ny
+    if seg is None:
+        seg = next(s for s in range(min(CHEB_SEG, nz), 0, -1)
+                   if n_cols * -(-nz // s) >= CHEB_MIN_BLOCKS or s == 1)
+        seg = -(-nz // -(-nz // seg))
+    rows = CHEB_ROWS if rows is None else rows
+    threads = CHEB_THREADS if threads is None else threads
+    depth = CHEB_DEPTH if depth is None else depth
+    if not (1 <= seg and 1 <= rows <= 32 and 32 <= threads <= 1024
+            and threads % 32 == 0 and depth >= 1):
+        raise ValueError("K1 cheb: no plan with seg %d, rows %d, threads "
+                         "%d, depth %d" % (seg, rows, threads, depth))
+    smem = cheb_smem(cap, n_types, n_rows, kw, ko, mix, seg, threads, depth)
+    if smem > SMEM_MAX:
+        raise ValueError("K1 cheb: shared-memory stage of %d bytes exceeds "
+                         "227 KiB" % smem)
+    return ChebPlan(seg, rows, threads, depth, smem)
+
+
+def _cheb_checks(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,
+                 kw: int, ko: int):
+    """The Chebyshev kernels' launch conditions."""
+    _check_grid(cells, dims)
+    C = cells.shape[0]
     n_types = cut2.shape[0]
-    n_rows, n_p = coef.shape
+    n_p = coef.shape[1]
     if n_p != 2 * kw + 2 * ko + 6 or kw < 2 or (ko and ko < 2):
         raise ValueError("K1 cheb: %d coefficients per row for kw=%d ko=%d"
                          % (n_p, kw, ko))
     if (tmap_b is None) != (xmat is None):
         raise ValueError("the blend needs both tmap_b and xmat")
-    smem = cap * 16 + 4 * (n_rows * n_p + n_types * n_types
-                           * (4 if tmap_b is not None else 2))
-    if smem > 227 * 1024:
-        raise ValueError("K1 cheb: shared-memory stage of %d bytes exceeds "
-                         "227 KiB" % smem)
     dev = cells.device
     ops = [(counts, "counts", torch.int32, (C,)),
            (box, "box", torch.float32, (3,)),
@@ -514,14 +604,64 @@ def cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap, tmap_b,
             raise ValueError("%s is on %s, cells on %s" % (name, t.device,
                                                           dev))
         _check(t, name, dtype, shape)
+
+
+def _cheb_pointers(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, out,
+                   dims, kw: int, ko: int, ch3_mode: int, x_halo: bool):
+    """The entry points' common arguments, operands to ``x_halo``."""
+    nx, ny, nz = (int(d) for d in dims)
+    return (cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
+            cut2.data_ptr(), tmap.data_ptr(),
+            0 if tmap_b is None else tmap_b.data_ptr(),
+            0 if xmat is None else xmat.data_ptr(), coef.data_ptr(),
+            out.data_ptr(), nx, ny, nz, cells.shape[1], cut2.shape[0],
+            coef.shape[0], kw, ko, int(ch3_mode), int(x_halo))
+
+
+def cell_pair_forces_cheb_kernel(cells, counts, box, cut2, tmap, tmap_b,
+                                 xmat, coef, dims, kw: int, ko: int,
+                                 ch3_mode: int, ntab: int = 1,
+                                 x_halo: bool = False, plan=None):
+    """Launch the CUDA K1c (``ntab > 0``), K1d (``tmap_b`` given) or K1e
+    (``ntab == 0``), or K1f in that mode with ``x_halo``, on the current
+    stream (CUDA tensors only): the column-segment kernel with ``plan``
+    (``cheb_launch_plan``'s for these shapes by default)."""
+    _cheb_checks(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,
+                 kw, ko)
+    if plan is None:
+        plan = cheb_launch_plan(dims, cells.shape[1], cut2.shape[0],
+                                coef.shape[0], kw, ko, tmap_b is not None,
+                                x_halo)
     out = _out_rows(cells, dims, x_halo)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
     cheb_kernel_for(tmap_b, ntab, x_halo).launch(
-        cells.data_ptr(), counts.data_ptr(), box.data_ptr(), cut2.data_ptr(),
-        tmap.data_ptr(), 0 if tmap_b is None else tmap_b.data_ptr(),
-        0 if xmat is None else xmat.data_ptr(), coef.data_ptr(),
-        out.data_ptr(), nx, ny, nz, cap, n_types, n_rows, kw, ko,
-        int(ch3_mode), int(x_halo), stream)
+        *_cheb_pointers(cells, counts, box, cut2, tmap, tmap_b, xmat, coef,
+                        out, dims, kw, ko, ch3_mode, x_halo),
+        plan.seg, plan.rows, plan.threads, plan.depth, plan.smem, stream)
+    return out
+
+
+def cell_pair_forces_cheb_cellwise(cells, counts, box, cut2, tmap, tmap_b,
+                                   xmat, coef, dims, kw: int, ko: int,
+                                   ch3_mode: int, x_halo: bool = False):
+    """Launch the cellwise kernel (``K1C_CELLWISE``, or ``K1D_CELLWISE``
+    with ``tmap_b``) on the same operands as
+    ``cell_pair_forces_cheb_kernel``: the baseline of the A/B, which no
+    step reaches."""
+    _cheb_checks(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,
+                 kw, ko)
+    n_types = cut2.shape[0]
+    smem = cells.shape[1] * 16 + 4 * (coef.numel() + n_types * n_types
+                                      * (4 if tmap_b is not None else 2))
+    if smem > SMEM_MAX:
+        raise ValueError("K1 cheb: shared-memory stage of %d bytes exceeds "
+                         "227 KiB" % smem)
+    out = _out_rows(cells, dims, x_halo)
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    kernel = K1C_CELLWISE if tmap_b is None else K1D_CELLWISE
+    kernel.launch(*_cheb_pointers(cells, counts, box, cut2, tmap, tmap_b,
+                                  xmat, coef, out, dims, kw, ko, ch3_mode,
+                                  x_halo), stream)
     return out
 
 

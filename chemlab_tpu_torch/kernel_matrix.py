@@ -4,7 +4,7 @@ warmed reactive melt, then a run of the default path.
 Usage, on a machine with a CUDA card (it fails without one, and never falls
 back to the CPU)::
 
-    python -m chemlab_tpu_torch.kernel_matrix [n_mols]
+    python -m chemlab_tpu_torch.kernel_matrix [n_mols] [--tab]
 
 ``n_mols`` trimers, 3334 by default (10 002 particles).  Port of
 ``scripts/kernel_matrix.py``: it builds the reactive melt on the card, warms
@@ -22,6 +22,19 @@ JSON lines:
     over three timed 200-step Langevin blocks (after one untimed) through
     the default kernel, the reaction events and the overflow flag.
 
+With ``--tab`` it times the Chebyshev pair kernels instead, on the warmed
+reactive tabulated melt (K1c), the blended melt (K1d) and, for the sweep,
+the tabulated melt tiled 2 x 2 x 2 at cap 32 and 40 (``tiled_operands``):
+
+  - ``{"kernel_cheb_ms", "kernel_cheb_cellwise_ms"}``: the whole tabulated
+    pair call through the column-segment kernel (``cell_pair_forces``) and
+    the same call through the cellwise kernel, CUDA events over 20 calls;
+  - one ``{"melt", "seg", "rows", "threads", "depth", "device_ms"}`` line
+    per launch plan of ``CHEB_SWEEP`` (the kernel's device time by
+    ``torch.profiler``, 30 calls), the cellwise kernel's first, then the
+    list depths at the fastest plan: the sweep behind ``cell_pair``'s
+    ``CHEB_*`` choices.
+
 Left out: ``cell_scatter`` (the TPU's scatter epilogue, which the port does
 not carry) and ``KM_RETUNE`` (it waits for capacity management's
 ``shrink_neighbor_caps``).
@@ -29,6 +42,7 @@ not carry) and ``KM_RETUNE`` (it waits for capacity management's
 
 from __future__ import annotations
 
+import itertools
 import json
 import sys
 import time
@@ -36,7 +50,7 @@ import time
 import torch
 
 from . import testsystems
-from .engine import cell_pair, runner
+from .engine import cell_pair, neighbor, runner
 from .engine import cell_pair_variants as variants
 
 KINDS = ("cell", "colt2", "colt1", "packet", "column", "colz", "resident")
@@ -106,12 +120,193 @@ def fused_run(built, state, seed: int = 1234) -> dict:
             "overflow": bool(m["overflow"])}
 
 
+def device_ms(fn, reps: int, kernel_name: str, tries: int = 3):
+    """Device time per launch of the CUDA kernel whose name holds
+    ``kernel_name``, from ``torch.profiler`` over ``reps`` calls after one
+    (the host's time between launches left out): the mean over the
+    launches the profiler recorded, which may miss some.  A session that
+    recorded fewer than half of them (or more than one a call) is run
+    again, up to ``tries`` sessions; None if none did."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel_name in e.name]
+        if len(times) != reps:
+            print("device_ms: %d kernels named %r in %d calls"
+                  % (len(times), kernel_name, reps), file=sys.stderr)
+        if reps // 2 <= len(times) <= reps:
+            return sum(times) / 1e3 / len(times)
+    return None
+
+
+# the two Chebyshev kernels' device functions (neither name holds the other)
+CHEB_NEW, CHEB_OLD = "cheb_packed_kernel", "cheb_cellwise_kernel"
+# launch plans of the sweep: segment, rows of a warp's batch, threads a
+# block (lists of 8 entries a thread), then list depths at the fastest
+CHEB_SWEEP = [dict(seg=seg, rows=rows, threads=threads, depth=8)
+              for seg in (1, 2, 3, 4) for rows in (1, 2, 4, 8)
+              for threads in (64, 128, 256)]
+CHEB_DEPTHS = (2, 4, 16)
+
+
+def cheb_args(built, state, obs_x=None):
+    """The Chebyshev kernels' operands on ``state`` in the melt's mode:
+    (cells, counts, box, (cut2, tmap, tmap_b, xmat, coef))."""
+    cfg = built.cfg
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(state.pos, state.type_id, state.active),
+        state.nbr.buckets, int(torch.tensor(cfg.cell_dims).prod()))
+    ops = cell_pair.cheb_operands(built.spec, cfg.n_types, cfg.cheb_ko,
+                                  cfg.cheb_ntab, cfg.cheb_mix, obs_x)
+    return cells, counts, state.box.contiguous(), ops
+
+
+def tiled_operands(built, state, cap: int):
+    """The melt's positions tiled 2 x 2 x 2: the box doubled, twice the
+    cells on each axis (the same cell size and occupancy), bucketed by the
+    port's own bucketing at ``cap``: (cells, counts, box, dims)."""
+    box = state.box
+    shifts = torch.tensor(list(itertools.product((0, 1), repeat=3)),
+                          dtype=box.dtype, device=box.device) * box
+    pos = (state.pos[None] + shifts[:, None]).reshape(-1, 3)
+    active = state.active.repeat(8)
+    dims = tuple(2 * int(d) for d in built.cfg.cell_dims)
+    buckets, _, ovf, _ = neighbor.build_cell_buckets(pos, 2 * box, active,
+                                                     dims, cap)
+    if bool(ovf):
+        raise ValueError("the tiled melt overflows cap %d" % cap)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(pos, state.type_id.repeat(8), active), buckets,
+        dims[0] * dims[1] * dims[2])
+    return cells, counts, (2 * box).contiguous(), dims
+
+
+def cheb_cellwise_call(built, state, obs_x=None):
+    """``cell_pair_forces``' tabulated call (operands, kernel, ``slot_of``
+    gather, the energy sum) with the cellwise kernel in place of the
+    column-segment kernel; returns the forces."""
+    cfg = built.cfg
+    cells, counts, box, ops = cheb_args(built, state, obs_x)
+    out = cell_pair.cell_pair_forces_cheb_cellwise(
+        cells, counts, box, *ops, cfg.cell_dims, cfg.cheb_kw, cfg.cheb_ko,
+        cell_pair.CH3_ENERGY).reshape(-1, 4)
+    slot_of = state.nbr.slot_of
+    in_grid = slot_of < out.shape[0]
+    rows = out[torch.where(in_grid, slot_of, 0).long()]
+    force = torch.where(in_grid[:, None], rows[:, :3], 0.0)
+    return cell_pair.pair_result(force, torch.sum(out[:, 3]), False,
+                                 cfg.cheb_kw)[0]
+
+
+def cheb_calls(built, state, obs_x=None, reps: int = 20) -> dict:
+    """The whole tabulated pair call through the column-segment kernel and
+    through the cellwise kernel, ms by CUDA events."""
+    cfg = built.cfg
+
+    def new():
+        return cell_pair.cell_pair_forces(
+            state.pos, state.type_id, state.active, state.box,
+            state.nbr.buckets, state.nbr.slot_of, cfg.cell_dims, built.spec,
+            cfg.n_types, cheb_kw=cfg.cheb_kw, cheb_ko=cfg.cheb_ko,
+            cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix, obs_x=obs_x)[0]
+    return {"kernel_cheb_ms": time_ms(new, reps),
+            "kernel_cheb_cellwise_ms": time_ms(
+                lambda: cheb_cellwise_call(built, state, obs_x), reps)}
+
+
+def cheb_sweep(built, state, plans, obs_x=None, reps: int = 30,
+               operands=None) -> list:
+    """Device ms of the column-segment kernel under each plan (dicts of
+    ``cheb_launch_plan``'s overrides), the cellwise kernel's first (plan
+    None), in ch3 mode 0, on the melt's operands or on ``operands``
+    (cells, counts, box, dims)."""
+    cfg = built.cfg
+    cells, counts, box, ops = cheb_args(built, state, obs_x)
+    dims = cfg.cell_dims
+    if operands is not None:
+        cells, counts, box, dims = operands
+    args = (cells, counts, box, *ops, dims, cfg.cheb_kw, cfg.cheb_ko,
+            cell_pair.CH3_NONE)
+    out = [(None, device_ms(
+        lambda: cell_pair.cell_pair_forces_cheb_cellwise(*args), reps,
+        CHEB_OLD))]
+    for kw in plans:
+        plan = cell_pair.cheb_launch_plan(
+            dims, cells.shape[1], cfg.n_types, ops[4].shape[0], cfg.cheb_kw,
+            cfg.cheb_ko, cfg.cheb_mix, **kw)
+        out.append((plan, device_ms(
+            lambda: cell_pair.cell_pair_forces_cheb_kernel(
+                *args, ntab=cfg.cheb_ntab, plan=plan), reps, CHEB_NEW)))
+    return out
+
+
+def _warm(fn, n_mols: int, steps: int):
+    built, _, _ = fn(n_mols=n_mols, reactive=True, device="cuda")
+    state = runner.initial_forces(built.spec, built.cfg, built.state)
+    return built, testsystems.warmup(built, state, steps=steps)
+
+
+def _print_sweep(label: str, res):
+    for plan, ms in res:
+        print(json.dumps({"melt": label, **({"cellwise": True}
+                                            if plan is None
+                                            else plan._asdict()),
+                          "device_ms": ms}), flush=True)
+
+
+def tab_main(n_mols: int) -> int:
+    """``--tab``: the Chebyshev kernels' whole calls and plan sweep, on the
+    10k melts and on the tabulated melt tiled 2 x 2 x 2 at cap 32 and 40."""
+    from .engine import observables
+
+    for melt, fn, steps in (("tab", testsystems.build_tabulated_melt, 600),
+                            ("mixed", testsystems.build_mixed_tab_melt,
+                             300)):
+        built, state = _warm(fn, n_mols, steps)
+        cfg = built.cfg
+        x = (observables.conversions(built.spec, state.type_id,
+                                     state.chem_state, state.active)
+             if cfg.cheb_mix else None)
+        print(json.dumps({"melt": melt, "n": cfg.n_particles,
+                          "cell_cap": cfg.cell_cap,
+                          "dims": list(cfg.cell_dims), "mix": cfg.cheb_mix,
+                          "device": torch.cuda.get_device_name(0),
+                          **cheb_calls(built, state, x)}), flush=True)
+        grids = [(melt, None)]
+        if melt == "tab":
+            grids += [("tab tiled cap %d" % cap,
+                       tiled_operands(built, state, cap)) for cap in (32, 40)]
+        for label, operands in grids:
+            res = cheb_sweep(built, state, CHEB_SWEEP, x, operands=operands)
+            _print_sweep(label, res)
+            timed = [r for r in res if r[0] is not None and r[1] is not None]
+            if timed:
+                best = min(timed, key=lambda r: r[1])[0]
+                _print_sweep(label, cheb_sweep(built, state, [
+                    dict(seg=best.seg, rows=best.rows, threads=best.threads,
+                         depth=d) for d in CHEB_DEPTHS], x,
+                    operands=operands)[1:])
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("kernel_matrix: no CUDA device", file=sys.stderr)
         return 2
+    tab = "--tab" in argv
+    argv = [a for a in argv if a != "--tab"]
     n_mols = int(argv[0]) if argv else 3334
+    if tab:
+        return tab_main(n_mols)
     built, systop, _ = testsystems.build_melt(n_mols=n_mols, reactive=True,
                                               device="cuda")
     cfg = built.cfg

@@ -37,18 +37,24 @@ once) and drives the port's paths at 10k particles:
   5. the tabulated melt (every type pair a func-8 table, K1c) and the
      blended tabulated melt (func 10/12 pairs, K1d): K1c, K1d and the
      coefficient-plane mode K1e against their plain versions in every ch3
-     channel, the cancellation check in the wall, a small tabulated melt
-     stepped on the GPU and on the CPU, and the main path: one untimed and
-     three timed reactive blocks of the tabulated melt; then one untimed
-     and one timed block of the blended melt (K1d) and of the tabulated
-     melt in plane mode (K1e);
+     channel and against the cellwise kernel (the first design, kept as
+     the baseline) bit for bit, with device times by the profiler in turns
+     (new, cellwise, cellwise, new) at 10k and on the melt tiled 2 x 2 x 2
+     (22^3 cells at cap 32 and at cap 40), the whole pair call of both
+     (the kernel matrix's), the cancellation check in the wall, a small
+     tabulated melt stepped on the GPU and on the CPU, and the main path:
+     one untimed and three timed reactive blocks of the tabulated melt;
+     then one untimed and one timed block of the blended melt (K1d) and of
+     the tabulated melt in plane mode (K1e);
   6. the slab decomposition (K1f): on the 10k LJ melts built with
      slab_devices=2 (10x11x11) and 4 (8x11x11) and the tabulated and
      blended melts built with slab_devices=2, K1f on every slab against its
-     plain version in every mode and ch3 channel, the slabs laid side by
-     side against the full-grid K1, K1c, K1d and K1e bit for bit, and the
-     cancellation check; then two gloo ranks of ``parallel.launch``, both
-     on cuda:0, run the reactive LJ melt (one untimed and one timed block),
+     plain version in every mode and ch3 channel (and, in the Chebyshev
+     modes, against the cellwise kernel bit for bit, timed in turns on slab
+     0), the slabs laid side by side against the full-grid K1, K1c, K1d and
+     K1e bit for bit, and the cancellation check; then two gloo ranks of
+     ``parallel.launch``, both on cuda:0, run the reactive LJ melt (one
+     untimed and one timed block),
      one tabulated and one blended block and one NPT pressure, each against
      one rank from the same state and seed (positions, replicas, launches,
      pressure).
@@ -755,23 +761,10 @@ def check_ladder(built, state, key: str):
 
 def _device_ms(fn, reps: int, kernel_name: str):
     """Device time per call of the CUDA kernel whose name holds
-    ``kernel_name``, from ``torch.profiler`` over ``reps`` calls after one
-    (the host's time between launches left out); None when the profiler
-    does not see exactly one such kernel a call."""
-    import torch
+    ``kernel_name`` (the kernel matrix's profiler timer)."""
+    from chemlab_tpu_torch.kernel_matrix import device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel_name in e.name]
-    return sum(times) / 1e3 / reps if len(times) == reps else None
+    return device_ms(fn, reps, kernel_name)
 
 
 def ladder_ab(built, state):
@@ -839,9 +832,108 @@ def ladder_path(card: str, lj, cap36):
 
 # ---- K1c / K1d / K1e (Chebyshev tabulated) ------------------------------------
 
+TILE_CAPS = (32, 40)    # the 10k melt's cap and the 100k melt's
+
+
+def cheb_fns(ntab: int, x_halo: bool = False):
+    """(column-segment kernel, cellwise kernel) as functions of the
+    Chebyshev operands (cells, counts, box, cut2, tmap, tmap_b, xmat, coef,
+    dims, kw, ko, ch3)."""
+    from chemlab_tpu_torch.engine import cell_pair
+
+    return (lambda *a: cell_pair.cell_pair_forces_cheb_kernel(
+                *a, ntab=ntab, x_halo=x_halo),
+            lambda *a: cell_pair.cell_pair_forces_cheb_cellwise(
+                *a, x_halo=x_halo))
+
+
+def cheb_ab(label: str, args, ntab: int, x_halo: bool = False,
+            modes=(0, 1)):
+    """The column-segment kernel against the cellwise kernel on ``args``
+    (the operands up to ko): bit for bit in every ch3 channel, then device
+    time by the profiler, 50 calls each in turns (new, old, old, new) in
+    ch3 ``modes``.  Returns {mode: (new ms, old ms)}, each the mean of its
+    two turns."""
+    import torch
+
+    from chemlab_tpu_torch.kernel_matrix import CHEB_NEW, CHEB_OLD
+
+    new, old = cheb_fns(ntab, x_halo)
+    for mode_3, name in CH3:
+        a, b = new(*args, mode_3), old(*args, mode_3)
+        torch.cuda.synchronize()
+        diff = (a - b).abs().max().item()
+        print("%s new vs cellwise ch3=%-6s max|diff| %.3e, bitwise %s"
+              % (label, name, diff, torch.equal(a, b)))
+        if not torch.equal(a, b):
+            raise AssertionError("%s: the column-segment kernel differs from "
+                                 "the cellwise kernel" % label)
+    out = {}
+    for mode_3 in modes:
+        t = [_device_ms(lambda fn=fn: fn(*args, mode_3), 50, name)
+             for fn, name in ((new, CHEB_NEW), (old, CHEB_OLD),
+                              (old, CHEB_OLD), (new, CHEB_NEW))]
+        if None in t:
+            raise AssertionError("%s: the profiler did not time both kernels"
+                                 % label)
+        print("%s device time by the profiler, ch3=%d, in turns: new %.6f / "
+              "%.6f ms, cellwise %.6f / %.6f ms" % (label, mode_3, t[0],
+                                                    t[3], t[1], t[2]))
+        out[mode_3] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+    return out
+
+
+def check_tiled(built, state, mode: str, obs_x):
+    """K1c/K1d/K1e on the tiled melt at each of TILE_CAPS: the new kernel
+    against the cellwise kernel (bits, device time in turns) and, in the
+    energy channel, against the plain version."""
+    import torch
+
+    from chemlab_tpu_torch import kernel_matrix
+    from chemlab_tpu_torch.engine import cell_pair, cell_pair_halo
+
+    cfg, spec = built.cfg, built.spec
+    ntab = 0 if mode == "K1e" else cfg.cheb_ntab
+    ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko, ntab,
+                                  mode == "K1d", obs_x)
+    out = {}
+    for cap in TILE_CAPS:
+        cells, counts, box, dims = kernel_matrix.tiled_operands(built, state,
+                                                                cap)
+        args = (cells, counts, box, *ops, dims, cfg.cheb_kw, cfg.cheb_ko)
+        label = "%s tiled %s x cap %d (%d particles)" % (
+            mode, dims, cap, int(counts.sum()))
+        ab = cheb_ab(label, args, ntab)
+        got = cell_pair.cell_pair_forces_cheb_kernel(
+            *args, cell_pair.CH3_ENERGY, ntab=ntab)
+        # the plain version slab by slab (the halves of x, as K1f), to keep
+        # its (cells, cap, 27 cap) intermediates within the card
+        ref = torch.cat([
+            cell_pair.cell_pair_forces_cheb_ref(
+                cells[ids], counts[ids], box, *ops,
+                (dims[0] // 2 + 2, dims[1], dims[2]), cfg.cheb_kw,
+                cfg.cheb_ko, cell_pair.CH3_ENERGY, x_halo=True)
+            for ids in (cell_pair_halo.slab_cells(dims, 2, r, cells.device)
+                        for r in range(2))])
+        torch.cuda.synchronize()
+        err, tol = (got - ref).abs().max().item(), _tol(ref)
+        del ref
+        torch.cuda.empty_cache()
+        print("%s vs plain ch3=energy max|d| %.3e (tol %.3e)"
+              % (label, err, tol))
+        if not err <= tol:
+            raise AssertionError("%s disagrees with its plain version"
+                                 % label)
+        out[str(cap)] = {"device_ms": ab[0][0], "device_ms_before": ab[0][1],
+                         "device_ms_energy": ab[1][0],
+                         "device_ms_energy_before": ab[1][1]}
+    return out
+
+
 def check_cheb(built, state, mode: str, obs_x):
-    """K1c/K1d/K1e vs plain in every ch3 channel on ``state``; returns the
-    kernel's numbers (launches filled in later)."""
+    """K1c/K1d/K1e vs plain in every ch3 channel on ``state``, against the
+    cellwise kernel bit for bit and in turns, here and on the tiled melt;
+    returns the kernel's numbers (launches filled in later)."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
@@ -870,19 +962,29 @@ def check_cheb(built, state, mode: str, obs_x):
         if not (err_f <= tol_f and err_3 <= tol_3):
             raise AssertionError("%s disagrees with its plain version" % mode)
         worst = max(worst, err_f, err_3)
+    plan = cell_pair.cheb_launch_plan(cfg.cell_dims, cfg.cell_cap,
+                                      cfg.n_types, ops[4].shape[0],
+                                      cfg.cheb_kw, cfg.cheb_ko, mix)
+    print("%s launch plan at %s x cap %d: %s" % (mode, cfg.cell_dims,
+                                                 cfg.cell_cap, plan))
+    ab = cheb_ab("%s at %s x cap %d" % (mode, cfg.cell_dims, cfg.cell_cap),
+                 (cells, counts, state.box, *ops, cfg.cell_dims, cfg.cheb_kw,
+                  cfg.cheb_ko), ntab)
     args = (cells, counts, state.box, *ops, cfg.cell_dims, cfg.cheb_kw,
             cfg.cheb_ko, cell_pair.CH3_NONE)
-    ms = _time_ms(lambda: cell_pair.cell_pair_forces_cheb_kernel(
-        *args, ntab=ntab), 50)
+    new, old = cheb_fns(ntab)
+    ms = _time_ms(lambda: new(*args), 50)
+    ms_before = _time_ms(lambda: old(*args), 50)
     plain_ms = _time_ms(lambda: cell_pair.cell_pair_forces_cheb_ref(*args), 3)
     cand, inside = pair_counts(cells, state.box, ops[0], cfg.cell_dims)
     small = sum(t.numel() * 4 for t in ops if t is not None) + 12
     b_ms, b_by = bound_ms(cells, small, cand, inside,
                           _ops_cheb(cfg.cheb_kw, cfg.cheb_ko, mix))
-    print("%s time at %s cells x cap %d: kernel %.4f ms, plain %.4f ms; %d "
-          "candidate pairs, %d inside the cutoff, bound %.6f ms (%s)"
-          % (mode, cfg.cell_dims, cfg.cell_cap, ms, plain_ms, cand, inside,
-             b_ms, b_by))
+    print("%s time at %s cells x cap %d: kernel %.4f ms (cellwise %.4f ms), "
+          "plain %.4f ms; %d candidate pairs, %d inside the cutoff, bound "
+          "%.6f ms (%s)" % (mode, cfg.cell_dims, cfg.cell_cap, ms, ms_before,
+                            plain_ms, cand, inside, b_ms, b_by))
+    tiled = check_tiled(built, state, mode, obs_x)
     name = {"K1c": "K1c cell_pair_cheb (table-scalar)",
             "K1d": "K1d cell_pair_cheb_mix (two-table blend)",
             "K1e": "K1e cell_pair_cheb (coefficient planes)"}[mode]
@@ -891,14 +993,17 @@ def check_cheb(built, state, mode: str, obs_x):
                   "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
                   "launches": 0, "max_abs_err": worst, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                  "library_ms": None}
+                  "library_ms": None, "ms_before": ms_before,
+                  "device_ms": ab[0][0], "device_ms_before": ab[0][1],
+                  "device_ms_energy": ab[1][0],
+                  "device_ms_energy_before": ab[1][1], "tiled": tiled}
 
 
 def tab_paths(card: str):
     """The tabulated melts: K1c, K1e (plane mode) and K1d (blend)."""
     import torch
 
-    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch import kernel_matrix, testsystems
     from chemlab_tpu_torch.engine import cell_pair, observables, runner
 
     t0 = time.perf_counter()
@@ -920,6 +1025,9 @@ def tab_paths(card: str):
     x0 = torch.zeros(1, device=DEVICE)
     k1c, row_c = check_cheb(built, state, "K1c", x0)
     k1e, row_e = check_cheb(built, state, "K1e", x0)
+    km = kernel_matrix.cheb_calls(built, state, x0)
+    print("kernel matrix, whole tabulated pair call in ms (%d particles, "
+          "%s): %s" % (cfg.n_particles, card, json.dumps(km)))
     check_cancellation(built, state, x0)
     check_small_melt_against_cpu(testsystems.build_tabulated_melt,
                                  "tabulated", cell_pair.K1C)
@@ -946,6 +1054,9 @@ def tab_paths(card: str):
     x = observables.conversions(mbuilt.spec, mst.type_id, mst.chem_state,
                                 mst.active)
     k1d, row_d = check_cheb(mbuilt, mst, "K1d", x)
+    km_mix = kernel_matrix.cheb_calls(mbuilt, mst, x)
+    print("kernel matrix, whole blended pair call in ms (%s): %s"
+          % (card, json.dumps(km_mix)))
     check_cancellation(mbuilt, mst, x)
     row_d["launches"], _, _ = run_path(mbuilt, msystop, mst, card, k1d,
                                        "blended path", 1)
@@ -1019,9 +1130,12 @@ def check_k1f(built, state, n_ranks: int, mode: str, obs_x=None,
     """K1f in ``mode`` on each of the ``n_ranks`` slabs of ``state``: against
     its plain version (every LJ parameter mode, or the Chebyshev mode, in
     every ch3 channel), and the slabs laid side by side against the
-    full-grid kernel, bit for bit.  With ``timed``, times K1f and its plain
-    version on rank 0's slab and returns (ms, plain_ms, bound_ms, bound_by,
-    largest error against plain)."""
+    full-grid kernel, bit for bit; in a Chebyshev mode each slab's K1f also
+    against the cellwise kernel, bit for bit.  With ``timed``, times K1f
+    and its plain version on rank 0's slab (and, in a Chebyshev mode, the
+    cellwise kernel, by CUDA events and in turns by the profiler) and
+    returns (ms, plain_ms, bound_ms, bound_by, largest error against plain,
+    the cellwise kernel's numbers)."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
@@ -1067,6 +1181,25 @@ def check_k1f(built, state, n_ranks: int, mode: str, obs_x=None,
             if not torch.equal(side, full):
                 raise AssertionError("the K1f slabs differ from the full "
                                      "grid's kernel")
+    extra = {}
+    if mode != "K1":
+        ntab = 0 if mode == "K1e" else cfg.cheb_ntab
+        ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko, ntab,
+                                      mode == "K1d", obs_x)
+        for r, (cells, counts, dims) in enumerate(slabs):
+            ab = cheb_ab("K1f (%s) slab %d of %d" % (mode, r, n_ranks),
+                         (cells, counts, state.box, *ops, dims, cfg.cheb_kw,
+                          cfg.cheb_ko), ntab, x_halo=True,
+                         modes=(0, 1) if timed and r == 0 else ())
+            if r == 0 and timed:
+                old = cheb_fns(ntab, x_halo=True)[1]
+                extra = {"ms_before": _time_ms(lambda: old(
+                             cells, counts, state.box, *ops, dims,
+                             cfg.cheb_kw, cfg.cheb_ko, cell_pair.CH3_NONE),
+                             50),
+                         "device_ms": ab[0][0], "device_ms_before": ab[0][1],
+                         "device_ms_energy": ab[1][0],
+                         "device_ms_energy_before": ab[1][1]}
     if not timed:
         return None
     kern, plain = k1f_fns(built, mode, obs_x)
@@ -1095,7 +1228,7 @@ def check_k1f(built, state, n_ranks: int, mode: str, obs_x=None,
           "%.6f ms (%s); the full-grid kernel on the same melt (%s): %.6f ms"
           % (mode, n_ranks, dims, cfg.cell_cap, ms, plain_ms, cand, inside,
              b_ms, b_by, cfg.cell_dims, full_ms))
-    return ms, plain_ms, b_ms, b_by, worst
+    return ms, plain_ms, b_ms, b_by, worst, extra
 
 
 def check_k1f_cancellation(built, state, n_ranks: int, mode: str,
@@ -1326,13 +1459,13 @@ def slab_path(card: str):
             ("K1f-cheb", cheb, int(t0["launches"]["K1f-cheb"])),
             ("K1f-cheb-mix", cheb_mix,
              int(m0["launches"]["K1f-cheb-mix"]))):
-        ms, plain_ms, b_ms, b_by, worst = nums
+        ms, plain_ms, b_ms, b_by, worst, extra = nums
         name, source = K1F_ROWS[key]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": "chemlab_tpu/engine/pallas_pair.py:211",
                      "launches": launches, "max_abs_err": worst, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "library_ms": None, **extra})
     return rows, pps
 
 

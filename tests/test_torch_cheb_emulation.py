@@ -1,0 +1,346 @@
+"""The Chebyshev pair kernels' CUDA source, run on the CPU: the file
+``chemlab_tpu_torch/csrc/cell_pair_cheb.cu`` is compiled with the host's
+g++ against a small stand-in for the CUDA runtime (one ``std::thread`` per
+CUDA thread, a ``std::barrier`` for ``__syncthreads``, blocks one after
+another, IEEE single precision without contraction, as ``--fmad=false``
+keeps it on the card), and its entry points are called through ctypes on
+CPU tensors.  The column-segment kernel (``cell_pair_cheb``,
+``cell_pair_cheb_mix``) must equal the cellwise kernel
+(``*_cellwise``) bit for bit in every mode and channel, under the default
+launch plan and under plans whose lists fill and take several rounds;
+the cellwise kernel must agree with the plain torch version to f32
+rounding.  This holds the new kernel's sum order on every run of the
+tests; the card tests (``test_torch_cuda.py``) hold the compiled kernel.
+
+Skips without g++.  No jax here: the reference's numbers are held by
+``test_torch_tab.py`` and ``test_torch_k1f.py``.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from chemlab_tpu_torch import testsystems
+from chemlab_tpu_torch.engine import cell_pair, cell_pair_halo, runner
+
+# the stand-in for cuda_runtime.h: only what the source uses
+RUNTIME = r"""
+#pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() {}
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim;
+alignas(16) inline float4 emu_smem[1 << 16];
+inline std::barrier<>* emu_bar = nullptr;
+inline std::atomic<int> emu_or[3];
+inline thread_local int emu_phase = 0;
+inline std::vector<std::barrier<>*> emu_wbar;
+inline std::atomic<int> emu_wany[32][3];
+inline thread_local int emu_wphase = 0;
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline void __syncwarp() { emu_wbar[threadIdx.x / 32]->arrive_and_wait(); }
+// the warp's values pass through a per-warp array between two barriers
+inline int emu_wx[32][32];
+inline int emu_swap(int v, int src) {
+  const int w = threadIdx.x / 32;
+  emu_wx[w][threadIdx.x % 32] = v;
+  emu_wbar[w]->arrive_and_wait();
+  const int r = emu_wx[w][src & 31];
+  emu_wbar[w]->arrive_and_wait();
+  return r;
+}
+inline int __shfl_sync(unsigned, int v, int src) { return emu_swap(v, src); }
+inline int __shfl_up_sync(unsigned, int v, int d) {
+  const int lane = threadIdx.x % 32;
+  const int r = emu_swap(v, lane - d);
+  return lane >= d ? r : v;
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int w = threadIdx.x / 32;
+  emu_wx[w][threadIdx.x % 32] = p != 0;
+  emu_wbar[w]->arrive_and_wait();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= unsigned(emu_wx[w][l]) << l;
+  emu_wbar[w]->arrive_and_wait();
+  return m;
+}
+inline int __popc(unsigned m) { return __builtin_popcount(m); }
+// per warp as __syncthreads_or per block
+inline int __any_sync(unsigned, int p) {
+  const int w = threadIdx.x / 32, k = emu_wphase;
+  emu_wphase = (emu_wphase + 1) % 3;
+  if (p) emu_wany[w][k].fetch_or(1);
+  emu_wbar[w]->arrive_and_wait();
+  const int r = emu_wany[w][k].load();
+  if (threadIdx.x % 32 == 0) emu_wany[w][(k + 2) % 3].store(0);
+  return r;
+}
+// three rotating flags: call k's flag is cleared after call k + 1's barrier
+inline int __syncthreads_or(int p) {
+  const int k = emu_phase;
+  emu_phase = (emu_phase + 1) % 3;
+  if (p) emu_or[k].fetch_or(1);
+  emu_bar->arrive_and_wait();
+  const int r = emu_or[k].load();
+  if (threadIdx.x == 0) emu_or[(k + 2) % 3].store(0);
+  return r;
+}
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+const int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+const int cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
+template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline int cudaGetLastError() { return 0; }
+// cuda_pipeline.h: the copies done at once, the waits empty
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(int) {}
+inline float __int_as_float(int v) {
+  float f;
+  std::memcpy(&f, &v, 4);
+  return f;
+}
+inline int __float_as_int(float f) {
+  int v;
+  std::memcpy(&v, &f, 4);
+  return v;
+}
+template <class K, class... A>
+void emu_launch(dim3 grid, dim3 block, size_t shmem, cudaStream_t, K kernel,
+                A... args) {
+  if (shmem > sizeof(emu_smem)) throw 1;
+  blockDim = block;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blockIdx = dim3(b);
+    const int n = block.x * block.y;
+    std::barrier<> bar(n);
+    emu_bar = &bar;
+    for (auto& v : emu_or) v = 0;
+    std::vector<std::barrier<>*> wbars;
+    for (int w = 0; w < (n + 31) / 32; ++w) {
+      wbars.push_back(new std::barrier<>(std::min(32, n - 32 * w)));
+      for (auto& v : emu_wany[w]) v = 0;
+    }
+    emu_wbar = wbars;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < n; ++t) {
+      ts.emplace_back([&, t]() {
+        threadIdx = dim3(t % block.x, t / block.x);
+        emu_phase = 0;
+        emu_wphase = 0;
+        kernel(args...);
+      });
+    }
+    for (auto& th : ts) th.join();
+    for (auto* b : wbars) delete b;
+  }
+}
+"""
+
+
+def _host_source(text: str) -> str:
+    """The CUDA source with the runtime stand-in: its header, the dynamic
+    shared array, and each ``k<<<grid, block, shmem, stream>>>(args)`` as
+    ``emu_launch(grid, block, shmem, stream, k, args)``."""
+    text = text.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    text = text.replace("#include <cuda_pipeline.h>\n", "")
+    text = text.replace("extern __shared__ float4 smem[];",
+                        "float4* smem = emu_smem;")
+    return re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(",
+                  lambda m: "emu_launch(%s, %s, " % (m.group(2), m.group(1)),
+                  text, flags=re.S)
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA source for the CPU")
+    d = tmp_path_factory.mktemp("cheb_emu")
+    (d / "emu.h").write_text(RUNTIME)
+    src = d / "cheb.cpp"
+    src.write_text(_host_source(cell_pair.K1C.source.read_text()))
+    lib = d / "libcheb.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-pthread", "-I", str(d), "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    for name, n_int in (("cell_pair_cheb", 15), ("cell_pair_cheb_mix", 15),
+                        ("cell_pair_cheb_cellwise", 10),
+                        ("cell_pair_cheb_mix_cellwise", 10)):
+        fn = getattr(so, name)
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return so
+
+
+def _run(so, cells, counts, box, ops, dims, kw, ko, ch3, x_halo, plan=None):
+    """One emulated launch on CPU tensors: the cellwise kernel, or the
+    column-segment kernel with ``plan``; every row written (the output
+    starts as NaN)."""
+    cut2, tmap, tmap_b, xmat, coef = ops
+    out = cell_pair._out_rows(cells, dims, x_halo).fill_(float("nan"))
+    args = cell_pair._cheb_pointers(cells, counts, box, cut2, tmap, tmap_b,
+                                    xmat, coef, out, dims, kw, ko, ch3,
+                                    x_halo)
+    mix = "_mix" if tmap_b is not None else ""
+    if plan is None:
+        rc = getattr(so, "cell_pair_cheb%s_cellwise" % mix)(*args, None)
+    else:
+        rc = getattr(so, "cell_pair_cheb%s" % mix)(
+            *args, plan.seg, plan.rows, plan.threads, plan.depth, plan.smem,
+            None)
+    assert rc == 0
+    return out
+
+
+# launch plans besides the default: lists of one and two passes of 32
+# candidates (emptied within a row), batches of 1 to 32 rows, segments
+# longer than nz
+PLANS = [dict(seg=2, rows=3, threads=64, depth=1),
+         dict(seg=5, rows=32, threads=96, depth=2),
+         dict(seg=3, rows=1, threads=32, depth=1)]
+
+
+def _same_bits(so, cells, counts, box, ops, dims, kw, ko, x_halo=False,
+               channels=(0, 1, 2), plans=PLANS):
+    plain = cell_pair.cell_pair_forces_cheb_ref
+    for ch3 in channels:
+        old = _run(so, cells, counts, box, ops, dims, kw, ko, ch3, x_halo)
+        ref = plain(cells, counts, box, *ops, dims, kw, ko, ch3, x_halo)
+        torch.testing.assert_close(old, ref, rtol=0,
+                                   atol=2e-5 * (1 + ref.abs().max().item()))
+        for kw_plan in [{}] + list(plans):
+            plan = cell_pair.cheb_launch_plan(
+                dims, cells.shape[1], ops[0].shape[0], ops[4].shape[0], kw,
+                ko, ops[2] is not None, x_halo, **kw_plan)
+            new = _run(so, cells, counts, box, ops, dims, kw, ko, ch3,
+                       x_halo, plan)
+            assert torch.equal(new, old), (ch3, plan)
+
+
+@pytest.fixture(scope="module")
+def melts():
+    out = {}
+    for kind, fn in (("tab", testsystems.build_tabulated_melt),
+                     ("mixed", testsystems.build_mixed_tab_melt)):
+        built, _, _ = fn(n_mols=70, reactive=True, thermostat="no",
+                         device="cpu")
+        st = runner.initial_forces(built.spec, built.cfg, built.state)
+        out[kind] = (built, testsystems.warmup(built, st, steps=50))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["K1c", "K1e", "K1d", "K1f-cheb",
+                                  "K1f-cheb-mix"])
+def test_emulated_kernel_equals_cellwise(emu, melts, mode):
+    """The 70-trimer tabulated and blended melts (3^3 cells, cap 24), the
+    full grid and the middle slab of 3: the same bits in all channels."""
+    built, st = melts["mixed" if mode in ("K1d", "K1f-cheb-mix") else "tab"]
+    cfg = built.cfg
+    ntab = 0 if mode == "K1e" else cfg.cheb_ntab
+    ops = cell_pair.cheb_operands(built.spec, cfg.n_types, cfg.cheb_ko, ntab,
+                                  cfg.cheb_mix and ntab > 0,
+                                  torch.tensor([0.4]))
+    packed = cell_pair.pack_rows(st.pos, st.type_id, st.active)
+    if mode.startswith("K1f"):
+        nx, ny, nz = cfg.cell_dims
+        ids = cell_pair_halo.slab_cells(tuple(cfg.cell_dims), 3, 1, "cpu")
+        cells, counts = cell_pair.colt_operands(packed, st.nbr.buckets[ids],
+                                                ids.numel())
+        dims, x_halo = (nx // 3 + 2, ny, nz), True
+    else:
+        cells, counts = cell_pair.colt_operands(
+            packed, st.nbr.buckets, int(np.prod(cfg.cell_dims)))
+        dims, x_halo = cfg.cell_dims, False
+    _same_bits(emu, cells, counts, st.box, ops, dims, cfg.cheb_kw,
+               cfg.cheb_ko, x_halo)
+
+
+@pytest.mark.parametrize("dims,cap", [((3, 4, 5), 16), ((5, 3, 7), 8)])
+@pytest.mark.parametrize("blend", [False, True], ids=["scalar", "blend"])
+def test_emulated_kernel_on_ragged_cells(emu, melts, dims, cap, blend):
+    """Random occupancy with inactive rows inside the counts (type 0), one
+    type pair without a table, on the full grid and as a slab."""
+    built, _ = melts["tab"]
+    cfg = built.cfg
+    coef = cell_pair.cheb_operands(built.spec, cfg.n_types, cfg.cheb_ko,
+                                   cfg.cheb_ntab, False)[4]
+    rng = np.random.RandomState(cap + int(blend))
+    n_cells, edge = int(np.prod(dims)), 1.1
+    cells = np.zeros((n_cells, cap, 4), np.float32)
+    counts = rng.randint(0, cap + 1, n_cells).astype(np.int32)
+    for c in range(n_cells):
+        at = np.array([c // (dims[1] * dims[2]), (c // dims[2]) % dims[1],
+                       c % dims[2]])
+        k = counts[c]
+        cells[c, :k, :3] = at * edge + rng.uniform(0, edge, (k, 3))
+        cells[c, :k, 3] = rng.randint(0, 3, k)
+    box = torch.tensor(dims, dtype=torch.float32) * edge
+    cut2 = torch.full((2, 2), 1.21)
+    tmap = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32)
+    ops = ((cut2, tmap, torch.tensor([[1, 1], [0, 1]], dtype=torch.int32),
+            torch.tensor([[0.3, 1.0], [1.0, 0.7]]), coef) if blend
+           else (cut2, tmap, None, None, coef))
+    for x_halo in (False, True):
+        _same_bits(emu, torch.from_numpy(cells), torch.from_numpy(counts),
+                   box, ops, dims, cfg.cheb_kw, cfg.cheb_ko, x_halo,
+                   channels=(1, 2), plans=PLANS[:1])
+
+
+def test_emulated_launcher_refuses_a_plan_of_other_bytes(emu, melts):
+    """The launcher checks the plan against its own layout: bytes that
+    differ, a batch wider than a warp or a block of part of a warp give
+    cudaErrorInvalidValue, and nothing runs."""
+    built, st = melts["tab"]
+    cfg = built.cfg
+    ops = cell_pair.cheb_operands(built.spec, cfg.n_types, cfg.cheb_ko,
+                                  cfg.cheb_ntab, False)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    plan = cell_pair.cheb_launch_plan(cfg.cell_dims, cells.shape[1],
+                                      cfg.n_types, ops[4].shape[0],
+                                      cfg.cheb_kw, cfg.cheb_ko, False)
+    out = cell_pair._out_rows(cells, cfg.cell_dims, False).fill_(7.0)
+    args = cell_pair._cheb_pointers(cells, counts, st.box, *ops, out,
+                                    cfg.cell_dims, cfg.cheb_kw, cfg.cheb_ko,
+                                    0, False)
+    odd = plan._replace(threads=48, smem=cell_pair.cheb_smem(
+        cells.shape[1], cfg.n_types, ops[4].shape[0], cfg.cheb_kw,
+        cfg.cheb_ko, False, plan.seg, 48, plan.depth))
+    for bad in (plan._replace(smem=plan.smem + 16),
+                plan._replace(rows=33), odd):
+        assert emu.cell_pair_cheb(*args, bad.seg, bad.rows, bad.threads,
+                                  bad.depth, bad.smem, None) == 1
+    assert bool((out == 7.0).all())

@@ -1,8 +1,9 @@
 """The port on a card: the CUDA K1 (LJ), K1c/K1d/K1e (Chebyshev tabulated),
 K2 (per-cell LJ, any grid) and the ladder (K1', K3a-K3d) against their
 plain versions, K2 against K1 on a full grid and K3a-K3d against K2 bit
-for bit, the cancellation at r -> 0, and short runs on the card against
-the CPU path: LJ, tabulated, and NPT on the K2 grid.
+for bit, the Chebyshev column-segment kernel against its cellwise baseline
+bit for bit, the cancellation at r -> 0, and short runs on the card
+against the CPU path: LJ, tabulated, and NPT on the K2 grid.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -766,3 +767,151 @@ def test_cuda_run_block_with_a_ladder_kernel(melt32, name, kernel):
     for name_ in ("ev_log_a", "ev_log_b", "ev_log_r", "type_id"):
         torch.testing.assert_close(getattr(g, name_).cpu(),
                                    getattr(c, name_), rtol=0, atol=0)
+
+
+# ---- the column-segment Chebyshev kernel against the cellwise kernel --------
+
+# (label, melt, table-scalar mode, x_halo) of each Chebyshev mode
+CHEB_MODES = [("K1c", "tab", True, False), ("K1e", "tab", False, False),
+              ("K1d", "mixed", True, False), ("K1f-cheb", "tab", True, True),
+              ("K1f-cheb-plane", "tab", False, True),
+              ("K1f-cheb-mix", "mixed", True, True)]
+
+
+def _new_and_cellwise(cells, counts, box, ops, dims, kw, ko, ch3, ntab,
+                      x_halo=False):
+    """The column-segment kernel's and the cellwise kernel's rows on the
+    card, from the same operands, each launch counted once."""
+    dev = [t.cuda() for t in (cells, counts, box)]
+    ops = [None if t is None else t.cuda() for t in ops]
+    kern = cell_pair.cheb_kernel_for(ops[2], ntab, x_halo)
+    old_k = (cell_pair.K1C_CELLWISE if ops[2] is None
+             else cell_pair.K1D_CELLWISE)
+    n0, o0 = kern.launches, old_k.launches
+    new = cell_pair.cheb_cells(*dev, *ops, dims, kw, ko, ch3, ntab, x_halo)
+    old = cell_pair.cell_pair_forces_cheb_cellwise(*dev, *ops, dims, kw, ko,
+                                                   ch3, x_halo)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1 and old_k.launches == o0 + 1
+    return new, old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kind,scalar,x_halo", CHEB_MODES,
+                         ids=[m[0] for m in CHEB_MODES])
+def test_cuda_cheb_equals_cellwise_bit_for_bit(tab_melts, label, kind,
+                                               scalar, x_halo):
+    """K1c, K1e, K1d and the K1f modes (each slab of 3 ranks): the
+    column-segment kernel equals the cellwise kernel bit for bit in every
+    ch3 channel, and the plain version to f32 rounding."""
+    built, _, st = tab_melts[kind]
+    cfg = built.cfg
+    ntab = cfg.cheb_ntab if scalar else 0
+    cells, counts, box, ops = _cheb_args(built, st, ntab, torch.tensor([0.4]))
+    operands = ([_slab_operands(built, st, 3, r) for r in range(3)] if x_halo
+                else [(cells, counts, cfg.cell_dims)])
+    for cells, counts, dims in operands:
+        for ch3 in CH3:
+            new, old = _new_and_cellwise(cells, counts, box, ops, dims,
+                                         cfg.cheb_kw, cfg.cheb_ko, ch3, ntab,
+                                         x_halo)
+            assert torch.equal(new, old), (label, ch3)
+            ref = cell_pair.cell_pair_forces_cheb_ref(
+                cells, counts, box, *ops, dims, cfg.cheb_kw, cfg.cheb_ko,
+                ch3, x_halo)
+            torch.testing.assert_close(new.cpu(), ref, rtol=0,
+                                       atol=_tol(ref))
+
+
+def _random_cheb_ops(coef, blend):
+    """Two types on random cells: cutoff 1.1, one type pair without a table
+    (and, with ``blend``, a second table with weights), ``coef`` rows."""
+    cut2 = torch.full((2, 2), 1.21)
+    tmap = torch.tensor([[1, 0], [0, coef.shape[0]]], dtype=torch.int32)
+    if not blend:
+        return cut2, tmap, None, None, coef
+    tmap_b = torch.tensor([[coef.shape[0], 1], [0, 1]], dtype=torch.int32)
+    return cut2, tmap, tmap_b, torch.tensor([[0.3, 1.0], [1.0, 0.7]]), coef
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 4, 5), 16), ((5, 3, 7), 24)])
+@pytest.mark.parametrize("blend", [False, True], ids=["scalar", "blend"])
+def test_cuda_cheb_equals_cellwise_on_ragged_cells(tab_melts, dims, cap,
+                                                   blend):
+    """Random occupancy on grids K1c takes, the full grid and a slab: the
+    column-segment kernel equals the cellwise kernel bit for bit, with the
+    default plan and with plans of other segments, batches and list depths
+    (lists of one and two passes fill and are emptied within a row)."""
+    built, _, st = tab_melts["tab"]
+    cfg = built.cfg
+    coef = _cheb_args(built, st, cfg.cheb_ntab, None)[3][4]
+    cells, counts, box, _ = _random_cells(dims, cap, cap + int(blend))
+    ops = _random_cheb_ops(coef, blend)
+    for x_halo in (False, True):
+        for plan in ({}, dict(seg=2, rows=3, threads=64, depth=1),
+                     dict(seg=3, rows=32, threads=32, depth=2)):
+            p = cell_pair.cheb_launch_plan(dims, cap, 2, coef.shape[0],
+                                           cfg.cheb_kw, cfg.cheb_ko, blend,
+                                           x_halo, **plan)
+            dev = [t.cuda() for t in (cells, counts, box)]
+            dops = [None if t is None else t.cuda() for t in ops]
+            args = (*dev, *dops, dims, cfg.cheb_kw, cfg.cheb_ko,
+                    cell_pair.CH3_ENERGY)
+            new = cell_pair.cell_pair_forces_cheb_kernel(
+                *args, x_halo=x_halo, plan=p)
+            old = cell_pair.cell_pair_forces_cheb_cellwise(*args, x_halo)
+            torch.cuda.synchronize()
+            assert torch.equal(new, old), (x_halo, plan)
+
+
+@pytest.mark.cuda
+def test_cuda_cheb_equals_cellwise_at_the_100k_grid(tab_melts):
+    """24^3 cells at cap 40: equal bits with the tabulated pack, and with a
+    plane-mode pack of 700 rows that takes the opt-in above 48 KiB; a plan
+    above 227 KiB raises with its size, and the launcher refuses a plan
+    whose bytes are not its layout's."""
+    built, _, st = tab_melts["tab"]
+    cfg = built.cfg
+    dims, cap = (24, 24, 24), 40
+    coef = _cheb_args(built, st, cfg.cheb_ntab, None)[3][4]
+    cells, counts, box, _ = _random_cells(dims, cap, 7, fill=12)
+    big = coef.repeat(700, 1).contiguous()
+    for pack in (coef, big):
+        ops = _random_cheb_ops(pack, False)
+        plan = cell_pair.cheb_launch_plan(dims, cap, 2, pack.shape[0],
+                                          cfg.cheb_kw, cfg.cheb_ko, False)
+        assert plan.smem > 48 * 1024 or pack is not big
+        new, old = _new_and_cellwise(cells, counts, box, ops, dims,
+                                     cfg.cheb_kw, cfg.cheb_ko,
+                                     cell_pair.CH3_VIRIAL, 1)
+        assert torch.equal(new, old)
+    dev = [t.cuda() for t in (cells, counts, box)]
+    ops = [t.cuda() for t in _random_cheb_ops(coef, False) if t is not None]
+    args = (*dev, ops[0], ops[1], None, None, ops[2], dims, cfg.cheb_kw,
+            cfg.cheb_ko, cell_pair.CH3_NONE)
+    with pytest.raises(ValueError, match="227 KiB"):
+        cell_pair.cell_pair_forces_cheb_kernel(
+            *dev, ops[0], ops[1], None, None, coef.repeat(3000, 1).cuda(),
+            dims, cfg.cheb_kw, cfg.cheb_ko, cell_pair.CH3_NONE)
+    plan = cell_pair.cheb_launch_plan(dims, cap, 2, 1, cfg.cheb_kw,
+                                      cfg.cheb_ko, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cell_pair.cell_pair_forces_cheb_kernel(
+            *args, plan=plan._replace(smem=plan.smem + 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tab", "mixed"])
+def test_cuda_cheb_gives_the_same_bits_twice(tab_melts, kind):
+    built, _, st = tab_melts[kind]
+    cfg = built.cfg
+    cells, counts, box, ops = _cheb_args(built, st, cfg.cheb_ntab,
+                                         torch.tensor([0.4]))
+    dev = [t.cuda() for t in (cells, counts, box)]
+    ops = [None if t is None else t.cuda() for t in ops]
+    a, b = (cell_pair.cheb_cells(*dev, *ops, cfg.cell_dims, cfg.cheb_kw,
+                                 cfg.cheb_ko, cell_pair.CH3_ENERGY,
+                                 cfg.cheb_ntab) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -108,8 +108,9 @@
 // per inner slot.  Same visiting order and op sequence as the full grid,
 // so the slabs laid side by side equal K1c/K1d/K1e's output bit for bit.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "cell_pair_packed.cuh"
 
 namespace {
 
@@ -290,67 +291,17 @@ int launch_cellwise(const void* cells, const void* counts, const void* box,
 
 // ---- the column-segment kernel: packed lanes, filter then evaluate ----------
 
-// Minimum image and r2 of one candidate in the cellwise kernel's op order.
-__device__ __forceinline__ float pair_r2(const float4 xi, const float4 xj,
-                                         const float bx, const float by,
-                                         const float bz, const float ibx,
-                                         const float iby, const float ibz,
-                                         float& ddx, float& ddy, float& ddz) {
-  ddx = xi.x - xj.x;
-  ddx = ddx - bx * rintf(ddx * ibx);
-  ddy = xi.y - xj.y;
-  ddy = ddy - by * rintf(ddy * iby);
-  ddz = xi.z - xj.z;
-  ddz = ddz - bz * rintf(ddz * ibz);
-  float r2 = ddx * ddx;
-  r2 = r2 + ddy * ddy;
-  r2 = r2 + ddz * ddz;
-  return r2;
-}
+using packed::kAll;
 
-__device__ __forceinline__ int wrap(int v, int n) { return ((v % n) + n) % n; }
-
-// Periodic distance |d - b * rint(d / b)| at least, over d in [lo, hi]:
-// zero when the interval holds a multiple of b, else the nearer end's.
-__device__ __forceinline__ float axis_gap(float lo, float hi, float b,
-                                          float ib) {
-  if (ceilf(lo * ib) * b <= hi) return 0.f;
-  return fminf(fabsf(lo - b * rintf(lo * ib)), fabsf(hi - b * rintf(hi * ib)));
-}
-
-// A lower bound, less a margin gm on each axis, of the squared minimum-image
-// distance from xi to any point of the box c = [x0, y0, z0, x1, y1, z1]:
-// no pair of xi with a row in the box has r2 below it.
-__device__ __forceinline__ float min_gap2(const float4 xi, const float* c,
-                                          float bx, float by, float bz,
-                                          float ibx, float iby, float ibz,
-                                          float gm) {
-  const float gx = fmaxf(axis_gap(xi.x - c[3], xi.x - c[0], bx, ibx) - gm, 0.f);
-  const float gy = fmaxf(axis_gap(xi.y - c[4], xi.y - c[1], by, iby) - gm, 0.f);
-  const float gz = fmaxf(axis_gap(xi.z - c[5], xi.z - c[2], bz, ibz) - gm, 0.f);
-  return gx * gx + gy * gy + gz * gz;
-}
-
-constexpr unsigned kAll = 0xffffffffu;
-
-// One block per (xy column, z segment of `seg` cells) of the output grid.
-//
-// Stage: the 9 xy-neighbour z-columns for z in [z0 - 1, z0 + lb] (hz =
-// seg + 2 cells each), each column's occupied rows packed cell after cell
-// (cpre: the rows before each cell; a column every hz * cap + 1 rows), so
-// that the neighbours a row finds in one cell are one contiguous run; and
-// each staged cell's bounding box, from its rows.
+// One block per (xy column, z segment of `seg` cells) of the output grid;
+// the stage and the rows' candidate layout are cell_pair_packed.cuh's.
 //
 // Work: the block's occupied rows (contiguous in column (0, 0)) in batches
 // of `rows_w`, one batch per warp at a time.  For each row of the batch in
 // turn, the whole warp:
-//   filters: lane o < 27 takes stencil offset o (dx, dy, dz from -1 to 1,
-//   dz fastest: the cellwise order) and drops its cell when the cell's
-//   bounding box lies beyond the row's largest cutoff (its pairs would all
-//   fail the cut; a margin keeps the test clear of rounding); a scan of the
-//   27 cell counts lays the row's candidates out in stencil order, then
-//   slot order, and the warp runs the candidate ops up to the cut on 32
-//   consecutive candidates at a time; a ballot appends the in-cut ones, in
+//   filters: the row's candidates (packed::row_cands: stencil order, then
+//   slot order, culled cells dropped), 32 consecutive ones a pass, through
+//   the candidate ops up to the cut; a ballot appends the in-cut ones, in
 //   that order, to the warp's list (row, stage index).
 // When the list is full and after the batch's last row:
 //   evaluates: the lanes take the list's entries in turn, run the Clenshaw
@@ -374,29 +325,21 @@ __global__ void cheb_packed_kernel(
   const int tt = n_types * n_types;
   const int n_p = 2 * kw + 2 * ko + 6;
   const int hz = seg + 2;
-  const int cstride = hz * cap + 1;        // stage rows per xy column
   const int nthr = blockDim.x;
   const int t = threadIdx.x;
-  float4* rows = smem;                                          // 9 cstride
-  float4* ent = rows + 9 * cstride;                             // depth nthr
+  packed::Stage s;
+  s.rows = smem;                                                // 9 cstride
+  float4* ent = s.rows + 9 * (hz * cap + 1);                    // depth nthr
   float* coef = reinterpret_cast<float*>(ent + depth * nthr);   // n_rows P
   float* cut2 = coef + n_rows * n_p;                            // T T
   int* tmap = reinterpret_cast<int*>(cut2 + tt);                // T T
   int* tmap_b = tmap + tt;                                      // T T (MIX)
   float* xmat = reinterpret_cast<float*>(tmap_b + (MIX ? tt : 0));
-  int* cnt = reinterpret_cast<int*>(xmat + (MIX ? tt : 0));     // 9 hz
-  int* cpre = cnt + 9 * hz;                                     // 9 (hz + 1)
-  int* base_g = cpre + 9 * (hz + 1);                            // 9 hz
-  float* bbox = reinterpret_cast<float*>(base_g + 9 * hz);      // 9 hz 6
-  float* cmax = bbox + 9 * hz * 6;                              // T
-
-  const int n_seg = (nz + seg - 1) / seg;
-  const int col = blockIdx.x / n_seg;         // cx_out * ny + cy
-  const int z0 = (blockIdx.x % n_seg) * seg;
-  const int lb = min(seg, nz - z0);           // output cells of the block
-  const int cy = col % ny;
-  const int cx = col / ny + (x_halo ? 1 : 0);  // the column's x in `cells`
-  const int out0 = col * nz + z0;              // first output cell
+  s.cnt = reinterpret_cast<int*>(xmat + (MIX ? tt : 0));        // 9 hz
+  s.cpre = s.cnt + 9 * hz;                                      // 9 (hz + 1)
+  s.base_g = s.cpre + 9 * (hz + 1);                             // 9 hz
+  s.bbox = reinterpret_cast<float*>(s.base_g + 9 * hz);         // 9 hz 6
+  float* cmax = s.bbox + 9 * hz * 6;                            // T
 
   for (int k = t; k < n_rows * n_p; k += nthr) coef[k] = coef_g[k];
   for (int k = t; k < tt; k += nthr) {
@@ -407,25 +350,7 @@ __global__ void cheb_packed_kernel(
       xmat[k] = xmat_g[k];
     }
   }
-  // staged cell (u, h): xy column u = (dx + 1) * 3 + dy + 1, z = z0 - 1 + h;
-  // cells past the segment's lb + 2 stay empty
-  for (int k = t; k < 9 * hz; k += nthr) {
-    const int u = k / hz, h = k % hz;
-    const int ncx = x_halo ? cx + u / 3 - 1 : wrap(cx + u / 3 - 1, nx);
-    const int nc = (ncx * ny + wrap(cy + u % 3 - 1, ny)) * nz
-                   + wrap(z0 - 1 + h, nz);
-    cnt[k] = h < lb + 2 ? counts[nc] : 0;
-    base_g[k] = nc * cap;
-  }
-  __syncthreads();
-  if (t < 9) {
-    int acc = 0;
-    for (int h = 0; h < hz; ++h) {
-      cpre[t * (hz + 1) + h] = acc;
-      acc += cnt[t * hz + h];
-    }
-    cpre[t * (hz + 1) + hz] = acc;
-  }
+  packed::stage_block(cells, counts, out, s, nx, ny, nz, cap, x_halo, seg);
   // the largest cutoff^2 of a row of each type
   for (int a = t; a < n_types; a += nthr) {
     float m = cut2[a * n_types];
@@ -433,61 +358,20 @@ __global__ void cheb_packed_kernel(
     cmax[a] = m;
   }
   __syncthreads();
-  // the rows, a warp to a staged cell, every copy in flight at once
-  for (int sc = t >> 5; sc < 9 * hz; sc += nthr >> 5) {
-    const int u = sc / hz;
-    float4* dst = rows + u * cstride + cpre[sc + u];
-    const float4* src = cells + base_g[sc];
-    for (int slot = t & 31; slot < cnt[sc]; slot += 32) {
-      __pipeline_memcpy_async(dst + slot, src + slot, sizeof(float4));
-    }
-  }
-  __pipeline_commit();
-  // the slots past each output cell's occupancy are zero rows
-  for (int k = t; k < lb * cap; k += nthr) {
-    if (k % cap >= cnt[4 * hz + k / cap + 1]) {
-      out[out0 * cap + k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  // each staged cell's bounding box [x0, y0, z0, x1, y1, z1]
-  for (int sc = t; sc < 9 * hz; sc += nthr) {
-    const int u = sc / hz;
-    const float4* r = rows + u * cstride + cpre[sc + u];
-    float b[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
-                  -INFINITY};
-    for (int k = 0; k < cnt[sc]; ++k) {
-      b[0] = fminf(b[0], r[k].x);
-      b[1] = fminf(b[1], r[k].y);
-      b[2] = fminf(b[2], r[k].z);
-      b[3] = fmaxf(b[3], r[k].x);
-      b[4] = fmaxf(b[4], r[k].y);
-      b[5] = fmaxf(b[5], r[k].z);
-    }
-    for (int k = 0; k < 6; ++k) bbox[sc * 6 + k] = b[k];
-  }
-  __syncthreads();
 
   const float bx = box[0], by = box[1], bz = box[2];
   const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
-  // the cull's margin on each axis' gap, far above the f32 rounding of a
-  // minimum-image difference
-  const float gm = 1e-5f * (bx + by + bz) + 1e-6f;
+  const float gm = packed::cull_margin(bx, by, bz);
   const bool want_e = ch3_mode == 1;
-  // the block's rows: column (0, 0), cells 1 .. lb
-  const int* own_pre = cpre + 4 * (hz + 1);
-  const int row0 = own_pre[1];
-  const int n_own = own_pre[lb + 1] - row0;
-  const float4* own_rows = rows + 4 * cstride + row0;
+  const float4* own_rows = s.rows + 4 * s.cstride + s.row0;
   const int lane = t & 31;
   const unsigned below = (1u << lane) - 1u;
   const int cap_w = 32 * depth;               // entries of a warp's list
   float4* wl = ent + (t - lane) * depth;      // this warp's list
 
-  for (int b0 = (t >> 5) * rows_w; b0 < n_own;
+  for (int b0 = (t >> 5) * rows_w; b0 < s.n_own;
        b0 += (nthr >> 5) * rows_w) {
-    const int nb = min(rows_w, n_own - b0);   // rows of this batch
+    const int nb = min(rows_w, s.n_own - b0);  // rows of this batch
     float fx = 0.f, fy = 0.f, fz = 0.f, acc = 0.f;  // lane r: row b0 + r
     int lo = 0, hi = 0;  // lane r: its row's entries in the list
     int n = 0;           // entries in the list
@@ -498,10 +382,10 @@ __global__ void cheb_packed_kernel(
       for (int k = lane; k < n; k += 32) {
         const float4 en = wl[k];
         const float4 xi = own_rows[b0 + __float_as_int(en.x)];
-        const float4 xj = rows[__float_as_int(en.w)];
+        const float4 xj = s.rows[__float_as_int(en.w)];
         float ddx, ddy, ddz;
-        const float r2s = pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz, ddx, ddy,
-                                  ddz);
+        const float r2s = packed::pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz,
+                                          ddx, ddy, ddz);
         const int p = max(static_cast<int>(xi.w) - 1, 0) * n_types
                       + max(static_cast<int>(xj.w) - 1, 0);
         const int sa = tmap[p];
@@ -537,44 +421,20 @@ __global__ void cheb_packed_kernel(
       const float4 xi = own_rows[b0 + r];
       if (!(xi.w > 0.5f)) continue;  // an inactive row has no pairs
       const int ti = max(static_cast<int>(xi.w) - 1, 0);
-      int zl = 0;  // the row's cell
-      while (row0 + b0 + r >= own_pre[zl + 2]) ++zl;
-      // lane o < 27: offset o's cell, its candidates (none when culled)
-      int c_o = 0, start = 0;
-      if (lane < 27) {
-        const int u = lane / 3, sc = u * hz + zl + lane % 3;
-        start = u * cstride + cpre[sc + u];
-        c_o = cnt[sc];
-        if (c_o > 0 && min_gap2(xi, bbox + sc * 6, bx, by, bz, ibx, iby, ibz,
-                                gm) >= cmax[ti]) {
-          c_o = 0;
-        }
-      }
-      int pre = c_o;  // inclusive prefix over the offsets
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(kAll, pre, d);
-        if (lane >= d) pre += v;
-      }
-      const int total = __shfl_sync(kAll, pre, 31);
+      const packed::RowCands rc = packed::row_cands(
+          s, xi, packed::row_cell(s, s.row0 + b0 + r), cmax[ti], bx, by, bz,
+          ibx, iby, ibz, gm, lane);
       if (lane == r) lo = hi = n;
-      for (int k0 = 0; k0 < total; k0 += 32) {
+      for (int k0 = 0; k0 < rc.total; k0 += 32) {
         if (n + 32 > cap_w) flush();
         const int k = k0 + lane;
-        // the offset holding candidate k: the lanes whose prefix is <= k
-        int o = 0;
-        for (int step = 16; step > 0; step >>= 1) {
-          if (__shfl_sync(kAll, pre, o + step - 1) <= k) o += step;
-        }
-        const int o_start = __shfl_sync(kAll, start, o & 31);
-        const int o_first = __shfl_sync(kAll, pre - c_o, o & 31);
+        const int f = packed::cand_row(rc, k);
         bool in = false;
-        int f = 0;
-        if (k < total) {
-          f = o_start + k - o_first;
-          const float4 xj = rows[f];
+        if (k < rc.total) {
+          const float4 xj = s.rows[f];
           float ddx, ddy, ddz;
-          const float r2 = pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz, ddx, ddy,
-                                   ddz);
+          const float r2 = packed::pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz,
+                                           ddx, ddy, ddz);
           const bool valid = (xj.w > 0.5f) && (r2 > 1e-12f);
           const float r2s = valid ? r2 : 1.0f;
           const int p = ti * n_types + max(static_cast<int>(xj.w) - 1, 0);
@@ -591,10 +451,9 @@ __global__ void cheb_packed_kernel(
     }
     flush();
     if (lane < nb) {
-      const int row = row0 + b0 + lane;
-      int oz = 0;
-      while (row >= own_pre[oz + 2]) ++oz;
-      out[(out0 + oz) * cap + row - own_pre[oz + 1]] =
+      const int row = s.row0 + b0 + lane;
+      const int oz = packed::row_cell(s, row);
+      out[(s.out0 + oz) * cap + row - s.cpre[4 * (hz + 1) + oz + 1]] =
           make_float4(fx, fy, fz, 0.5f * acc);
     }
   }
@@ -609,8 +468,8 @@ size_t packed_smem(int cap, int n_types, int n_rows, int kw, int ko, bool mix,
   return (9 * (hz * cap + 1) + static_cast<size_t>(threads) * depth)
              * sizeof(float4)
          + (static_cast<size_t>(n_rows) * (2 * kw + 2 * ko + 6)
-            + tt * (mix ? 4 : 2) + 9 * hz + 9 * (hz + 1) + 9 * hz
-            + 9 * hz * 6 + n_types) * sizeof(float);
+            + tt * (mix ? 4 : 2) + packed::stage_words(seg) + n_types)
+               * sizeof(float);
 }
 
 template <bool MIX>

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file exposes plain C functions that launch its kernel
 on the stream they are given and return ``cudaGetLastError()``.  At first
 use the source is compiled by ``nvcc`` for ``sm_90a`` into
-``chemlab_tpu_torch/_build/`` (named by a hash of the source and flags, so
-an edited source rebuilds) and loaded with ``ctypes``; ``build_all``
-compiles several sources at once, one ``nvcc`` each.  Nothing is built or
+``chemlab_tpu_torch/_build/`` (named by a hash of the source, the headers
+it includes and the flags, so an edited source or header rebuilds) and
+loaded with ``ctypes``; ``build_all`` compiles several sources at once, one
+``nvcc`` each.  Nothing is built or
 loaded when this module is imported: the CPU tests import every module.
 
 Flags: ``--fmad=false`` keeps ``a*b + c`` as two rounded operations, the
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +31,22 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+# a header of csrc/ included by a quoted name
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def source_files(source: Path) -> list:
+    """``source`` and every header it includes by a quoted name, directly or
+    through another header, in the order first included."""
+    out = [source]
+    for path in out:
+        for name in _INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header not in out:
+                out.append(header)
+    return out
 
 
 def find_nvcc() -> str:
@@ -58,7 +76,9 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in source_files(self.source):
+            h.update(path.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / ("lib%s-%s.so" % (self.source.stem,
                                              h.hexdigest()[:16]))

@@ -16,6 +16,13 @@ image ``d - box * round(d * (1/box))`` (round half to even), ``r2`` summed
 x, y, z in that order, the self-pair drop at ``r2 > 1e-12`` (kernel) or the
 ``1e-12`` floor (correction), and LJ with the 0.75-sigma soft-core clamp.
 
+On the card, K1 (and its virial channel K1b and slab mode K1f) runs the
+column-segment kernel of ``csrc/cell_pair.cu`` with the launch plan of
+``colt_launch_plan`` (from the shapes alone, never the counts or the
+box); the source's first, cellwise kernel stays beside it as the baseline
+it is held to bit for bit (``cell_pair_forces_colt_cellwise``, handle
+``K1_CELLWISE``), which no step runs.
+
 The tabulated modes evaluate a Chebyshev fit per pair
 (``tab_cheb.eval_planes``) from a coefficient row chosen by a (T, T) map:
 K1c takes the deduplicated table-scalar rows (``cheb_sc``, map
@@ -68,11 +75,18 @@ CH3_NONE, CH3_ENERGY, CH3_VIRIAL = 0, 1, 2
 
 # K1, its virial channel K1b and its slab mode K1f share an entry point,
 # each with its own launch count (the pressure pass of an NPT step launches
-# K1b, a rank of the slab decomposition K1f)
-_COLT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# K1b, a rank of the slab decomposition K1f); the entry point takes the
+# launch plan (``colt_launch_plan``) after the operands
+_COLT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 K1 = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 K1B = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
 K1F = _kernels.CudaKernel("cell_pair.cu", "cell_pair_colt", _COLT_ARGS)
+# the LJ cellwise kernel, K1's first design (one block per cell, 27
+# stages), kept as the baseline the column-segment kernel is held and
+# timed against: outside BY_NAME, and no step reaches it
+K1_CELLWISE = _kernels.CudaKernel(
+    "cell_pair.cu", "cell_pair_colt_cellwise",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 # the Chebyshev modes, one source: K1c and K1e share the unblended entry
 # point (they differ only in the map and the pack), each with its own count;
@@ -295,16 +309,11 @@ def _out_rows(cells, dims, x_halo: bool):
                        device=cells.device)
 
 
-def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
-                                 uniform_lj: bool, all_lj: bool,
-                                 ch3_mode: int, x_halo: bool = False):
-    """Launch the CUDA K1 (K1f with ``x_halo``) on the current stream (CUDA
-    tensors only)."""
-    nx, ny, nz = _check_grid(cells, dims)
-    C, cap, _ = cells.shape
+def _colt_checks(cells, counts, box, params, dims):
+    """The LJ kernels' launch conditions."""
+    _check_grid(cells, dims)
+    C = cells.shape[0]
     n_types = params.shape[1]
-    if cap * 16 + 5 * n_types * n_types * 4 > 48 * 1024:
-        raise ValueError("K1: shared-memory stage exceeds 48 KiB")
     dev = cells.device
     for t, name in ((counts, "counts"), (box, "box"), (params, "params")):
         if t.device != dev:
@@ -313,13 +322,58 @@ def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
     _check(counts, "counts", torch.int32, (C,))
     _check(box, "box", torch.float32, (3,))
     _check(params, "params", torch.float32, (5, n_types, n_types))
+
+
+def _colt_pointers(cells, counts, box, params, out, dims, uniform_lj: bool,
+                   all_lj: bool, ch3_mode: int, x_halo: bool):
+    """The LJ entry points' common arguments, operands to ``x_halo``."""
+    nx, ny, nz = (int(d) for d in dims)
+    return (cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
+            params.data_ptr(), out.data_ptr(), nx, ny, nz, cells.shape[1],
+            params.shape[1], int(uniform_lj), int(all_lj), int(ch3_mode),
+            int(x_halo))
+
+
+def colt_plan_args(plan):
+    """The plan's arguments of ``cell_pair_colt``, after the operands."""
+    return plan.seg, plan.rows, plan.threads, plan.depth, plan.smem
+
+
+def cell_pair_forces_colt_kernel(cells, counts, box, params, dims,
+                                 uniform_lj: bool, all_lj: bool,
+                                 ch3_mode: int, x_halo: bool = False,
+                                 plan=None):
+    """Launch the CUDA K1 (K1b in the virial channel, K1f with ``x_halo``)
+    on the current stream (CUDA tensors only): the column-segment kernel
+    with ``plan`` (``colt_launch_plan``'s for these shapes by default)."""
+    _colt_checks(cells, counts, box, params, dims)
+    if plan is None:
+        plan = colt_launch_plan(dims, cells.shape[1], params.shape[1],
+                                x_halo)
     out = _out_rows(cells, dims, x_halo)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
     kernel = K1F if x_halo else K1B if ch3_mode == CH3_VIRIAL else K1
-    kernel.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
-                  params.data_ptr(), out.data_ptr(), nx, ny, nz, cap, n_types,
-                  int(uniform_lj), int(all_lj), int(ch3_mode), int(x_halo),
-                  stream)
+    kernel.launch(*_colt_pointers(cells, counts, box, params, out, dims,
+                                  uniform_lj, all_lj, ch3_mode, x_halo),
+                  *colt_plan_args(plan), stream)
+    return out
+
+
+def cell_pair_forces_colt_cellwise(cells, counts, box, params, dims,
+                                   uniform_lj: bool, all_lj: bool,
+                                   ch3_mode: int, x_halo: bool = False):
+    """Launch the LJ cellwise kernel (``K1_CELLWISE``) on the same operands
+    as ``cell_pair_forces_colt_kernel``: the baseline of the A/B, which no
+    step reaches."""
+    _colt_checks(cells, counts, box, params, dims)
+    cap, n_types = cells.shape[1], params.shape[1]
+    if cap * 16 + 5 * n_types * n_types * 4 > 48 * 1024:
+        raise ValueError("K1 cellwise: shared-memory stage exceeds 48 KiB")
+    out = _out_rows(cells, dims, x_halo)
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    K1_CELLWISE.launch(*_colt_pointers(cells, counts, box, params, out, dims,
+                                       uniform_lj, all_lj, ch3_mode, x_halo),
+                       stream)
     return out
 
 
@@ -496,10 +550,10 @@ def cheb_kernel_for(tmap_b, ntab: int, x_halo: bool = False):
     return K1D if tmap_b is not None else (K1C if ntab else K1E)
 
 
-class ChebPlan(NamedTuple):
-    """The column-segment kernel's launch plan: z cells per block (L), rows
+class PackedPlan(NamedTuple):
+    """A column-segment kernel's launch plan: z cells per block (L), rows
     per warp batch, threads per block, list entries per thread (a warp's
-    list holds 32 times as many), and the shared-memory bytes of that
+    list holds 32 times as many) and the shared-memory bytes of that
     layout."""
     seg: int
     rows: int
@@ -508,46 +562,107 @@ class ChebPlan(NamedTuple):
     smem: int
 
 
-# The plan's choices, measured on an H100 (PERF.md; the sweep of
-# ``python -m chemlab_tpu_torch.kernel_matrix --tab``): at least two
-# blocks per SM of the card's 132 (the segment shrinks to reach them),
-# segments of at most CHEB_SEG cells, batches of CHEB_ROWS rows a warp,
-# CHEB_THREADS threads a block, lists of CHEB_DEPTH entries a thread.
-CHEB_MIN_BLOCKS = 2 * 132
+# The plans' choices, measured on an H100 (PERF.md): at least MIN_BLOCKS,
+# two blocks per SM of the card's 132, wherever the grid has them (the
+# segment shrinks to reach them), and a block's shared memory below
+# SMEM_MAX, the card's 227 KiB.  The Chebyshev kernel (the sweep of
+# ``python -m chemlab_tpu_torch.kernel_matrix --tab``): segments of at most
+# CHEB_SEG cells, batches of CHEB_ROWS rows a warp, CHEB_THREADS threads a
+# block, lists of CHEB_DEPTH entries a thread.
+MIN_BLOCKS = 2 * 132
+SMEM_MAX = 227 * 1024
 CHEB_SEG = 2
 CHEB_ROWS = 4
 CHEB_THREADS = 128
 CHEB_DEPTH = 8
-SMEM_MAX = 227 * 1024
+# The LJ kernel (the sweep of ``kernel_matrix --lj``, then these rules in
+# turns; PERF.md): segments of at most COLT_SEG cells, batches of COLT_ROWS
+# rows a warp, COLT_THREADS threads a block, lists of COLT_DEPTH entries a
+# thread were the fastest on the 10k and NPT melts (the main paths), within
+# 7 % of the fastest on the tiled 22^3 grids and the slabs.
+COLT_SEG = 3
+COLT_ROWS = 2
+COLT_THREADS = 256
+COLT_DEPTH = 4
+
+
+def _stage_bytes(cap: int, seg: int, threads: int, depth: int,
+                 words: int) -> int:
+    """Shared-memory bytes of a column-segment kernel with ``words`` 4-byte
+    words of its own: the stage of 9 z-columns of seg + 2 cells (hz cap + 1
+    rows of 16 B a column), ``depth`` 16-byte list entries per thread, each
+    column's row prefix (hz + 1) and each staged cell's count, row offset
+    and bounding box (6 floats)."""
+    hz = seg + 2
+    return (16 * (9 * (hz * cap + 1) + threads * depth)
+            + 4 * (words + 9 * (hz + 1) + 9 * hz * (1 + 1 + 6)))
 
 
 def cheb_smem(cap: int, n_types: int, n_rows: int, kw: int, ko: int,
               mix: bool, seg: int, threads: int, depth: int) -> int:
-    """Shared-memory bytes of the column-segment kernel: the stage of 9
-    z-columns of seg + 2 cells (hz cap + 1 rows of 16 B a column),
-    ``depth`` 16-byte list entries per thread, the coefficient pack, the
-    (T, T) cutoffs and maps (two more with the blend), each column's row
-    prefix (hz + 1), each staged cell's count, row offset and bounding box
-    (6 floats), and the largest cutoff^2 per type."""
-    hz = seg + 2
-    words = (n_rows * (2 * kw + 2 * ko + 6) + n_types * n_types
-             * (4 if mix else 2) + 9 * (hz + 1) + 9 * hz * (1 + 1 + 6)
-             + n_types)
-    return 16 * (9 * (hz * cap + 1) + threads * depth) + 4 * words
+    """Shared-memory bytes of the Chebyshev column-segment kernel: the
+    stage and lists (``_stage_bytes``), the coefficient pack, the (T, T)
+    cutoffs and maps (two more with the blend), and the largest cutoff^2
+    per type."""
+    return _stage_bytes(cap, seg, threads, depth,
+                        n_rows * (2 * kw + 2 * ko + 6)
+                        + n_types * n_types * (4 if mix else 2) + n_types)
+
+
+def colt_smem(cap: int, n_types: int, seg: int, threads: int,
+              depth: int) -> int:
+    """Shared-memory bytes of the LJ column-segment kernel: the stage and
+    lists (``_stage_bytes``), the (5, T, T) parameter table and the largest cutoff^2 per type."""
+    return _stage_bytes(cap, seg, threads, depth,
+                        5 * n_types * n_types + n_types)
+
+
+def plan_segment(dims, x_halo: bool, seg_max: int) -> int:
+    """The plans' segment: the longest of at most ``seg_max`` cells that
+    leaves ``MIN_BLOCKS`` blocks (or one cell a block), split evenly over
+    nz."""
+    nx, ny, nz = (int(d) for d in dims)
+    n_cols = (nx - 2 if x_halo else nx) * ny
+    seg = next(s for s in range(min(seg_max, nz), 0, -1)
+               if n_cols * -(-nz // s) >= MIN_BLOCKS or s == 1)
+    return -(-nz // -(-nz // seg))
+
+
+def _packed_plan(label: str, dims, x_halo: bool, seg, rows, threads, depth,
+                 defaults, smem_fn) -> PackedPlan:
+    """A column-segment kernel's plan on ``dims``: the segment by
+    ``plan_segment`` with at most ``defaults[0]`` cells; rows, threads and
+    depth default to ``defaults[1:]``; ``smem_fn(seg, threads, depth)``
+    gives the bytes."""
+    seg_max, rows_d, threads_d, depth_d = defaults
+    if seg is None:
+        seg = plan_segment(dims, x_halo, seg_max)
+    rows = rows_d if rows is None else rows
+    threads = threads_d if threads is None else threads
+    depth = depth_d if depth is None else depth
+    if not (1 <= seg and 1 <= rows <= 32 and 32 <= threads <= 1024
+            and threads % 32 == 0 and depth >= 1):
+        raise ValueError("%s: no plan with seg %d, rows %d, threads %d, "
+                         "depth %d" % (label, seg, rows, threads, depth))
+    smem = smem_fn(seg, threads, depth)
+    if smem > SMEM_MAX:
+        raise ValueError("%s: shared-memory stage of %d bytes exceeds "
+                         "227 KiB" % (label, smem))
+    return PackedPlan(seg, rows, threads, depth, smem)
 
 
 def cheb_launch_plan(dims, cap: int, n_types: int, n_rows: int, kw: int,
                      ko: int, mix: bool, x_halo: bool = False, *,
                      seg=None, rows=None, threads=None,
-                     depth=None) -> ChebPlan:
+                     depth=None) -> PackedPlan:
     """The launch plan of ``cell_pair_cheb`` / ``cell_pair_cheb_mix`` on a
     grid ``dims`` (a K1f slab of w + 2 layers with ``x_halo``): from the
     shapes alone, never from the counts, which the host cannot read without
     a sync.  The segment is the longest of at most ``CHEB_SEG`` cells that
-    leaves ``CHEB_MIN_BLOCKS`` blocks (or one cell a block), split evenly
-    over nz; ``seg``, ``rows``, ``threads`` and ``depth`` override the
-    measured choices (the kernel matrix's sweep).  Raises ``ValueError``
-    above 227 KiB of shared memory, naming the size."""
+    leaves ``MIN_BLOCKS`` blocks (or one cell a block), split evenly over
+    nz; ``seg``, ``rows``, ``threads`` and ``depth`` override the measured
+    choices (the kernel matrix's sweep).  Raises ``ValueError`` above 227
+    KiB of shared memory, naming the size."""
     return _plan(tuple(int(d) for d in dims), int(cap), int(n_types),
                  int(n_rows), int(kw), int(ko), bool(mix), bool(x_halo), seg,
                  rows, threads, depth)
@@ -558,24 +673,35 @@ def _plan(dims, cap, n_types, n_rows, kw, ko, mix, x_halo, seg, rows,
           threads, depth):
     """``cheb_launch_plan``, made once per set of shapes: the step's wrapper
     asks for it on every call."""
-    nx, ny, nz = dims
-    n_cols = (nx - 2 if x_halo else nx) * ny
-    if seg is None:
-        seg = next(s for s in range(min(CHEB_SEG, nz), 0, -1)
-                   if n_cols * -(-nz // s) >= CHEB_MIN_BLOCKS or s == 1)
-        seg = -(-nz // -(-nz // seg))
-    rows = CHEB_ROWS if rows is None else rows
-    threads = CHEB_THREADS if threads is None else threads
-    depth = CHEB_DEPTH if depth is None else depth
-    if not (1 <= seg and 1 <= rows <= 32 and 32 <= threads <= 1024
-            and threads % 32 == 0 and depth >= 1):
-        raise ValueError("K1 cheb: no plan with seg %d, rows %d, threads "
-                         "%d, depth %d" % (seg, rows, threads, depth))
-    smem = cheb_smem(cap, n_types, n_rows, kw, ko, mix, seg, threads, depth)
-    if smem > SMEM_MAX:
-        raise ValueError("K1 cheb: shared-memory stage of %d bytes exceeds "
-                         "227 KiB" % smem)
-    return ChebPlan(seg, rows, threads, depth, smem)
+    return _packed_plan(
+        "K1 cheb", dims, x_halo, seg, rows, threads, depth,
+        (CHEB_SEG, CHEB_ROWS, CHEB_THREADS, CHEB_DEPTH),
+        lambda sg, th, dp: cheb_smem(cap, n_types, n_rows, kw, ko, mix, sg,
+                                     th, dp))
+
+
+def colt_launch_plan(dims, cap: int, n_types: int, x_halo: bool = False, *,
+                     seg=None, rows=None, threads=None,
+                     depth=None) -> PackedPlan:
+    """The launch plan of ``cell_pair_colt`` (K1, K1b, K1f) on a grid
+    ``dims`` (a K1f slab of w + 2 layers with ``x_halo``): from the shapes
+    alone, never from the counts or the box, which the host cannot read
+    without a sync (and the box moves every NPT step).  The segment rule is
+    ``cheb_launch_plan``'s with at most ``COLT_SEG`` cells; ``seg``,
+    ``rows``, ``threads`` and ``depth`` override the measured choices (the
+    kernel matrix's sweep).  Raises ``ValueError`` above 227 KiB of shared
+    memory, naming the size."""
+    return _colt_plan(tuple(int(d) for d in dims), int(cap), int(n_types),
+                      bool(x_halo), seg, rows, threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _colt_plan(dims, cap, n_types, x_halo, seg, rows, threads, depth):
+    """``colt_launch_plan``, made once per set of shapes."""
+    return _packed_plan(
+        "K1", dims, x_halo, seg, rows, threads, depth,
+        (COLT_SEG, COLT_ROWS, COLT_THREADS, COLT_DEPTH),
+        lambda sg, th, dp: colt_smem(cap, n_types, sg, th, dp))
 
 
 def _cheb_checks(cells, counts, box, cut2, tmap, tmap_b, xmat, coef, dims,

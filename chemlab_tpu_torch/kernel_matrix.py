@@ -4,7 +4,7 @@ warmed reactive melt, then a run of the default path.
 Usage, on a machine with a CUDA card (it fails without one, and never falls
 back to the CPU)::
 
-    python -m chemlab_tpu_torch.kernel_matrix [n_mols] [--tab]
+    python -m chemlab_tpu_torch.kernel_matrix [n_mols] [--tab | --lj]
 
 ``n_mols`` trimers, 3334 by default (10 002 particles).  Port of
 ``scripts/kernel_matrix.py``: it builds the reactive melt on the card, warms
@@ -35,6 +35,25 @@ the tabulated melt tiled 2 x 2 x 2 at cap 32 and 40 (``tiled_operands``):
     list depths at the fastest plan: the sweep behind ``cell_pair``'s
     ``CHEB_*`` choices.
 
+With ``--lj`` it times the LJ pair kernel K1 (and its virial channel K1b)
+instead, on the warmed reactive LJ melt (11^3 cells, cap 32), the warmed
+NPT melt (10^3, cap 40) and the LJ melt tiled 2 x 2 x 2 at cap 32 and 40:
+
+  - ``{"kernel_colt_ms", "kernel_colt_cellwise_ms"}``: the whole LJ pair
+    call (energy channel) through the column-segment kernel
+    (``cell_pair_forces``) and the same call through the cellwise kernel,
+    CUDA events over 20 calls;
+  - one ``{"melt", "ch3", "seg", "rows", "threads", "depth",
+    "device_ms"}`` line per launch plan of ``COLT_SWEEP`` (device time by
+    ``torch.profiler``, 30 calls), the cellwise kernel's first, in ch3 0
+    (the LJ step's channel) and, on the NPT grid, ch3 2 (K1b, the pressure
+    pass), then the list depths at the fastest plan;
+  - one ``{"melt", "ch3", "rules_in_turns"}`` line per operand (and slab 0
+    of the melt built for 2 slabs): device ms of the cellwise kernel and
+    of each plan rule of ``COLT_RULES``, timed forward and then backward:
+    with the sweep, the measurement behind ``cell_pair``'s ``COLT_*``
+    choices.
+
 Left out: ``cell_scatter`` (the TPU's scatter epilogue, which the port does
 not carry) and ``KM_RETUNE`` (it waits for capacity management's
 ``shrink_neighbor_caps``).
@@ -42,6 +61,7 @@ not carry) and ``KM_RETUNE`` (it waits for capacity management's
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import sys
@@ -189,21 +209,27 @@ def tiled_operands(built, state, cap: int):
     return cells, counts, (2 * box).contiguous(), dims
 
 
+def _epilogue(out, state, cheb_kw: int):
+    """``cell_pair_forces``' epilogue on a kernel's (C, cap, 4) rows: the
+    ``slot_of`` gather and the spare channel's sum; returns the forces."""
+    out = out.reshape(-1, 4)
+    slot_of = state.nbr.slot_of
+    in_grid = slot_of < out.shape[0]
+    rows = out[torch.where(in_grid, slot_of, 0).long()]
+    force = torch.where(in_grid[:, None], rows[:, :3], 0.0)
+    return cell_pair.pair_result(force, torch.sum(out[:, 3]), False,
+                                 cheb_kw)[0]
+
+
 def cheb_cellwise_call(built, state, obs_x=None):
     """``cell_pair_forces``' tabulated call (operands, kernel, ``slot_of``
     gather, the energy sum) with the cellwise kernel in place of the
     column-segment kernel; returns the forces."""
     cfg = built.cfg
     cells, counts, box, ops = cheb_args(built, state, obs_x)
-    out = cell_pair.cell_pair_forces_cheb_cellwise(
+    return _epilogue(cell_pair.cell_pair_forces_cheb_cellwise(
         cells, counts, box, *ops, cfg.cell_dims, cfg.cheb_kw, cfg.cheb_ko,
-        cell_pair.CH3_ENERGY).reshape(-1, 4)
-    slot_of = state.nbr.slot_of
-    in_grid = slot_of < out.shape[0]
-    rows = out[torch.where(in_grid, slot_of, 0).long()]
-    force = torch.where(in_grid[:, None], rows[:, :3], 0.0)
-    return cell_pair.pair_result(force, torch.sum(out[:, 3]), False,
-                                 cfg.cheb_kw)[0]
+        cell_pair.CH3_ENERGY), state, cfg.cheb_kw)
 
 
 def cheb_calls(built, state, obs_x=None, reps: int = 20) -> dict:
@@ -222,6 +248,19 @@ def cheb_calls(built, state, obs_x=None, reps: int = 20) -> dict:
                 lambda: cheb_cellwise_call(built, state, obs_x), reps)}
 
 
+def _plan_sweep(old, new, make_plan, plans, old_name: str, new_name: str,
+                reps: int) -> list:
+    """[(None, the cellwise kernel's device ms), (plan, the column-segment
+    kernel's device ms under it) for each of ``plans``]: ``old()`` launches
+    the cellwise kernel, ``new(plan)`` the other, ``make_plan(**kw)`` turns
+    a plan's overrides into its plan."""
+    out = [(None, device_ms(old, reps, old_name))]
+    for kw in plans:
+        plan = make_plan(**kw)
+        out.append((plan, device_ms(lambda: new(plan), reps, new_name)))
+    return out
+
+
 def cheb_sweep(built, state, plans, obs_x=None, reps: int = 30,
                operands=None) -> list:
     """Device ms of the column-segment kernel under each plan (dicts of
@@ -235,17 +274,143 @@ def cheb_sweep(built, state, plans, obs_x=None, reps: int = 30,
         cells, counts, box, dims = operands
     args = (cells, counts, box, *ops, dims, cfg.cheb_kw, cfg.cheb_ko,
             cell_pair.CH3_NONE)
-    out = [(None, device_ms(
-        lambda: cell_pair.cell_pair_forces_cheb_cellwise(*args), reps,
-        CHEB_OLD))]
-    for kw in plans:
-        plan = cell_pair.cheb_launch_plan(
+    return _plan_sweep(
+        lambda: cell_pair.cell_pair_forces_cheb_cellwise(*args),
+        lambda plan: cell_pair.cell_pair_forces_cheb_kernel(
+            *args, ntab=cfg.cheb_ntab, plan=plan),
+        lambda **kw: cell_pair.cheb_launch_plan(
             dims, cells.shape[1], cfg.n_types, ops[4].shape[0], cfg.cheb_kw,
-            cfg.cheb_ko, cfg.cheb_mix, **kw)
-        out.append((plan, device_ms(
-            lambda: cell_pair.cell_pair_forces_cheb_kernel(
-                *args, ntab=cfg.cheb_ntab, plan=plan), reps, CHEB_NEW)))
+            cfg.cheb_ko, cfg.cheb_mix, **kw),
+        plans, CHEB_OLD, CHEB_NEW, reps)
+
+
+# the two LJ kernels' device functions (neither name holds the other)
+COLT_NEW, COLT_OLD = "colt_packed_kernel", "colt_cellwise_kernel"
+# launch plans of the LJ sweep: segment, rows of a warp's batch, threads a
+# block (lists of COLT_DEPTH entries a thread), then list depths at the
+# fastest plan
+COLT_SWEEP = [dict(seg=seg, rows=rows, threads=threads)
+              for seg in (1, 2, 3, 4) for rows in (1, 2, 4, 8)
+              for threads in (64, 128, 256)]
+COLT_DEPTHS = (2, 4, 16)
+# the second stage: plan rules (segment of at most L cells by
+# ``cell_pair.plan_segment``, rows, threads, depth) timed in turns on every
+# operand, the rule the plan takes among them
+COLT_RULES = [(4, 4, 256, 8), (4, 4, 256, 4), (4, 2, 256, 8), (4, 2, 256, 4),
+              (2, 4, 128, 8), (2, 2, 256, 8), (3, 2, 256, 4), (4, 1, 256, 4)]
+
+
+def lj_args(built, state):
+    """The LJ kernels' operands on ``state``: (cells, counts, box,
+    params)."""
+    cfg = built.cfg
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(state.pos, state.type_id, state.active),
+        state.nbr.buckets, int(torch.tensor(cfg.cell_dims).prod()))
+    return (cells, counts, state.box.contiguous(),
+            cell_pair.pair_params(built.spec, cfg.n_types))
+
+
+def colt_calls(built, state, reps: int = 20) -> dict:
+    """The whole LJ pair call (energy channel) through the column-segment
+    kernel and through the cellwise kernel, ms by CUDA events."""
+    cfg = built.cfg
+
+    def new():
+        return cell_pair.cell_pair_forces(
+            state.pos, state.type_id, state.active, state.box,
+            state.nbr.buckets, state.nbr.slot_of, cfg.cell_dims, built.spec,
+            cfg.n_types, uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj)[0]
+
+    def old():
+        return _epilogue(cell_pair.cell_pair_forces_colt_cellwise(
+            *lj_args(built, state), cfg.cell_dims, cfg.uniform_lj,
+            cfg.all_lj, cell_pair.CH3_ENERGY), state, 0)
+    return {"kernel_colt_ms": time_ms(new, reps),
+            "kernel_colt_cellwise_ms": time_ms(old, reps)}
+
+
+def colt_sweep(built, state, plans, ch3: int = cell_pair.CH3_NONE,
+               reps: int = 30, operands=None) -> list:
+    """Device ms of the LJ column-segment kernel under each plan (dicts of
+    ``colt_launch_plan``'s overrides), the cellwise kernel's first (plan
+    None), in channel ``ch3``, on the melt's operands or on ``operands``
+    (cells, counts, box, dims)."""
+    cfg = built.cfg
+    cells, counts, box, params = lj_args(built, state)
+    dims = cfg.cell_dims
+    if operands is not None:
+        cells, counts, box, dims = operands
+    args = (cells, counts, box, params, dims, cfg.uniform_lj, cfg.all_lj,
+            ch3)
+    return _plan_sweep(
+        lambda: cell_pair.cell_pair_forces_colt_cellwise(*args),
+        lambda plan: cell_pair.cell_pair_forces_colt_kernel(*args,
+                                                            plan=plan),
+        lambda **kw: cell_pair.colt_launch_plan(dims, cells.shape[1],
+                                                cfg.n_types, **kw),
+        plans, COLT_OLD, COLT_NEW, reps)
+
+
+# the NPT melt's barostat: the reference NPT test's settings
+NPT = dict(barostat="br", pressure=0.15, barostat_tau=2.0)
+
+
+def npt_melt(n_mols: int, steps: int = 200):
+    """The reactive melt under the Berendsen barostat, warmed, then
+    ``steps`` Langevin steps so that the box has moved: (built, state)."""
+    built, state = _warm(functools.partial(testsystems.build_melt, **NPT),
+                         n_mols, 600)
+    box0 = state.box.clone()
+    state = runner.run_block(built.spec, built.cfg, state, steps,
+                             gen=runner.make_generator(11, "cuda"))
+    if torch.equal(state.box, box0):
+        raise AssertionError("the NPT melt's box did not move")
+    return built, state
+
+
+def colt_rules(built, state, rules, ch3: int = cell_pair.CH3_NONE,
+               operands=None, x_halo: bool = False, reps: int = 50) -> dict:
+    """Device ms of the cellwise kernel and of the LJ kernel under each
+    rule of ``rules`` (``COLT_RULES``' form), in turns: the list forward,
+    then backward; ``{"cellwise": [ms, ms], "<rule>": [ms, ms], ...}``."""
+    cfg = built.cfg
+    cells, counts, box, params = lj_args(built, state)
+    dims = cfg.cell_dims
+    if operands is not None:
+        cells, counts, box, dims = operands
+    args = (cells, counts, box, params, dims, cfg.uniform_lj, cfg.all_lj,
+            ch3)
+    runs = {"cellwise": lambda: cell_pair.cell_pair_forces_colt_cellwise(
+        *args, x_halo=x_halo)}
+    for seg_max, rows, threads, depth in rules:
+        plan = cell_pair.colt_launch_plan(
+            dims, cells.shape[1], cfg.n_types, x_halo,
+            seg=cell_pair.plan_segment(dims, x_halo, seg_max), rows=rows,
+            threads=threads, depth=depth)
+        runs[str((seg_max, rows, threads, depth))] = (
+            lambda plan=plan: cell_pair.cell_pair_forces_colt_kernel(
+                *args, x_halo=x_halo, plan=plan))
+    out = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        out[key].append(device_ms(runs[key], reps,
+                                  COLT_OLD if key == "cellwise"
+                                  else COLT_NEW))
     return out
+
+
+def slab_operands(cfg, pos, type_id, active, buckets, n_ranks: int,
+                  rank: int):
+    """Rank ``rank``'s haloed slab of the bucket table, as
+    ``cell_pair_halo`` builds it: (cells, counts, slab dims)."""
+    from .engine import cell_pair_halo
+
+    nx, ny, nz = cfg.cell_dims
+    ids = cell_pair_halo.slab_cells(tuple(cfg.cell_dims), n_ranks, rank,
+                                    pos.device)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(pos, type_id, active), buckets[ids], ids.numel())
+    return cells, counts, (nx // n_ranks + 2, ny, nz)
 
 
 def _warm(fn, n_mols: int, steps: int):
@@ -254,12 +419,25 @@ def _warm(fn, n_mols: int, steps: int):
     return built, testsystems.warmup(built, state, steps=steps)
 
 
-def _print_sweep(label: str, res):
+def _print_sweep(label: str, res, **extra):
     for plan, ms in res:
-        print(json.dumps({"melt": label, **({"cellwise": True}
-                                            if plan is None
-                                            else plan._asdict()),
+        print(json.dumps({"melt": label, **extra,
+                          **({"cellwise": True} if plan is None
+                             else plan._asdict()),
                           "device_ms": ms}), flush=True)
+
+
+def _sweep_with_depths(label: str, sweep, plans, depths, **extra):
+    """Print ``sweep(plans)``, then ``sweep`` of the fastest plan at each
+    of ``depths``."""
+    res = sweep(plans)
+    _print_sweep(label, res, **extra)
+    timed = [r for r in res if r[0] is not None and r[1] is not None]
+    if timed:
+        best = min(timed, key=lambda r: r[1])[0]
+        _print_sweep(label, sweep([
+            dict(seg=best.seg, rows=best.rows, threads=best.threads,
+                 depth=d) for d in depths])[1:], **extra)
 
 
 def tab_main(n_mols: int) -> int:
@@ -285,15 +463,49 @@ def tab_main(n_mols: int) -> int:
             grids += [("tab tiled cap %d" % cap,
                        tiled_operands(built, state, cap)) for cap in (32, 40)]
         for label, operands in grids:
-            res = cheb_sweep(built, state, CHEB_SWEEP, x, operands=operands)
-            _print_sweep(label, res)
-            timed = [r for r in res if r[0] is not None and r[1] is not None]
-            if timed:
-                best = min(timed, key=lambda r: r[1])[0]
-                _print_sweep(label, cheb_sweep(built, state, [
-                    dict(seg=best.seg, rows=best.rows, threads=best.threads,
-                         depth=d) for d in CHEB_DEPTHS], x,
-                    operands=operands)[1:])
+            _sweep_with_depths(
+                label, lambda plans, operands=operands: cheb_sweep(
+                    built, state, plans, x, operands=operands),
+                CHEB_SWEEP, CHEB_DEPTHS)
+    return 0
+
+
+def lj_main(n_mols: int) -> int:
+    """``--lj``: K1's whole calls and plan sweep, on the 10k LJ melt, the
+    NPT melt (in K1b's virial channel too) and the LJ melt tiled 2 x 2 x 2
+    at cap 32 and 40."""
+    lj = _warm(testsystems.build_melt, n_mols, 600)
+    npt = npt_melt(n_mols)
+    for melt, (built, state) in (("lj", lj), ("npt", npt)):
+        cfg = built.cfg
+        print(json.dumps({"melt": melt, "n": cfg.n_particles,
+                          "cell_cap": cfg.cell_cap,
+                          "dims": list(cfg.cell_dims),
+                          "device": torch.cuda.get_device_name(0),
+                          **colt_calls(built, state)}), flush=True)
+    built, state = lj
+    grids = [("lj", lj, None, cell_pair.CH3_NONE),
+             ("npt", npt, None, cell_pair.CH3_VIRIAL)]
+    grids += [("lj tiled cap %d" % cap, lj,
+               tiled_operands(built, state, cap), cell_pair.CH3_NONE)
+              for cap in (32, 40)]
+    for label, (b, st), operands, ch3 in grids:
+        _sweep_with_depths(
+            label, lambda plans, b=b, st=st, operands=operands, ch3=ch3:
+            colt_sweep(b, st, plans, ch3, operands=operands),
+            COLT_SWEEP, COLT_DEPTHS, ch3=ch3)
+    slab = _warm(functools.partial(testsystems.build_melt, slab_devices=2),
+                 n_mols, 300)
+    b, st = slab
+    cells, counts, dims = slab_operands(b.cfg, st.pos, st.type_id, st.active,
+                                        st.nbr.buckets, 2, 0)
+    grids.append(("slab 0 of 2", slab, (cells, counts, st.box.contiguous(),
+                                         dims), cell_pair.CH3_NONE))
+    for label, (b, st), operands, ch3 in grids:
+        x_halo = label.startswith("slab")
+        print(json.dumps({"melt": label, "ch3": ch3, "rules_in_turns":
+                          colt_rules(b, st, COLT_RULES, ch3, operands,
+                                     x_halo)}), flush=True)
     return 0
 
 
@@ -302,11 +514,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_matrix: no CUDA device", file=sys.stderr)
         return 2
-    tab = "--tab" in argv
-    argv = [a for a in argv if a != "--tab"]
+    flags = {a for a in argv if a.startswith("--")}
+    argv = [a for a in argv if not a.startswith("--")]
     n_mols = int(argv[0]) if argv else 3334
-    if tab:
+    if "--tab" in flags:
         return tab_main(n_mols)
+    if "--lj" in flags:
+        return lj_main(n_mols)
     built, systop, _ = testsystems.build_melt(n_mols=n_mols, reactive=True,
                                               device="cuda")
     cfg = built.cfg

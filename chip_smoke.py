@@ -9,11 +9,16 @@ once) and drives the port's paths at 10k particles:
   1. prints the card's name and power limit, builds the kernels;
   2. the reactive trimer LJ melt (K1): K1 against its plain torch version
      in every parameter mode (uniform, all-LJ, per-pair lookup) and every
-     ch3 channel (none, energy, virial), K2 against K1 on the same
-     operands (difference, bitwise or not, both times), the cancellation
-     check at an excluded pair 0.05 sigma apart, a small melt stepped on
-     the GPU and on the CPU from one state, and the main path: one untimed
-     and three timed 200-step Langevin blocks with reaction steps;
+     ch3 channel (none, energy, virial), K1's column-segment kernel against
+     its cellwise baseline (the first design) bit for bit in every mode and
+     channel, with device times by the profiler in turns (new, cellwise,
+     cellwise, new) in every channel, here and on the melt tiled 2 x 2 x 2
+     (22^3 cells at cap 32 and at cap 40, also against plain), K2 against
+     K1 on the same operands (difference, bitwise or not, both times), the
+     cancellation check at an excluded pair 0.05 sigma apart, a small melt
+     stepped on the GPU and on the CPU from one state, and the main path:
+     one untimed and three timed 200-step Langevin blocks with reaction
+     steps;
   3. K2, the per-cell kernel for grids colt2 cannot take: on the 10k melt
      built with cell_cap=36 (11x11x11, S = 27) and on the 40-trimer melt at
      density 0.3 (2x2x2, S = 8), K2 against its plain version in every
@@ -31,9 +36,11 @@ once) and drives the port's paths at 10k particles:
   4. NPT: the 10k reactive melt under the Berendsen barostat (pressure
      0.15, tau 2.0) with Langevin, one untimed and three timed blocks, K1
      for the forces and K1b (the virial channel) for the pressure on every
-     step; K1b against its plain version; then the 40-trimer melt: 20 NVE
-     steps under 'br' on the GPU and on the CPU from one state (K2 in both
-     channels), and 200 Langevin steps under the Langevin barostat 'lv';
+     step; after a first block (the box has moved) K1b against its plain
+     version and K1/K1b against the cellwise kernel bit for bit and in
+     turns; then the 40-trimer melt: 20 NVE steps under 'br' on the GPU
+     and on the CPU from one state (K2 in both channels), and 200 Langevin
+     steps under the Langevin barostat 'lv';
   5. the tabulated melt (every type pair a func-8 table, K1c) and the
      blended tabulated melt (func 10/12 pairs, K1d): K1c, K1d and the
      coefficient-plane mode K1e against their plain versions in every ch3
@@ -49,9 +56,9 @@ once) and drives the port's paths at 10k particles:
   6. the slab decomposition (K1f): on the 10k LJ melts built with
      slab_devices=2 (10x11x11) and 4 (8x11x11) and the tabulated and
      blended melts built with slab_devices=2, K1f on every slab against its
-     plain version in every mode and ch3 channel (and, in the Chebyshev
-     modes, against the cellwise kernel bit for bit, timed in turns on slab
-     0), the slabs laid side by side against the full-grid K1, K1c, K1d and
+     plain version in every mode and ch3 channel (and against the cellwise
+     kernel bit for bit, timed in turns on slab 0; LJ on slab 0 of 2 and of
+     4), the slabs laid side by side against the full-grid K1, K1c, K1d and
      K1e bit for bit, and the cancellation check; then two gloo ranks of
      ``parallel.launch``, both on cuda:0, run the reactive LJ melt (one
      untimed and one timed block),
@@ -84,6 +91,7 @@ TIMED_BLOCKS = 3
 NPT = dict(barostat="br", pressure=0.15, barostat_tau=2.0)
 SMALL_GRID = dict(n_mols=40, density=0.3, seed=3, reactive=False)
 MODES = [(True, True), (False, True), (False, False)]   # (uniform, all_lj)
+TILE_CAPS = (32, 40)    # the 10k melt's cap and the 100k melt's
 CH3 = ((0, "none"), (1, "energy"), (2, "virial"))
 DEVICE = "cuda"
 
@@ -262,20 +270,134 @@ def check_kernel(built, state, label: str, channels=CH3, time_mode=0,
             cfg.all_lj, time_mode)
     ms = _time_ms(lambda: kern(*args), 50)
     plain_ms = _time_ms(lambda: plain(*args), 5)
+    extra = {}
+    if label in ("K1", "K1b"):
+        old = colt_fns()[1]
+        extra["ms_before"] = _time_ms(lambda: old(*args), 50)
     cand, inside = pair_counts(cells, state.box, params[2], cfg.cell_dims)
     n_stencil = cell_pair.stencil_table(cfg.cell_dims).shape[1]
     ops_pair = OPS_LJ + (OPS_VIRIAL if time_mode == 2 else 0)
     b_ms, b_by = bound_ms(cells, params.numel() * 4 + 12 + 12 * n_stencil,
                           cand, inside, ops_pair)
-    print("%s time at %s cells x cap %d (S = %d): kernel %.4f ms, plain "
+    print("%s time at %s cells x cap %d (S = %d): kernel %.4f ms%s, plain "
           "%.4f ms; %d candidate pairs, %d inside the cutoff, bound %.6f ms "
           "(%s)" % (label, cfg.cell_dims, cfg.cell_cap, n_stencil, ms,
-                    plain_ms, cand, inside, b_ms, b_by))
+                    " (cellwise %.4f ms)" % extra["ms_before"] if extra
+                    else "", plain_ms, cand, inside, b_ms, b_by))
     name, source, replaces = LJ_ROWS[label]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, **extra}
+
+
+def colt_fns(x_halo: bool = False):
+    """(column-segment kernel, cellwise kernel) of LJ as functions of the
+    operands (cells, counts, box, params, dims, uniform, all_lj, ch3)."""
+    from chemlab_tpu_torch.engine import cell_pair
+
+    return (lambda *a: cell_pair.cell_pair_forces_colt_kernel(
+                *a, x_halo=x_halo),
+            lambda *a: cell_pair.cell_pair_forces_colt_cellwise(
+                *a, x_halo=x_halo))
+
+
+def colt_ab(label: str, built, cells, counts, box, dims,
+            x_halo: bool = False, timed: bool = True):
+    """The LJ column-segment kernel (K1, K1b, K1f) against the cellwise
+    kernel on these operands: bit for bit in every parameter mode of MODES
+    and every ch3 channel; then, with ``timed``, device time by the
+    profiler, 50 calls each in turns (new, old, old, new), in every channel
+    in the melt's own parameter mode.  Returns {ch3: (new ms, old ms)},
+    each the mean of its two turns."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+    from chemlab_tpu_torch.kernel_matrix import COLT_NEW, COLT_OLD
+
+    cfg, spec = built.cfg, built.spec
+    new, old = colt_fns(x_halo)
+    for uniform, all_lj in MODES:
+        params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
+                  else mixed_params(spec, cfg.n_types, not all_lj))
+        for mode_3, name in CH3:
+            args = (cells, counts, box, params, dims, uniform, all_lj,
+                    mode_3)
+            a, b = new(*args), old(*args)
+            torch.cuda.synchronize()
+            diff = (a - b).abs().max().item()
+            print("%s new vs cellwise uniform=%d all_lj=%d ch3=%-6s "
+                  "max|diff| %.3e, bitwise %s"
+                  % (label, uniform, all_lj, name, diff, torch.equal(a, b)))
+            if not torch.equal(a, b):
+                raise AssertionError("%s: the column-segment kernel differs "
+                                     "from the cellwise kernel" % label)
+    if not timed:
+        return {}
+    args = (cells, counts, box, cell_pair.pair_params(spec, cfg.n_types),
+            dims, cfg.uniform_lj, cfg.all_lj)
+    return device_turns(label, lambda m: new(*args, m),
+                        lambda m: old(*args, m), COLT_NEW, COLT_OLD,
+                        [m for m, _ in CH3])
+
+
+def ab_numbers(ab, ch3: int) -> dict:
+    """A row's device times from ``colt_ab``/``cheb_ab``: the row's own
+    channel ``ch3``, and every channel timed."""
+    return {"device_ms": ab[ch3][0], "device_ms_before": ab[ch3][1],
+            "device_ms_by_ch3": {str(k): list(v) for k, v in ab.items()}}
+
+
+def check_colt_tiled(built, state):
+    """K1 on the LJ melt tiled 2 x 2 x 2 (22^3 cells) at each of TILE_CAPS:
+    the new kernel against the cellwise kernel (bits in every mode and
+    channel, device time in turns) and, in the energy channel, against the
+    plain version."""
+    from chemlab_tpu_torch import kernel_matrix
+    from chemlab_tpu_torch.engine import cell_pair
+
+    cfg = built.cfg
+    params = cell_pair.pair_params(built.spec, cfg.n_types)
+    out = {}
+    for cap in TILE_CAPS:
+        cells, counts, box, dims = kernel_matrix.tiled_operands(built, state,
+                                                                cap)
+        label = "K1 tiled %s x cap %d (%d particles)" % (
+            dims, cap, int(counts.sum()))
+        ab = colt_ab(label, built, cells, counts, box, dims)
+        args = (params, dims, cfg.uniform_lj, cfg.all_lj,
+                cell_pair.CH3_ENERGY)
+        got = cell_pair.cell_pair_forces_colt_kernel(cells, counts, box,
+                                                     *args)
+        check_by_halves(label, got, cells, counts, dims,
+                        lambda c, n, d: cell_pair.cell_pair_forces_colt_ref(
+                            c, n, box, params, d, cfg.uniform_lj, cfg.all_lj,
+                            cell_pair.CH3_ENERGY, x_halo=True))
+        out[str(cap)] = ab_numbers(ab, cell_pair.CH3_NONE)
+    return out
+
+
+def check_by_halves(label: str, got, cells, counts, dims, plain_slab):
+    """``got`` (the kernel's energy-channel rows on a tiled grid) against
+    the plain version, run slab by slab over the halves of x as K1f
+    (``plain_slab(cells, counts, slab dims)``), which keeps its (cells,
+    cap, 27 cap) intermediates within the card."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair_halo
+
+    ref = torch.cat([
+        plain_slab(cells[ids], counts[ids],
+                   (dims[0] // 2 + 2, dims[1], dims[2]))
+        for ids in (cell_pair_halo.slab_cells(dims, 2, r, cells.device)
+                    for r in range(2))])
+    torch.cuda.synchronize()
+    err, tol = (got - ref).abs().max().item(), _tol(ref)
+    del ref
+    torch.cuda.empty_cache()
+    print("%s vs plain ch3=energy max|d| %.3e (tol %.3e)" % (label, err, tol))
+    if not err <= tol:
+        raise AssertionError("%s disagrees with its plain version" % label)
 
 
 def compare_k1_k2(built, state):
@@ -536,6 +658,12 @@ def lj_path(card: str):
           "%.1f s" % (built.cfg.n_particles, built.cfg.cell_dims,
                       built.cfg.cell_cap, time.perf_counter() - t0))
     row = check_kernel(built, state, "K1")
+    cells, counts = _cells(built, state)
+    row.update(ab_numbers(colt_ab(
+        "K1 at %s x cap %d" % (built.cfg.cell_dims, built.cfg.cell_cap),
+        built, cells, counts, state.box, built.cfg.cell_dims),
+        cell_pair.CH3_NONE))
+    row["tiled"] = check_colt_tiled(built, state)
     compare_k1_k2(built, state)
     check_cancellation(built, state)
     check_small_melt_against_cpu(testsystems.build_melt, "LJ", cell_pair.K1)
@@ -641,17 +769,35 @@ def check_small_npt():
 def npt_path(card: str):
     """The 10k reactive melt under the Berendsen barostat: K1b against its
     plain version, the small-grid NPT runs, then the NPT main path."""
-    from chemlab_tpu_torch.engine import cell_pair, integrate
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair, integrate, runner
 
     built, systop, state = _warm_melt("10k NPT melt", n_mols=N_MOLS, **NPT)
     cfg = built.cfg
     if cfg.barostat != "br" or not cell_pair.colt_legal(cfg.cell_cap,
                                                          cfg.cell_dims):
         raise AssertionError("the NPT melt is not a 'br' melt on a K1 grid")
-    print("10k NPT melt after warmup: P %.6f"
-          % float(integrate.virial_pressure(built.spec, cfg, state)))
-    row = check_kernel(built, state, "K1b", channels=CH3[2:],
+    # the kernels meet a box that has moved: a block under the barostat on
+    # a copy of the warmed state, so that the main path below starts from
+    # the warmed state itself
+    moved = runner.run_block(built.spec, cfg, state.to("cpu").to(DEVICE),
+                             BLOCK_STEPS // 2,
+                             gen=runner.make_generator(11, DEVICE))
+    if torch.equal(moved.box, state.box):
+        raise AssertionError("the NPT melt's box did not move")
+    print("10k NPT melt after warmup and %d steps (a copy): box %.6f -> "
+          "%.6f, P %.6f"
+          % (BLOCK_STEPS // 2, float(state.box[0]), float(moved.box[0]),
+             float(integrate.virial_pressure(built.spec, cfg, moved))))
+    row = check_kernel(built, moved, "K1b", channels=CH3[2:],
                        time_mode=cell_pair.CH3_VIRIAL)
+    cells, counts = _cells(built, moved)
+    row.update(ab_numbers(colt_ab(
+        "K1/K1b on the NPT grid %s x cap %d" % (cfg.cell_dims, cfg.cell_cap),
+        built, cells, counts, moved.box, cfg.cell_dims),
+        cell_pair.CH3_VIRIAL))
+    del moved, cells, counts
     check_small_npt()
     _, pps, row["launches"] = run_path(built, systop, state, card,
                                        cell_pair.K1, "NPT main path",
@@ -780,7 +926,7 @@ def ladder_ab(built, state):
             cell_pair.pair_params(built.spec, cfg.n_types), cfg.cell_dims,
             cfg.uniform_lj)
     mode = cell_pair.CH3_ENERGY
-    fns = [("K1", "cell_pair_colt_kernel",
+    fns = [("K1", "colt_packed_kernel",
             lambda: cell_pair.cell_pair_forces_colt_kernel(
                 *args, cfg.all_lj, mode)),
            ("K2", "cell_pair_cell_kernel",
@@ -832,9 +978,6 @@ def ladder_path(card: str, lj, cap36):
 
 # ---- K1c / K1d / K1e (Chebyshev tabulated) ------------------------------------
 
-TILE_CAPS = (32, 40)    # the 10k melt's cap and the 100k melt's
-
-
 def cheb_fns(ntab: int, x_halo: bool = False):
     """(column-segment kernel, cellwise kernel) as functions of the
     Chebyshev operands (cells, counts, box, cut2, tmap, tmap_b, xmat, coef,
@@ -868,11 +1011,21 @@ def cheb_ab(label: str, args, ntab: int, x_halo: bool = False,
         if not torch.equal(a, b):
             raise AssertionError("%s: the column-segment kernel differs from "
                                  "the cellwise kernel" % label)
+    return device_turns(label, lambda m: new(*args, m),
+                        lambda m: old(*args, m), CHEB_NEW, CHEB_OLD, modes)
+
+
+def device_turns(label: str, new, old, new_name: str, old_name: str,
+                 modes) -> dict:
+    """Device time by the profiler of ``new(ch3)`` and ``old(ch3)`` (the
+    kernels named ``new_name`` and ``old_name``), 50 calls each in turns
+    (new, old, old, new), in each ch3 mode of ``modes``.  Returns {mode:
+    (new ms, old ms)}, each the mean of its two turns."""
     out = {}
     for mode_3 in modes:
-        t = [_device_ms(lambda fn=fn: fn(*args, mode_3), 50, name)
-             for fn, name in ((new, CHEB_NEW), (old, CHEB_OLD),
-                              (old, CHEB_OLD), (new, CHEB_NEW))]
+        t = [_device_ms(lambda fn=fn: fn(mode_3), 50, name)
+             for fn, name in ((new, new_name), (old, old_name),
+                              (old, old_name), (new, new_name))]
         if None in t:
             raise AssertionError("%s: the profiler did not time both kernels"
                                  % label)
@@ -887,10 +1040,8 @@ def check_tiled(built, state, mode: str, obs_x):
     """K1c/K1d/K1e on the tiled melt at each of TILE_CAPS: the new kernel
     against the cellwise kernel (bits, device time in turns) and, in the
     energy channel, against the plain version."""
-    import torch
-
     from chemlab_tpu_torch import kernel_matrix
-    from chemlab_tpu_torch.engine import cell_pair, cell_pair_halo
+    from chemlab_tpu_torch.engine import cell_pair
 
     cfg, spec = built.cfg, built.spec
     ntab = 0 if mode == "K1e" else cfg.cheb_ntab
@@ -906,24 +1057,10 @@ def check_tiled(built, state, mode: str, obs_x):
         ab = cheb_ab(label, args, ntab)
         got = cell_pair.cell_pair_forces_cheb_kernel(
             *args, cell_pair.CH3_ENERGY, ntab=ntab)
-        # the plain version slab by slab (the halves of x, as K1f), to keep
-        # its (cells, cap, 27 cap) intermediates within the card
-        ref = torch.cat([
-            cell_pair.cell_pair_forces_cheb_ref(
-                cells[ids], counts[ids], box, *ops,
-                (dims[0] // 2 + 2, dims[1], dims[2]), cfg.cheb_kw,
-                cfg.cheb_ko, cell_pair.CH3_ENERGY, x_halo=True)
-            for ids in (cell_pair_halo.slab_cells(dims, 2, r, cells.device)
-                        for r in range(2))])
-        torch.cuda.synchronize()
-        err, tol = (got - ref).abs().max().item(), _tol(ref)
-        del ref
-        torch.cuda.empty_cache()
-        print("%s vs plain ch3=energy max|d| %.3e (tol %.3e)"
-              % (label, err, tol))
-        if not err <= tol:
-            raise AssertionError("%s disagrees with its plain version"
-                                 % label)
+        check_by_halves(label, got, cells, counts, dims,
+                        lambda c, n, d: cell_pair.cell_pair_forces_cheb_ref(
+                            c, n, box, *ops, d, cfg.cheb_kw, cfg.cheb_ko,
+                            cell_pair.CH3_ENERGY, x_halo=True))
         out[str(cap)] = {"device_ms": ab[0][0], "device_ms_before": ab[0][1],
                          "device_ms_energy": ab[1][0],
                          "device_ms_energy_before": ab[1][1]}
@@ -1077,16 +1214,12 @@ K1F_ROWS = {
 
 def slab_operands(cfg, pos, type_id, active, buckets, n_ranks: int,
                   rank: int):
-    """Rank ``rank``'s haloed slab of the bucket table, as
-    ``cell_pair_halo`` builds it: (cells, counts, slab dims)."""
-    from chemlab_tpu_torch.engine import cell_pair, cell_pair_halo
+    """Rank ``rank``'s haloed slab of the bucket table (the kernel
+    matrix's): (cells, counts, slab dims)."""
+    from chemlab_tpu_torch import kernel_matrix
 
-    nx, ny, nz = cfg.cell_dims
-    ids = cell_pair_halo.slab_cells(tuple(cfg.cell_dims), n_ranks, rank,
-                                    pos.device)
-    cells, counts = cell_pair.colt_operands(
-        cell_pair.pack_rows(pos, type_id, active), buckets[ids], ids.numel())
-    return cells, counts, (nx // n_ranks + 2, ny, nz)
+    return kernel_matrix.slab_operands(cfg, pos, type_id, active, buckets,
+                                       n_ranks, rank)
 
 
 def k1f_fns(built, mode: str, obs_x=None, uniform=None, all_lj=None,
@@ -1182,7 +1315,21 @@ def check_k1f(built, state, n_ranks: int, mode: str, obs_x=None,
                 raise AssertionError("the K1f slabs differ from the full "
                                      "grid's kernel")
     extra = {}
-    if mode != "K1":
+    if mode == "K1":
+        cells, counts, dims = slabs[0]
+        ab = colt_ab("K1f slab 0 of %d (%s x cap %d)" % (n_ranks, dims,
+                                                         cfg.cell_cap),
+                     built, cells, counts, state.box, dims, x_halo=True,
+                     timed=timed)
+        if timed:
+            old = colt_fns(x_halo=True)[1]
+            params = cell_pair.pair_params(spec, cfg.n_types)
+            extra = {"ms_before": _time_ms(lambda: old(
+                         cells, counts, state.box, params, dims,
+                         cfg.uniform_lj, cfg.all_lj, cell_pair.CH3_NONE),
+                         50),
+                     **ab_numbers(ab, cell_pair.CH3_NONE)}
+    else:
         ntab = 0 if mode == "K1e" else cfg.cheb_ntab
         ops = cell_pair.cheb_operands(spec, cfg.n_types, cfg.cheb_ko, ntab,
                                       mode == "K1d", obs_x)

@@ -1,16 +1,17 @@
 """The Chebyshev pair kernels' CUDA source, run on the CPU: the file
-``chemlab_tpu_torch/csrc/cell_pair_cheb.cu`` is compiled with the host's
-g++ against a small stand-in for the CUDA runtime (one ``std::thread`` per
-CUDA thread, a ``std::barrier`` for ``__syncthreads``, blocks one after
-another, IEEE single precision without contraction, as ``--fmad=false``
-keeps it on the card), and its entry points are called through ctypes on
-CPU tensors.  The column-segment kernel (``cell_pair_cheb``,
-``cell_pair_cheb_mix``) must equal the cellwise kernel
+``chemlab_tpu_torch/csrc/cell_pair_cheb.cu`` (and the header it includes,
+``cell_pair_packed.cuh``) is compiled with the host's g++ against a small
+stand-in for the CUDA runtime (one fiber per CUDA thread, a block's
+fibers run in turns by one thread and meeting at barriers, blocks one
+after another, IEEE single precision without contraction, as
+``--fmad=false`` keeps it on the card), and its entry points are called
+through ctypes on CPU tensors.  The column-segment kernel
+(``cell_pair_cheb``, ``cell_pair_cheb_mix``) must equal the cellwise kernel
 (``*_cellwise``) bit for bit in every mode and channel, under the default
-launch plan and under plans whose lists fill and take several rounds;
-the cellwise kernel must agree with the plain torch version to f32
-rounding.  This holds the new kernel's sum order on every run of the
-tests; the card tests (``test_torch_cuda.py``) hold the compiled kernel.
+launch plan and under plans whose lists fill and take several rounds; the
+cellwise kernel must agree with the plain torch version to f32 rounding.
+This holds the new kernel's sum order on every run of the tests; the card
+tests (``test_torch_cuda.py``) hold the compiled kernel.
 
 Skips without g++.  No jax here: the reference's numbers are held by
 ``test_torch_tab.py`` and ``test_torch_k1f.py``.
@@ -26,18 +27,18 @@ import pytest
 import torch
 
 from chemlab_tpu_torch import testsystems
-from chemlab_tpu_torch.engine import cell_pair, cell_pair_halo, runner
+from chemlab_tpu_torch.engine import (_kernels, cell_pair, cell_pair_halo,
+                                     runner)
 
 # the stand-in for cuda_runtime.h: only what the source uses
 RUNTIME = r"""
 #pragma once
+#include <ucontext.h>
 #include <algorithm>
-#include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
-#include <thread>
+#include <functional>
 #include <vector>
 using std::max;
 using std::min;
@@ -55,25 +56,49 @@ struct dim3 {
   dim3() {}
   dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim;
+inline dim3 threadIdx, blockIdx, blockDim;
 alignas(16) inline float4 emu_smem[1 << 16];
-inline std::barrier<>* emu_bar = nullptr;
-inline std::atomic<int> emu_or[3];
-inline thread_local int emu_phase = 0;
-inline std::vector<std::barrier<>*> emu_wbar;
-inline std::atomic<int> emu_wany[32][3];
-inline thread_local int emu_wphase = 0;
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
-inline void __syncwarp() { emu_wbar[threadIdx.x / 32]->arrive_and_wait(); }
+// A block's CUDA threads are fibers that one OS thread runs in turns: a
+// fiber runs until it waits at a barrier that has not opened, or ends; a
+// barrier opens when its last fiber arrives.  So the lanes of a warp meet
+// at every shuffle without the operating system's scheduler in between.
+struct emu_barrier {
+  int n = 0, count = 0, gen = 0;
+  void arrive_and_wait();
+};
+struct emu_fiber {
+  ucontext_t ctx;
+  std::vector<char> stack;
+  const emu_barrier* wait_on;  // the barrier it waits at, or none
+  int wait_gen;
+  bool done;
+};
+inline std::vector<emu_fiber> emu_fibers;
+inline ucontext_t emu_main;
+inline int emu_cur = 0;
+inline std::function<void()> emu_body;
+inline void emu_barrier::arrive_and_wait() {
+  if (++count == n) {
+    count = 0;
+    ++gen;
+    return;
+  }
+  emu_fiber& f = emu_fibers[emu_cur];
+  f.wait_on = this;
+  f.wait_gen = gen;
+  swapcontext(&f.ctx, &emu_main);  // back when the barrier has opened
+}
+inline emu_barrier emu_bar, emu_wbar[32];
+inline void __syncthreads() { emu_bar.arrive_and_wait(); }
+inline void __syncwarp() { emu_wbar[threadIdx.x / 32].arrive_and_wait(); }
 // the warp's values pass through a per-warp array between two barriers
 inline int emu_wx[32][32];
 inline int emu_swap(int v, int src) {
   const int w = threadIdx.x / 32;
   emu_wx[w][threadIdx.x % 32] = v;
-  emu_wbar[w]->arrive_and_wait();
+  emu_wbar[w].arrive_and_wait();
   const int r = emu_wx[w][src & 31];
-  emu_wbar[w]->arrive_and_wait();
+  emu_wbar[w].arrive_and_wait();
   return r;
 }
 inline int __shfl_sync(unsigned, int v, int src) { return emu_swap(v, src); }
@@ -85,33 +110,13 @@ inline int __shfl_up_sync(unsigned, int v, int d) {
 inline unsigned __ballot_sync(unsigned, int p) {
   const int w = threadIdx.x / 32;
   emu_wx[w][threadIdx.x % 32] = p != 0;
-  emu_wbar[w]->arrive_and_wait();
+  emu_wbar[w].arrive_and_wait();
   unsigned m = 0;
   for (int l = 0; l < 32; ++l) m |= unsigned(emu_wx[w][l]) << l;
-  emu_wbar[w]->arrive_and_wait();
+  emu_wbar[w].arrive_and_wait();
   return m;
 }
 inline int __popc(unsigned m) { return __builtin_popcount(m); }
-// per warp as __syncthreads_or per block
-inline int __any_sync(unsigned, int p) {
-  const int w = threadIdx.x / 32, k = emu_wphase;
-  emu_wphase = (emu_wphase + 1) % 3;
-  if (p) emu_wany[w][k].fetch_or(1);
-  emu_wbar[w]->arrive_and_wait();
-  const int r = emu_wany[w][k].load();
-  if (threadIdx.x % 32 == 0) emu_wany[w][(k + 2) % 3].store(0);
-  return r;
-}
-// three rotating flags: call k's flag is cleared after call k + 1's barrier
-inline int __syncthreads_or(int p) {
-  const int k = emu_phase;
-  emu_phase = (emu_phase + 1) % 3;
-  if (p) emu_or[k].fetch_or(1);
-  emu_bar->arrive_and_wait();
-  const int r = emu_or[k].load();
-  if (threadIdx.x == 0) emu_or[(k + 2) % 3].store(0);
-  return r;
-}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaSuccess = 0, cudaErrorInvalidValue = 1;
@@ -134,34 +139,51 @@ inline int __float_as_int(float f) {
   std::memcpy(&v, &f, 4);
   return v;
 }
+inline void emu_entry() {
+  emu_body();
+  emu_fibers[emu_cur].done = true;
+  swapcontext(&emu_fibers[emu_cur].ctx, &emu_main);
+}
 template <class K, class... A>
 void emu_launch(dim3 grid, dim3 block, size_t shmem, cudaStream_t, K kernel,
                 A... args) {
   if (shmem > sizeof(emu_smem)) throw 1;
   blockDim = block;
+  const int n = block.x * block.y;
+  emu_fibers.resize(n);
+  emu_body = [&]() { kernel(args...); };
   for (unsigned b = 0; b < grid.x; ++b) {
     blockIdx = dim3(b);
-    const int n = block.x * block.y;
-    std::barrier<> bar(n);
-    emu_bar = &bar;
-    for (auto& v : emu_or) v = 0;
-    std::vector<std::barrier<>*> wbars;
+    emu_bar.n = n;
+    emu_bar.count = 0;
     for (int w = 0; w < (n + 31) / 32; ++w) {
-      wbars.push_back(new std::barrier<>(std::min(32, n - 32 * w)));
-      for (auto& v : emu_wany[w]) v = 0;
+      emu_wbar[w].n = std::min(32, n - 32 * w);
+      emu_wbar[w].count = 0;
     }
-    emu_wbar = wbars;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < n; ++t) {
-      ts.emplace_back([&, t]() {
+    for (auto& f : emu_fibers) {
+      f.stack.resize(1 << 16);
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.data();
+      f.ctx.uc_stack.ss_size = f.stack.size();
+      f.ctx.uc_link = nullptr;
+      makecontext(&f.ctx, emu_entry, 0);
+      f.wait_on = nullptr;
+      f.done = false;
+    }
+    // run every fiber that can go on, in turns, until all have ended
+    for (bool live = true; live;) {
+      live = false;
+      for (int t = 0; t < n; ++t) {
+        emu_fiber& f = emu_fibers[t];
+        if (f.done) continue;
+        live = true;
+        if (f.wait_on && f.wait_on->gen == f.wait_gen) continue;
+        f.wait_on = nullptr;
+        emu_cur = t;
         threadIdx = dim3(t % block.x, t / block.x);
-        emu_phase = 0;
-        emu_wphase = 0;
-        kernel(args...);
-      });
+        swapcontext(&emu_main, &f.ctx);
+      }
     }
-    for (auto& th : ts) th.join();
-    for (auto* b : wbars) delete b;
   }
 }
 """
@@ -180,20 +202,29 @@ def _host_source(text: str) -> str:
                   text, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def compile_for_host(source, d):
+    """Compile the CUDA ``source`` and the headers it includes (the
+    kernels' ``csrc/``) with g++ against the stand-in, in directory ``d``;
+    skips without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA source for the CPU")
-    d = tmp_path_factory.mktemp("cheb_emu")
     (d / "emu.h").write_text(RUNTIME)
-    src = d / "cheb.cpp"
-    src.write_text(_host_source(cell_pair.K1C.source.read_text()))
-    lib = d / "libcheb.so"
+    for header in _kernels.source_files(source)[1:]:
+        (d / header.name).write_text(_host_source(header.read_text()))
+    src = d / (source.stem + ".cpp")
+    src.write_text(_host_source(source.read_text()))
+    lib = d / ("lib%s.so" % source.stem)
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-pthread", "-I", str(d), "-o",
+                    "-shared", "-fPIC", "-I", str(d), "-o",
                     str(lib), str(src)], check=True, capture_output=True)
-    so = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    so = compile_for_host(cell_pair.K1C.source,
+                          tmp_path_factory.mktemp("cheb_emu"))
     for name, n_int in (("cell_pair_cheb", 15), ("cell_pair_cheb_mix", 15),
                         ("cell_pair_cheb_cellwise", 10),
                         ("cell_pair_cheb_mix_cellwise", 10)):

@@ -1,9 +1,10 @@
 """The port on a card: the CUDA K1 (LJ), K1c/K1d/K1e (Chebyshev tabulated),
 K2 (per-cell LJ, any grid) and the ladder (K1', K3a-K3d) against their
 plain versions, K2 against K1 on a full grid and K3a-K3d against K2 bit
-for bit, the Chebyshev column-segment kernel against its cellwise baseline
-bit for bit, the cancellation at r -> 0, and short runs on the card
-against the CPU path: LJ, tabulated, and NPT on the K2 grid.
+for bit, the LJ and Chebyshev column-segment kernels against their
+cellwise baselines bit for bit, the cancellation at r -> 0, and short
+runs on the card against the CPU path: LJ, tabulated, and NPT on the K2
+grid.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -913,5 +914,161 @@ def test_cuda_cheb_gives_the_same_bits_twice(tab_melts, kind):
     a, b = (cell_pair.cheb_cells(*dev, *ops, cfg.cell_dims, cfg.cheb_kw,
                                  cfg.cheb_ko, cell_pair.CH3_ENERGY,
                                  cfg.cheb_ntab) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# ---- the LJ column-segment kernel against the cellwise kernel ---------------
+
+def _colt_new_and_cellwise(cells, counts, box, params, dims, uniform, all_lj,
+                           ch3, x_halo=False, plan=None):
+    """The LJ column-segment kernel's and the cellwise kernel's rows on the
+    card, from the same operands, each launch counted once."""
+    dev = [t.cuda() for t in (cells, counts, box, params)]
+    kern = (cell_pair.K1F if x_halo else cell_pair.K1B
+            if ch3 == cell_pair.CH3_VIRIAL else cell_pair.K1)
+    n0, o0 = kern.launches, cell_pair.K1_CELLWISE.launches
+    new = cell_pair.cell_pair_forces_colt_kernel(*dev, dims, uniform, all_lj,
+                                                 ch3, x_halo, plan=plan)
+    old = cell_pair.cell_pair_forces_colt_cellwise(*dev, dims, uniform,
+                                                   all_lj, ch3, x_halo)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    assert cell_pair.K1_CELLWISE.launches == o0 + 1
+    return new, old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_kw", [{}, dict(depth=1)],
+                         ids=["default", "one-pass-lists"])
+@pytest.mark.parametrize("uniform,all_lj", MODES,
+                         ids=["uniform", "all_lj", "islj"])
+def test_cuda_colt_equals_cellwise_bit_for_bit(melt, uniform, all_lj,
+                                               plan_kw):
+    """K1, K1b and K1f (each slab of 3 ranks) on the 70-trimer melt: the
+    column-segment kernel equals the cellwise kernel bit for bit in every
+    ch3 channel, under the default plan and under lists of one pass, and
+    the plain version to f32 rounding; the slabs laid side by side equal
+    the full grid's rows."""
+    built, _, st = melt
+    cfg = built.cfg
+    spec = built.spec if uniform else _mixed(built.spec, cfg.n_types,
+                                             not all_lj)
+    params = cell_pair.pair_params(spec, cfg.n_types)
+    full = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    for ch3 in CH3:
+        rows = {}
+        for x_halo, operands in (
+                (False, [(*full, cfg.cell_dims)]),
+                (True, [_slab_operands(built, st, 3, r) for r in range(3)])):
+            rows[x_halo] = []
+            for cells, counts, dims in operands:
+                plan = cell_pair.colt_launch_plan(dims, cfg.cell_cap,
+                                                  cfg.n_types, x_halo,
+                                                  **plan_kw)
+                new, old = _colt_new_and_cellwise(
+                    cells, counts, st.box, params, dims, uniform, all_lj,
+                    ch3, x_halo, plan)
+                assert torch.equal(new, old), (ch3, x_halo)
+                ref = cell_pair.cell_pair_forces_colt_ref(
+                    cells, counts, st.box, params, dims, uniform, all_lj,
+                    ch3, x_halo)
+                torch.testing.assert_close(new.cpu(), ref, rtol=0,
+                                           atol=_tol(ref))
+                rows[x_halo].append(new)
+        assert torch.equal(torch.cat(rows[True]), rows[False][0]), ch3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 4, 5), 16), ((5, 3, 7), 24)])
+def test_cuda_colt_equals_cellwise_on_ragged_cells(dims, cap):
+    """Random occupancy on grids K1 takes, the full grid and a slab, every
+    parameter mode and channel: the column-segment kernel equals the
+    cellwise kernel bit for bit with the default plan and with plans of
+    other segments, batches and list depths (lists of one and two passes
+    fill and are emptied within a row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    cells, counts, box, params = _random_cells(dims, cap, cap)
+    for x_halo in (False, True):
+        for kw in ({}, dict(seg=2, rows=3, threads=64, depth=1),
+                   dict(seg=3, rows=32, threads=32, depth=2),
+                   dict(seg=1, rows=1, threads=96)):
+            plan = cell_pair.colt_launch_plan(dims, cap, 2, x_halo, **kw)
+            for uniform, all_lj in MODES:
+                for ch3 in CH3:
+                    new, old = _colt_new_and_cellwise(
+                        cells, counts, box, params, dims, uniform, all_lj,
+                        ch3, x_halo, plan)
+                    assert torch.equal(new, old), (x_halo, kw, ch3)
+
+
+@pytest.mark.cuda
+def test_cuda_colt_at_the_100k_grid():
+    """24^3 cells at cap 40: equal bits under the default plan and under a
+    plan that takes the shared-memory opt-in above 48 KiB; a plan above 227
+    KiB raises with its size, and the launcher refuses a plan whose bytes
+    are not its layout's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims, cap = (24, 24, 24), 40
+    cells, counts, box, params = _random_cells(dims, cap, 7, fill=12)
+    big = cell_pair.colt_launch_plan(dims, cap, 2, seg=4, threads=256,
+                                     depth=8)
+    assert big.smem > 48 * 1024
+    for plan in (None, big):
+        for ch3 in (cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL):
+            new, old = _colt_new_and_cellwise(cells, counts, box, params,
+                                              dims, False, False, ch3,
+                                              plan=plan)
+            assert torch.equal(new, old), (plan, ch3)
+    with pytest.raises(ValueError, match="227 KiB"):
+        cell_pair.colt_launch_plan(dims, cap, 2, threads=1024, depth=16)
+    dev = [t.cuda() for t in (cells, counts, box, params)]
+    plan = cell_pair.colt_launch_plan(dims, cap, 2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cell_pair.cell_pair_forces_colt_kernel(
+            *dev, dims, False, False, cell_pair.CH3_NONE,
+            plan=plan._replace(smem=plan.smem + 16))
+
+
+@pytest.mark.cuda
+def test_cuda_colt_box_change_under_one_plan(melt):
+    """The box (and every position with it) shrinks between two calls under
+    one cached plan, as under a barostat: the cull reads the box on the
+    device, and the kernel equals the cellwise kernel on each box."""
+    built, _, st = melt
+    cfg = built.cfg
+    params = cell_pair.pair_params(built.spec, cfg.n_types)
+    plan = cell_pair.colt_launch_plan(cfg.cell_dims, cfg.cell_cap,
+                                      cfg.n_types)
+    outs = []
+    for scale in (1.0, 0.97, 1.02):
+        cells, counts = cell_pair.colt_operands(
+            cell_pair.pack_rows(st.pos * scale, st.type_id, st.active),
+            st.nbr.buckets, int(np.prod(cfg.cell_dims)))
+        assert cell_pair.colt_launch_plan(cfg.cell_dims, cfg.cell_cap,
+                                          cfg.n_types) is plan
+        new, old = _colt_new_and_cellwise(
+            cells, counts, st.box * scale, params, cfg.cell_dims, True, True,
+            cell_pair.CH3_VIRIAL)
+        assert torch.equal(new, old), scale
+        outs.append(new)
+    assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_colt_gives_the_same_bits_twice(melt):
+    built, _, st = melt
+    cfg = built.cfg
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(st.pos, st.type_id, st.active), st.nbr.buckets,
+        int(np.prod(cfg.cell_dims)))
+    dev = [t.cuda() for t in (cells, counts, st.box,
+                              cell_pair.pair_params(built.spec, cfg.n_types))]
+    a, b = (cell_pair.colt_cells(*dev, cfg.cell_dims, True, True,
+                                 cell_pair.CH3_ENERGY) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(a, b)

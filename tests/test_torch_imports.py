@@ -140,7 +140,8 @@ def test_kernel_source_rounds_half_to_even():
     """``jnp.round`` rounds half to even: the kernel's minimum image must use
     rintf, never roundf (half away from zero)."""
     for k in (cell_pair.K1, cell_pair.K1C, cell_pair.K2, cell_pair.K3A):
-        src = k.source.read_text()
+        # the source and the headers it includes (cell_pair_packed.cuh)
+        src = "".join(p.read_text() for p in _kernels.source_files(k.source))
         assert "rintf(" in src and "roundf(" not in src
         assert "rsqrtf(" not in src and "__fdividef" not in src
     # the well piece's r is the correctly rounded sqrtf, never rsqrtf

@@ -31,8 +31,10 @@
 //
 //   colt_packed_kernel (cell_pair_colt, every step runs it; the launch plan
 //   is cell_pair.colt_launch_plan's): the column-segment design of
-//   cell_pair_cheb.cu's cheb_packed_kernel, with the stage and the rows'
-//   candidate layout of cell_pair_packed.cuh: one block per (xy column, z
+//   cell_pair_cheb.cu's cheb_packed_kernel, with the stage, the rows'
+//   candidate layout and the LJ body (lj_rows, which K2 in
+//   cell_pair_cell.cu launches too, over its deduplicated stencil) of
+//   cell_pair_packed.cuh: one block per (xy column, z
 //   segment), the 9 neighbour z-columns staged once with cp.async, a warp
 //   per row with its candidates over the 32 lanes in stencil order, then
 //   slot order, and cells beyond the row's largest cutoff culled by their
@@ -171,172 +173,17 @@ __global__ void colt_cellwise_kernel(
 
 // ---- the column-segment kernel ---------------------------------------------
 
-using packed::kAll;
-
-// The type pair of row type ti and a candidate row's type plane value.
-__device__ __forceinline__ int type_pair(int ti, float wj, int n_types) {
-  return ti * n_types + max(static_cast<int>(wj) - 1, 0);
-}
-
-// K1's pair term for a pair inside the cut, in colt_cellwise_kernel's op
-// sequence: returns the force scalar f; w is the ch3 term, the shifted pair
-// energy (mode 1) or f r2s (mode 2).
-__device__ __forceinline__ float lj_force(float r2s, float sig, float eps,
-                                          float shift, int ch3_mode,
-                                          float& w) {
-  const float sig2 = sig * sig;
-  const float r2c = fmaxf(r2s, 0.5625f * sig2);
-  const float inv_r2c = 1.0f / r2c;
-  const float s2 = sig2 * inv_r2c;
-  const float s6 = s2 * s2 * s2;
-  const float f = 48.0f * eps * (s6 * s6 - 0.5f * s6) * inv_r2c;
-  w = ch3_mode == 1 ? 4.0f * eps * (s6 * s6 - s6) - shift : f * r2s;
-  return f;
-}
-
-// One block per (xy column, z segment of `seg` cells) of the output grid;
-// the block's occupied rows in batches of `rows_w`, one batch per warp at a
-// time, each row of the batch in turn taken by the whole warp: its
-// candidates (packed::row_cands) 32 a pass through the candidate ops up to
-// the cut, the in-cut ones appended to the warp's list and evaluated over
-// it (the source's head comment).  Lane r of the batch holds row r's sums
-// and writes its slot.
+// K1's wrapper of the column-segment body (cell_pair_packed.cuh), under a
+// name of its own so that a trace tells K1 from K2
 __global__ void colt_packed_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
-    int uniform_lj, int all_lj, int ch3_mode, int x_halo, int seg,
-    int rows_w, int depth) {
-  extern __shared__ float4 smem[];
-  const int tt = n_types * n_types;
-  const int hz = seg + 2;
-  const int nthr = blockDim.x;
-  const int t = threadIdx.x;
-  packed::Stage s;
-  s.rows = smem;                                                // 9 cstride
-  float4* ent = s.rows + 9 * (hz * cap + 1);                    // depth nthr
-  float* par = reinterpret_cast<float*>(ent + depth * nthr);    // 5 T T
-  s.cnt = reinterpret_cast<int*>(par + 5 * tt);                 // 9 hz
-  s.cpre = s.cnt + 9 * hz;                                      // 9 (hz + 1)
-  s.base_g = s.cpre + 9 * (hz + 1);                             // 9 hz
-  s.bbox = reinterpret_cast<float*>(s.base_g + 9 * hz);         // 9 hz 6
-  float* cmax = s.bbox + 9 * hz * 6;                            // T
-
-  for (int k = t; k < 5 * tt; k += nthr) par[k] = params[k];
-  packed::stage_block(cells, counts, out, s, nx, ny, nz, cap, x_halo, seg);
-  // the largest cutoff^2 of a row of each type
-  for (int a = t; a < n_types; a += nthr) {
-    float m = par[2 * tt];
-    if (!uniform_lj) {
-      m = par[2 * tt + a * n_types];
-      for (int k = 1; k < n_types; ++k) {
-        m = fmaxf(m, par[2 * tt + a * n_types + k]);
-      }
-    }
-    cmax[a] = m;
-  }
-  __syncthreads();
-
-  const float bx = box[0], by = box[1], bz = box[2];
-  const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
-  const float gm = packed::cull_margin(bx, by, bz);
-  const float4* own_rows = s.rows + 4 * s.cstride + s.row0;
-  const int lane = t & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const int cap_w = 32 * depth;               // entries of a warp's list
-  float4* wl = ent + (t - lane) * depth;      // this warp's list
-
-  for (int b0 = (t >> 5) * rows_w; b0 < s.n_own;
-       b0 += (nthr >> 5) * rows_w) {
-    const int nb = min(rows_w, s.n_own - b0);  // rows of this batch
-    float fx = 0.f, fy = 0.f, fz = 0.f, acc = 0.f;  // lane r: row b0 + r
-    int lo = 0, hi = 0;  // lane r's entries in the list
-    int n = 0;           // entries in the list
-
-    // evaluate the list's entries, then each lane sums its row's terms
-    auto flush = [&]() {
-      __syncwarp();  // the list's entries, from every lane
-      for (int k = lane; k < n; k += 32) {
-        const float4 en = wl[k];
-        const float4 xi = own_rows[b0 + __float_as_int(en.x)];
-        const float4 xj = s.rows[__float_as_int(en.w)];
-        float ddx, ddy, ddz;
-        const float r2s = packed::pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz,
-                                          ddx, ddy, ddz);
-        const int p = uniform_lj ? 0
-            : type_pair(max(static_cast<int>(xi.w) - 1, 0), xj.w, n_types);
-        float w;
-        const float f = lj_force(r2s, par[p], par[tt + p], par[3 * tt + p],
-                                 ch3_mode, w);
-        wl[k] = make_float4(f * ddx, f * ddy, f * ddz, w);
-      }
-      __syncwarp();
-      for (int k = lo; k < hi; ++k) {
-        const float4 en = wl[k];
-        fx = fx + en.x;
-        fy = fy + en.y;
-        fz = fz + en.z;
-        if (ch3_mode != 0) acc = acc + en.w;
-      }
-      __syncwarp();
-      lo = hi = n = 0;
-    };
-
-    for (int r = 0; r < nb; ++r) {
-      const float4 xi = own_rows[b0 + r];
-      if (!(xi.w > 0.5f)) continue;  // an inactive row has no pairs
-      const int ti = max(static_cast<int>(xi.w) - 1, 0);
-      const packed::RowCands rc = packed::row_cands(
-          s, xi, packed::row_cell(s, s.row0 + b0 + r), cmax[ti], bx, by, bz,
-          ibx, iby, ibz, gm, lane);
-      if (lane == r) lo = hi = n;
-      for (int k0 = 0; k0 < rc.total; k0 += 32) {
-        if (n + 32 > cap_w) flush();
-        const int k = k0 + lane;
-        const int f = packed::cand_row(rc, k);
-        bool in = false;
-        if (k < rc.total) {
-          const float4 xj = s.rows[f];
-          float ddx, ddy, ddz;
-          const float r2 = packed::pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz,
-                                           ddx, ddy, ddz);
-          const bool valid = (xj.w > 0.5f) && (r2 > 1e-12f);
-          const float r2s = valid ? r2 : 1.0f;
-          if (uniform_lj) {
-            in = valid && (r2s < par[2 * tt]);
-          } else {
-            const int p = type_pair(ti, xj.w, n_types);
-            in = valid && (r2s < par[2 * tt + p])
-                 && (all_lj || par[4 * tt + p] > 0.5f);
-          }
-        }
-        const unsigned m = __ballot_sync(kAll, in);
-        if (in) {
-          wl[n + __popc(m & below)] =
-              make_float4(__int_as_float(r), 0.f, 0.f, __int_as_float(f));
-        }
-        n += __popc(m);
-        if (lane == r) hi = n;
-      }
-    }
-    flush();
-    if (lane < nb) {
-      const int row = s.row0 + b0 + lane;
-      const int oz = packed::row_cell(s, row);
-      out[(s.out0 + oz) * cap + row - s.cpre[4 * (hz + 1) + oz + 1]] =
-          make_float4(fx, fy, fz, 0.5f * acc);
-    }
-  }
-}
-
-// Shared-memory bytes of colt_packed_kernel's layout (the Python plan,
-// cell_pair.colt_launch_plan, computes the same).
-size_t colt_smem(int cap, int n_types, int seg, int threads, int depth) {
-  const size_t hz = static_cast<size_t>(seg + 2);
-  return (9 * (hz * cap + 1) + static_cast<size_t>(threads) * depth)
-             * sizeof(float4)
-         + (5 * static_cast<size_t>(n_types) * n_types
-            + packed::stage_words(seg) + n_types) * sizeof(float);
+    int uniform_lj, int all_lj, int ch3_mode, int x_halo, unsigned mask,
+    int seg, int rows_w, int depth) {
+  packed::lj_rows(cells, counts, box, params, out, nx, ny, nz, cap, n_types,
+                  uniform_lj, all_lj, ch3_mode, x_halo, mask, seg, rows_w,
+                  depth);
 }
 
 }  // namespace
@@ -349,28 +196,10 @@ extern "C" int cell_pair_colt(const void* cells, const void* counts,
                               int uniform_lj, int all_lj, int ch3_mode,
                               int x_halo, int seg, int rows_w, int threads,
                               int depth, int smem_bytes, void* stream) {
-  // the plan must describe this layout: whole warps, a batch's rows one
-  // lane each, a list of at least one pass of 32 candidates a warp
-  if (seg < 1 || rows_w < 1 || rows_w > 32 || threads < 32 || threads > 1024
-      || threads % 32 != 0 || depth < 1
-      || colt_smem(cap, n_types, seg, threads, depth)
-             != static_cast<size_t>(smem_bytes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int n_blocks = (x_halo ? nx - 2 : nx) * ny * ((nz + seg - 1) / seg);
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        colt_packed_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  colt_packed_kernel<<<n_blocks, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(cells), static_cast<const int*>(counts),
-      static_cast<const float*>(box), static_cast<const float*>(params),
-      static_cast<float4*>(out), nx, ny, nz, cap, n_types, uniform_lj, all_lj,
-      ch3_mode, x_halo, seg, rows_w, depth);
-  return static_cast<int>(cudaGetLastError());
+  return packed::lj_launch(colt_packed_kernel, cells, counts, box, params,
+                           out, nx, ny, nz, cap, n_types, uniform_lj, all_lj,
+                           ch3_mode, x_halo, packed::kStencil27, seg, rows_w,
+                           threads, depth, smem_bytes, stream);
 }
 
 // The cellwise kernel (one block per cell, one thread per slot, 27

@@ -19,39 +19,59 @@
 // --fmad=false and without fast math, and rounds with rintf (half to even,
 // as jnp.round) rather than roundf.
 //
+// Two kernels, the same sums bit for bit:
+//
+//   cell_packed_kernel (cell_pair_cell, every K2 step runs it; the launch
+//   plan is cell_pair.k2_launch_plan's): K1's column-segment body
+//   (cell_pair_packed.cuh's lj_rows: one block per xy column and z
+//   segment, the 9 neighbour z-columns staged once, a warp per row, the
+//   in-cut pairs filtered into the warp's list and evaluated over it, cells
+//   beyond the row's largest cutoff culled), over the lanes of a 27-bit
+//   stencil mask: a lane whose offset residue repeats an earlier lane's
+//   is dropped, so a row visits the deduplicated stencil in its order, then
+//   slot order.  The mask comes from cell_pair.stencil_mask (made once per
+//   grid on the host, passed as an int).  The stage wraps every axis, so on
+//   an axis of 2 cells a cell is staged twice and on an axis of 1 three
+//   times; the mask keeps the first of them, the one whose offset the
+//   deduplicated stencil keeps (on nz = 1 that is dz = -1).
+//
+//   cell_cellwise_kernel (cell_pair_cell_cellwise; K2's first design, kept
+//   as the baseline the other is held and timed against, which no step
+//   runs): one block per cell, one thread per slot (blockDim = cap rounded
+//   up to a warp).  The first S threads compute the neighbour cell ids and
+//   occupancies once (shared), the block loads the parameter table, then
+//   after one barrier every thread takes part in one cooperative load of
+//   the S x cap rows, then one more barrier and a loop over the S x cap
+//   candidates, each staged cell stopped at its occupancy.  At cap 36 and
+//   ~7.5 particles a cell ~12 % of its lanes work, and a warp runs the pair
+//   term whenever any of its lanes has a pair in the cut.  Above 48 KB of
+//   dynamic shared memory the launch opts in with cudaFuncSetAttribute.
+//
+// Each slot adds its in-cut terms in stencil order, then slot order (K1's
+// order on a full grid, so K1 and K2 agree bit for bit there): no atomics,
+// deterministic.
+//
 // What bounds it on an H100: at 10k particles (1331 cells x 36 slots) the
-// operands are ~0.8 MB and stay in the 50 MB L2; the work is S x cap
-// candidates per slot, ~30 flops each plus one division, so the kernel is
-// bound by latency and issue.  K1 stages its 27 neighbour cells one at a
-// time with a barrier between stages (27 dependent stages per block).  K2
-// instead stages all S neighbour cells at once: one block per cell, one
-// thread per slot (blockDim = cap rounded up to a warp).  The first S
-// threads compute the neighbour cell ids and occupancies once (shared), the
-// block loads the parameter table, then after one barrier every thread
-// takes part in one cooperative load of the S x cap rows (S * cap * 16 B,
-// 15.5 KB at S = 27 and cap = 36), then one more barrier and a loop over
-// the S x cap candidates with no further barrier, each staged cell stopped
-// at its occupancy.  (Deriving the cell id per staged row instead, with a
-// single barrier, ran slower on an H100: the integer divisions and the
-// offset loads sat on every row's load path.)  Each thread owns
-// its output row and sums in stencil order, then slot order (K1's order on
-// a full grid, so K1 and K2 agree bit for bit there): no atomics,
-// deterministic.  Above 48 KB of dynamic shared memory the launch opts in
-// with cudaFuncSetAttribute.
+// operands are ~0.8 MB and stay in the 50 MB L2; the work is S x ~7.5
+// candidates per slot, ~22 f32 operations each up to the cut and ~24 more
+// with one division inside it, so the kernel is bound by latency and by how
+// many lanes issue useful work, not by bytes.
 //
 // Layout (all float32 unless noted, contiguous):
 //   cells   (C, cap, 4)  [x, y, z, type+1 | 0] rows; empty slots are zero
 //   counts  (C,) int32   occupied rows per cell (rows [0, count))
 //   box     (3,)
 //   params  (5, T, T)    sigma, epsilon, cutoff^2, shift, is_lj
-//   offsets (S, 3) int32 stencil offsets, each in [0, dims)
+//   offsets (S, 3) int32 stencil offsets, each in [0, dims) (cellwise only)
 //   out     (C, cap, 4)  [fx, fy, fz, ch3]
 
 #include <cuda_runtime.h>
 
+#include "cell_pair_packed.cuh"
+
 namespace {
 
-__global__ void cell_pair_cell_kernel(
+__global__ void cell_cellwise_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     const int* __restrict__ offsets, float4* __restrict__ out, int nx, int ny,
@@ -150,14 +170,45 @@ __global__ void cell_pair_cell_kernel(
   out[c * cap + i] = make_float4(fx, fy, fz, 0.5f * acc);
 }
 
+// K2's wrapper of the column-segment body (cell_pair_packed.cuh), under a
+// name of its own so that a trace tells K2 from K1
+__global__ void cell_packed_kernel(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
+    int uniform_lj, int all_lj, int ch3_mode, int x_halo, unsigned mask,
+    int seg, int rows_w, int depth) {
+  packed::lj_rows(cells, counts, box, params, out, nx, ny, nz, cap, n_types,
+                  uniform_lj, all_lj, ch3_mode, x_halo, mask, seg, rows_w,
+                  depth);
+}
+
 }  // namespace
 
+// K2 over the stencil mask (cell_pair.stencil_mask) with the launch plan
+// (seg, rows_w, threads, depth, smem_bytes: cell_pair.k2_launch_plan)
 extern "C" int cell_pair_cell(const void* cells, const void* counts,
-                              const void* box, const void* params,
-                              const void* offsets, void* out, int nx, int ny,
-                              int nz, int cap, int n_types, int n_stencil,
+                              const void* box, const void* params, void* out,
+                              int nx, int ny, int nz, int cap, int n_types,
                               int uniform_lj, int all_lj, int ch3_mode,
-                              void* stream) {
+                              int mask, int seg, int rows_w, int threads,
+                              int depth, int smem_bytes, void* stream) {
+  return packed::lj_launch(cell_packed_kernel, cells, counts, box, params,
+                           out, nx, ny, nz, cap, n_types, uniform_lj, all_lj,
+                           ch3_mode, 0, static_cast<unsigned>(mask), seg,
+                           rows_w, threads, depth, smem_bytes, stream);
+}
+
+// The cellwise kernel (one block per cell, one thread per slot, the S cells
+// staged at once), kept as the baseline the column-segment kernel is held
+// and timed against; no step reaches this entry point
+extern "C" int cell_pair_cell_cellwise(const void* cells, const void* counts,
+                                       const void* box, const void* params,
+                                       const void* offsets, void* out, int nx,
+                                       int ny, int nz, int cap, int n_types,
+                                       int n_stencil, int uniform_lj,
+                                       int all_lj, int ch3_mode,
+                                       void* stream) {
   const int n_cells = nx * ny * nz;
   const int threads = ((cap + 31) / 32) * 32;
   const size_t shmem =
@@ -166,12 +217,12 @@ extern "C" int cell_pair_cell(const void* cells, const void* counts,
       + static_cast<size_t>(n_stencil) * sizeof(int);
   if (shmem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        cell_pair_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cell_cellwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shmem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  cell_pair_cell_kernel<<<n_cells, threads, shmem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  cell_cellwise_kernel<<<n_cells, threads, shmem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(cells), static_cast<const int*>(counts),
       static_cast<const float*>(box), static_cast<const float*>(params),
       static_cast<const int*>(offsets), static_cast<float4*>(out), nx, ny, nz,

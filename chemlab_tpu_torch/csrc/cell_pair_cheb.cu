@@ -423,7 +423,7 @@ __global__ void cheb_packed_kernel(
       const int ti = max(static_cast<int>(xi.w) - 1, 0);
       const packed::RowCands rc = packed::row_cands(
           s, xi, packed::row_cell(s, s.row0 + b0 + r), cmax[ti], bx, by, bz,
-          ibx, iby, ibz, gm, lane);
+          ibx, iby, ibz, gm, lane, packed::kStencil27);
       if (lane == r) lo = hi = n;
       for (int k0 = 0; k0 < rc.total; k0 += 32) {
         if (n + 32 > cap_w) flush();

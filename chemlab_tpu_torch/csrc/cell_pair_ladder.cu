@@ -8,7 +8,9 @@
 //                          of a cell against its S*cap candidates, packets
 //                          past the cell's fill skipped
 //   K3b ladder_resident <- _resident_kernel (:131): as K3a with the whole
-//                          cell array resident, nothing streamed
+//                          cell array resident, nothing streamed (here: a
+//                          warp per row, every candidate read from global
+//                          memory, which sits in L2)
 //   K3c ladder_colz     <- _colz_kernel (:510): one program per xy column,
 //                          all nz cells, packets gated on each cell's fill
 //   K3d ladder_column   <- _column_kernel (:420): grid (xy column, z), the
@@ -63,10 +65,21 @@
 //        starts past the cell's fill writes its 8 zero rows and returns; a
 //        live one stages the S neighbour cells (S*cap*16 B) with all 32
 //        threads, then 8 threads run one row each.
-//   K3b: one block of 8 threads per (cell, packet), no shared memory: each
-//        row reads its neighbour ids, counts, candidates and parameters
-//        from global memory (the whole cell array, 0.68 MB at 10k, sits in
-//        L2: the Hopper counterpart of "resident in VMEM").
+//   K3b: a warp per (cell, batch of rows_w slots), blocks of at least 4
+//        warps, no row of the operand staged: lanes o < S hold the
+//        neighbour cells of the stencil table, a prefix over the lanes lays
+//        a row's candidates out in stencil order, then slot order (found as
+//        cell_pair_packed.cuh's cand_row finds a stage row), and each
+//        candidate is read from global memory (the whole cell array, 0.68
+//        MB at 10k, sits in L2: the Hopper counterpart of "resident in
+//        VMEM"); a ballot files the in-cut pairs into the warp's list
+//        (shared-memory scratch), the terms are evaluated over it, and lane
+//        r adds row r's terms in list order, K2's order, so both channels
+//        equal K2's bit for bit.  Its first design,
+//        ladder_resident_packet (one block of 8 threads per cell and 8-row
+//        packet, each thread walking its row's S cells alone, at most 256
+//        of an SM's 2048 thread slots filled), stays as the baseline it is
+//        held and timed against; no step reaches it.
 //   K3c: one block per xy column, blockDim (cap rounded to a warp, zpar);
 //        the block stages the U <= 9 distinct xy-neighbour z-columns once
 //        (U*nz*cap*16 B) and its threads loop over the nz cells, zpar at a
@@ -78,7 +91,8 @@
 //        the 9 haloed z-columns ((nz+2)*cap rows each: cell nz-1, the
 //        column, cell 0) are staged once, then the threads loop over z and
 //        packets as in K3c.
-// Shared memory (dynamic, bytes; K3b has none): K3a and K3d S*cap*16 +
+// Shared memory (dynamic, bytes; K3b's lists 20*threads*depth, its
+// baseline none): K3a and K3d S*cap*16 +
 // 20*T*T + 4*S; K3c 16*U*nz*cap + 20*T*T + 4*U*(nz+1); K1' 16*9*(nz+2)*cap
 // + 20*T*T + 4*9*(nz+3).  The melt has T = 7 types.  At 10k (11^3 cells,
 // S = 27, U = 9, cap 32): K3a and K3d 14 912, K3c 52 100, K1' 61 388.  At
@@ -88,7 +102,8 @@
 // launch opts in with cudaFuncSetAttribute; the wrapper raises above 227
 // KiB with the size.
 //
-// Arguments (one signature for the five entry points):
+// Arguments (one signature for the five entry points and K3b's baseline;
+// K3b takes its plan after it: rows_w, threads, depth, smem_bytes):
 //   cells  (C, cap, 4) float32, counts (C,) int32, box (3,) float32,
 //   params (5, T, T) float32,
 //   table  int32 (2U + 2S,): the U distinct (dx, dy) xy columns of the
@@ -98,6 +113,8 @@
 //   out    (C, cap, 8) float32 for K3a-K3d, (C, cap, 4) for K1'.
 
 #include <cuda_runtime.h>
+
+#include "cell_pair_packed.cuh"
 
 namespace {
 
@@ -118,6 +135,20 @@ __device__ __forceinline__ Box load_box(const float* box) {
   b.iby = 1.0f / b.by;
   b.ibz = 1.0f / b.bz;
   return b;
+}
+
+// K2's terms of a pair inside the cut: returns the force scalar f; e is the
+// shifted pair energy (the virial term is f * r2s).
+__device__ __forceinline__ float lj_terms(const float r2s, const float sig,
+                                          const float eps, const float shift,
+                                          float& e) {
+  const float sig2 = sig * sig;
+  const float r2c = fmaxf(r2s, 0.5625f * sig2);
+  const float inv_r2c = 1.0f / r2c;
+  const float s2 = sig2 * inv_r2c;
+  const float s6 = s2 * s2 * s2;
+  e = 4.0f * eps * (s6 * s6 - s6) - shift;
+  return 48.0f * eps * (s6 * s6 - 0.5f * s6) * inv_r2c;
 }
 
 // One candidate xj of row xi (type ti): K2's per-pair op sequence, both
@@ -156,16 +187,12 @@ __device__ __forceinline__ void pair_term(const float4 xi, const int ti,
     in_cut = valid && (r2s < cut2) && (par[4 * tt + p] > 0.5f);
   }
   if (!in_cut) return;  // contributes exactly zero in the reference
-  const float sig2 = sig * sig;
-  const float r2c = fmaxf(r2s, 0.5625f * sig2);
-  const float inv_r2c = 1.0f / r2c;
-  const float s2 = sig2 * inv_r2c;
-  const float s6 = s2 * s2 * s2;
-  const float f = 48.0f * eps * (s6 * s6 - 0.5f * s6) * inv_r2c;
+  float e;
+  const float f = lj_terms(r2s, sig, eps, shift, e);
   a.fx = a.fx + f * ddx;
   a.fy = a.fy + f * ddy;
   a.fz = a.fz + f * ddz;
-  a.e = a.e + (4.0f * eps * (s6 * s6 - s6) - shift);
+  a.e = a.e + e;
   a.w = a.w + f * r2s;
 }
 
@@ -253,9 +280,9 @@ __global__ void ladder_packet_kernel(
   write_both(out, c * cap + i, a);
 }
 
-// ---- K3b: packets, nothing staged ----------------------------------------------
+// ---- K3b's baseline: packets of 8 threads, nothing staged -------------------
 
-__global__ void ladder_resident_kernel(
+__global__ void ladder_resident_packet_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
@@ -284,6 +311,140 @@ __global__ void ladder_resident_kernel(
     }
   }
   write_both(out, c * cap + i, a);
+}
+
+// ---- K3b: a warp per row, nothing staged -----------------------------------
+
+// One warp per (cell, batch of rows_w slots): lanes o < S hold stencil entry
+// o's neighbour cell (its first global row and its fill); each live row of
+// the batch in turn takes the whole warp, its candidates laid out over the
+// lanes' prefix in stencil order, then slot order, and read from global
+// memory (L2) 32 a pass; a ballot appends the in-cut pairs to the warp's
+// list (shared-memory scratch, depth * 32 entries: no row of the operand is
+// staged), whose terms are evaluated 32 at a time; lane r adds row r's
+// terms in list order and writes its slot's 8 floats.  (A bounding-box
+// cull, each lane's cell box read from its rows once a batch, was built and
+// measured too: it lost at the fastest plan, PERF.md.)
+__global__ void ladder_resident_kernel(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
+    int nz, int cap, int n_types, int n_stencil, int n_cols, int uniform_lj,
+    int rows_w, int depth) {
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_batch = (cap + rows_w - 1) / rows_w;
+  const int item = blockIdx.x * n_warps + warp;
+  if (item >= nx * ny * nz * n_batch) return;
+  const int c = item / n_batch;
+  const int b0 = (item % n_batch) * rows_w;
+  const int fill = counts[c];
+  // the batch's slots past the cell's fill are zero rows
+  const int k_zero = b0 + lane;
+  if (lane < rows_w && k_zero < cap && k_zero >= fill) {
+    write_both(out, c * cap + k_zero, Acc{0.f, 0.f, 0.f, 0.f, 0.f});
+  }
+  const int nb = min(rows_w, fill - b0);  // live rows of the batch
+  if (nb <= 0) return;
+
+  const int cap_w = 32 * depth;                       // entries of a list
+  float4* wl = smem + warp * cap_w;                   // f d and e, or (r, g)
+  float* wv = reinterpret_cast<float*>(smem + n_warps * cap_w)
+              + warp * cap_w;                         // f r2s
+  const int tt = n_types * n_types;
+  const Box b = load_box(box);
+  // lane o < S: stencil entry o's first global row and its fill
+  int start = 0, c_o = 0;
+  if (lane < n_stencil) {
+    const int nc = stencil_cell(tab, n_cols, n_stencil, lane, c / (ny * nz),
+                                (c / nz) % ny, c % nz, nx, ny, nz);
+    start = nc * cap;
+    c_o = counts[nc];
+  }
+  // the candidates' layout over the lanes, the same for every row
+  packed::RowCands rc;
+  rc.pre = c_o;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(packed::kAll, rc.pre, d);
+    if (lane >= d) rc.pre += v;
+  }
+  rc.first = rc.pre - c_o;
+  rc.start = start;
+  rc.total = __shfl_sync(packed::kAll, rc.pre, 31);
+  const unsigned below = (1u << lane) - 1u;
+  const float4* own = cells + c * cap + b0;
+  Acc a = {0.f, 0.f, 0.f, 0.f, 0.f};  // lane r: row b0 + r
+  int lo = 0, hi = 0;                 // lane r's entries in the list
+  int n = 0;                          // entries in the list
+
+  // evaluate the list's entries, then each lane sums its row's terms
+  auto flush = [&]() {
+    __syncwarp();
+    for (int k = lane; k < n; k += 32) {
+      const float4 en = wl[k];
+      const float4 xi = own[__float_as_int(en.x)];
+      const float4 xj = cells[__float_as_int(en.w)];
+      float ddx, ddy, ddz;
+      const float r2s = packed::pair_r2(xi, xj, b.bx, b.by, b.bz, b.ibx,
+                                        b.iby, b.ibz, ddx, ddy, ddz);
+      const int p = uniform_lj ? 0 : row_type(xi) * n_types + row_type(xj);
+      float e;
+      const float f = lj_terms(r2s, params[p], params[tt + p],
+                               params[3 * tt + p], e);
+      wl[k] = make_float4(f * ddx, f * ddy, f * ddz, e);
+      wv[k] = f * r2s;
+    }
+    __syncwarp();
+    for (int k = lo; k < hi; ++k) {
+      const float4 en = wl[k];
+      a.fx = a.fx + en.x;
+      a.fy = a.fy + en.y;
+      a.fz = a.fz + en.z;
+      a.e = a.e + en.w;
+      a.w = a.w + wv[k];
+    }
+    __syncwarp();
+    lo = hi = n = 0;
+  };
+
+  for (int r = 0; r < nb; ++r) {
+    const float4 xi = own[r];
+    if (!(xi.w > 0.5f)) continue;  // an inactive row has no pairs
+    const int ti = row_type(xi);
+    if (lane == r) lo = hi = n;
+    for (int k0 = 0; k0 < rc.total; k0 += 32) {
+      if (n + 32 > cap_w) flush();
+      const int k = k0 + lane;
+      const int g = packed::cand_row(rc, k);
+      bool in = false;
+      if (k < rc.total) {
+        const float4 xj = cells[g];
+        float ddx, ddy, ddz;
+        const float r2 = packed::pair_r2(xi, xj, b.bx, b.by, b.bz, b.ibx,
+                                         b.iby, b.ibz, ddx, ddy, ddz);
+        const bool valid = (xj.w > 0.5f) && (r2 > 1e-12f);
+        const float r2s = valid ? r2 : 1.0f;
+        if (uniform_lj) {
+          in = valid && (r2s < params[2 * tt]);
+        } else {
+          const int p = ti * n_types + row_type(xj);
+          in = valid && (r2s < params[2 * tt + p])
+               && (params[4 * tt + p] > 0.5f);
+        }
+      }
+      const unsigned m = __ballot_sync(packed::kAll, in);
+      if (in) {
+        wl[n + __popc(m & below)] =
+            make_float4(__int_as_float(r), 0.f, 0.f, __int_as_float(g));
+      }
+      n += __popc(m);
+      if (lane == r) hi = n;
+    }
+  }
+  flush();
+  if (lane < nb) write_both(out, c * cap + b0 + lane, a);
 }
 
 // ---- K3c: one block per xy column, z loop, packets -----------------------------
@@ -508,15 +669,56 @@ extern "C" int ladder_packet(const void* cells, const void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3b with its launch plan (rows_w, threads, depth, smem_bytes:
+// cell_pair_variants.resident_launch_plan); ch3_mode is ignored (both
+// channels are written)
 extern "C" int ladder_resident(const void* cells, const void* counts,
                                const void* box, const void* params,
                                const void* table, void* out, int nx, int ny,
                                int nz, int cap, int n_types, int n_stencil,
                                int n_cols, int uniform_lj, int ch3_mode,
-                               void* stream) {
+                               int rows_w, int threads, int depth,
+                               int smem_bytes, void* stream) {
   (void)ch3_mode;
-  ladder_resident_kernel<<<dim3(nx * ny * nz, cap / 8), 8, 0,
+  // the plan must describe this layout: blocks of at least 4 whole warps,
+  // a batch's rows one lane each, depth * 32 list entries (20 B each) a warp
+  if (rows_w < 1 || rows_w > 32 || threads < 128 || threads > 1024
+      || threads % 32 != 0 || depth < 1
+      || static_cast<size_t>(threads) * depth
+                 * (sizeof(float4) + sizeof(float))
+             != static_cast<size_t>(smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rc = opt_in(
+      reinterpret_cast<const void*>(ladder_resident_kernel), smem_bytes);
+  if (rc) return rc;
+  const long n_items =
+      static_cast<long>(nx) * ny * nz * ((cap + rows_w - 1) / rows_w);
+  const int warps = threads / 32;
+  const int n_blocks = static_cast<int>((n_items + warps - 1) / warps);
+  ladder_resident_kernel<<<n_blocks, threads, smem_bytes,
                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(cells), static_cast<const int*>(counts),
+      static_cast<const float*>(box), static_cast<const float*>(params),
+      static_cast<const int*>(table), static_cast<float4*>(out), nx, ny, nz,
+      cap, n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3b's first design (one block of 8 threads per cell and 8-row packet,
+// each thread walking its row's neighbour cells alone), kept as the
+// baseline the warp-per-row kernel is held and timed against; no step
+// reaches this entry point
+extern "C" int ladder_resident_packet(const void* cells, const void* counts,
+                                      const void* box, const void* params,
+                                      const void* table, void* out, int nx,
+                                      int ny, int nz, int cap, int n_types,
+                                      int n_stencil, int n_cols,
+                                      int uniform_lj, int ch3_mode,
+                                      void* stream) {
+  (void)ch3_mode;
+  ladder_resident_packet_kernel<<<dim3(nx * ny * nz, cap / 8), 8, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(cells), static_cast<const int*>(counts),
       static_cast<const float*>(box), static_cast<const float*>(params),
       static_cast<const int*>(table), static_cast<float4*>(out), nx, ny, nz,

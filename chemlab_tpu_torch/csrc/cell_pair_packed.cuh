@@ -1,9 +1,12 @@
 // The column-segment stage and the packed row layout of the pair kernels
-// that give each row a whole warp: cell_pair.cu's colt_packed_kernel (LJ,
-// K1/K1b/K1f) and cell_pair_cheb.cu's cheb_packed_kernel (Chebyshev tables,
-// K1c/K1d/K1e and their K1f modes).  Each source keeps its own pair term,
-// parameter tables and sums; what is here decides which candidates a row
-// visits and in which order, the same for both.
+// that give each row a whole warp: the LJ body lj_rows (at the end of this
+// file), which cell_pair.cu launches as colt_packed_kernel (K1/K1b/K1f)
+// and cell_pair_cell.cu as cell_packed_kernel (K2, over a stencil mask),
+// and cell_pair_cheb.cu's cheb_packed_kernel (Chebyshev tables, K1c/K1d/K1e
+// and their K1f modes), which keeps its own pair term, parameter tables
+// and sums.  What is here decides which candidates a row visits and in
+// which order, the same for all; cell_pair_ladder.cu's K3b finds its
+// candidates in global memory with cand_row and culls with min_gap2.
 //
 // A block takes one xy column of the output grid and a z segment of `seg`
 // cells (z0 .. z0 + lb - 1).  stage_block stages the 9 xy-neighbour
@@ -20,11 +23,21 @@
 // drops its cell when the cell's bounding box lies beyond the row's largest
 // cutoff (none of its pairs could pass the cut; a margin keeps the test
 // clear of rounding, also on a box that shrinks: the box is read on the
-// device every launch); a scan of the 27 counts lays the row's candidates
-// out in stencil order, then slot order, and candidate k of the row is
-// found by a binary search over the lanes' prefixes.  A kernel that adds a
-// row's in-cut terms in candidate order adds them as the cellwise kernel
-// does: the same operands in the same sequence, the same bits.
+// device every launch), or when bit o of the stencil mask is clear; a scan
+// of the 27 counts lays the row's candidates out in stencil order, then
+// slot order, and candidate k of the row is found by a binary search over
+// the lanes' prefixes.  A kernel that adds a row's in-cut terms in
+// candidate order adds them as the cellwise kernel does: the same operands
+// in the same sequence, the same bits.
+//
+// The stencil mask: on a full grid (at least 3 cells an axis) every offset
+// names its own cell and the mask is kStencil27.  On an axis of 2 cells
+// the offsets -1 and +1 name one cell, on an axis of 1 all three do; K2's
+// mask keeps the lanes whose offset residue (dx mod nx, dy mod ny, dz mod
+// nz) appears for the first time in lane order, which is the deduplicated
+// stencil of neighbor.neighbor_cell_offsets in its order.  The staged cell
+// of a kept lane is the neighbour that offset names (the stage wraps every
+// axis), so K2 visits its S cells in its cellwise kernel's order.
 //
 // Staged cell (u, h): xy column u = (dx + 1) * 3 + dy + 1, z = z0 - 1 + h;
 // cells past the segment's lb + 2 stay empty.  The block's own rows are
@@ -38,6 +51,8 @@
 namespace packed {
 
 constexpr unsigned kAll = 0xffffffffu;
+// every lane of the 27-offset stencil (the full grid)
+constexpr unsigned kStencil27 = (1u << 27) - 1u;
 
 // Minimum image and r2 of one candidate in the cellwise kernels' op order.
 __device__ __forceinline__ float pair_r2(const float4 xi, const float4 xj,
@@ -204,19 +219,19 @@ struct RowCands {
   int total;  // the row's candidates (every lane)
 };
 
-// Lay out the candidates of row xi (segment cell zl), culling the cells
-// whose bounding box lies beyond cmax (the row's largest cutoff^2).  Every
-// lane of the warp calls it.
+// Lay out the candidates of row xi (segment cell zl) over the lanes of
+// `mask`, culling the cells whose bounding box lies beyond cmax (the row's
+// largest cutoff^2).  Every lane of the warp calls it.
 __device__ __forceinline__ RowCands row_cands(const Stage& s, const float4 xi,
                                               int zl, float cmax, float bx,
                                               float by, float bz, float ibx,
                                               float iby, float ibz, float gm,
-                                              int lane) {
+                                              int lane, unsigned mask) {
   int c_o = 0, start = 0;
   if (lane < 27) {
     const int u = lane / 3, sc = u * s.hz + zl + lane % 3;
     start = u * s.cstride + s.cpre[sc + u];
-    c_o = s.cnt[sc];
+    c_o = (mask >> lane) & 1u ? s.cnt[sc] : 0;
     if (c_o > 0 && min_gap2(xi, s.bbox + sc * 6, bx, by, bz, ibx, iby, ibz,
                             gm) >= cmax) {
       c_o = 0;
@@ -246,6 +261,213 @@ __device__ __forceinline__ int cand_row(const RowCands& rc, int k) {
   const int o_start = __shfl_sync(kAll, rc.start, o & 31);
   const int o_first = __shfl_sync(kAll, rc.first, o & 31);
   return o_start + k - o_first;
+}
+
+// ---- the LJ column-segment kernel's body (K1 in cell_pair.cu, K2 in
+// cell_pair_cell.cu; each source wraps it in a __global__ of its own name) --
+
+// The type pair of row type ti and a candidate row's type plane value.
+__device__ __forceinline__ int type_pair(int ti, float wj, int n_types) {
+  return ti * n_types + max(static_cast<int>(wj) - 1, 0);
+}
+
+// The LJ pair term for a pair inside the cut, in the cellwise kernels' op
+// sequence: returns the force scalar f; w is the ch3 term, the shifted pair
+// energy (mode 1) or f r2s (mode 2).
+__device__ __forceinline__ float lj_force(float r2s, float sig, float eps,
+                                          float shift, int ch3_mode,
+                                          float& w) {
+  const float sig2 = sig * sig;
+  const float r2c = fmaxf(r2s, 0.5625f * sig2);
+  const float inv_r2c = 1.0f / r2c;
+  const float s2 = sig2 * inv_r2c;
+  const float s6 = s2 * s2 * s2;
+  const float f = 48.0f * eps * (s6 * s6 - 0.5f * s6) * inv_r2c;
+  w = ch3_mode == 1 ? 4.0f * eps * (s6 * s6 - s6) - shift : f * r2s;
+  return f;
+}
+
+// One block per (xy column, z segment of `seg` cells) of the output grid;
+// the block's occupied rows in batches of `rows_w`, one batch per warp at a
+// time, each row of the batch in turn taken by the whole warp: its
+// candidates over the lanes of `mask` (row_cands) 32 a pass through the
+// candidate ops up to the cut, the in-cut ones appended to the warp's list
+// in candidate order by a ballot, then the terms evaluated over the list 32
+// at a time.  Lane r of the batch holds row r's sums, adds its terms in list
+// order and writes its slot.
+__device__ __forceinline__ void lj_rows(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
+    int uniform_lj, int all_lj, int ch3_mode, int x_halo, unsigned mask,
+    int seg, int rows_w, int depth) {
+  extern __shared__ float4 smem[];
+  const int tt = n_types * n_types;
+  const int hz = seg + 2;
+  const int nthr = blockDim.x;
+  const int t = threadIdx.x;
+  Stage s;
+  s.rows = smem;                                                // 9 cstride
+  float4* ent = s.rows + 9 * (hz * cap + 1);                    // depth nthr
+  float* par = reinterpret_cast<float*>(ent + depth * nthr);    // 5 T T
+  s.cnt = reinterpret_cast<int*>(par + 5 * tt);                 // 9 hz
+  s.cpre = s.cnt + 9 * hz;                                      // 9 (hz + 1)
+  s.base_g = s.cpre + 9 * (hz + 1);                             // 9 hz
+  s.bbox = reinterpret_cast<float*>(s.base_g + 9 * hz);         // 9 hz 6
+  float* cmax = s.bbox + 9 * hz * 6;                            // T
+
+  for (int k = t; k < 5 * tt; k += nthr) par[k] = params[k];
+  stage_block(cells, counts, out, s, nx, ny, nz, cap, x_halo, seg);
+  // the largest cutoff^2 of a row of each type
+  for (int a = t; a < n_types; a += nthr) {
+    float m = par[2 * tt];
+    if (!uniform_lj) {
+      m = par[2 * tt + a * n_types];
+      for (int k = 1; k < n_types; ++k) {
+        m = fmaxf(m, par[2 * tt + a * n_types + k]);
+      }
+    }
+    cmax[a] = m;
+  }
+  __syncthreads();
+
+  const float bx = box[0], by = box[1], bz = box[2];
+  const float ibx = 1.0f / bx, iby = 1.0f / by, ibz = 1.0f / bz;
+  const float gm = cull_margin(bx, by, bz);
+  const float4* own_rows = s.rows + 4 * s.cstride + s.row0;
+  const int lane = t & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int cap_w = 32 * depth;               // entries of a warp's list
+  float4* wl = ent + (t - lane) * depth;      // this warp's list
+
+  for (int b0 = (t >> 5) * rows_w; b0 < s.n_own;
+       b0 += (nthr >> 5) * rows_w) {
+    const int nb = min(rows_w, s.n_own - b0);  // rows of this batch
+    float fx = 0.f, fy = 0.f, fz = 0.f, acc = 0.f;  // lane r: row b0 + r
+    int lo = 0, hi = 0;  // lane r's entries in the list
+    int n = 0;           // entries in the list
+
+    // evaluate the list's entries, then each lane sums its row's terms
+    auto flush = [&]() {
+      __syncwarp();  // the list's entries, from every lane
+      for (int k = lane; k < n; k += 32) {
+        const float4 en = wl[k];
+        const float4 xi = own_rows[b0 + __float_as_int(en.x)];
+        const float4 xj = s.rows[__float_as_int(en.w)];
+        float ddx, ddy, ddz;
+        const float r2s = pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz, ddx,
+                                  ddy, ddz);
+        const int p = uniform_lj ? 0
+            : type_pair(max(static_cast<int>(xi.w) - 1, 0), xj.w, n_types);
+        float w;
+        const float f = lj_force(r2s, par[p], par[tt + p], par[3 * tt + p],
+                                 ch3_mode, w);
+        wl[k] = make_float4(f * ddx, f * ddy, f * ddz, w);
+      }
+      __syncwarp();
+      for (int k = lo; k < hi; ++k) {
+        const float4 en = wl[k];
+        fx = fx + en.x;
+        fy = fy + en.y;
+        fz = fz + en.z;
+        if (ch3_mode != 0) acc = acc + en.w;
+      }
+      __syncwarp();
+      lo = hi = n = 0;
+    };
+
+    for (int r = 0; r < nb; ++r) {
+      const float4 xi = own_rows[b0 + r];
+      if (!(xi.w > 0.5f)) continue;  // an inactive row has no pairs
+      const int ti = max(static_cast<int>(xi.w) - 1, 0);
+      const RowCands rc = row_cands(s, xi, row_cell(s, s.row0 + b0 + r),
+                                    cmax[ti], bx, by, bz, ibx, iby, ibz, gm,
+                                    lane, mask);
+      if (lane == r) lo = hi = n;
+      for (int k0 = 0; k0 < rc.total; k0 += 32) {
+        if (n + 32 > cap_w) flush();
+        const int k = k0 + lane;
+        const int f = cand_row(rc, k);
+        bool in = false;
+        if (k < rc.total) {
+          const float4 xj = s.rows[f];
+          float ddx, ddy, ddz;
+          const float r2 = pair_r2(xi, xj, bx, by, bz, ibx, iby, ibz, ddx,
+                                   ddy, ddz);
+          const bool valid = (xj.w > 0.5f) && (r2 > 1e-12f);
+          const float r2s = valid ? r2 : 1.0f;
+          if (uniform_lj) {
+            in = valid && (r2s < par[2 * tt]);
+          } else {
+            const int p = type_pair(ti, xj.w, n_types);
+            in = valid && (r2s < par[2 * tt + p])
+                 && (all_lj || par[4 * tt + p] > 0.5f);
+          }
+        }
+        const unsigned m = __ballot_sync(kAll, in);
+        if (in) {
+          wl[n + __popc(m & below)] =
+              make_float4(__int_as_float(r), 0.f, 0.f, __int_as_float(f));
+        }
+        n += __popc(m);
+        if (lane == r) hi = n;
+      }
+    }
+    flush();
+    if (lane < nb) {
+      const int row = s.row0 + b0 + lane;
+      const int oz = row_cell(s, row);
+      out[(s.out0 + oz) * cap + row - s.cpre[4 * (hz + 1) + oz + 1]] =
+          make_float4(fx, fy, fz, 0.5f * acc);
+    }
+  }
+}
+
+// Shared-memory bytes of lj_rows' layout (the Python plans,
+// cell_pair.colt_launch_plan and cell_pair.k2_launch_plan, compute the
+// same).
+inline size_t lj_smem(int cap, int n_types, int seg, int threads,
+                      int depth) {
+  const size_t hz = static_cast<size_t>(seg + 2);
+  return (9 * (hz * cap + 1) + static_cast<size_t>(threads) * depth)
+             * sizeof(float4)
+         + (5 * static_cast<size_t>(n_types) * n_types + stage_words(seg)
+            + n_types) * sizeof(float);
+}
+
+// The signature of the __global__ wrappers of lj_rows.
+using LjKernel = void (*)(const float4*, const int*, const float*,
+                          const float*, float4*, int, int, int, int, int, int,
+                          int, int, int, unsigned, int, int, int);
+
+// Launch an lj_rows wrapper with the launch plan (seg, rows_w, threads,
+// depth, smem_bytes), after checking that the plan describes this layout:
+// whole warps, a batch's rows one lane each, a list of at least one pass of
+// 32 candidates a warp, the bytes of lj_smem.
+inline int lj_launch(LjKernel kernel, const void* cells, const void* counts,
+                     const void* box, const void* params, void* out, int nx,
+                     int ny, int nz, int cap, int n_types, int uniform_lj,
+                     int all_lj, int ch3_mode, int x_halo, unsigned mask,
+                     int seg, int rows_w, int threads, int depth,
+                     int smem_bytes, void* stream) {
+  if (seg < 1 || rows_w < 1 || rows_w > 32 || threads < 32 || threads > 1024
+      || threads % 32 != 0 || depth < 1 || (mask & ~kStencil27) != 0
+      || lj_smem(cap, n_types, seg, threads, depth)
+             != static_cast<size_t>(smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_blocks = (x_halo ? nx - 2 : nx) * ny * ((nz + seg - 1) / seg);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  kernel<<<n_blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(cells), static_cast<const int*>(counts),
+      static_cast<const float*>(box), static_cast<const float*>(params),
+      static_cast<float4*>(out), nx, ny, nz, cap, n_types, uniform_lj, all_lj,
+      ch3_mode, x_halo, mask, seg, rows_w, depth);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace packed

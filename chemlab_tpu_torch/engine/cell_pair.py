@@ -21,7 +21,12 @@ column-segment kernel of ``csrc/cell_pair.cu`` with the launch plan of
 ``colt_launch_plan`` (from the shapes alone, never the counts or the
 box); the source's first, cellwise kernel stays beside it as the baseline
 it is held to bit for bit (``cell_pair_forces_colt_cellwise``, handle
-``K1_CELLWISE``), which no step runs.
+``K1_CELLWISE``), which no step runs.  K2 launches the same column-segment
+body (``csrc/cell_pair_cell.cu``, from ``csrc/cell_pair_packed.cuh``) over
+``stencil_mask(dims)``, which keeps the lanes of the deduplicated stencil,
+with the plan of ``k2_launch_plan``; its first, cellwise kernel stays as
+its baseline (``cell_pair_forces_cell_cellwise``, handle ``K2_CELLWISE``),
+which no step runs.
 
 The tabulated modes evaluate a Chebyshev fit per pair
 (``tab_cheb.eval_planes``) from a coefficient row chosen by a (T, T) map:
@@ -112,17 +117,31 @@ K1C_CELLWISE = _kernels.CudaKernel("cell_pair_cheb.cu",
 K1D_CELLWISE = _kernels.CudaKernel("cell_pair_cheb.cu",
                                    "cell_pair_cheb_mix_cellwise",
                                    _CELLWISE_ARGS)
-K2 = _kernels.CudaKernel(
-    "cell_pair_cell.cu", "cell_pair_cell",
+# K2: the column-segment kernel of K1 over the stencil mask
+# (``stencil_mask``), with the launch plan (``k2_launch_plan``) after the
+# operands; its signature is K1's with the mask where K1 takes x_halo
+K2 = _kernels.CudaKernel("cell_pair_cell.cu", "cell_pair_cell", _COLT_ARGS)
+# K2's first design (one block per cell, the S cells staged at once), kept
+# as the baseline the column-segment kernel is held and timed against:
+# outside BY_NAME, and no step reaches it
+K2_CELLWISE = _kernels.CudaKernel(
+    "cell_pair_cell.cu", "cell_pair_cell_cellwise",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-# the ladder (``cell_pair_variants``): five entry points of one source with
-# one signature, each its own launch count
+# the ladder (``cell_pair_variants``): five entry points of one source,
+# each its own launch count, with one signature but K3b's, which takes its
+# launch plan (``cell_pair_variants.resident_launch_plan``) after it
 _LADDER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 K1P = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_colt1", _LADDER_ARGS)
 K3A = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_packet",
                           _LADDER_ARGS)
 K3B = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_resident",
-                          _LADDER_ARGS)
+                          _LADDER_ARGS[:-1] + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p])
+# K3b's first design (8-thread packets), kept as the baseline the
+# warp-per-row kernel is held and timed against: outside BY_NAME, and no
+# step reaches it
+K3B_CELLWISE = _kernels.CudaKernel("cell_pair_ladder.cu",
+                                   "ladder_resident_packet", _LADDER_ARGS)
 K3C = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_colz", _LADDER_ARGS)
 K3D = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_column",
                           _LADDER_ARGS)
@@ -393,16 +412,37 @@ def colt_cells(cells, counts, box, params, dims, uniform_lj: bool,
 
 @functools.lru_cache(maxsize=None)
 def _stencil_offsets(dims, device):
-    """K2's (S, 3) int32 offset table on ``device``, made once per grid: a
-    copy from the host on every call would synchronise the stream."""
+    """The cellwise K2's (S, 3) int32 offset table on ``device``, made once
+    per grid: a copy from the host on every call would synchronise the
+    stream."""
     return torch.from_numpy(neighbor_cell_offsets(dims)).to(device)
 
 
-def cell_pair_forces_cell_kernel(cells, counts, box, params, dims,
-                                 uniform_lj: bool, all_lj: bool,
-                                 ch3_mode: int):
-    """Launch the CUDA K2 on the current stream (CUDA tensors only): any
-    grid, any cap, against the deduplicated stencil."""
+@functools.lru_cache(maxsize=None)
+def _mask(dims) -> int:
+    kept, seen = 0, set()
+    for o in range(27):
+        key = tuple((d - 1) % n for d, n in zip((o // 9, o // 3 % 3, o % 3),
+                                                dims))
+        if key not in seen:
+            seen.add(key)
+            kept |= 1 << o
+    return kept
+
+
+def stencil_mask(dims) -> int:
+    """K2's 27-bit stencil mask on ``dims``: bit o (offset dx, dy, dz =
+    o // 9 - 1, o // 3 % 3 - 1, o % 3 - 1, the column-segment kernel's lane
+    order) is set when the offset's residue mod dims appears for the first
+    time in that order: the offsets ``neighbor_cell_offsets`` keeps, in its
+    order.  All 27 bits on a full grid.  Made once per grid, on the host
+    (an int, no device copy)."""
+    return _mask(tuple(int(d) for d in dims))
+
+
+def _cell_checks(cells, counts, box, params, dims):
+    """K2's launch conditions: any grid, any cap up to 1024 (its plan
+    raises where the stage cannot fit)."""
     nx, ny, nz = (int(d) for d in dims)
     C, cap, _ = cells.shape
     if C != nx * ny * nz:
@@ -417,14 +457,6 @@ def cell_pair_forces_cell_kernel(cells, counts, box, params, dims,
         raise ValueError("cells must be 16-byte aligned (float4 rows)")
     dev = cells.device
     n_types = params.shape[1]
-    offsets = _stencil_offsets((nx, ny, nz), dev)
-    n_stencil = offsets.shape[0]
-    # dynamic stage (rows, parameters, occupancies) + the static cell ids
-    smem = 16 * n_stencil * cap + 4 * (5 * n_types * n_types + n_stencil) \
-        + 4 * 27
-    if smem > 227 * 1024:
-        raise ValueError("K2: shared-memory stage of %d bytes exceeds "
-                         "227 KiB" % smem)
     for t, name in ((counts, "counts"), (box, "box"), (params, "params")):
         if t.device != dev:
             raise ValueError("%s is on %s, cells on %s" % (name, t.device,
@@ -432,12 +464,48 @@ def cell_pair_forces_cell_kernel(cells, counts, box, params, dims,
     _check(counts, "counts", torch.int32, (C,))
     _check(box, "box", torch.float32, (3,))
     _check(params, "params", torch.float32, (5, n_types, n_types))
+
+
+def cell_pair_forces_cell_kernel(cells, counts, box, params, dims,
+                                 uniform_lj: bool, all_lj: bool,
+                                 ch3_mode: int, plan=None):
+    """Launch the CUDA K2 on the current stream (CUDA tensors only): K1's
+    column-segment kernel over ``stencil_mask(dims)``, any grid, any cap,
+    with ``plan`` (``k2_launch_plan``'s for these shapes by default)."""
+    _cell_checks(cells, counts, box, params, dims)
+    if plan is None:
+        plan = k2_launch_plan(dims, cells.shape[1], params.shape[1])
     out = torch.empty_like(cells)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    K2.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
-              params.data_ptr(), offsets.data_ptr(), out.data_ptr(), nx, ny,
-              nz, cap, n_types, n_stencil, int(uniform_lj), int(all_lj),
-              int(ch3_mode), stream)
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    K2.launch(*_colt_pointers(cells, counts, box, params, out, dims,
+                              uniform_lj, all_lj, ch3_mode, False)[:-1],
+              stencil_mask(dims), *colt_plan_args(plan), stream)
+    return out
+
+
+def cell_pair_forces_cell_cellwise(cells, counts, box, params, dims,
+                                   uniform_lj: bool, all_lj: bool,
+                                   ch3_mode: int):
+    """Launch K2's cellwise kernel (``K2_CELLWISE``) on the same operands as
+    ``cell_pair_forces_cell_kernel``: the baseline of the A/B, which no
+    step reaches."""
+    _cell_checks(cells, counts, box, params, dims)
+    nx, ny, nz = (int(d) for d in dims)
+    cap, n_types = cells.shape[1], params.shape[1]
+    offsets = _stencil_offsets((nx, ny, nz), cells.device)
+    n_stencil = offsets.shape[0]
+    # dynamic stage (rows, parameters, occupancies) + the static cell ids
+    smem = 16 * n_stencil * cap + 4 * (5 * n_types * n_types + n_stencil) \
+        + 4 * 27
+    if smem > SMEM_MAX:
+        raise ValueError("K2 cellwise: shared-memory stage of %d bytes "
+                         "exceeds 227 KiB" % smem)
+    out = torch.empty_like(cells)
+    stream = torch.cuda.current_stream(cells.device).cuda_stream
+    K2_CELLWISE.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
+                       params.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                       nx, ny, nz, cap, n_types, n_stencil, int(uniform_lj),
+                       int(all_lj), int(ch3_mode), stream)
     return out
 
 
@@ -700,6 +768,29 @@ def _colt_plan(dims, cap, n_types, x_halo, seg, rows, threads, depth):
     """``colt_launch_plan``, made once per set of shapes."""
     return _packed_plan(
         "K1", dims, x_halo, seg, rows, threads, depth,
+        (COLT_SEG, COLT_ROWS, COLT_THREADS, COLT_DEPTH),
+        lambda sg, th, dp: colt_smem(cap, n_types, sg, th, dp))
+
+
+def k2_launch_plan(dims, cap: int, n_types: int, *, seg=None, rows=None,
+                   threads=None, depth=None) -> PackedPlan:
+    """The launch plan of ``cell_pair_cell`` (K2) on a grid ``dims`` of any
+    shape and any cap: K1's layout (``colt_smem``) and K1's rule
+    (``COLT_*``), which was also the fastest of ``kernel_matrix``'s
+    ``K2_RULES`` in turns on K2's main-path grid (PERF.md), from the shapes
+    alone, never the counts or the box; ``seg``, ``rows``, ``threads`` and
+    ``depth`` override it (the kernel matrix's sweep).  Raises
+    ``ValueError`` naming K2 above 227 KiB of shared memory, with the
+    size."""
+    return _k2_plan(tuple(int(d) for d in dims), int(cap), int(n_types),
+                    seg, rows, threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_plan(dims, cap, n_types, seg, rows, threads, depth):
+    """``k2_launch_plan``, made once per set of shapes."""
+    return _packed_plan(
+        "K2", dims, False, seg, rows, threads, depth,
         (COLT_SEG, COLT_ROWS, COLT_THREADS, COLT_DEPTH),
         lambda sg, th, dp: colt_smem(cap, n_types, sg, th, dp))
 

@@ -7,8 +7,12 @@ the unexcluded all-pairs LJ sum on the cell grid.
 
   - ``cell_pair_forces_packets`` (K3a, ``_packet_kernel``): a program per
     (cell, 8-row packet), packets past the cell's fill skipped;
-  - ``cell_pair_forces_resident`` (K3b, ``_resident_kernel``): the same
-    grid with nothing staged;
+  - ``cell_pair_forces_resident`` (K3b, ``_resident_kernel``): nothing
+    staged; on the card a warp per row reads every candidate from global
+    memory (L2), with the plan of ``resident_launch_plan``; its first
+    design (8-thread packets, ``resident_packet_kernel``, handle
+    ``cell_pair.K3B_CELLWISE``) stays as the baseline it is held to bit for
+    bit, which no step runs;
   - ``cell_pair_forces_columns`` (``z_unroll`` and ``cap % 8 == 0``: K3c,
     ``_colz_kernel``, one program per xy column over its nz cells; else
     K3d, ``_column_kernel``, one program per cell read from its columns);
@@ -45,6 +49,7 @@ refreshes would break the gating in the reference too.)
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +58,56 @@ from . import cell_pair
 from .neighbor import neighbor_cell_offsets
 
 SMEM_LIMIT = 227 * 1024      # the most dynamic shared memory a block takes
+
+
+class ResidentPlan(NamedTuple):
+    """K3b's launch plan: slots per warp batch, threads per block (at least
+    4 warps), list entries per thread (a warp's list holds 32 times as
+    many, 20 bytes each) and the shared-memory bytes of the lists."""
+    rows: int
+    threads: int
+    depth: int
+    smem: int
+
+
+# K3b's choices, measured on an H100 (PERF.md: ``python -m
+# chemlab_tpu_torch.kernel_matrix --k2``'s sweep and rules in turns at 10k)
+RESIDENT_ROWS = 2
+RESIDENT_THREADS = 128
+RESIDENT_DEPTH = 4
+
+
+def resident_smem(threads: int, depth: int) -> int:
+    """Shared-memory bytes of K3b's lists: ``depth`` entries a thread, a
+    float4 (the force terms and the energy) and a float (the virial term)
+    each."""
+    return 20 * threads * depth
+
+
+def resident_launch_plan(cap: int, *, rows=None, threads=None,
+                         depth=None) -> ResidentPlan:
+    """The launch plan of ``ladder_resident`` (K3b) at cell cap ``cap``:
+    from the shapes alone, never the counts or the box; ``rows``,
+    ``threads`` and ``depth`` override the measured choices (the kernel
+    matrix's sweep).  Raises ``ValueError`` naming K3b on a layout the
+    kernel cannot take, and above 227 KiB of shared memory with the
+    size."""
+    return _resident_plan(int(cap), rows, threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_plan(cap, rows, threads, depth):
+    rows = min(RESIDENT_ROWS, cap) if rows is None else rows
+    threads = RESIDENT_THREADS if threads is None else threads
+    depth = RESIDENT_DEPTH if depth is None else depth
+    if not (1 <= rows <= 32 and 128 <= threads <= 1024 and threads % 32 == 0
+            and depth >= 1):
+        raise ValueError("K3b: no plan with rows %d, threads %d, depth %d"
+                         % (rows, threads, depth))
+    smem = resident_smem(threads, depth)
+    if smem > SMEM_LIMIT:
+        raise ValueError("K3b: lists of %d bytes exceed 227 KiB" % smem)
+    return ResidentPlan(rows, threads, depth, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,10 +247,30 @@ KERNEL_OF = {"packet": cell_pair.K3A, "resident": cell_pair.K3B,
 
 
 def ladder_kernel(kind: str, cells, counts, box, params, dims,
-                  uniform_lj: bool, ch3_mode: int = cell_pair.CH3_ENERGY):
-    """Launch the CUDA kernel of ``kind`` ("packet" K3a, "resident" K3b,
-    "colz" K3c, "column" K3d, "colt1" K1') on the current stream (CUDA
-    tensors only); returns (C, cap, 8) rows, (C, cap, 4) for K1'."""
+                  uniform_lj: bool, ch3_mode: int = cell_pair.CH3_ENERGY,
+                  plan=None):
+    """Launch the CUDA kernel of ``kind`` ("packet" K3a, "resident" K3b
+    with ``plan``, ``resident_launch_plan``'s by default, "colz" K3c,
+    "column" K3d, "colt1" K1') on the current stream (CUDA tensors only);
+    returns (C, cap, 8) rows, (C, cap, 4) for K1'."""
+    return _launch(KERNEL_OF[kind], kind, cells, counts, box, params, dims,
+                   uniform_lj, ch3_mode, plan)
+
+
+def resident_packet_kernel(cells, counts, box, params, dims,
+                           uniform_lj: bool,
+                           ch3_mode: int = cell_pair.CH3_ENERGY):
+    """Launch K3b's first design (``K3B_CELLWISE``: 8-thread packets) on
+    the same operands as ``ladder_kernel("resident", ...)``: the baseline
+    of the A/B, which no step reaches."""
+    return _launch(cell_pair.K3B_CELLWISE, "resident", cells, counts, box,
+                   params, dims, uniform_lj, ch3_mode, None)
+
+
+def _launch(kernel, kind: str, cells, counts, box, params, dims,
+            uniform_lj: bool, ch3_mode: int, plan):
+    """Check the operands of ``kind`` and launch ``kernel`` on them (with
+    K3b's plan when ``kernel`` is K3B)."""
     nx, ny, nz = (int(d) for d in dims)
     C, cap, _ = cells.shape
     if C != nx * ny * nz:
@@ -232,11 +307,14 @@ def ladder_kernel(kind: str, cells, counts, box, params, dims,
     out = torch.empty((C, cap, 4 if kind == "colt1" else 8),
                       dtype=cells.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    KERNEL_OF[kind].launch(cells.data_ptr(), counts.data_ptr(),
-                           box.data_ptr(), params.data_ptr(),
-                           table.data_ptr(), out.data_ptr(), nx, ny, nz, cap,
-                           n_types, n_stencil, n_cols, int(uniform_lj),
-                           int(ch3_mode), stream)
+    extra = ()
+    if kernel is cell_pair.K3B:
+        plan = resident_launch_plan(cap) if plan is None else plan
+        extra = tuple(plan)
+    kernel.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
+                  params.data_ptr(), table.data_ptr(), out.data_ptr(), nx, ny,
+                  nz, cap, n_types, n_stencil, n_cols, int(uniform_lj),
+                  int(ch3_mode), *extra, stream)
     return out
 
 

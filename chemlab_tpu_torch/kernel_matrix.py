@@ -4,7 +4,7 @@ warmed reactive melt, then a run of the default path.
 Usage, on a machine with a CUDA card (it fails without one, and never falls
 back to the CPU)::
 
-    python -m chemlab_tpu_torch.kernel_matrix [n_mols] [--tab | --lj]
+    python -m chemlab_tpu_torch.kernel_matrix [n_mols] [--tab | --lj | --k2]
 
 ``n_mols`` trimers, 3334 by default (10 002 particles).  Port of
 ``scripts/kernel_matrix.py``: it builds the reactive melt on the card, warms
@@ -53,6 +53,23 @@ NPT melt (10^3, cap 40) and the LJ melt tiled 2 x 2 x 2 at cap 32 and 40:
     of each plan rule of ``COLT_RULES``, timed forward and then backward:
     with the sweep, the measurement behind ``cell_pair``'s ``COLT_*``
     choices.
+
+With ``--k2`` it times K2 and K3b against their first designs:
+
+  - one ``{"melt", "seg", "rows", "threads", "depth", "device_ms"}`` line
+    per launch plan of ``COLT_SWEEP`` for K2 (device time by
+    ``torch.profiler``, 30 calls), the cellwise K2's first, on the 10k melt
+    at cap 36 (11^3, S = 27) and on the film (``film_operands``: 32 x 32 x
+    2 cells, S = 18), then the list depths at the fastest plan;
+  - one ``{"melt", "rows", "threads", "depth", "device_ms"}`` line
+    per plan of ``RESIDENT_SWEEP`` for K3b on the 10k LJ melt (11^3, cap
+    32), the baseline's first;
+  - one ``{"melt", "rules_in_turns"}`` line per operand: device ms of the
+    first design and of each rule of ``K2_RULES`` (K2) or
+    ``RESIDENT_RULES`` (K3b), timed forward and then backward: with the
+    sweeps, the measurement behind K2's plan (K1's ``COLT_*`` rule, the
+    fastest on its main-path grid) and ``cell_pair_variants``'
+    ``RESIDENT_*`` choices.
 
 Left out: ``cell_scatter`` (the TPU's scatter epilogue, which the port does
 not carry) and ``KM_RETUNE`` (it waits for capacity management's
@@ -391,12 +408,170 @@ def colt_rules(built, state, rules, ch3: int = cell_pair.CH3_NONE,
         runs[str((seg_max, rows, threads, depth))] = (
             lambda plan=plan: cell_pair.cell_pair_forces_colt_kernel(
                 *args, x_halo=x_halo, plan=plan))
+    return in_turns({key: (fn, COLT_OLD if key == "cellwise" else COLT_NEW)
+                     for key, fn in runs.items()}, reps)
+
+
+def in_turns(runs, reps: int = 50) -> dict:
+    """Device ms of each of ``runs`` ({key: (no-argument function, the
+    name of the kernel it launches)}), the list forward, then backward:
+    ``{key: [ms, ms]}``."""
     out = {key: [] for key in runs}
     for key in list(runs) + list(runs)[::-1]:
-        out[key].append(device_ms(runs[key], reps,
-                                  COLT_OLD if key == "cellwise"
-                                  else COLT_NEW))
+        fn, name = runs[key]
+        out[key].append(device_ms(fn, reps, name))
     return out
+
+
+# K2's and K3b's device functions, new and first design (no name holds
+# another, nor K1's)
+K2_NEW, K2_OLD = "cell_packed_kernel", "cell_cellwise_kernel"
+K3B_NEW, K3B_OLD = "ladder_resident_kernel", "ladder_resident_packet_kernel"
+# K3b's plans: slots a warp batch, threads a block, list depth
+RESIDENT_SWEEP = [dict(rows=rows, threads=threads, depth=depth)
+                  for rows in (1, 2, 4, 8, 32) for threads in (128, 256)
+                  for depth in (2, 4, 8)]
+# the second stage: K2's plan rules (segment of at most L cells, rows,
+# threads, depth) and K3b's (rows, threads, depth), timed in turns
+K2_RULES = [(3, 2, 256, 4), (3, 4, 256, 4), (2, 4, 256, 4), (4, 8, 256, 4)]
+RESIDENT_RULES = [(2, 128, 4), (4, 128, 4), (2, 256, 4), (2, 128, 8)]
+# the film: an LJ operand of 32 x 32 x 2 cells at the melt's density
+FILM_DIMS = (32, 32, 2)
+FILM_DENSITY = 0.27
+FILM_CAP = 36
+
+
+def film_operands(built, seed: int = 0, cap: int = FILM_CAP):
+    """K2's operand with a deduplicated stencil (S = 18) at a real size:
+    seeded uniform positions at the melt's density 0.27 in a box of
+    ``FILM_DIMS`` cells of side cutoff + skin (2.9 on the melt), types
+    drawn uniformly from the melt's, bucketed by
+    ``neighbor.build_cell_buckets`` at ``cap`` on the melt's device:
+    (cells, counts, box, dims); the melt's ``pair_params`` go with it."""
+    import numpy as np
+
+    spec = built.spec
+    dev = spec.pair_cutoff2.device
+    edge = float(spec.pair_cutoff2.max()) ** 0.5 + float(spec.skin)
+    box_np = np.asarray(FILM_DIMS, np.float64) * edge
+    n = int(round(FILM_DENSITY * float(np.prod(box_np))))
+    rng = np.random.RandomState(seed)
+    box = torch.tensor(box_np, dtype=torch.float32, device=dev)
+    pos = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 3)).astype(
+        np.float32)).to(dev) * box
+    type_id = torch.from_numpy(rng.randint(0, built.cfg.n_types, n).astype(
+        np.int32)).to(dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    buckets, _, ovf, _ = neighbor.build_cell_buckets(pos, box, active,
+                                                     FILM_DIMS, cap)
+    if bool(ovf):
+        raise ValueError("the film overflows cap %d" % cap)
+    cells, counts = cell_pair.colt_operands(
+        cell_pair.pack_rows(pos, type_id, active), buckets,
+        int(np.prod(FILM_DIMS)))
+    return cells, counts, box.contiguous(), FILM_DIMS
+
+
+def k2_sweep(built, state, plans, reps: int = 30, operands=None) -> list:
+    """Device ms of K2 under each plan (dicts of ``k2_launch_plan``'s
+    overrides), the cellwise K2's first (plan None), in ch3 mode 0, on the
+    melt's operands or on ``operands`` (cells, counts, box, dims)."""
+    cfg = built.cfg
+    cells, counts, box, params = lj_args(built, state)
+    dims = cfg.cell_dims
+    if operands is not None:
+        cells, counts, box, dims = operands
+    args = (cells, counts, box, params, dims, cfg.uniform_lj, cfg.all_lj,
+            cell_pair.CH3_NONE)
+    return _plan_sweep(
+        lambda: cell_pair.cell_pair_forces_cell_cellwise(*args),
+        lambda plan: cell_pair.cell_pair_forces_cell_kernel(*args,
+                                                            plan=plan),
+        lambda **kw: cell_pair.k2_launch_plan(dims, cells.shape[1],
+                                              cfg.n_types, **kw),
+        plans, K2_OLD, K2_NEW, reps)
+
+
+def resident_sweep(built, state, plans, reps: int = 30) -> list:
+    """Device ms of K3b under each plan (dicts of
+    ``resident_launch_plan``'s overrides), the baseline's first (plan
+    None), on the melt's operands."""
+    cfg = built.cfg
+    cells, counts, box, params = lj_args(built, state)
+    args = (cells, counts, box, params, cfg.cell_dims, cfg.uniform_lj)
+    return _plan_sweep(
+        lambda: variants.resident_packet_kernel(*args),
+        lambda plan: variants.ladder_kernel("resident", *args, plan=plan),
+        lambda **kw: variants.resident_launch_plan(cells.shape[1], **kw),
+        plans, K3B_OLD, K3B_NEW, reps)
+
+
+def k2_rules(built, state, rules, operands=None, reps: int = 50) -> dict:
+    """Device ms of the cellwise K2 and of K2 under each rule of ``rules``
+    (``K2_RULES``' form), in turns, in ch3 mode 0, on the melt's operands
+    or on ``operands`` (cells, counts, box, dims)."""
+    cfg = built.cfg
+    cells, counts, box, params = lj_args(built, state)
+    dims = cfg.cell_dims
+    if operands is not None:
+        cells, counts, box, dims = operands
+    args = (cells, counts, box, params, dims, cfg.uniform_lj, cfg.all_lj,
+            cell_pair.CH3_NONE)
+    runs = {"cellwise": (lambda: cell_pair.cell_pair_forces_cell_cellwise(
+        *args), K2_OLD)}
+    for seg_max, rows, threads, depth in rules:
+        plan = cell_pair.k2_launch_plan(
+            dims, cells.shape[1], cfg.n_types,
+            seg=cell_pair.plan_segment(dims, False, seg_max), rows=rows,
+            threads=threads, depth=depth)
+        runs[str((seg_max, rows, threads, depth))] = (
+            lambda plan=plan: cell_pair.cell_pair_forces_cell_kernel(
+                *args, plan=plan), K2_NEW)
+    return in_turns(runs, reps)
+
+
+def resident_rules(built, state, rules, reps: int = 50) -> dict:
+    """Device ms of K3b's baseline and of K3b under each rule of ``rules``
+    (``RESIDENT_RULES``' form), in turns, on the melt's operands."""
+    cfg = built.cfg
+    cells, counts, box, params = lj_args(built, state)
+    args = (cells, counts, box, params, cfg.cell_dims, cfg.uniform_lj)
+    runs = {"baseline": (lambda: variants.resident_packet_kernel(*args),
+                         K3B_OLD)}
+    for rows, threads, depth in rules:
+        plan = variants.resident_launch_plan(cells.shape[1], rows=rows,
+                                             threads=threads, depth=depth)
+        runs[str((rows, threads, depth))] = (
+            lambda plan=plan: variants.ladder_kernel("resident", *args,
+                                                     plan=plan), K3B_NEW)
+    return in_turns(runs, reps)
+
+
+def k2_main(n_mols: int) -> int:
+    """``--k2``: K2's plan sweep on the 10k melt at cap 36 and on the film,
+    K3b's on the 10k LJ melt."""
+    k2 = _warm(functools.partial(testsystems.build_melt, cell_cap=36),
+               n_mols, 600)
+    built, state = k2
+    grids = [("k2 cap 36", None), ("film", film_operands(built))]
+    for label, operands in grids:
+        cells = operands[0] if operands else lj_args(built, state)[0]
+        print(json.dumps({"melt": label, "dims": list(
+            operands[3] if operands else built.cfg.cell_dims),
+            "particles": int((cells[..., 3] > 0.5).sum()),
+            "device": torch.cuda.get_device_name(0)}), flush=True)
+        _sweep_with_depths(
+            label, lambda plans, operands=operands: k2_sweep(
+                built, state, plans, operands=operands),
+            COLT_SWEEP, COLT_DEPTHS)
+    for label, operands in grids:
+        print(json.dumps({"melt": label, "rules_in_turns": k2_rules(
+            built, state, K2_RULES, operands)}), flush=True)
+    lj = _warm(testsystems.build_melt, n_mols, 600)
+    _print_sweep("k3b lj", resident_sweep(*lj, RESIDENT_SWEEP))
+    print(json.dumps({"melt": "k3b lj", "rules_in_turns": resident_rules(
+        *lj, RESIDENT_RULES)}), flush=True)
+    return 0
 
 
 def slab_operands(cfg, pos, type_id, active, buckets, n_ranks: int,
@@ -521,6 +696,8 @@ def main(argv=None) -> int:
         return tab_main(n_mols)
     if "--lj" in flags:
         return lj_main(n_mols)
+    if "--k2" in flags:
+        return k2_main(n_mols)
     built, systop, _ = testsystems.build_melt(n_mols=n_mols, reactive=True,
                                               device="cuda")
     cfg = built.cfg

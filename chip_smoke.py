@@ -19,16 +19,23 @@ once) and drives the port's paths at 10k particles:
      stepped on the GPU and on the CPU from one state, and the main path:
      one untimed and three timed 200-step Langevin blocks with reaction
      steps;
-  3. K2, the per-cell kernel for grids colt2 cannot take: on the 10k melt
-     built with cell_cap=36 (11x11x11, S = 27) and on the 40-trimer melt at
-     density 0.3 (2x2x2, S = 8), K2 against its plain version in every
-     mode and channel and the cancellation check; then the K2 main path:
-     one untimed and one timed reactive block of the cap-36 melt;
+  3. K2, the LJ kernel for grids colt2 cannot take (K1's column-segment
+     kernel over the deduplicated stencil): on the 10k melt built with
+     cell_cap=36 (11x11x11, S = 27) and on the 40-trimer melt at density
+     0.3 (2x2x2, S = 8), K2 against its plain version in every mode and
+     channel and the cancellation check; K2 against its cellwise baseline
+     (the first design) bit for bit in every mode and channel on both and
+     on the film (32 x 32 x 2 cells, ~13.5k particles, S = 18), with
+     device times by the profiler in turns (new, cellwise, cellwise, new)
+     at 10k and on the film; then the K2 main path: one untimed and one
+     timed reactive block of the cap-36 melt;
   3b. the ladder (K1' colt1, K3a packet, K3b resident, K3c colz, K3d
      column) on the warmed 10k LJ melt: each against its plain version in
      both parameter modes, K3a-K3d against K2 and K1 on the same operands
      (forces bit for bit), K1' against K1, the cancellation check, times
-     and bounds; one untimed and one timed reactive block through
+     and bounds; K3b (a warp per row) against its baseline (8-thread
+     packets, the first design) bit for bit in both parameter modes, with
+     device times in turns; one untimed and one timed reactive block through
      ``run_block(pair_kernel=...)`` for "colt1", "packet", "resident" and
      "column" (K3c at cap 32; K3d on the cap-36 melt), each launching its
      kernel exactly once a step and K1 never; then the kernel matrix
@@ -212,7 +219,8 @@ LJ_ROWS = {
     "K1b": ("K1b cell_pair_colt (LJ, virial channel)",
             "chemlab_tpu_torch/csrc/cell_pair.cu",
             "chemlab_tpu/engine/pallas_pair.py:211"),
-    "K2": ("K2 cell_pair_cell (LJ, per cell, any grid)",
+    "K2": ("K2 cell_pair_cell (LJ, any grid: the column-segment kernel "
+           "over the deduplicated stencil)",
            "chemlab_tpu_torch/csrc/cell_pair_cell.cu",
            "chemlab_tpu/engine/pallas_pair.py:97"),
 }
@@ -271,8 +279,8 @@ def check_kernel(built, state, label: str, channels=CH3, time_mode=0,
     ms = _time_ms(lambda: kern(*args), 50)
     plain_ms = _time_ms(lambda: plain(*args), 5)
     extra = {}
-    if label in ("K1", "K1b"):
-        old = colt_fns()[1]
+    if label in ("K1", "K1b", "K2"):
+        old = (k2_fns() if label == "K2" else colt_fns())[1]
         extra["ms_before"] = _time_ms(lambda: old(*args), 50)
     cand, inside = pair_counts(cells, state.box, params[2], cfg.cell_dims)
     n_stencil = cell_pair.stencil_table(cfg.cell_dims).shape[1]
@@ -302,21 +310,32 @@ def colt_fns(x_halo: bool = False):
                 *a, x_halo=x_halo))
 
 
+def k2_fns():
+    """(column-segment K2, cellwise K2) as functions of the operands
+    (cells, counts, box, params, dims, uniform, all_lj, ch3)."""
+    from chemlab_tpu_torch.engine import cell_pair
+
+    return (cell_pair.cell_pair_forces_cell_kernel,
+            cell_pair.cell_pair_forces_cell_cellwise)
+
+
 def colt_ab(label: str, built, cells, counts, box, dims,
-            x_halo: bool = False, timed: bool = True):
-    """The LJ column-segment kernel (K1, K1b, K1f) against the cellwise
-    kernel on these operands: bit for bit in every parameter mode of MODES
-    and every ch3 channel; then, with ``timed``, device time by the
-    profiler, 50 calls each in turns (new, old, old, new), in every channel
-    in the melt's own parameter mode.  Returns {ch3: (new ms, old ms)},
-    each the mean of its two turns."""
+            x_halo: bool = False, timed: bool = True, k2: bool = False):
+    """The LJ column-segment kernel (K1, K1b, K1f; K2 with ``k2``) against
+    its cellwise kernel on these operands: bit for bit in every parameter
+    mode of MODES and every ch3 channel; then, with ``timed``, device time
+    by the profiler, 50 calls each in turns (new, old, old, new), in every
+    channel in the melt's own parameter mode.  Returns {ch3: (new ms, old
+    ms)}, each the mean of its two turns."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
-    from chemlab_tpu_torch.kernel_matrix import COLT_NEW, COLT_OLD
+    from chemlab_tpu_torch.kernel_matrix import (COLT_NEW, COLT_OLD, K2_NEW,
+                                                 K2_OLD)
 
     cfg, spec = built.cfg, built.spec
-    new, old = colt_fns(x_halo)
+    new, old = k2_fns() if k2 else colt_fns(x_halo)
+    names = (K2_NEW, K2_OLD) if k2 else (COLT_NEW, COLT_OLD)
     for uniform, all_lj in MODES:
         params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
                   else mixed_params(spec, cfg.n_types, not all_lj))
@@ -337,7 +356,7 @@ def colt_ab(label: str, built, cells, counts, box, dims,
     args = (cells, counts, box, cell_pair.pair_params(spec, cfg.n_types),
             dims, cfg.uniform_lj, cfg.all_lj)
     return device_turns(label, lambda m: new(*args, m),
-                        lambda m: old(*args, m), COLT_NEW, COLT_OLD,
+                        lambda m: old(*args, m), *names,
                         [m for m, _ in CH3])
 
 
@@ -401,9 +420,9 @@ def check_by_halves(label: str, got, cells, counts, dims, plain_slab):
 
 
 def compare_k1_k2(built, state):
-    """K1 and K2 on the same colt2 operands: the largest difference in
-    every channel, whether it is bitwise, and both times, taken in turns
-    (K1, K2, K2, K1)."""
+    """K1 and K2 on the same colt2 operands: equal bit for bit in every
+    channel (the same stencil order, then slot order), and both times,
+    taken in turns (K1, K2, K2, K1)."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
@@ -422,8 +441,8 @@ def compare_k1_k2(built, state):
         print("K1 vs K2 on identical operands (%s x cap %d) ch3=%-6s "
               "max|diff| %.3e, bitwise %s" % (cfg.cell_dims, cfg.cell_cap,
                                               name, diff, torch.equal(k1, k2)))
-        if diff > _tol(k1):
-            raise AssertionError("K1 and K2 disagree")
+        if not torch.equal(k1, k2):
+            raise AssertionError("K1 and K2 differ on a full grid")
     args = (cells, counts, state.box, params, cfg.cell_dims, cfg.uniform_lj,
             cfg.all_lj, cell_pair.CH3_NONE)
     t = [_time_ms(lambda fn=fn: fn(*args), 50)
@@ -698,7 +717,9 @@ def _warm_melt(label: str, steps: int = 600, **kw):
 
 def k2_path(card: str):
     """K2 on the grids colt2 cannot take: the 10k melt at cell_cap 36 and
-    the 2x2x2 melt, then the K2 main path."""
+    the 2x2x2 melt (against plain and against its cellwise baseline), the
+    film (against the baseline), then the K2 main path."""
+    from chemlab_tpu_torch import kernel_matrix
     from chemlab_tpu_torch.engine import cell_pair
 
     built, systop, state = _warm_melt("10k LJ melt at cell_cap 36",
@@ -706,12 +727,39 @@ def k2_path(card: str):
     if cell_pair.colt_legal(built.cfg.cell_cap, built.cfg.cell_dims):
         raise AssertionError("the cap-36 melt did not take K2")
     row = check_kernel(built, state, "K2")
+    cfg = built.cfg
+    cells, counts = _cells(built, state)
+    print("K2 launch plan at %s x cap %d: %s, stencil mask %s"
+          % (cfg.cell_dims, cfg.cell_cap,
+             cell_pair.k2_launch_plan(cfg.cell_dims, cfg.cell_cap,
+                                      cfg.n_types),
+             bin(cell_pair.stencil_mask(cfg.cell_dims))))
+    row.update(ab_numbers(colt_ab(
+        "K2 at %s x cap %d" % (cfg.cell_dims, cfg.cell_cap), built, cells,
+        counts, state.box, cfg.cell_dims, k2=True), cell_pair.CH3_NONE))
     check_cancellation(built, state)
     small, _, st_s = _warm_melt("small-grid melt", steps=50, **SMALL_GRID)
     if small.cfg.cell_dims != (2, 2, 2):
         raise AssertionError("the small melt is not on a 2x2x2 grid")
     check_kernel(small, st_s, "K2", timed=False)
+    cells_s, counts_s = _cells(small, st_s)
+    colt_ab("K2 on the 2x2x2 melt (cap %d, S = 8)" % small.cfg.cell_cap,
+            small, cells_s, counts_s, st_s.box, small.cfg.cell_dims,
+            timed=False, k2=True)
     check_cancellation(small, st_s)
+    f_cells, f_counts, f_box, f_dims = kernel_matrix.film_operands(built)
+    print("K2 film: %s cells x cap %d, %d particles (%.2f a cell), S = %d, "
+          "%.2f MB of rows, plan %s, stencil mask %s"
+          % (f_dims, f_cells.shape[1], int(f_counts.sum()),
+             float(f_counts.float().mean()),
+             cell_pair.stencil_table(f_dims).shape[1],
+             f_cells.numel() * 4 / 1e6,
+             cell_pair.k2_launch_plan(f_dims, f_cells.shape[1], cfg.n_types),
+             bin(cell_pair.stencil_mask(f_dims))))
+    film = colt_ab("K2 film %s x cap %d" % (f_dims, f_cells.shape[1]), built,
+                   f_cells, f_counts, f_box, f_dims, k2=True)
+    row["film"] = ab_numbers(film, cell_pair.CH3_NONE)
+    del f_cells, f_counts
     row["launches"], _, _ = run_path(built, systop, state, card,
                                      cell_pair.K2, "K2 main path", 1)
     return row, (built, systop, state)
@@ -815,7 +863,8 @@ LADDER_ROWS = {
             "chemlab_tpu/engine/pallas_pair_variants.py:617", "colt1"),
     "K3a": ("K3a ladder_packet (cell x 8-row packet)", "packet",
             "chemlab_tpu/engine/pallas_pair_variants.py:23", "packet"),
-    "K3b": ("K3b ladder_resident (packets, nothing staged)", "resident",
+    "K3b": ("K3b ladder_resident (a warp per row, nothing staged)",
+            "resident",
             "chemlab_tpu/engine/pallas_pair_variants.py:131", "resident"),
     "K3c": ("K3c ladder_colz (one block per xy column)", "colz",
             "chemlab_tpu/engine/pallas_pair_variants.py:510", "column"),
@@ -919,6 +968,7 @@ def ladder_ab(built, state):
     their energy mode, K3a-K3d filling both channels."""
     from chemlab_tpu_torch.engine import cell_pair
     from chemlab_tpu_torch.engine import cell_pair_variants as variants
+    from chemlab_tpu_torch.kernel_matrix import K2_NEW
 
     cfg = built.cfg
     cells, counts = _cells(built, state)
@@ -929,7 +979,7 @@ def ladder_ab(built, state):
     fns = [("K1", "colt_packed_kernel",
             lambda: cell_pair.cell_pair_forces_colt_kernel(
                 *args, cfg.all_lj, mode)),
-           ("K2", "cell_pair_cell_kernel",
+           ("K2", K2_NEW,
             lambda: cell_pair.cell_pair_forces_cell_kernel(
                 *args, cfg.all_lj, mode))]
     for key, (_, kind, _, _) in LADDER_ROWS.items():
@@ -944,6 +994,55 @@ def ladder_ab(built, state):
     return out
 
 
+def resident_ab(built, state) -> dict:
+    """K3b (a warp per row) against its baseline (8-thread packets) on
+    ``state``'s operands: bit for bit in both parameter modes (both
+    channels); then device time by the profiler, 50 calls each in turns
+    (new, baseline, baseline, new).  Returns the row's numbers."""
+    import torch
+
+    from chemlab_tpu_torch.engine import cell_pair
+    from chemlab_tpu_torch.engine import cell_pair_variants as variants
+    from chemlab_tpu_torch.kernel_matrix import K3B_NEW, K3B_OLD
+
+    cfg, spec = built.cfg, built.spec
+    cells, counts = _cells(built, state)
+    dims = cfg.cell_dims
+    print("K3b launch plan at cap %d: %s"
+          % (cfg.cell_cap, variants.resident_launch_plan(cfg.cell_cap)))
+    for uniform in (True, False):
+        params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
+                  else mixed_params(spec, cfg.n_types, True))
+        args = (cells, counts, state.box, params, dims, uniform)
+        a = variants.ladder_kernel("resident", *args)
+        b = variants.resident_packet_kernel(*args)
+        torch.cuda.synchronize()
+        print("K3b new vs baseline at %s x cap %d uniform=%d (both channels) "
+              "max|diff| %.3e, bitwise %s"
+              % (dims, cfg.cell_cap, uniform, (a - b).abs().max().item(),
+                 torch.equal(a, b)))
+        if not torch.equal(a, b):
+            raise AssertionError("K3b: the warp-per-row kernel differs from "
+                                 "the baseline")
+    args = (cells, counts, state.box,
+            cell_pair.pair_params(spec, cfg.n_types), dims, cfg.uniform_lj)
+    t = [_device_ms(lambda fn=fn: fn(*args), 50, name)
+         for fn, name in (
+             (lambda *a: variants.ladder_kernel("resident", *a), K3B_NEW),
+             (variants.resident_packet_kernel, K3B_OLD),
+             (variants.resident_packet_kernel, K3B_OLD),
+             (lambda *a: variants.ladder_kernel("resident", *a), K3B_NEW))]
+    if None in t:
+        raise AssertionError("K3b: the profiler did not time both kernels")
+    print("K3b at %s x cap %d device time by the profiler, in turns: new "
+          "%.6f / %.6f ms, baseline %.6f / %.6f ms"
+          % (dims, cfg.cell_cap, t[0], t[3], t[1], t[2]))
+    return {"device_ms": (t[0] + t[3]) / 2,
+            "device_ms_before": (t[1] + t[2]) / 2,
+            "ms_before": _time_ms(
+                lambda: variants.resident_packet_kernel(*args), 50)}
+
+
 def ladder_path(card: str, lj, cap36):
     """The ladder on the warmed 10k LJ melt (cap 32) and the cap-36 melt:
     each kernel against plain, K2 and K1, the cancellation, a reactive
@@ -956,6 +1055,7 @@ def ladder_path(card: str, lj, cap36):
 
     built, systop, state = lj
     rows = {key: check_ladder(built, state, key) for key in LADDER_ROWS}
+    rows["K3b"].update(resident_ab(built, state))
     ladder_ab(built, state)
     for key in LADDER_ROWS:
         check_cancellation(built, state, ladder=LADDER_ROWS[key][1])

@@ -47,6 +47,8 @@ using std::min;
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+// a block's static shared arrays: one instance, as the blocks run in turn
+#define __shared__ static
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
@@ -152,8 +154,8 @@ void emu_launch(dim3 grid, dim3 block, size_t shmem, cudaStream_t, K kernel,
   const int n = block.x * block.y;
   emu_fibers.resize(n);
   emu_body = [&]() { kernel(args...); };
-  for (unsigned b = 0; b < grid.x; ++b) {
-    blockIdx = dim3(b);
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
+    blockIdx = dim3(b % grid.x, b / grid.x);
     emu_bar.n = n;
     emu_bar.count = 0;
     for (int w = 0; w < (n + 31) / 32; ++w) {

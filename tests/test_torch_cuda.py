@@ -1072,3 +1072,194 @@ def test_cuda_colt_gives_the_same_bits_twice(melt):
                                  cell_pair.CH3_ENERGY) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# ---- K2's column-segment kernel against its cellwise kernel ------------------
+
+def _k2_new_and_cellwise(cells, counts, box, params, dims, uniform, all_lj,
+                         ch3, plan=None):
+    """The column-segment K2's and the cellwise K2's rows on the card, from
+    the same operands, each launch counted once."""
+    dev = [t.cuda() for t in (cells, counts, box, params)]
+    n0, o0 = cell_pair.K2.launches, cell_pair.K2_CELLWISE.launches
+    new = cell_pair.cell_pair_forces_cell_kernel(*dev, dims, uniform, all_lj,
+                                                 ch3, plan=plan)
+    old = cell_pair.cell_pair_forces_cell_cellwise(*dev, dims, uniform,
+                                                   all_lj, ch3)
+    torch.cuda.synchronize()
+    assert cell_pair.K2.launches == n0 + 1
+    assert cell_pair.K2_CELLWISE.launches == o0 + 1
+    return new, old
+
+
+def _k2_same_bits(cells, counts, box, params, dims, plans=({},),
+                  modes=MODES, plain=True):
+    for kw in plans:
+        plan = cell_pair.k2_launch_plan(dims, cells.shape[1],
+                                        params.shape[1], **kw)
+        for uniform, all_lj in modes:
+            for ch3 in CH3:
+                new, old = _k2_new_and_cellwise(cells, counts, box, params,
+                                                dims, uniform, all_lj, ch3,
+                                                plan)
+                assert torch.equal(new, old), (kw, uniform, all_lj, ch3)
+                if plain:
+                    ref = cell_pair.cell_pair_forces_cell_ref(
+                        cells.cpu(), counts.cpu(), box.cpu(), params.cpu(),
+                        dims, uniform, all_lj, ch3)
+                    torch.testing.assert_close(new.cpu(), ref, rtol=0,
+                                               atol=_tol(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["cap36", "grid222"])
+@pytest.mark.parametrize("uniform,all_lj", MODES,
+                         ids=["uniform", "all_lj", "islj"])
+def test_cuda_k2_equals_cellwise_on_the_small_melts(k2_melts, grid, uniform,
+                                                    all_lj):
+    """The 70-trimer melt at cap 36 (3^3) and the 2x2x2 melt: the new K2
+    equals the cellwise K2 bit for bit in every channel, under the default
+    plan and under lists of one pass, and the plain version to f32
+    rounding."""
+    built, _, st = k2_melts[grid]
+    cfg = built.cfg
+    spec = built.spec if uniform else _mixed(built.spec, cfg.n_types,
+                                             not all_lj)
+    cells, counts, box, params = _melt_ops(built, st, spec)
+    _k2_same_bits(cells, counts, box, params, cfg.cell_dims,
+                  plans=({}, dict(depth=1)), modes=[(uniform, all_lj)])
+
+
+@pytest.mark.cuda
+def test_cuda_k2_equals_cellwise_at_10k_cap36():
+    """The 10k melt at cap 36 (11^3, S = 27, the K2 main path's grid),
+    built and warmed on the card: the same bits in every mode and channel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    built, _, _ = testsystems.build_melt(n_mols=3334, cell_cap=36,
+                                         device="cuda")
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = testsystems.warmup(built, st, steps=100)
+    cfg = built.cfg
+    assert not cell_pair.colt_legal(cfg.cell_cap, cfg.cell_dims)
+    for uniform, all_lj in MODES:
+        spec = built.spec if uniform else _mixed(built.spec.to("cpu"),
+                                                 cfg.n_types, not all_lj)
+        cells, counts, box, params = _melt_ops(built, st, spec)
+        _k2_same_bits(cells, counts, box, params.cuda(), cfg.cell_dims,
+                      modes=[(uniform, all_lj)], plain=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 2, 4), 13), ((4, 3, 1), 20),
+                                      ((2, 1, 2), 9), ((1, 3, 2), 36),
+                                      ((2, 3, 1), 13), ((2, 2, 2), 400)])
+def test_cuda_k2_equals_cellwise_on_ragged_grids(dims, cap):
+    """Random occupancy on grids with an axis of 1 or 2 cells and caps
+    that are no multiple of 8 (cap 400: the stage's opt-in above 48 KiB):
+    the same bits under the default plan and plans of other segments,
+    batches and list depths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    cells, counts, box, params = _random_cells(dims, cap, cap, fill=40)
+    # a segment of 2 stages 4 cells a column: more than 227 KiB at cap 400
+    _k2_same_bits(cells, counts, box, params, dims,
+                  plans=({}, dict(seg=1, rows=5, threads=32, depth=1),
+                         dict(seg=2 if cap < 200 else 1, rows=32,
+                              threads=128, depth=2)))
+
+
+@pytest.mark.cuda
+def test_cuda_k2_equals_cellwise_on_the_film():
+    """The film (32 x 32 x 2 cells, ~13.5k particles, S = 18; the kernel
+    matrix's operand) with the melt's parameters: the same bits in every
+    mode and channel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    from chemlab_tpu_torch import kernel_matrix
+
+    built, _, _ = testsystems.build_melt(n_mols=70, device="cuda")
+    cells, counts, box, dims = kernel_matrix.film_operands(built)
+    assert len(neighbor.neighbor_cell_offsets(dims)) == 18
+    for uniform, all_lj in MODES:
+        spec = built.spec if uniform else _mixed(built.spec.to("cpu"),
+                                                 built.cfg.n_types,
+                                                 not all_lj)
+        params = cell_pair.pair_params(spec, built.cfg.n_types)
+        _k2_same_bits(cells, counts, box, params, dims,
+                      modes=[(uniform, all_lj)], plain=False)
+
+
+# ---- K3b's warp-per-row kernel against its baseline -------------------------
+
+def _resident_same_bits(cells, counts, box, params, dims, plans=({},)):
+    """In both parameter modes: K3b's baseline against the cellwise K2 (both
+    channels) and the new K3b under each plan against the baseline, each
+    launch counted once."""
+    dev = [t.cuda() for t in (cells, counts, box, params)]
+    for uniform in (True, False):
+        o0 = cell_pair.K3B_CELLWISE.launches
+        old = variants.resident_packet_kernel(*dev, dims, uniform)
+        k2_e = cell_pair.cell_pair_forces_cell_cellwise(
+            *dev, dims, uniform, False, cell_pair.CH3_ENERGY)
+        k2_w = cell_pair.cell_pair_forces_cell_cellwise(
+            *dev, dims, uniform, False, cell_pair.CH3_VIRIAL)
+        torch.cuda.synchronize()
+        assert cell_pair.K3B_CELLWISE.launches == o0 + 1
+        assert torch.equal(old[..., :4], k2_e) and torch.equal(
+            old[..., 4], k2_w[..., 3])
+        for kw in plans:
+            plan = variants.resident_launch_plan(cells.shape[1], **kw)
+            n0 = cell_pair.K3B.launches
+            new = variants.ladder_kernel("resident", *dev, dims, uniform,
+                                         plan=plan)
+            torch.cuda.synchronize()
+            assert cell_pair.K3B.launches == n0 + 1
+            assert torch.equal(new, old), (uniform, plan)
+
+
+@pytest.mark.cuda
+def test_cuda_resident_equals_baseline_on_the_melt(melt32):
+    """The 70-trimer melt at cap 32, the melt's parameters and per-pair
+    ones: the same bits as the baseline (and K2) under the default plan,
+    batches of 8 and 32 slots, and under lists of one pass."""
+    built, _, st = melt32
+    cfg = built.cfg
+    for spec in (built.spec, _mixed(built.spec, cfg.n_types, True)):
+        _resident_same_bits(*_melt_ops(built, st, spec), cfg.cell_dims,
+                            plans=({}, dict(rows=8),
+                                   dict(rows=1, depth=1),
+                                   dict(rows=32, threads=256, depth=2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((2, 3, 4), 16), ((3, 4, 2), 40),
+                                      ((2, 2, 2), 24)])
+def test_cuda_resident_equals_baseline_on_ragged_grids(dims, cap):
+    """Random occupancy on grids with an axis of 2 at caps that are
+    multiples of 8: the same bits as the baseline and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    _resident_same_bits(*_random_cells(dims, cap, cap), dims,
+                        plans=({}, dict(rows=8), dict(rows=3,
+                                                      threads=160,
+                                                      depth=1)))
+
+
+@pytest.mark.cuda
+def test_cuda_resident_equals_baseline_at_the_100k_grid():
+    """24^3 cells at cap 40: the same bits as the baseline and K2; a plan
+    above 227 KiB raises with its size, and the launcher refuses a plan
+    whose bytes are not its layout's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims, cap = (24, 24, 24), 40
+    ops = _random_cells(dims, cap, 7, fill=12)
+    _resident_same_bits(*ops, dims, plans=({}, dict(rows=32, depth=2)))
+    with pytest.raises(ValueError, match="227 KiB"):
+        variants.resident_launch_plan(cap, threads=1024, depth=12)
+    dev = [t.cuda() for t in ops]
+    plan = variants.resident_launch_plan(cap)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        variants.ladder_kernel("resident", *dev, dims, False,
+                               plan=plan._replace(smem=plan.smem + 20))

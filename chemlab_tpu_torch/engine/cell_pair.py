@@ -128,23 +128,30 @@ K2_CELLWISE = _kernels.CudaKernel(
     "cell_pair_cell.cu", "cell_pair_cell_cellwise",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 # the ladder (``cell_pair_variants``): five entry points of one source,
-# each its own launch count, with one signature but K3b's, which takes its
-# launch plan (``cell_pair_variants.resident_launch_plan``) after it
+# each its own launch count, with one signature but K3a's, K3b's and K3d's,
+# which take their launch plans (``cell_pair_variants.packet_launch_plan``,
+# ``resident_launch_plan``, ``column_launch_plan``) after it
 _LADDER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_LADDER_PLAN_ARGS = _LADDER_ARGS[:-1] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 K1P = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_colt1", _LADDER_ARGS)
 K3A = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_packet",
-                          _LADDER_ARGS)
-K3B = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_resident",
-                          _LADDER_ARGS[:-1] + [ctypes.c_int] * 4
+                          _LADDER_ARGS[:-1] + [ctypes.c_int] * 3
                           + [ctypes.c_void_p])
-# K3b's first design (8-thread packets), kept as the baseline the
-# warp-per-row kernel is held and timed against: outside BY_NAME, and no
-# step reaches it
-K3B_CELLWISE = _kernels.CudaKernel("cell_pair_ladder.cu",
-                                   "ladder_resident_packet", _LADDER_ARGS)
+K3B = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_resident",
+                          _LADDER_PLAN_ARGS)
 K3C = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_colz", _LADDER_ARGS)
 K3D = _kernels.CudaKernel("cell_pair_ladder.cu", "ladder_column",
-                          _LADDER_ARGS)
+                          _LADDER_PLAN_ARGS)
+# the first designs of K3a (a block per cell and 8-row packet), K3b
+# (8-thread packets) and K3d (a thread per slot), kept as the baselines
+# the redesigned kernels are held and timed against: outside BY_NAME, and
+# no step reaches them
+K3A_CELLWISE = _kernels.CudaKernel("cell_pair_ladder.cu",
+                                   "ladder_packet_cellwise", _LADDER_ARGS)
+K3B_CELLWISE = _kernels.CudaKernel("cell_pair_ladder.cu",
+                                   "ladder_resident_packet", _LADDER_ARGS)
+K3D_CELLWISE = _kernels.CudaKernel("cell_pair_ladder.cu",
+                                   "ladder_column_cellwise", _LADDER_ARGS)
 BY_NAME = {"K1": K1, "K1b": K1B, "K1c": K1C, "K1d": K1D, "K1e": K1E,
            "K2": K2, "K1f": K1F, "K1f-cheb": K1F_CHEB,
            "K1f-cheb-mix": K1F_CHEB_MIX, "K1p": K1P, "K3a": K3A, "K3b": K3B,

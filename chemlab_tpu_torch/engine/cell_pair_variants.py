@@ -6,7 +6,12 @@ wrapper, each with the same contract as ``cell_pair.cell_pair_forces``,
 the unexcluded all-pairs LJ sum on the cell grid.
 
   - ``cell_pair_forces_packets`` (K3a, ``_packet_kernel``): a program per
-    (cell, 8-row packet), packets past the cell's fill skipped;
+    (cell, 8-row packet), packets past the cell's fill skipped; on the card
+    a block per cell stages its candidates once and a warp takes each live
+    packet, with the plan of ``packet_launch_plan``; its first design (a
+    block per cell and packet, ``packet_baseline_kernel``, handle
+    ``cell_pair.K3A_CELLWISE``) stays as the baseline it is held to bit
+    for bit, which no step runs;
   - ``cell_pair_forces_resident`` (K3b, ``_resident_kernel``): nothing
     staged; on the card a warp per row reads every candidate from global
     memory (L2), with the plan of ``resident_launch_plan``; its first
@@ -15,7 +20,12 @@ the unexcluded all-pairs LJ sum on the cell grid.
     bit, which no step runs;
   - ``cell_pair_forces_columns`` (``z_unroll`` and ``cap % 8 == 0``: K3c,
     ``_colz_kernel``, one program per xy column over its nz cells; else
-    K3d, ``_column_kernel``, one program per cell read from its columns);
+    K3d, ``_column_kernel``, one program per cell read from its columns;
+    on the card the block stages its neighbour columns' windows with bulk
+    copies and a warp takes each batch of rows, with the plan of
+    ``column_launch_plan``; its first design, a thread per slot
+    (``column_baseline_kernel``, handle ``cell_pair.K3D_CELLWISE``), stays
+    as the baseline it is held to bit for bit, which no step runs);
   - ``cell_pair_forces_colt1`` (K1', ``_colt_kernel``): one program per xy
     column over its 9 haloed z-columns with per-column partial sums.
 
@@ -70,11 +80,39 @@ class ResidentPlan(NamedTuple):
     smem: int
 
 
+class PacketPlan(NamedTuple):
+    """K3a's launch plan: threads per block (W warps, each taking the
+    cell's live 8-row packets w, w + W, ...), list entries per thread and
+    the shared-memory bytes (the stage of 27 cells and the lists)."""
+    threads: int
+    depth: int
+    smem: int
+
+
+class ColumnPlan(NamedTuple):
+    """K3d's launch plan: slots per warp batch, threads per block, list
+    entries per thread and the shared-memory bytes (the stage of the S
+    cells of the neighbour columns' windows, the lists and the table of
+    each candidate's stage row)."""
+    rows: int
+    threads: int
+    depth: int
+    smem: int
+
+
 # K3b's choices, measured on an H100 (PERF.md: ``python -m
 # chemlab_tpu_torch.kernel_matrix --k2``'s sweep and rules in turns at 10k)
 RESIDENT_ROWS = 2
 RESIDENT_THREADS = 128
 RESIDENT_DEPTH = 4
+# K3a's and K3d's, measured on an H100 (PERF.md: ``python -m
+# chemlab_tpu_torch.kernel_matrix --ladder``'s sweeps and rules in turns,
+# K3a at 10k, K3d at 10k and cap 36 and on the film)
+PACKET_THREADS = 128
+PACKET_DEPTH = 4
+COLUMN_ROWS = 1
+COLUMN_THREADS = 256
+COLUMN_DEPTH = 4
 
 
 def resident_smem(threads: int, depth: int) -> int:
@@ -82,6 +120,19 @@ def resident_smem(threads: int, depth: int) -> int:
     float4 (the force terms and the energy) and a float (the virial term)
     each."""
     return 20 * threads * depth
+
+
+def packet_smem(cap: int, threads: int, depth: int) -> int:
+    """Shared-memory bytes of K3a: a stage of 27 cells of ``cap`` rows (16
+    bytes each; the occupied rows packed at its front) and the lists."""
+    return 16 * 27 * cap + resident_smem(threads, depth)
+
+
+def column_smem(cap: int, dims, threads: int, depth: int) -> int:
+    """Shared-memory bytes of K3d: a stage of the S cells of the stencil
+    (the neighbour columns' windows) at ``cap`` rows each, the lists, and
+    the stage row of each candidate (an int per stage row)."""
+    return 20 * table_sizes(dims)[0] * cap + resident_smem(threads, depth)
 
 
 def resident_launch_plan(cap: int, *, rows=None, threads=None,
@@ -108,6 +159,62 @@ def _resident_plan(cap, rows, threads, depth):
     if smem > SMEM_LIMIT:
         raise ValueError("K3b: lists of %d bytes exceed 227 KiB" % smem)
     return ResidentPlan(rows, threads, depth, smem)
+
+
+def _warps_ok(threads, depth):
+    return 32 <= threads <= 1024 and threads % 32 == 0 and depth >= 1
+
+
+def packet_launch_plan(cap: int, *, threads=None,
+                       depth=None) -> PacketPlan:
+    """The launch plan of ``ladder_packet`` (K3a) at cell cap ``cap``: from
+    the shapes alone, never the counts or the box; ``threads`` and
+    ``depth`` override the measured choices (the kernel matrix's sweep).
+    Raises ``ValueError`` naming K3a on a layout the kernel cannot take (a
+    cap that is not a multiple of 8, blocks of part of a warp), and above
+    227 KiB of shared memory with the size."""
+    return _packet_plan(int(cap), threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _packet_plan(cap, threads, depth):
+    threads = PACKET_THREADS if threads is None else threads
+    depth = PACKET_DEPTH if depth is None else depth
+    if cap < 8 or cap % 8 or not _warps_ok(threads, depth):
+        raise ValueError("K3a: no plan with cap %d, threads %d, depth %d"
+                         % (cap, threads, depth))
+    smem = packet_smem(cap, threads, depth)
+    if smem > SMEM_LIMIT:
+        raise ValueError("K3a: shared memory of %d bytes exceeds 227 KiB"
+                         % smem)
+    return PacketPlan(threads, depth, smem)
+
+
+def column_launch_plan(cap: int, dims, *, rows=None, threads=None,
+                       depth=None) -> ColumnPlan:
+    """The launch plan of ``ladder_column`` (K3d) at cell cap ``cap`` on the
+    grid ``dims``: from the shapes alone, never the counts or the box;
+    ``rows``, ``threads`` and ``depth`` override the measured choices (the
+    kernel matrix's sweep).  Raises ``ValueError`` naming K3d on a layout
+    the kernel cannot take, and above 227 KiB of shared memory with the
+    size."""
+    return _column_plan(int(cap), tuple(int(d) for d in dims), rows,
+                        threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _column_plan(cap, dims, rows, threads, depth):
+    rows = min(COLUMN_ROWS, cap) if rows is None else rows
+    threads = COLUMN_THREADS if threads is None else threads
+    depth = COLUMN_DEPTH if depth is None else depth
+    if not (1 <= cap and 1 <= rows <= 32 and _warps_ok(threads, depth)):
+        raise ValueError("K3d: no plan with cap %d, rows %d, threads %d, "
+                         "depth %d" % (cap, rows, threads, depth))
+    smem = column_smem(cap, dims, threads, depth)
+    if smem > SMEM_LIMIT:
+        raise ValueError("K3d: shared memory of %d bytes exceeds 227 KiB"
+                         % smem)
+    return ColumnPlan(rows, threads, depth, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,8 +334,9 @@ def colt1_rows_ref(cells, counts, box, params, dims, uniform_lj: bool,
 
 
 def _smem(kind: str, cap: int, dims, n_types: int) -> int:
-    """The dynamic shared memory (bytes) of a launch, as the entry points
-    of ``cell_pair_ladder.cu`` size it."""
+    """The dynamic shared memory (bytes) of a launch that takes no plan, as
+    the entry points of ``cell_pair_ladder.cu`` size it: K3c, K1' and the
+    first designs of K3a and K3d."""
     nz = int(dims[2])
     n_stencil, n_cols = table_sizes(dims)
     par = 20 * n_types * n_types
@@ -249,12 +357,22 @@ KERNEL_OF = {"packet": cell_pair.K3A, "resident": cell_pair.K3B,
 def ladder_kernel(kind: str, cells, counts, box, params, dims,
                   uniform_lj: bool, ch3_mode: int = cell_pair.CH3_ENERGY,
                   plan=None):
-    """Launch the CUDA kernel of ``kind`` ("packet" K3a, "resident" K3b
-    with ``plan``, ``resident_launch_plan``'s by default, "colz" K3c,
-    "column" K3d, "colt1" K1') on the current stream (CUDA tensors only);
+    """Launch the CUDA kernel of ``kind`` ("packet" K3a, "resident" K3b,
+    "column" K3d, each with ``plan``, its ``*_launch_plan``'s by default;
+    "colz" K3c, "colt1" K1') on the current stream (CUDA tensors only);
     returns (C, cap, 8) rows, (C, cap, 4) for K1'."""
     return _launch(KERNEL_OF[kind], kind, cells, counts, box, params, dims,
                    uniform_lj, ch3_mode, plan)
+
+
+def packet_baseline_kernel(cells, counts, box, params, dims,
+                           uniform_lj: bool,
+                           ch3_mode: int = cell_pair.CH3_ENERGY):
+    """Launch K3a's first design (``K3A_CELLWISE``: a block per cell and
+    8-row packet) on the same operands as ``ladder_kernel("packet",
+    ...)``: the baseline of the A/B, which no step reaches."""
+    return _launch(cell_pair.K3A_CELLWISE, "packet", cells, counts, box,
+                   params, dims, uniform_lj, ch3_mode, None)
 
 
 def resident_packet_kernel(cells, counts, box, params, dims,
@@ -267,10 +385,26 @@ def resident_packet_kernel(cells, counts, box, params, dims,
                    params, dims, uniform_lj, ch3_mode, None)
 
 
+def column_baseline_kernel(cells, counts, box, params, dims,
+                           uniform_lj: bool,
+                           ch3_mode: int = cell_pair.CH3_ENERGY):
+    """Launch K3d's first design (``K3D_CELLWISE``: a thread per slot) on
+    the same operands as ``ladder_kernel("column", ...)``: the baseline of
+    the A/B, which no step reaches."""
+    return _launch(cell_pair.K3D_CELLWISE, "column", cells, counts, box,
+                   params, dims, uniform_lj, ch3_mode, None)
+
+
+# the kernels that take a launch plan, and the plan each takes by default
+_PLANNED = {id(cell_pair.K3A): lambda cap, dims: packet_launch_plan(cap),
+            id(cell_pair.K3B): lambda cap, dims: resident_launch_plan(cap),
+            id(cell_pair.K3D): column_launch_plan}
+
+
 def _launch(kernel, kind: str, cells, counts, box, params, dims,
             uniform_lj: bool, ch3_mode: int, plan):
     """Check the operands of ``kind`` and launch ``kernel`` on them (with
-    K3b's plan when ``kernel`` is K3B)."""
+    its launch plan, ``plan`` or its default, when it takes one)."""
     nx, ny, nz = (int(d) for d in dims)
     C, cap, _ = cells.shape
     if C != nx * ny * nz:
@@ -291,7 +425,11 @@ def _launch(kernel, kind: str, cells, counts, box, params, dims,
         raise ValueError("cells must be 16-byte aligned (float4 rows)")
     dev = cells.device
     n_types = params.shape[1]
-    smem = _smem(kind, cap, dims, n_types)
+    planned = _PLANNED.get(id(kernel))
+    if planned is not None and plan is None:
+        plan = planned(cap, (nx, ny, nz))
+    smem = plan.smem if planned is not None else _smem(kind, cap, dims,
+                                                        n_types)
     if smem > SMEM_LIMIT:
         raise ValueError("%s: shared-memory stage of %d bytes exceeds "
                          "227 KiB" % (kind, smem))
@@ -307,10 +445,7 @@ def _launch(kernel, kind: str, cells, counts, box, params, dims,
     out = torch.empty((C, cap, 4 if kind == "colt1" else 8),
                       dtype=cells.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    extra = ()
-    if kernel is cell_pair.K3B:
-        plan = resident_launch_plan(cap) if plan is None else plan
-        extra = tuple(plan)
+    extra = tuple(plan) if planned is not None else ()
     kernel.launch(cells.data_ptr(), counts.data_ptr(), box.data_ptr(),
                   params.data_ptr(), table.data_ptr(), out.data_ptr(), nx, ny,
                   nz, cap, n_types, n_stencil, n_cols, int(uniform_lj),

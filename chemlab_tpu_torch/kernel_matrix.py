@@ -4,7 +4,8 @@ warmed reactive melt, then a run of the default path.
 Usage, on a machine with a CUDA card (it fails without one, and never falls
 back to the CPU)::
 
-    python -m chemlab_tpu_torch.kernel_matrix [n_mols] [--tab | --lj | --k2]
+    python -m chemlab_tpu_torch.kernel_matrix [n_mols]
+        [--tab | --lj | --k2 | --ladder]
 
 ``n_mols`` trimers, 3334 by default (10 002 particles).  Port of
 ``scripts/kernel_matrix.py``: it builds the reactive melt on the card, warms
@@ -70,6 +71,26 @@ With ``--k2`` it times K2 and K3b against their first designs:
     sweeps, the measurement behind K2's plan (K1's ``COLT_*`` rule, the
     fastest on its main-path grid) and ``cell_pair_variants``'
     ``RESIDENT_*`` choices.
+
+With ``--ladder`` it times K3a and K3d against their first designs:
+
+  - one ``{"melt", "threads", "depth", "device_ms"}`` line per plan of
+    ``PACKET_SWEEP`` for K3a on the 10k LJ melt (11^3, cap 32), the first
+    design's first;
+  - one ``{"melt", "rows", "threads", "depth", "device_ms"}`` line per
+    plan of ``COLUMN_SWEEP`` for K3d on the 10k melt at cap 36 and on the
+    film, the first design's first, then the list depths at the fastest
+    plan;
+  - one ``{"melt", "rules_in_turns"}`` line per operand: device ms of the
+    first design and of each rule of ``PACKET_RULES`` (K3a) or
+    ``COLUMN_RULES`` (K3d), timed forward and then backward: with the
+    sweeps, the measurement behind ``cell_pair_variants``' ``PACKET_*``
+    and ``COLUMN_*`` choices;
+  - one ``{"melt", "sources_in_turns"}`` line per operand (the 10k LJ
+    melt, the 10k melt at cap 36, the film): the warp-per-row body over
+    each source of candidates that takes the operand, in turns: none
+    staged (K3b), one stage per cell (K3a), column windows (K3d), column
+    segments (K2).
 
 Left out: ``cell_scatter`` (the TPU's scatter epilogue, which the port does
 not carry) and ``KM_RETUNE`` (it waits for capacity management's
@@ -427,6 +448,13 @@ def in_turns(runs, reps: int = 50) -> dict:
 # another, nor K1's)
 K2_NEW, K2_OLD = "cell_packed_kernel", "cell_cellwise_kernel"
 K3B_NEW, K3B_OLD = "ladder_resident_kernel", "ladder_resident_packet_kernel"
+# K3a's and K3d's: no name holds another, nor K3b's
+K3A_NEW, K3A_OLD = "ladder_packet_kernel", "ladder_packet_cellwise_kernel"
+K3D_NEW, K3D_OLD = "ladder_column_kernel", "ladder_column_cellwise_kernel"
+# the device function of each ladder kind as the step launches it
+LADDER_KERNEL_NAMES = {"packet": K3A_NEW, "resident": K3B_NEW,
+                       "colz": "ladder_colz_kernel", "column": K3D_NEW,
+                       "colt1": "ladder_colt1_kernel"}
 # K3b's plans: slots a warp batch, threads a block, list depth
 RESIDENT_SWEEP = [dict(rows=rows, threads=threads, depth=depth)
                   for rows in (1, 2, 4, 8, 32) for threads in (128, 256)
@@ -435,6 +463,18 @@ RESIDENT_SWEEP = [dict(rows=rows, threads=threads, depth=depth)
 # threads, depth) and K3b's (rows, threads, depth), timed in turns
 K2_RULES = [(3, 2, 256, 4), (3, 4, 256, 4), (2, 4, 256, 4), (4, 8, 256, 4)]
 RESIDENT_RULES = [(2, 128, 4), (4, 128, 4), (2, 256, 4), (2, 128, 8)]
+# K3a's plans (threads a block, list depth) and K3d's (slots a warp batch,
+# threads a block, list depth 4; then the depths at the fastest)
+PACKET_SWEEP = [dict(threads=threads, depth=depth)
+                for threads in (32, 64, 128, 256) for depth in (2, 4, 8)]
+COLUMN_SWEEP = [dict(rows=rows, threads=threads, depth=4)
+                for rows in (1, 2, 4, 8) for threads in (64, 128, 256)]
+COLUMN_DEPTHS = (2, 8)
+# the second stage: K3a's rules (threads, depth) and K3d's (rows, threads,
+# depth), timed in turns
+PACKET_RULES = [(64, 4), (128, 4), (64, 8), (128, 8)]
+COLUMN_RULES = [(2, 128, 4), (1, 256, 4), (1, 256, 2), (2, 256, 4),
+                (4, 128, 4), (1, 128, 4)]
 # the film: an LJ operand of 32 x 32 x 2 cells at the melt's density
 FILM_DIMS = (32, 32, 2)
 FILM_DENSITY = 0.27
@@ -492,20 +532,6 @@ def k2_sweep(built, state, plans, reps: int = 30, operands=None) -> list:
         plans, K2_OLD, K2_NEW, reps)
 
 
-def resident_sweep(built, state, plans, reps: int = 30) -> list:
-    """Device ms of K3b under each plan (dicts of
-    ``resident_launch_plan``'s overrides), the baseline's first (plan
-    None), on the melt's operands."""
-    cfg = built.cfg
-    cells, counts, box, params = lj_args(built, state)
-    args = (cells, counts, box, params, cfg.cell_dims, cfg.uniform_lj)
-    return _plan_sweep(
-        lambda: variants.resident_packet_kernel(*args),
-        lambda plan: variants.ladder_kernel("resident", *args, plan=plan),
-        lambda **kw: variants.resident_launch_plan(cells.shape[1], **kw),
-        plans, K3B_OLD, K3B_NEW, reps)
-
-
 def k2_rules(built, state, rules, operands=None, reps: int = 50) -> dict:
     """Device ms of the cellwise K2 and of K2 under each rule of ``rules``
     (``K2_RULES``' form), in turns, in ch3 mode 0, on the melt's operands
@@ -530,21 +556,122 @@ def k2_rules(built, state, rules, operands=None, reps: int = 50) -> dict:
     return in_turns(runs, reps)
 
 
-def resident_rules(built, state, rules, reps: int = 50) -> dict:
-    """Device ms of K3b's baseline and of K3b under each rule of ``rules``
-    (``RESIDENT_RULES``' form), in turns, on the melt's operands."""
+def ladder_args(built, state, operands=None):
+    """(cells, counts, box, params, dims, uniform_lj) of a ladder call on
+    the melt's operands or on ``operands`` (cells, counts, box, dims)."""
     cfg = built.cfg
     cells, counts, box, params = lj_args(built, state)
-    args = (cells, counts, box, params, cfg.cell_dims, cfg.uniform_lj)
-    runs = {"baseline": (lambda: variants.resident_packet_kernel(*args),
-                         K3B_OLD)}
-    for rows, threads, depth in rules:
-        plan = variants.resident_launch_plan(cells.shape[1], rows=rows,
-                                             threads=threads, depth=depth)
-        runs[str((rows, threads, depth))] = (
-            lambda plan=plan: variants.ladder_kernel("resident", *args,
-                                                     plan=plan), K3B_NEW)
+    dims = cfg.cell_dims
+    if operands is not None:
+        cells, counts, box, dims = operands
+    return cells, counts, box, params, dims, cfg.uniform_lj
+
+
+# each planned ladder kernel: its first design's wrapper, its launch plan
+# from (cap, dims, **overrides), the overrides a rule names in order, and
+# its device functions' names, new and first design
+LADDER_AB = {
+    "packet": (variants.packet_baseline_kernel,
+               lambda cap, dims, **kw: variants.packet_launch_plan(cap, **kw),
+               ("threads", "depth"), K3A_NEW, K3A_OLD),
+    "resident": (variants.resident_packet_kernel,
+                 lambda cap, dims, **kw: variants.resident_launch_plan(
+                     cap, **kw),
+                 ("rows", "threads", "depth"), K3B_NEW, K3B_OLD),
+    "column": (variants.column_baseline_kernel, variants.column_launch_plan,
+               ("rows", "threads", "depth"), K3D_NEW, K3D_OLD)}
+
+
+def ladder_sweep(kind: str, built, state, plans, reps: int = 30,
+                 operands=None) -> list:
+    """Device ms of the ladder kernel ``kind`` (a key of ``LADDER_AB``)
+    under each plan (dicts of its launch plan's overrides), the first
+    design's first (plan None), on the melt's operands or on ``operands``
+    (cells, counts, box, dims)."""
+    baseline, make_plan, _, new_name, old_name = LADDER_AB[kind]
+    args = ladder_args(built, state, operands)
+    cap, dims = args[0].shape[1], args[4]
+    return _plan_sweep(
+        lambda: baseline(*args),
+        lambda plan: variants.ladder_kernel(kind, *args, plan=plan),
+        lambda **kw: make_plan(cap, dims, **kw),
+        plans, old_name, new_name, reps)
+
+
+def ladder_rules(kind: str, built, state, rules, operands=None,
+                 reps: int = 50) -> dict:
+    """Device ms of the first design of the ladder kernel ``kind`` (a key
+    of ``LADDER_AB``) and of the kernel under each rule of ``rules``
+    (``RESIDENT_RULES``', ``PACKET_RULES``' or ``COLUMN_RULES``' form), in
+    turns, on the melt's operands or on ``operands``."""
+    baseline, make_plan, fields, new_name, old_name = LADDER_AB[kind]
+    args = ladder_args(built, state, operands)
+    cap, dims = args[0].shape[1], args[4]
+    runs = {"baseline": (lambda: baseline(*args), old_name)}
+    for rule in rules:
+        plan = make_plan(cap, dims, **dict(zip(fields, rule)))
+        runs[str(rule)] = (
+            lambda plan=plan: variants.ladder_kernel(kind, *args, plan=plan),
+            new_name)
     return in_turns(runs, reps)
+
+
+def candidate_sources(built, state, operands=None, reps: int = 50) -> dict:
+    """Device ms, in turns, of the one warp-per-row body over each source
+    of candidates that takes these operands: none staged (K3b, a cap that
+    is a multiple of 8), one stage per cell (K3a, the same caps), whole
+    column windows by bulk copies (K3d), and column segments (K2, K1's
+    body over the stencil mask), on the melt's operands or on
+    ``operands``."""
+    cells, counts, box, params, dims, uniform = ladder_args(built, state,
+                                                            operands)
+    args = (cells, counts, box, params, dims, uniform)
+    runs = {}
+    if cells.shape[1] % 8 == 0:
+        runs["none (K3b)"] = (
+            lambda: variants.ladder_kernel("resident", *args), K3B_NEW)
+        runs["per cell (K3a)"] = (
+            lambda: variants.ladder_kernel("packet", *args), K3A_NEW)
+    runs["column windows (K3d)"] = (
+        lambda: variants.ladder_kernel("column", *args), K3D_NEW)
+    runs["column segments (K2)"] = (
+        lambda: cell_pair.cell_pair_forces_cell_kernel(
+            *args, built.cfg.all_lj, cell_pair.CH3_ENERGY), K2_NEW)
+    return in_turns(runs, reps)
+
+
+def ladder_main(n_mols: int) -> int:
+    """``--ladder``: K3a's plan sweep on the 10k LJ melt, K3d's on the 10k
+    melt at cap 36 and on the film, then the rules and the sources of
+    candidates in turns."""
+    lj = _warm(testsystems.build_melt, n_mols, 600)
+    k3d = _warm(functools.partial(testsystems.build_melt, cell_cap=36),
+                n_mols, 600)
+    grids = [("k3d cap 36", None), ("k3d film", film_operands(k3d[0]))]
+    for label, (built, state) in (("k3a lj", lj), ("k3d cap 36", k3d)):
+        print(json.dumps({"melt": label, "n": built.cfg.n_particles,
+                          "cell_cap": built.cfg.cell_cap,
+                          "dims": list(built.cfg.cell_dims),
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
+    _print_sweep("k3a lj", ladder_sweep("packet", *lj, PACKET_SWEEP))
+    for label, operands in grids:
+        _sweep_with_depths(
+            label, lambda plans, operands=operands: ladder_sweep(
+                "column", *k3d, plans, operands=operands),
+            COLUMN_SWEEP, COLUMN_DEPTHS)
+    print(json.dumps({"melt": "k3a lj", "rules_in_turns": ladder_rules(
+        "packet", *lj, PACKET_RULES)}), flush=True)
+    for label, operands in grids:
+        print(json.dumps({"melt": label, "rules_in_turns": ladder_rules(
+            "column", *k3d, COLUMN_RULES, operands)}), flush=True)
+    for label, (built, state), operands in (
+            ("lj cap 32", lj, None), ("k3d cap 36", k3d, None),
+            ("k3d film", k3d, grids[1][1])):
+        print(json.dumps({"melt": label, "sources_in_turns":
+                          candidate_sources(built, state, operands)}),
+              flush=True)
+    return 0
 
 
 def k2_main(n_mols: int) -> int:
@@ -568,9 +695,9 @@ def k2_main(n_mols: int) -> int:
         print(json.dumps({"melt": label, "rules_in_turns": k2_rules(
             built, state, K2_RULES, operands)}), flush=True)
     lj = _warm(testsystems.build_melt, n_mols, 600)
-    _print_sweep("k3b lj", resident_sweep(*lj, RESIDENT_SWEEP))
-    print(json.dumps({"melt": "k3b lj", "rules_in_turns": resident_rules(
-        *lj, RESIDENT_RULES)}), flush=True)
+    _print_sweep("k3b lj", ladder_sweep("resident", *lj, RESIDENT_SWEEP))
+    print(json.dumps({"melt": "k3b lj", "rules_in_turns": ladder_rules(
+        "resident", *lj, RESIDENT_RULES)}), flush=True)
     return 0
 
 
@@ -603,16 +730,17 @@ def _print_sweep(label: str, res, **extra):
 
 
 def _sweep_with_depths(label: str, sweep, plans, depths, **extra):
-    """Print ``sweep(plans)``, then ``sweep`` of the fastest plan at each
-    of ``depths``."""
+    """Print ``sweep(plans)``, then ``sweep`` of the fastest plan (the
+    overrides ``plans`` name) at each of ``depths``."""
     res = sweep(plans)
     _print_sweep(label, res, **extra)
     timed = [r for r in res if r[0] is not None and r[1] is not None]
     if timed:
         best = min(timed, key=lambda r: r[1])[0]
+        keys = [k for k in plans[0] if k != "depth"]
         _print_sweep(label, sweep([
-            dict(seg=best.seg, rows=best.rows, threads=best.threads,
-                 depth=d) for d in depths])[1:], **extra)
+            dict({k: getattr(best, k) for k in keys}, depth=d)
+            for d in depths])[1:], **extra)
 
 
 def tab_main(n_mols: int) -> int:
@@ -698,6 +826,8 @@ def main(argv=None) -> int:
         return lj_main(n_mols)
     if "--k2" in flags:
         return k2_main(n_mols)
+    if "--ladder" in flags:
+        return ladder_main(n_mols)
     built, systop, _ = testsystems.build_melt(n_mols=n_mols, reactive=True,
                                               device="cuda")
     cfg = built.cfg

@@ -33,9 +33,13 @@ once) and drives the port's paths at 10k particles:
      column) on the warmed 10k LJ melt: each against its plain version in
      both parameter modes, K3a-K3d against K2 and K1 on the same operands
      (forces bit for bit), K1' against K1, the cancellation check, times
-     and bounds; K3b (a warp per row) against its baseline (8-thread
-     packets, the first design) bit for bit in both parameter modes, with
-     device times in turns; one untimed and one timed reactive block through
+     and bounds (K3d's row on its own path's operands, the cap-36 melt);
+     K3a (a warp per live packet), K3b (a warp per row) and K3d (column
+     windows by bulk copies) against their first designs bit for bit in
+     both parameter modes, with device times in turns (K3a and K3b at 10k,
+     K3d at 10k cap 36 and on the film, bits also on the 2x2x2 melt); the
+     five ladder kernels, K1 and K2 timed in turns on identical operands;
+     one untimed and one timed reactive block through
      ``run_block(pair_kernel=...)`` for "colt1", "packet", "resident" and
      "column" (K3c at cap 32; K3d on the cap-36 melt), each launching its
      kernel exactly once a step and K1 never; then the kernel matrix
@@ -762,7 +766,7 @@ def k2_path(card: str):
     del f_cells, f_counts
     row["launches"], _, _ = run_path(built, systop, state, card,
                                      cell_pair.K2, "K2 main path", 1)
-    return row, (built, systop, state)
+    return row, (built, systop, state), (small, None, st_s)
 
 
 # ---- NPT (pressure pass K1b, barostats) --------------------------------------
@@ -861,24 +865,26 @@ LADDER_SOURCE = "chemlab_tpu_torch/csrc/cell_pair_ladder.cu"
 LADDER_ROWS = {
     "K1p": ("K1p ladder_colt1 (colt1: per-column partial sums)", "colt1",
             "chemlab_tpu/engine/pallas_pair_variants.py:617", "colt1"),
-    "K3a": ("K3a ladder_packet (cell x 8-row packet)", "packet",
+    "K3a": ("K3a ladder_packet (a warp per live 8-row packet, one stage "
+            "per cell)", "packet",
             "chemlab_tpu/engine/pallas_pair_variants.py:23", "packet"),
     "K3b": ("K3b ladder_resident (a warp per row, nothing staged)",
             "resident",
             "chemlab_tpu/engine/pallas_pair_variants.py:131", "resident"),
     "K3c": ("K3c ladder_colz (one block per xy column)", "colz",
             "chemlab_tpu/engine/pallas_pair_variants.py:510", "column"),
-    "K3d": ("K3d ladder_column (one block per cell, by column)", "column",
+    "K3d": ("K3d ladder_column (column windows by bulk copies, a warp per "
+            "row)", "column",
             "chemlab_tpu/engine/pallas_pair_variants.py:420", "column"),
 }
 
 
-def check_ladder(built, state, key: str):
+def check_ladder(built, state, key: str, timed: bool = True):
     """One ladder kernel on ``state``'s operands: against its plain version
     in both parameter modes (K1' in both of its channels); K3a-K3d against
-    K2 and K1 on the same operands (bit for bit), K1' against K1 (to f32
-    rounding); then its time, its plain version's and its bound.  Returns
-    its row (launches filled in later)."""
+    K2 and, on operands K1 takes, K1 (bit for bit), K1' against K1 (to f32
+    rounding); then, when ``timed``, its time, its plain version's and its
+    bound.  Returns its row (launches filled in later), or None untimed."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
@@ -888,6 +894,7 @@ def check_ladder(built, state, key: str):
     name, kind, replaces, _ = LADDER_ROWS[key]
     cells, counts = _cells(built, state)
     dims = cfg.cell_dims
+    colt2 = cell_pair.colt_legal(cfg.cell_cap, dims)
     worst = 0.0
     for uniform in (True, False):
         params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
@@ -901,8 +908,9 @@ def check_ladder(built, state, key: str):
             args = (cells, counts, state.box, params, dims, uniform, mode)
             got = variants.ladder_kernel(kind, *args)
             ref = variants.ladder_ref(kind, *args)
-            k1 = cell_pair.cell_pair_forces_colt_kernel(
+            k1 = (cell_pair.cell_pair_forces_colt_kernel(
                 cells, counts, state.box, params, dims, uniform, False, mode)
+                  if colt2 else k2[0])
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             tol = max(_tol(ref[..., :3]), _tol(ref[..., 3:]))
@@ -926,12 +934,15 @@ def check_ladder(built, state, key: str):
             d_1 = (got[..., :3] - k1[..., :3]).abs().max().item()
             same = (torch.equal(got[..., :3], k2[0][..., :3])
                     and torch.equal(got[..., :3], k1[..., :3]))
-            print("%s; vs K2 max|dF| %.3e max|de| %.3e max|dw| %.3e, vs K1 "
+            print("%s; vs K2 max|dF| %.3e max|de| %.3e max|dw| %.3e, vs %s "
                   "max|dF| %.3e; forces bitwise %s"
-                  % (line, d_f, d_e, d_w, d_1, same))
+                  % (line, d_f, d_e, d_w, "K1" if colt2 else "K2 (no K1 "
+                     "at this cap)", d_1, same))
             if not (same and d_e <= _tol(k2[0][..., 3])
                     and d_w <= _tol(k2[1][..., 3])):
                 raise AssertionError("%s differs from K2/K1" % key)
+    if not timed:
+        return None
     params = cell_pair.pair_params(spec, cfg.n_types)
     args = (cells, counts, state.box, params, dims, cfg.uniform_lj,
             cell_pair.CH3_ENERGY)
@@ -968,7 +979,7 @@ def ladder_ab(built, state):
     their energy mode, K3a-K3d filling both channels."""
     from chemlab_tpu_torch.engine import cell_pair
     from chemlab_tpu_torch.engine import cell_pair_variants as variants
-    from chemlab_tpu_torch.kernel_matrix import K2_NEW
+    from chemlab_tpu_torch.kernel_matrix import K2_NEW, LADDER_KERNEL_NAMES
 
     cfg = built.cfg
     cells, counts = _cells(built, state)
@@ -983,7 +994,7 @@ def ladder_ab(built, state):
             lambda: cell_pair.cell_pair_forces_cell_kernel(
                 *args, cfg.all_lj, mode))]
     for key, (_, kind, _, _) in LADDER_ROWS.items():
-        fns.append((key, "ladder_%s_kernel" % kind,
+        fns.append((key, LADDER_KERNEL_NAMES[kind],
                     lambda kind=kind: variants.ladder_kernel(kind, *args,
                                                              mode)))
     out = {key: [] for key, _, _ in fns}
@@ -994,68 +1005,120 @@ def ladder_ab(built, state):
     return out
 
 
-def resident_ab(built, state) -> dict:
-    """K3b (a warp per row) against its baseline (8-thread packets) on
-    ``state``'s operands: bit for bit in both parameter modes (both
-    channels); then device time by the profiler, 50 calls each in turns
-    (new, baseline, baseline, new).  Returns the row's numbers."""
+def baseline_ab(key: str, label: str, new, old, new_name: str,
+                old_name: str, cells, counts, box, dims, spec, n_types: int,
+                uniform_lj: bool, timed: bool = True) -> dict:
+    """A redesigned ladder kernel (``new``) against its first design
+    (``old``), functions of (cells, counts, box, params, dims, uniform), on
+    these operands: bit for bit in both parameter modes (both channels);
+    then, when ``timed``, device time by the profiler, 50 calls each in
+    turns (new, baseline, baseline, new).  Returns the numbers."""
     import torch
 
     from chemlab_tpu_torch.engine import cell_pair
-    from chemlab_tpu_torch.engine import cell_pair_variants as variants
-    from chemlab_tpu_torch.kernel_matrix import K3B_NEW, K3B_OLD
 
-    cfg, spec = built.cfg, built.spec
-    cells, counts = _cells(built, state)
-    dims = cfg.cell_dims
-    print("K3b launch plan at cap %d: %s"
-          % (cfg.cell_cap, variants.resident_launch_plan(cfg.cell_cap)))
     for uniform in (True, False):
-        params = (cell_pair.pair_params(spec, cfg.n_types) if uniform
-                  else mixed_params(spec, cfg.n_types, True))
-        args = (cells, counts, state.box, params, dims, uniform)
-        a = variants.ladder_kernel("resident", *args)
-        b = variants.resident_packet_kernel(*args)
+        params = (cell_pair.pair_params(spec, n_types) if uniform
+                  else mixed_params(spec, n_types, True))
+        args = (cells, counts, box, params, dims, uniform)
+        a, b = new(*args), old(*args)
         torch.cuda.synchronize()
-        print("K3b new vs baseline at %s x cap %d uniform=%d (both channels) "
-              "max|diff| %.3e, bitwise %s"
-              % (dims, cfg.cell_cap, uniform, (a - b).abs().max().item(),
-                 torch.equal(a, b)))
+        print("%s new vs baseline %s uniform=%d (both channels) max|diff| "
+              "%.3e, bitwise %s" % (key, label, uniform,
+                                    (a - b).abs().max().item(),
+                                    torch.equal(a, b)))
         if not torch.equal(a, b):
-            raise AssertionError("K3b: the warp-per-row kernel differs from "
-                                 "the baseline")
-    args = (cells, counts, state.box,
-            cell_pair.pair_params(spec, cfg.n_types), dims, cfg.uniform_lj)
+            raise AssertionError("%s: the new kernel differs from its "
+                                 "baseline %s" % (key, label))
+    if not timed:
+        return {}
+    args = (cells, counts, box, cell_pair.pair_params(spec, n_types), dims,
+            uniform_lj)
     t = [_device_ms(lambda fn=fn: fn(*args), 50, name)
-         for fn, name in (
-             (lambda *a: variants.ladder_kernel("resident", *a), K3B_NEW),
-             (variants.resident_packet_kernel, K3B_OLD),
-             (variants.resident_packet_kernel, K3B_OLD),
-             (lambda *a: variants.ladder_kernel("resident", *a), K3B_NEW))]
+         for fn, name in ((new, new_name), (old, old_name), (old, old_name),
+                          (new, new_name))]
     if None in t:
-        raise AssertionError("K3b: the profiler did not time both kernels")
-    print("K3b at %s x cap %d device time by the profiler, in turns: new "
-          "%.6f / %.6f ms, baseline %.6f / %.6f ms"
-          % (dims, cfg.cell_cap, t[0], t[3], t[1], t[2]))
+        raise AssertionError("%s: the profiler did not time both kernels"
+                             % key)
+    print("%s %s device time by the profiler, in turns: new %.6f / %.6f "
+          "ms, baseline %.6f / %.6f ms" % (key, label, t[0], t[3], t[1],
+                                           t[2]))
     return {"device_ms": (t[0] + t[3]) / 2,
             "device_ms_before": (t[1] + t[2]) / 2,
-            "ms_before": _time_ms(
-                lambda: variants.resident_packet_kernel(*args), 50)}
+            "ms_before": _time_ms(lambda: old(*args), 50)}
 
 
-def ladder_path(card: str, lj, cap36):
+def ladder_abs(lj, cap36, small) -> dict:
+    """K3a, K3b and K3d against their first designs: K3a and K3b on the 10k
+    LJ melt (cap 32), K3d on the 10k melt at cap 36 (its path), the 2x2x2
+    melt (bits only) and the film.  Returns each row's numbers."""
+    from chemlab_tpu_torch import kernel_matrix as km
+    from chemlab_tpu_torch.engine import cell_pair_variants as variants
+
+    out = {}
+    for key, kind, old, names in (
+            ("K3a", "packet", variants.packet_baseline_kernel,
+             (km.K3A_NEW, km.K3A_OLD)),
+            ("K3b", "resident", variants.resident_packet_kernel,
+             (km.K3B_NEW, km.K3B_OLD))):
+        built, _, state = lj
+        cfg = built.cfg
+        print("%s launch plan at cap %d: %s" % (
+            key, cfg.cell_cap,
+            variants.packet_launch_plan(cfg.cell_cap) if kind == "packet"
+            else variants.resident_launch_plan(cfg.cell_cap)))
+        out[key] = baseline_ab(
+            key, "at %s x cap %d" % (cfg.cell_dims, cfg.cell_cap),
+            lambda *a, kind=kind: variants.ladder_kernel(kind, *a), old,
+            *names, *_cells(built, state), state.box, cfg.cell_dims,
+            built.spec, cfg.n_types, cfg.uniform_lj)
+
+    def new(*a):
+        return variants.ladder_kernel("column", *a)
+
+    built = cap36[0]
+    f_cells, f_counts, f_box, f_dims = km.film_operands(built)
+    for label, (b, _, st), operands in (
+            ("cap36", cap36, None), ("small", small, None),
+            ("film", cap36, (f_cells, f_counts, f_box, f_dims))):
+        cfg = b.cfg
+        if operands is None:
+            operands = (*_cells(b, st), st.box, cfg.cell_dims)
+        cells, dims = operands[0], operands[3]
+        print("K3d launch plan at %s x cap %d: %s" % (
+            dims, cells.shape[1],
+            variants.column_launch_plan(cells.shape[1], dims)))
+        nums = baseline_ab("K3d", "at %s x cap %d" % (dims, cells.shape[1]),
+                           new, variants.column_baseline_kernel, km.K3D_NEW,
+                           km.K3D_OLD, *operands,
+                           b.spec, cfg.n_types, cfg.uniform_lj,
+                           timed=label != "small")
+        if label == "cap36":
+            out["K3d"] = nums
+        elif label == "film":
+            out["K3d"]["film"] = nums
+    return out
+
+
+def ladder_path(card: str, lj, cap36, small):
     """The ladder on the warmed 10k LJ melt (cap 32) and the cap-36 melt:
-    each kernel against plain, K2 and K1, the cancellation, a reactive
-    block per choice (``run_block(pair_kernel=...)``: "column" takes K3c
-    at cap 32 and K3d at cap 36), then the kernel matrix."""
+    each kernel against plain, K2 and K1 (K3d also on its own cap-36
+    operands, which give its row), K3a, K3b and K3d against their first
+    designs (K3d also on the 2x2x2 melt and the film), the cancellation, a
+    reactive block per choice (``run_block(pair_kernel=...)``: "column"
+    takes K3c at cap 32 and K3d at cap 36), then the kernel matrix."""
     import torch
 
     from chemlab_tpu_torch import kernel_matrix
     from chemlab_tpu_torch.engine import cell_pair
 
     built, systop, state = lj
-    rows = {key: check_ladder(built, state, key) for key in LADDER_ROWS}
-    rows["K3b"].update(resident_ab(built, state))
+    # K3d's bits against K1 on the cap-32 melt; its row from its own path
+    rows = {key: check_ladder(built, state, key, timed=key != "K3d")
+            for key in LADDER_ROWS}
+    rows["K3d"] = check_ladder(cap36[0], cap36[2], "K3d")
+    for key, nums in ladder_abs(lj, cap36, small).items():
+        rows[key].update(nums)
     ladder_ab(built, state)
     for key in LADDER_ROWS:
         check_cancellation(built, state, ladder=LADDER_ROWS[key][1])
@@ -1735,9 +1798,9 @@ def main() -> int:
           % (len({k.source for k in cell_pair.KERNELS}), build_s))
 
     lj_row, lj = lj_path(card)
-    k2_row, cap36 = k2_path(card)
+    k2_row, cap36, small = k2_path(card)
     rows = [lj_row, k2_row]
-    ladder_rows, km = ladder_path(card, lj, cap36)
+    ladder_rows, km = ladder_path(card, lj, cap36, small)
     rows += ladder_rows
     npt_row, npt_pps = npt_path(card)
     rows.append(npt_row)

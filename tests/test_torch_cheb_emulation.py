@@ -39,6 +39,7 @@ RUNTIME = r"""
 #include <cstddef>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <vector>
 using std::max;
 using std::min;
@@ -119,6 +120,7 @@ inline unsigned __ballot_sync(unsigned, int p) {
   return m;
 }
 inline int __popc(unsigned m) { return __builtin_popcount(m); }
+inline int __ffs(unsigned m) { return __builtin_ffs(m); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 const int cudaSuccess = 0, cudaErrorInvalidValue = 1;
@@ -131,6 +133,48 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
+// give the other fibers a turn (a spin-wait's step)
+inline void emu_yield() {
+  emu_fibers[emu_cur].wait_on = nullptr;
+  swapcontext(&emu_fibers[emu_cur].ctx, &emu_main);
+}
+// cell_pair_bulk.cuh: a bulk copy done at once; an mbarrier's phase
+// completes when its arrivals are in and no byte is outstanding, and a
+// wait yields until then
+struct emu_mbar {
+  int arrivals = 0, count = 0;
+  long tx = 0;
+  unsigned phase = 0;
+};
+inline std::map<const void*, emu_mbar> emu_mbars;
+namespace bulk {
+inline void emu_settle(emu_mbar& m) {
+  if (m.arrivals == 0 && m.tx == 0) {
+    ++m.phase;
+    m.arrivals = m.count;
+  }
+}
+inline void mbar_init(unsigned long long* bar, unsigned arrivals) {
+  emu_mbars[bar] = emu_mbar{int(arrivals), int(arrivals), 0, 0};
+}
+inline void fence_mbar_init() {}
+inline void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  emu_mbar& m = emu_mbars.at(bar);
+  m.tx += bytes;
+  --m.arrivals;
+  emu_settle(m);
+}
+inline void copy(void* dst, const void* src, unsigned bytes,
+                 unsigned long long* bar) {
+  std::memcpy(dst, src, bytes);
+  emu_mbar& m = emu_mbars.at(bar);
+  m.tx -= bytes;
+  emu_settle(m);
+}
+inline void mbar_wait(unsigned long long* bar, unsigned parity) {
+  while ((emu_mbars.at(bar).phase & 1u) == parity) emu_yield();
+}
+}  // namespace bulk
 inline float __int_as_float(int v) {
   float f;
   std::memcpy(&f, &v, 4);
@@ -192,11 +236,14 @@ void emu_launch(dim3 grid, dim3 block, size_t shmem, cudaStream_t, K kernel,
 
 
 def _host_source(text: str) -> str:
-    """The CUDA source with the runtime stand-in: its header, the dynamic
-    shared array, and each ``k<<<grid, block, shmem, stream>>>(args)`` as
-    ``emu_launch(grid, block, shmem, stream, k, args)``."""
+    """The CUDA source with the runtime stand-in: its header (which also
+    stands in for ``cuda_pipeline.h`` and ``cell_pair_bulk.cuh``), the
+    dynamic shared array, and each ``k<<<grid, block, shmem,
+    stream>>>(args)`` as ``emu_launch(grid, block, shmem, stream, k,
+    args)``."""
     text = text.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     text = text.replace("#include <cuda_pipeline.h>\n", "")
+    text = text.replace('#include "cell_pair_bulk.cuh"\n', "")
     text = text.replace("extern __shared__ float4 smem[];",
                         "float4* smem = emu_smem;")
     return re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(",

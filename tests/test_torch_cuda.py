@@ -1263,3 +1263,154 @@ def test_cuda_resident_equals_baseline_at_the_100k_grid():
     with pytest.raises(RuntimeError, match="launch failed"):
         variants.ladder_kernel("resident", *dev, dims, False,
                                plan=plan._replace(smem=plan.smem + 20))
+
+
+# ---- K3a's and K3d's redesigns against their first designs ------------------
+
+def _ladder_same_bits(kind, cells, counts, box, params, dims, plans=({},)):
+    """In both parameter modes: the first design of ``kind`` ("packet" K3a
+    or "column" K3d) against the cellwise K2 (both channels), and the new
+    kernel under each plan (dicts of its ``*_launch_plan``'s overrides)
+    against the first design, each launch counted once."""
+    old_fn = {"packet": variants.packet_baseline_kernel,
+              "column": variants.column_baseline_kernel}[kind]
+    old_k = {"packet": cell_pair.K3A_CELLWISE,
+             "column": cell_pair.K3D_CELLWISE}[kind]
+    new_k = variants.KERNEL_OF[kind]
+    dev = [t.cuda() for t in (cells, counts, box, params)]
+    cap = cells.shape[1]
+    for uniform in (True, False):
+        o0 = old_k.launches
+        old = old_fn(*dev, dims, uniform)
+        k2_e = cell_pair.cell_pair_forces_cell_cellwise(
+            *dev, dims, uniform, False, cell_pair.CH3_ENERGY)
+        k2_w = cell_pair.cell_pair_forces_cell_cellwise(
+            *dev, dims, uniform, False, cell_pair.CH3_VIRIAL)
+        torch.cuda.synchronize()
+        assert old_k.launches == o0 + 1
+        assert torch.equal(old[..., :4], k2_e) and torch.equal(
+            old[..., 4], k2_w[..., 3])
+        for kw in plans:
+            plan = (variants.packet_launch_plan(cap, **kw) if kind == "packet"
+                    else variants.column_launch_plan(cap, dims, **kw))
+            n0 = new_k.launches
+            new = variants.ladder_kernel(kind, *dev, dims, uniform,
+                                         plan=plan)
+            torch.cuda.synchronize()
+            assert new_k.launches == n0 + 1
+            assert torch.equal(new, old), (kind, uniform, plan)
+
+
+@pytest.mark.cuda
+def test_cuda_packet_equals_baseline_on_the_melt(melt32):
+    """The 70-trimer melt at cap 32, the melt's parameters and per-pair
+    ones: the same bits as K3a's first design (and K2) under the default
+    plan, one warp a block, and lists of one pass."""
+    built, _, st = melt32
+    cfg = built.cfg
+    for spec in (built.spec, _mixed(built.spec, cfg.n_types, True)):
+        _ladder_same_bits("packet", *_melt_ops(built, st, spec),
+                          cfg.cell_dims,
+                          plans=({}, dict(threads=32, depth=1),
+                                 dict(threads=128, depth=2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((2, 3, 4), 16), ((3, 4, 2), 40),
+                                      ((2, 2, 2), 24)])
+def test_cuda_packet_equals_baseline_on_ragged_grids(dims, cap):
+    """Random occupancy (cells filled past one packet) on grids with an
+    axis of 2 at caps that are multiples of 8: the same bits as the first
+    design and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    _ladder_same_bits("packet", *_random_cells(dims, cap, cap), dims,
+                      plans=({}, dict(threads=32, depth=1),
+                             dict(threads=96, depth=2)))
+
+
+@pytest.mark.cuda
+def test_cuda_packet_equals_baseline_at_the_100k_grid():
+    """24^3 cells at cap 40 and 48: the same bits as the first design and
+    K2; a plan above 227 KiB raises naming K3a with its size, and the
+    launcher refuses a plan whose bytes are not its layout's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims = (24, 24, 24)
+    for cap in (40, 48):
+        _ladder_same_bits("packet", *_random_cells(dims, cap, 7, fill=12),
+                          dims, plans=({}, dict(threads=128, depth=2)))
+    with pytest.raises(ValueError, match="K3a: shared memory"):
+        variants.packet_launch_plan(48, threads=1024, depth=12)
+    dev = [t.cuda() for t in _random_cells(dims, 40, 7, fill=12)]
+    plan = variants.packet_launch_plan(40)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        variants.ladder_kernel("packet", *dev, dims, False,
+                               plan=plan._replace(smem=plan.smem + 20))
+
+
+@pytest.mark.cuda
+def test_cuda_column_equals_baseline_on_the_melts(melt32, k2_melts):
+    """The 70-trimer melt at cap 32 and the K2 melts (cap 36 and the 2x2x2
+    grid), the melt's parameters and per-pair ones: the same bits as K3d's
+    first design (and K2) under the default plan, batches of 1 and 32
+    slots, and lists of one pass."""
+    melts = [melt32[0::2]] + [(b, s) for b, _, s in k2_melts.values()]
+    for built, st in melts:
+        cfg = built.cfg
+        for spec in (built.spec, _mixed(built.spec, cfg.n_types, True)):
+            _ladder_same_bits("column", *_melt_ops(built, st, spec),
+                              cfg.cell_dims,
+                              plans=({}, dict(rows=1, threads=32, depth=1),
+                                     dict(rows=32, threads=256, depth=2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 4, 5), 16), ((3, 2, 4), 20),
+                                      ((4, 3, 1), 13), ((2, 2, 2), 36)])
+def test_cuda_column_equals_baseline_on_ragged_grids(dims, cap):
+    """Random occupancy on grids with axes of 2 and 1 (a window of 2 cells,
+    or 1) at any cap: the same bits as the first design and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    _ladder_same_bits("column", *_random_cells(dims, cap, cap), dims,
+                      plans=({}, dict(rows=3, threads=96, depth=1)))
+
+
+@pytest.mark.cuda
+def test_cuda_column_equals_baseline_on_the_film():
+    """The film (32 x 32 x 2 cells, ~13.5k particles, S = 18, windows of 2
+    cells) with the melt's parameters and per-pair ones: the same bits as
+    the first design and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    from chemlab_tpu_torch import kernel_matrix
+
+    built, _, _ = testsystems.build_melt(n_mols=70, device="cuda")
+    cells, counts, box, dims = kernel_matrix.film_operands(built)
+    for spec in (built.spec, _mixed(built.spec.to("cpu"), built.cfg.n_types,
+                                    True)):
+        _ladder_same_bits("column", cells, counts, box,
+                          cell_pair.pair_params(spec, built.cfg.n_types),
+                          dims)
+
+
+@pytest.mark.cuda
+def test_cuda_column_equals_baseline_at_the_100k_grid():
+    """24^3 cells at cap 40 and 48: the same bits as the first design and
+    K2; a plan above 227 KiB raises naming K3d with its size, and the
+    launcher refuses a plan whose bytes are not its layout's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims = (24, 24, 24)
+    for cap in (40, 48):
+        _ladder_same_bits("column", *_random_cells(dims, cap, 7, fill=12),
+                          dims, plans=({}, dict(rows=8, threads=256,
+                                                depth=2)))
+    with pytest.raises(ValueError, match="K3d: shared memory"):
+        variants.column_launch_plan(48, dims, threads=1024, depth=12)
+    dev = [t.cuda() for t in _random_cells(dims, 40, 7, fill=12)]
+    plan = variants.column_launch_plan(40, dims)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        variants.ladder_kernel("column", *dev, dims, False,
+                               plan=plan._replace(smem=plan.smem + 20))

@@ -153,6 +153,25 @@ def test_kernel_source_rounds_half_to_even():
                                   np.round(x))
 
 
+def test_every_header_is_in_the_source_scan():
+    """The ladder's source reaches both headers it includes (the bulk-copy
+    helpers and the packed layout), so they are hashed into its library's
+    name and scanned: no FMA written out (``--fmad=false`` keeps a*b + c
+    two roundings), no rsqrtf or __fdividef, and PTX only in the bulk-copy
+    header's named helpers."""
+    files = _kernels.source_files(cell_pair.K3A.source)
+    assert {f.name for f in files} == {"cell_pair_ladder.cu",
+                                       "cell_pair_bulk.cuh",
+                                       "cell_pair_packed.cuh"}
+    for k in cell_pair.KERNELS:
+        for f in _kernels.source_files(k.source):
+            src = f.read_text()
+            for bad in ("fmaf(", "__fma", "rsqrtf(", "__fdividef",
+                        "roundf("):
+                assert bad not in src, (f.name, bad)
+            assert ("asm volatile" in src) == (f.name == "cell_pair_bulk.cuh")
+
+
 def _tiny_operands(device="cpu"):
     rng = np.random.RandomState(0)
     dims = (3, 3, 3)

@@ -1,7 +1,8 @@
 // Hopper's bulk copy (the Tensor Memory Accelerator's non-tensor form) and
 // the shared-memory mbarrier it reports to: the few PTX operations with
-// which cell_pair_ladder.cu's K3d stages its column windows, each in a
-// small named function so that nothing else holds PTX.  A copy moves a
+// which cell_pair_ladder.cu's K3c and K3d stage their whole columns and
+// column windows, each in a small named function so that nothing else
+// holds PTX.  A copy moves a
 // contiguous run of bytes from global to shared memory without the threads
 // (both addresses and the size multiples of 16 bytes) and, when its bytes
 // have landed, takes them off the barrier's expected count; the barrier's

@@ -15,6 +15,9 @@
 //                          memory, which sits in L2)
 //   K3c ladder_colz     <- _colz_kernel (:510): one program per xy column,
 //                          all nz cells, packets gated on each cell's fill
+//                          (here: a block per xy column, its neighbour
+//                          columns staged whole by the bulk copy engine, a
+//                          warp per batch of rows)
 //   K3d ladder_column   <- _column_kernel (:420): grid (xy column, z), the
 //                          per-cell (cap, S*cap) tile read from whole
 //                          z-columns (here: each neighbour column's window
@@ -22,7 +25,9 @@
 //   K1' ladder_colt1    <- _colt_kernel (:617), reached through
 //                          pallas_pair.cell_pair_forces_colt(impl="colt"):
 //                          one program per xy column over the 9 haloed
-//                          z-columns, per-column partial sums
+//                          z-columns, per-column partial sums (here: K1's
+//                          column-segment body, cell_pair_packed.cuh's
+//                          lj_rows, under its per-column sum policy)
 //
 // Operand (all five): the port's (C, cap, 4) [x, y, z, type+1 | 0] rows and
 // the (C,) int32 occupancy (cell_pair.colt_operands), not the reference's
@@ -35,13 +40,14 @@
 // The per-pair f32 op sequence is K2's (cell_pair_cell.cu): minimum image
 // with rintf (half to even, as jnp.round), r2 summed x, y, z, the self-pair
 // drop at r2 > 1e-12, the 0.75-sigma soft core, and the accumulation f*d, e
-// and f*r2s.  The first designs and K3c and K1' take it from pair_term; the
-// warp-per-row body warp_rows (K3a, K3b, K3d) splits it into the filter up
-// to the cut and lj_terms over the filtered list, the same operations.  So
+// and f*r2s.  The first designs take it from pair_term; the warp-per-row
+// body warp_rows (K3a, K3b, K3c, K3d) splits it into the filter up to the
+// cut and lj_terms over the filtered list, the same operations.  So
 // each keeps the cancellation contract with the torch correction
 // (cell_pair._pair_eval), which subtracts the excluded pairs with the same
 // sequence; this file is compiled like the other sources with --fmad=false,
-// without fast math, IEEE division and sqrtf.
+// without fast math, IEEE division and sqrtf.  K1' runs K1's body and its
+// LJ term (lj_force), the same operations again.
 //
 // Summation order.  K3a-K3d sum each slot in K2's order: the deduplicated
 // stencil of neighbor.neighbor_cell_offsets in order, then slot order within
@@ -52,21 +58,22 @@
 // column's three cells z-1, z, z+1, added to the running total after each
 // column, and half of each column's energy or virial added to ch3; it
 // agrees with K1 to f32 rounding, not bitwise, as colt1 does with colt2.
+// Each redesigned kernel equals its first design bit for bit.
 //
 // Outputs.  K3a-K3d write both channels in one pass and ignore the
 // energy/virial choice (as the reference's variants do): 8 floats per slot,
 // [fx, fy, fz, e/2, w/2, 0, 0, 0], the layout of the reference's _colz_kernel
 // output; the wrapper gathers the forces through slot_of and sums e and w.
 // K1' writes K1's (C, cap, 4) [fx, fy, fz, ch3] with ch3 = e/2 (ch3_mode 1)
-// or w/2 (ch3_mode 2).  No atomics: each thread owns its output rows, so
-// every launch gives the same bits.
+// or w/2 (ch3_mode 2).  No atomics: each output row is written by one
+// thread, so every launch gives the same bits.
 //
 // Layouts of each block, and what bounds them on an H100.  At 10k (11^3
 // cells, cap 32, ~7.5 particles a cell) the operands are ~0.68 MB and stay
 // in the 50 MB L2; the work is ~S*7.5 candidates per live slot at ~30 f32
 // operations each, so every kernel here is bound by its dependent chain and
 // by how many lanes do work, not by bytes.
-//   warp_rows, the body of K3a, K3b and K3d: a warp takes a batch of rows
+//   warp_rows, the body of K3a, K3b, K3c and K3d: a warp takes a batch of rows
 //        of one cell; lanes o < S hold stencil entry o's first row in the
 //        candidates' array (global memory for K3b, the block's stage for
 //        K3a and K3d) and its fill; each live row in turn takes the whole
@@ -78,7 +85,8 @@
 //        candidate k lies is each kernel's own: K3b searches the lanes'
 //        prefix (as cell_pair_packed.cuh's cand_row finds a stage row, ~7
 //        dependent shuffles a pass), K3a's packed stage holds it at row k,
-//        K3d reads it from a table the block writes once.
+//        K3d reads it from a table the block writes once, K3c from a table
+//        each warp writes once per cell.
 //   K3a: one block per cell of W warps (packet_launch_plan); the block
 //        stages the occupied rows of its S neighbour cells once, packed
 //        cell after cell in stencil order (cp.async, every copy in flight
@@ -99,10 +107,23 @@
 //        per cell and 8-row packet, each thread walking its row's S cells
 //        alone, at most 256 of an SM's 2048 thread slots filled), stays as
 //        the baseline it is held and timed against; no step reaches it.
-//   K3c: one block per xy column, blockDim (cap rounded to a warp, zpar);
-//        the block stages the U <= 9 distinct xy-neighbour z-columns once
-//        (U*nz*cap*16 B) and its threads loop over the nz cells, zpar at a
-//        time; a slot computes only when its 8-row packet is live.
+//   K3c: one block per xy column (nx*ny blocks: 121 at 10k, one on each
+//        of 121 of the 132 SMs), W warps (colz_launch_plan).  The U <= 9
+//        distinct neighbour columns of the deduplicated stencil are each
+//        one contiguous run of nz*cap rows of `cells`, so the block stages
+//        each whole (padding included) with one bulk copy against one
+//        mbarrier, every cell exactly once; the live batches of rows_w rows
+//        (z-major) are cut into W equal runs, a run a warp; for its current
+//        cell z, lane o < S holds stencil entry o's first stage row (its
+//        column's cell (z + dz_o) mod nz: a window wraps by index, with no
+//        second copy) and fill, the warp writes each candidate's stage row
+//        into its 16-bit table once per z, and warp_rows takes the batch.
+//        (The search over the lanes' prefix in place of the table was
+//        built and measured too: it lost by 16-20 %, PERF.md.)  Its first
+//        design, ladder_colz_cellwise (blockDim (cap rounded to a warp,
+//        zpar), a thread per slot walking its row's S cells alone, the
+//        stage copied element by element), stays as the baseline it is
+//        held and timed against; no step reaches it.
 //   K3d: one block per cell, grid (nz, nx*ny) so that consecutive blocks
 //        are the z-neighbours of one column and share its rows in L2.  The
 //        stencil visits each neighbour column's window (its distinct cells
@@ -119,25 +140,41 @@
 //        Its first design, ladder_column_cellwise (one thread per slot,
 //        each walking all S cells alone), stays as the baseline it is held
 //        and timed against; no step reaches it.
-//   K1': one block per xy column, blockDim (cap rounded to a warp, zpar);
-//        the 9 haloed z-columns ((nz+2)*cap rows each: cell nz-1, the
-//        column, cell 0) are staged once, then the threads loop over z and
-//        packets as in K3c.
+//   K1': K1's column-segment kernel (cell_pair_packed.cuh's lj_rows: a
+//        block per xy column and z segment, the 9 neighbour z-columns
+//        staged once, a warp per row, a ballot filter into the warp's
+//        list, the terms over the list) under its kColumns sum policy:
+//        each list entry keeps its xy column in a byte, and lane r sums
+//        each column's terms apart and folds them in at the column's end,
+//        colt1's grouping (colt1_launch_plan; the grouping does not depend
+//        on the segment).  Its first design, ladder_colt1_cellwise (one
+//        block per xy column, blockDim (cap rounded to a warp, zpar), the
+//        9 haloed z-columns of (nz+2)*cap rows staged element by element,
+//        a thread per slot walking the 9 columns' windows alone), stays as
+//        the baseline it is held and timed against; no step reaches it.
 // Shared memory (dynamic, bytes; lists 20*threads*depth): K3a 16*27*cap +
-// lists; K3b lists; K3d 20*S*cap + lists (the stage and its table); the
-// first designs of K3a and K3d 16*S*cap + 20*T*T + 4*S, K3b's none; K3c
-// 16*U*nz*cap + 20*T*T + 4*U*(nz+1); K1' 16*9*(nz+2)*cap + 20*T*T +
-// 4*9*(nz+3).  The melt has T = 7 types.  At 10k (11^3 cells, S = 27, U =
-// 9, cap 32) under the default plans: K3a 24 064, K3d 39 920 at cap 36,
-// K3c 52 100, K1' 61 388.  At the 100k melt (24^3 cells, cap 40, or 48
-// after a capacity regrowth): K3a 27 520 (30 976), K3d 42 080 (46 400),
-// K3c 140 120 (167 768), K1' 151 712 (181 664); all within the 232 448
+// lists; K3b lists; K3c 16*U*nz*cap + lists + 4*U*nz + 2*(threads/32)*S*cap
+// (the stage, the counts and the warps' tables); K3d 20*S*cap + lists (the
+// stage and its table); K1' K1's layout (cell_pair.cu) + threads*depth
+// (the entries' columns); the first designs of K3a and K3d 16*S*cap +
+// 20*T*T + 4*S, K3b's none, K3c's 16*U*nz*cap + 20*T*T + 4*U*(nz+1), K1''s
+// 16*9*(nz+2)*cap + 20*T*T + 4*9*(nz+3).  The melt has T = 7 types.  At
+// 10k (11^3 cells, S = 27, U = 9, cap 32) under the default plans: K3a
+// 24 064, K3c 171 148 (896 threads; its stage 50 688), K3d 39 920 at cap
+// 36, K1' 48 188 (segments of 4; 82 712 at a segment of nz); the first
+// designs of K3c and K1' 52 100 and 61 388.  At the 100k melt (24^3 cells,
+// cap 40, or 48 after a capacity regrowth): K3a 27 520 (30 976), K3c
+// 228 784 at 608 threads (228 576 at 384: the stage of 138 240, 165 888
+// bytes leaves room for fewer warps), K3d 42 080 (46 400), K1' 55 100
+// (62 012; 176 780, 206 732 at a segment of nz); the first designs of K3c
+// and K1' 140 120 (167 768) and 151 712 (181 664); all within the 232 448
 // (227 KiB) a block may opt in to.  Above 48 KiB the launch opts in with
 // cudaFuncSetAttribute; the wrapper raises above 227 KiB with the size.
 //
 // Arguments (one signature for the five entry points and the first
-// designs; K3a takes its plan after it: threads, depth, smem_bytes; K3b
-// and K3d rows_w, threads, depth, smem_bytes):
+// designs; each of the five takes its plan after it: K3a threads, depth,
+// smem_bytes; K3b, K3c and K3d rows_w, threads, depth, smem_bytes; K1' seg,
+// rows_w, threads, depth, smem_bytes):
 //   cells  (C, cap, 4) float32, counts (C,) int32, box (3,) float32,
 //   params (5, T, T) float32,
 //   table  int32 (2U + 2S,): the U distinct (dx, dy) xy columns of the
@@ -147,6 +184,8 @@
 //   out    (C, cap, 8) float32 for K3a-K3d, (C, cap, 4) for K1'.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "cell_pair_bulk.cuh"
 #include "cell_pair_packed.cuh"
@@ -367,11 +406,12 @@ struct PackedRows {
     return k;
   }
 };
+template <class T>
 struct TableRows {
-  const int* tab;
+  const T* tab;
   __device__ __forceinline__ int operator()(const packed::RowCands& rc,
                                             int k) const {
-    return k < rc.total ? tab[k] : 0;
+    return k < rc.total ? static_cast<int>(tab[k]) : 0;
   }
 };
 
@@ -596,9 +636,9 @@ __global__ void ladder_resident_kernel(
   if (lane < nb) write_both(out, c * cap + b0 + lane, a);
 }
 
-// ---- K3c: one block per xy column, z loop, packets -----------------------------
+// ---- K3c's baseline: one block per xy column, a thread per slot -------------
 
-__global__ void __launch_bounds__(512) ladder_colz_kernel(
+__global__ void __launch_bounds__(512) ladder_colz_cellwise_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
@@ -794,15 +834,15 @@ __global__ void ladder_column_kernel(
     const int nb = min(rows_w, fill - b0);  // live rows of the batch
     if (nb <= 0) continue;
     const Acc a = warp_rows(stage, cells + c * cap + b0, nb, lane * cap, c_o,
-                            TableRows{ctab}, params, n_types, uniform_lj, b,
+                            TableRows<int>{ctab}, params, n_types, uniform_lj, b,
                             wl, wv, cap_w, lane);
     if (lane < nb) write_both(out, c * cap + b0 + lane, a);
   }
 }
 
-// ---- K1': one block per xy column, 9 haloed z-columns, per-column sums ---------
+// ---- K1''s baseline: one block per xy column, 9 haloed z-columns ------------
 
-__global__ void __launch_bounds__(512) ladder_colt1_kernel(
+__global__ void __launch_bounds__(512) ladder_colt1_cellwise_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
@@ -867,6 +907,172 @@ __global__ void __launch_bounds__(512) ladder_colt1_kernel(
   }
 }
 
+// ---- K3c: whole neighbour columns by bulk copies, a warp per row -----------
+
+// One block per xy column (the reference's program), W warps.  Each of the
+// U distinct neighbour columns of the deduplicated stencil is one run of
+// nz * cap rows in `cells` (cell c = column * nz + z), so the block stages
+// every one whole, padding included, with one bulk copy against one
+// mbarrier, and each staged row serves all nz cells of the block; lane 0
+// of warp 0 arrives with the stage's bytes (U nz cap 16 <= 227 KiB, far
+// under the barrier's 2^20 - 1) and lanes u < U issue the copies.  While the
+// rows land the block stages the U nz counts and writes the zero rows past
+// each cell's fill.  Then the live items (cell z, batch of rows_w rows
+// inside its fill), z-major, are cut into W runs of equal length, a run a
+// warp: for its current z, lane o < S holds stencil entry o's first stage
+// row, column col_of[o] at cell (z + dz_o) mod nz (a window that wraps is
+// read by index, so it costs no second copy), and its fill, and the warp
+// writes each candidate's stage row into its own table once per z, which
+// the next items of the run (the same z) read again; warp_rows takes the
+// batch, in K2's order.  Stage rows stay below 2^16 (the stage holds at
+// most 14 528), so the tables are 16-bit.
+template <bool kTable>
+__device__ __forceinline__ void colz_rows(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
+    int nz, int cap, int n_types, int n_stencil, int n_cols, int uniform_lj,
+    int rows_w, int depth) {
+  extern __shared__ float4 smem[];
+  __shared__ unsigned long long bar;
+  __shared__ int col_s[9], self_s;
+  const int col = blockIdx.x;  // cx * ny + cy
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int col_rows = nz * cap;
+  const int cap_w = 32 * depth;                       // entries of a list
+  float4* stage = smem;                               // U nz cap
+  float4* wl_all = stage + n_cols * col_rows;
+  float* wv_all = reinterpret_cast<float*>(wl_all + n_warps * cap_w);
+  int* cnt_s = reinterpret_cast<int*>(wv_all + n_warps * cap_w);  // U nz
+  uint16_t* rtab = reinterpret_cast<uint16_t*>(cnt_s + n_cols * nz)
+                   + warp * n_stencil * cap;          // S cap a warp
+  float4* wl = wl_all + warp * cap_w;
+  float* wv = wv_all + warp * cap_w;
+  if (t < n_cols) {
+    col_s[t] = ((col / ny + tab[2 * t]) % nx) * ny
+               + (col % ny + tab[2 * t + 1]) % ny;
+    if (tab[2 * t] == 0 && tab[2 * t + 1] == 0) self_s = t;
+  }
+  if (t == 0) {
+    bulk::mbar_init(&bar, 1);
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane == 0) {
+      bulk::mbar_expect_tx(&bar, static_cast<unsigned>(
+                                     n_cols * col_rows * sizeof(float4)));
+    }
+    __syncwarp();
+    if (lane < n_cols) {
+      bulk::copy(stage + lane * col_rows, cells + col_s[lane] * col_rows,
+                 static_cast<unsigned>(col_rows * sizeof(float4)), &bar);
+    }
+  }
+  for (int k = t; k < n_cols * nz; k += blockDim.x) {
+    cnt_s[k] = counts[col_s[k / nz] * nz + k % nz];
+  }
+  // the slots past each cell's fill are zero rows
+  for (int k = t; k < col_rows; k += blockDim.x) {
+    if (k % cap >= counts[col * nz + k / cap]) {
+      write_both(out, col * col_rows + k, Acc{0.f, 0.f, 0.f, 0.f, 0.f});
+    }
+  }
+  __syncthreads();
+  bulk::mbar_wait(&bar, 0);
+
+  const float4* own_col = stage + self_s * col_rows;
+  const int* own_cnt = cnt_s + self_s * nz;
+  int u_o = 0, dz_o = 0;  // lane o < S: stencil entry o's column and dz
+  if (lane < n_stencil) {
+    u_o = tab[2 * n_cols + lane];
+    dz_o = tab[2 * n_cols + n_stencil + lane];
+  }
+  int n_items = 0;
+  for (int z = 0; z < nz; ++z) n_items += (own_cnt[z] + rows_w - 1) / rows_w;
+  const int i1 = n_items * (warp + 1) / n_warps;
+  const Box b = load_box(box);
+  int z = 0, z_item = 0;  // the cell of item i, and its first item
+  int z_cur = -1, start = 0, c_o = 0;
+  for (int i = n_items * warp / n_warps; i < i1; ++i) {
+    while (i >= z_item + (own_cnt[z] + rows_w - 1) / rows_w) {
+      z_item += (own_cnt[z] + rows_w - 1) / rows_w;
+      ++z;
+    }
+    if (z != z_cur) {
+      z_cur = z;
+      const int zz = (z + dz_o) % nz;
+      start = u_o * col_rows + zz * cap;
+      c_o = lane < n_stencil ? cnt_s[u_o * nz + zz] : 0;
+      if (kTable) {
+        int pre = c_o;
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_up_sync(packed::kAll, pre, d);
+          if (lane >= d) pre += v;
+        }
+        __syncwarp();  // the previous cell's table is no longer read
+        for (int j = 0; j < c_o; ++j) {
+          rtab[pre - c_o + j] = static_cast<uint16_t>(start + j);
+        }
+        __syncwarp();
+      }
+    }
+    const int b0 = (i - z_item) * rows_w;
+    const int nb = min(rows_w, own_cnt[z] - b0);
+    const float4* own = own_col + z * cap + b0;
+    Acc a;
+    if (kTable) {
+      a = warp_rows(stage, own, nb, start, c_o, TableRows<uint16_t>{rtab},
+                    params, n_types, uniform_lj, b, wl, wv, cap_w, lane);
+    } else {
+      a = warp_rows(stage, own, nb, start, c_o, SearchRows(), params,
+                    n_types, uniform_lj, b, wl, wv, cap_w, lane);
+    }
+    if (lane < nb) write_both(out, col * col_rows + z * cap + b0 + lane, a);
+  }
+}
+
+__global__ void ladder_colz_kernel(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
+    int nz, int cap, int n_types, int n_stencil, int n_cols, int uniform_lj,
+    int rows_w, int depth) {
+  colz_rows<true>(cells, counts, box, params, tab, out, nx, ny, nz, cap,
+                  n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
+}
+
+__global__ void ladder_colz_search_kernel(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
+    int nz, int cap, int n_types, int n_stencil, int n_cols, int uniform_lj,
+    int rows_w, int depth) {
+  colz_rows<false>(cells, counts, box, params, tab, out, nx, ny, nz, cap,
+                   n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
+}
+
+// ---- K1': K1's column-segment body with colt1's per-column sums ----------
+
+// K1's body (cell_pair_packed.cuh's lj_rows) under the kColumns policy: the
+// same stage, candidates and order as K1 (the lanes o < 27 in (dx, dy, dz)
+// order, dz fastest, which is colt1's column-major order), each xy column's
+// terms summed apart and folded in as colt1 does, under a name of its own
+// so that a trace tells K1' from K1
+__global__ void ladder_colt1_kernel(
+    const float4* __restrict__ cells, const int* __restrict__ counts,
+    const float* __restrict__ box, const float* __restrict__ params,
+    float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
+    int uniform_lj, int all_lj, int ch3_mode, int x_halo, unsigned mask,
+    int seg, int rows_w, int depth) {
+  packed::lj_rows<packed::Sums::kColumns>(
+      cells, counts, box, params, out, nx, ny, nz, cap, n_types, uniform_lj,
+      all_lj, ch3_mode, x_halo, mask, seg, rows_w, depth);
+}
+
 size_t params_bytes(int n_types) {
   return 5 * static_cast<size_t>(n_types) * n_types * sizeof(float);
 }
@@ -896,6 +1102,44 @@ size_t list_bytes(int threads, int depth) {
 // whole warps, at most a block's 1024 threads, a list of at least one pass
 bool warps_ok(int threads, int depth) {
   return threads >= 32 && threads <= 1024 && threads % 32 == 0 && depth >= 1;
+}
+
+// The shared-memory bytes of K3c's layout (cell_pair_variants.colz_smem
+// computes the same): the stage of U whole columns, the warps' lists, the
+// U nz counts and each warp's 16-bit table of S cap stage rows.
+size_t colz_smem(int nz, int cap, int n_stencil, int n_cols, int threads,
+                 int depth) {
+  return static_cast<size_t>(n_cols) * nz * cap * sizeof(float4)
+         + list_bytes(threads, depth)
+         + static_cast<size_t>(n_cols) * nz * sizeof(int)
+         + static_cast<size_t>(threads / 32) * n_stencil * cap
+               * sizeof(uint16_t);
+}
+
+// Launch K3c's body (the table or the search) with its plan, after checking
+// that the plan describes the layout: a batch's rows one lane each, whole
+// warps, colz_smem's bytes.
+int colz_launch(void (*kernel)(const float4*, const int*, const float*,
+                               const float*, const int*, float4*, int, int,
+                               int, int, int, int, int, int, int, int),
+                const void* cells, const void* counts, const void* box,
+                const void* params, const void* table, void* out, int nx,
+                int ny, int nz, int cap, int n_types, int n_stencil,
+                int n_cols, int uniform_lj, int rows_w, int threads,
+                int depth, int smem_bytes, void* stream) {
+  if (rows_w < 1 || rows_w > 32 || !warps_ok(threads, depth)
+      || colz_smem(nz, cap, n_stencil, n_cols, threads, depth)
+             != static_cast<size_t>(smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rc = opt_in(reinterpret_cast<const void*>(kernel), smem_bytes);
+  if (rc) return rc;
+  kernel<<<nx * ny, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(cells), static_cast<const int*>(counts),
+      static_cast<const float*>(box), static_cast<const float*>(params),
+      static_cast<const int*>(table), static_cast<float4*>(out), nx, ny, nz,
+      cap, n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1011,22 +1255,59 @@ extern "C" int ladder_resident_packet(const void* cells, const void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3c with its launch plan (rows_w, threads, depth, smem_bytes:
+// cell_pair_variants.colz_launch_plan); ch3_mode is ignored (both channels
+// are written)
 extern "C" int ladder_colz(const void* cells, const void* counts,
                            const void* box, const void* params,
                            const void* table, void* out, int nx, int ny,
                            int nz, int cap, int n_types, int n_stencil,
                            int n_cols, int uniform_lj, int ch3_mode,
-                           void* stream) {
+                           int rows_w, int threads, int depth,
+                           int smem_bytes, void* stream) {
+  (void)ch3_mode;
+  return colz_launch(ladder_colz_kernel, cells, counts, box, params, table,
+                     out, nx, ny, nz, cap, n_types, n_stencil, n_cols,
+                     uniform_lj, rows_w, threads, depth, smem_bytes, stream);
+}
+
+// K3c's body finding candidate k by the search over the lanes' prefix
+// (K3b's cand_row) instead of the table: the other side of the A/B of the
+// two, with the same plan
+extern "C" int ladder_colz_search(const void* cells, const void* counts,
+                                  const void* box, const void* params,
+                                  const void* table, void* out, int nx,
+                                  int ny, int nz, int cap, int n_types,
+                                  int n_stencil, int n_cols, int uniform_lj,
+                                  int ch3_mode, int rows_w, int threads,
+                                  int depth, int smem_bytes, void* stream) {
+  (void)ch3_mode;
+  return colz_launch(ladder_colz_search_kernel, cells, counts, box, params,
+                     table, out, nx, ny, nz, cap, n_types, n_stencil, n_cols,
+                     uniform_lj, rows_w, threads, depth, smem_bytes, stream);
+}
+
+// K3c's first design (one block per xy column, a thread per slot walking
+// its row's S cells alone, the U columns staged element by element), kept
+// as the baseline the new kernel is held and timed against; no step
+// reaches this entry point
+extern "C" int ladder_colz_cellwise(const void* cells, const void* counts,
+                                    const void* box, const void* params,
+                                    const void* table, void* out, int nx,
+                                    int ny, int nz, int cap, int n_types,
+                                    int n_stencil, int n_cols,
+                                    int uniform_lj, int ch3_mode,
+                                    void* stream) {
   (void)ch3_mode;
   const size_t shmem =
       static_cast<size_t>(n_cols) * nz * cap * sizeof(float4)
       + params_bytes(n_types)
       + static_cast<size_t>(n_cols) * (nz + 1) * sizeof(int);
-  const int rc = opt_in(reinterpret_cast<const void*>(ladder_colz_kernel),
-                        shmem);
+  const int rc = opt_in(
+      reinterpret_cast<const void*>(ladder_colz_cellwise_kernel), shmem);
   if (rc) return rc;
-  ladder_colz_kernel<<<nx * ny, column_block(cap, nz), shmem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  ladder_colz_cellwise_kernel<<<nx * ny, column_block(cap, nz), shmem,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(cells), static_cast<const int*>(counts),
       static_cast<const float*>(box), static_cast<const float*>(params),
       static_cast<const int*>(table), static_cast<float4*>(out), nx, ny, nz,
@@ -1092,23 +1373,52 @@ extern "C" int ladder_column_cellwise(const void* cells, const void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1' with its launch plan (seg, rows_w, threads, depth, smem_bytes:
+// cell_pair_variants.colt1_launch_plan), on a grid of at least 3 cells an
+// axis (a full 27-cell stencil); ch3 is e/2 (ch3_mode 1) or w/2 (2), and
+// mode 0 gives e/2 as the first design does
 extern "C" int ladder_colt1(const void* cells, const void* counts,
                             const void* box, const void* params,
                             const void* table, void* out, int nx, int ny,
                             int nz, int cap, int n_types, int n_stencil,
-                            int n_cols, int uniform_lj, int ch3_mode,
-                            void* stream) {
+                            int n_cols, int uniform_lj, int ch3_mode, int seg,
+                            int rows_w, int threads, int depth,
+                            int smem_bytes, void* stream) {
+  (void)table;
+  (void)n_stencil;
+  (void)n_cols;
+  if (nx < 3 || ny < 3 || nz < 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return packed::lj_launch(ladder_colt1_kernel, cells, counts, box, params,
+                           out, nx, ny, nz, cap, n_types, uniform_lj, 0,
+                           ch3_mode == 2 ? 2 : 1, 0, packed::kStencil27, seg,
+                           rows_w, threads, depth, smem_bytes, stream,
+                           packed::Sums::kColumns);
+}
+
+// K1''s first design (one block per xy column, a thread per slot walking
+// the 9 columns' windows alone, the 9 haloed columns staged element by
+// element), kept as the baseline the new kernel is held and timed against;
+// no step reaches this entry point
+extern "C" int ladder_colt1_cellwise(const void* cells, const void* counts,
+                                     const void* box, const void* params,
+                                     const void* table, void* out, int nx,
+                                     int ny, int nz, int cap, int n_types,
+                                     int n_stencil, int n_cols,
+                                     int uniform_lj, int ch3_mode,
+                                     void* stream) {
   (void)table;
   (void)n_stencil;
   (void)n_cols;
   const size_t shmem =
       9 * static_cast<size_t>(nz + 2) * cap * sizeof(float4)
       + params_bytes(n_types) + 9 * static_cast<size_t>(nz + 3) * sizeof(int);
-  const int rc = opt_in(reinterpret_cast<const void*>(ladder_colt1_kernel),
-                        shmem);
+  const int rc = opt_in(
+      reinterpret_cast<const void*>(ladder_colt1_cellwise_kernel), shmem);
   if (rc) return rc;
-  ladder_colt1_kernel<<<nx * ny, column_block(cap, nz), shmem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  ladder_colt1_cellwise_kernel<<<nx * ny, column_block(cap, nz), shmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(cells), static_cast<const int*>(counts),
       static_cast<const float*>(box), static_cast<const float*>(params),
       static_cast<float4*>(out), nx, ny, nz, cap, n_types, uniform_lj,

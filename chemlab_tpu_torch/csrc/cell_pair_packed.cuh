@@ -1,8 +1,9 @@
 // The column-segment stage and the packed row layout of the pair kernels
 // that give each row a whole warp: the LJ body lj_rows (at the end of this
-// file), which cell_pair.cu launches as colt_packed_kernel (K1/K1b/K1f)
-// and cell_pair_cell.cu as cell_packed_kernel (K2, over a stencil mask),
-// and cell_pair_cheb.cu's cheb_packed_kernel (Chebyshev tables, K1c/K1d/K1e
+// file), which cell_pair.cu launches as colt_packed_kernel (K1/K1b/K1f),
+// cell_pair_cell.cu as cell_packed_kernel (K2, over a stencil mask) and
+// cell_pair_ladder.cu as ladder_colt1_kernel (K1', colt1's per-column
+// sums), and cell_pair_cheb.cu's cheb_packed_kernel (Chebyshev tables, K1c/K1d/K1e
 // and their K1f modes), which keeps its own pair term, parameter tables
 // and sums.  What is here decides which candidates a row visits and in
 // which order, the same for all; cell_pair_ladder.cu's K3b finds its
@@ -250,17 +251,23 @@ __device__ __forceinline__ RowCands row_cands(const Stage& s, const float4 xi,
   return rc;
 }
 
-// The stage row of the row's candidate k (meaningful for k < total).  Every
-// lane of the warp calls it, each with its own k.
-__device__ __forceinline__ int cand_row(const RowCands& rc, int k) {
+// The stage row of the row's candidate k (meaningful for k < total), and
+// in `o` the lane (stencil offset) that holds it.  Every lane of the warp
+// calls it, each with its own k.
+__device__ __forceinline__ int cand_row(const RowCands& rc, int k, int& o) {
   // the offset holding candidate k: the lanes whose prefix is <= k
-  int o = 0;
+  o = 0;
   for (int step = 16; step > 0; step >>= 1) {
     if (__shfl_sync(kAll, rc.pre, o + step - 1) <= k) o += step;
   }
   const int o_start = __shfl_sync(kAll, rc.start, o & 31);
   const int o_first = __shfl_sync(kAll, rc.first, o & 31);
   return o_start + k - o_first;
+}
+
+__device__ __forceinline__ int cand_row(const RowCands& rc, int k) {
+  int o;
+  return cand_row(rc, k, o);
 }
 
 // ---- the LJ column-segment kernel's body (K1 in cell_pair.cu, K2 in
@@ -287,6 +294,24 @@ __device__ __forceinline__ float lj_force(float r2s, float sig, float eps,
   return f;
 }
 
+// How lj_rows adds a row's terms, chosen at compile time.
+//   kPlain (K1, K1b, K1f, K2): running sums in list order, fx = fx + term,
+//     ch3 halved once at the write.
+//   kColumns (K1', the reference's colt1): per xy column of the stencil a
+//     partial sum over the column's cells in list order, folded into the
+//     running sums when the next entry's column differs and after the row's
+//     last entry (fx = fx + px, ..., acc = acc + 0.5 pacc, colt1's order);
+//     acc is written as it is.  colt1 adds all 9 partials, the empty ones
+//     too, where this folds only the columns that have in-cut pairs; the bits
+//     agree: an empty partial is +0.0, a sum that starts at +0.0 is never
+//     -0.0 under round-to-nearest, so adding +0.0 to it changes nothing, and
+//     the bounding-box cull drops only cells without an in-cut pair.  Each
+//     list entry keeps its column (its stencil offset over 3, dz fastest) in
+//     a byte beside it, since the flush overwrites the entry with its terms;
+//     the partial and its column live in registers across flushes, as a
+//     flush can fall inside a column.
+enum class Sums { kPlain, kColumns };
+
 // One block per (xy column, z segment of `seg` cells) of the output grid;
 // the block's occupied rows in batches of `rows_w`, one batch per warp at a
 // time, each row of the batch in turn taken by the whole warp: its
@@ -294,13 +319,15 @@ __device__ __forceinline__ float lj_force(float r2s, float sig, float eps,
 // candidate ops up to the cut, the in-cut ones appended to the warp's list
 // in candidate order by a ballot, then the terms evaluated over the list 32
 // at a time.  Lane r of the batch holds row r's sums, adds its terms in list
-// order and writes its slot.
+// order (by the policy kSums) and writes its slot.
+template <Sums kSums = Sums::kPlain>
 __device__ __forceinline__ void lj_rows(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
     int uniform_lj, int all_lj, int ch3_mode, int x_halo, unsigned mask,
     int seg, int rows_w, int depth) {
+  constexpr bool kCols = kSums == Sums::kColumns;
   extern __shared__ float4 smem[];
   const int tt = n_types * n_types;
   const int hz = seg + 2;
@@ -315,6 +342,8 @@ __device__ __forceinline__ void lj_rows(
   s.base_g = s.cpre + 9 * (hz + 1);                             // 9 hz
   s.bbox = reinterpret_cast<float*>(s.base_g + 9 * hz);         // 9 hz 6
   float* cmax = s.bbox + 9 * hz * 6;                            // T
+  // kColumns: each list entry's column, a byte each       // depth nthr
+  unsigned char* ecol = reinterpret_cast<unsigned char*>(cmax + n_types);
 
   for (int k = t; k < 5 * tt; k += nthr) par[k] = params[k];
   stage_block(cells, counts, out, s, nx, ny, nz, cap, x_halo, seg);
@@ -339,13 +368,24 @@ __device__ __forceinline__ void lj_rows(
   const unsigned below = (1u << lane) - 1u;
   const int cap_w = 32 * depth;               // entries of a warp's list
   float4* wl = ent + (t - lane) * depth;      // this warp's list
+  unsigned char* wc = ecol + (t - lane) * depth;  // its entries' columns
 
   for (int b0 = (t >> 5) * rows_w; b0 < s.n_own;
        b0 += (nthr >> 5) * rows_w) {
     const int nb = min(rows_w, s.n_own - b0);  // rows of this batch
     float fx = 0.f, fy = 0.f, fz = 0.f, acc = 0.f;  // lane r: row b0 + r
+    float px = 0.f, py = 0.f, pz = 0.f, pacc = 0.f;  // kColumns: a partial
+    int pcol = -1;                                    // and its column
     int lo = 0, hi = 0;  // lane r's entries in the list
     int n = 0;           // entries in the list
+    // kColumns: add the partial to the running sums and start another
+    auto fold = [&]() {
+      fx = fx + px;
+      fy = fy + py;
+      fz = fz + pz;
+      acc = acc + 0.5f * pacc;
+      px = py = pz = pacc = 0.f;
+    };
 
     // evaluate the list's entries, then each lane sums its row's terms
     auto flush = [&]() {
@@ -367,10 +407,21 @@ __device__ __forceinline__ void lj_rows(
       __syncwarp();
       for (int k = lo; k < hi; ++k) {
         const float4 en = wl[k];
-        fx = fx + en.x;
-        fy = fy + en.y;
-        fz = fz + en.z;
-        if (ch3_mode != 0) acc = acc + en.w;
+        if constexpr (kCols) {
+          if (wc[k] != pcol) {
+            fold();
+            pcol = wc[k];
+          }
+          px = px + en.x;
+          py = py + en.y;
+          pz = pz + en.z;
+          pacc = pacc + en.w;
+        } else {
+          fx = fx + en.x;
+          fy = fy + en.y;
+          fz = fz + en.z;
+          if (ch3_mode != 0) acc = acc + en.w;
+        }
       }
       __syncwarp();
       lo = hi = n = 0;
@@ -387,7 +438,8 @@ __device__ __forceinline__ void lj_rows(
       for (int k0 = 0; k0 < rc.total; k0 += 32) {
         if (n + 32 > cap_w) flush();
         const int k = k0 + lane;
-        const int f = cand_row(rc, k);
+        int o;  // the candidate's stencil offset; its xy column is o / 3
+        const int f = cand_row(rc, k, o);
         bool in = false;
         if (k < rc.total) {
           const float4 xj = s.rows[f];
@@ -408,31 +460,37 @@ __device__ __forceinline__ void lj_rows(
         if (in) {
           wl[n + __popc(m & below)] =
               make_float4(__int_as_float(r), 0.f, 0.f, __int_as_float(f));
+          if constexpr (kCols) {
+            wc[n + __popc(m & below)] = static_cast<unsigned char>(o / 3);
+          }
         }
         n += __popc(m);
         if (lane == r) hi = n;
       }
     }
     flush();
+    if constexpr (kCols) fold();
     if (lane < nb) {
       const int row = s.row0 + b0 + lane;
       const int oz = row_cell(s, row);
       out[(s.out0 + oz) * cap + row - s.cpre[4 * (hz + 1) + oz + 1]] =
-          make_float4(fx, fy, fz, 0.5f * acc);
+          make_float4(fx, fy, fz, kCols ? acc : 0.5f * acc);
     }
   }
 }
 
-// Shared-memory bytes of lj_rows' layout (the Python plans,
-// cell_pair.colt_launch_plan and cell_pair.k2_launch_plan, compute the
-// same).
-inline size_t lj_smem(int cap, int n_types, int seg, int threads,
-                      int depth) {
+// Shared-memory bytes of lj_rows' layout under the policy `sums` (the
+// Python plans, cell_pair.colt_launch_plan, cell_pair.k2_launch_plan and,
+// with kColumns' byte an entry, cell_pair_variants.colt1_launch_plan,
+// compute the same).
+inline size_t lj_smem(int cap, int n_types, int seg, int threads, int depth,
+                      Sums sums = Sums::kPlain) {
   const size_t hz = static_cast<size_t>(seg + 2);
-  return (9 * (hz * cap + 1) + static_cast<size_t>(threads) * depth)
-             * sizeof(float4)
+  const size_t entries = static_cast<size_t>(threads) * depth;
+  return (9 * (hz * cap + 1) + entries) * sizeof(float4)
          + (5 * static_cast<size_t>(n_types) * n_types + stage_words(seg)
-            + n_types) * sizeof(float);
+            + n_types) * sizeof(float)
+         + (sums == Sums::kColumns ? entries : 0);
 }
 
 // The signature of the __global__ wrappers of lj_rows.
@@ -443,16 +501,17 @@ using LjKernel = void (*)(const float4*, const int*, const float*,
 // Launch an lj_rows wrapper with the launch plan (seg, rows_w, threads,
 // depth, smem_bytes), after checking that the plan describes this layout:
 // whole warps, a batch's rows one lane each, a list of at least one pass of
-// 32 candidates a warp, the bytes of lj_smem.
+// 32 candidates a warp, the bytes of lj_smem under the wrapper's `sums`.
 inline int lj_launch(LjKernel kernel, const void* cells, const void* counts,
                      const void* box, const void* params, void* out, int nx,
                      int ny, int nz, int cap, int n_types, int uniform_lj,
                      int all_lj, int ch3_mode, int x_halo, unsigned mask,
                      int seg, int rows_w, int threads, int depth,
-                     int smem_bytes, void* stream) {
+                     int smem_bytes, void* stream,
+                     Sums sums = Sums::kPlain) {
   if (seg < 1 || rows_w < 1 || rows_w > 32 || threads < 32 || threads > 1024
       || threads % 32 != 0 || depth < 1 || (mask & ~kStencil27) != 0
-      || lj_smem(cap, n_types, seg, threads, depth)
+      || lj_smem(cap, n_types, seg, threads, depth, sums)
              != static_cast<size_t>(smem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

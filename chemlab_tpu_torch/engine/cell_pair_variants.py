@@ -19,15 +19,23 @@ the unexcluded all-pairs LJ sum on the cell grid.
     ``cell_pair.K3B_CELLWISE``) stays as the baseline it is held to bit for
     bit, which no step runs;
   - ``cell_pair_forces_columns`` (``z_unroll`` and ``cap % 8 == 0``: K3c,
-    ``_colz_kernel``, one program per xy column over its nz cells; else
-    K3d, ``_column_kernel``, one program per cell read from its columns;
-    on the card the block stages its neighbour columns' windows with bulk
-    copies and a warp takes each batch of rows, with the plan of
-    ``column_launch_plan``; its first design, a thread per slot
-    (``column_baseline_kernel``, handle ``cell_pair.K3D_CELLWISE``), stays
-    as the baseline it is held to bit for bit, which no step runs);
+    ``_colz_kernel``, one program per xy column over its nz cells; on the
+    card the block stages its U neighbour columns whole with bulk copies
+    and a warp takes each batch of rows, with the plan of
+    ``colz_launch_plan``; else K3d, ``_column_kernel``, one program per
+    cell read from its columns; on the card the block stages its
+    neighbour columns' windows with bulk copies and a warp takes each
+    batch of rows, with the plan of ``column_launch_plan``); their first
+    designs, a thread per slot (``colz_baseline_kernel``,
+    ``column_baseline_kernel``, handles ``cell_pair.K3C_CELLWISE``,
+    ``K3D_CELLWISE``), stay as the baselines they are held to bit for bit,
+    which no step runs;
   - ``cell_pair_forces_colt1`` (K1', ``_colt_kernel``): one program per xy
-    column over its 9 haloed z-columns with per-column partial sums.
+    column over its 9 haloed z-columns with per-column partial sums; on
+    the card K1's column-segment body with colt1's per-column sums, with
+    the plan of ``colt1_launch_plan``; its first design, a thread per slot
+    (``colt1_baseline_kernel``, handle ``cell_pair.K1P_CELLWISE``), stays
+    as the baseline it is held to bit for bit, which no step runs.
 
 K3a-K3d return (force, e, 0, w) in one pass and ignore the energy/virial
 choice, as the reference's variants do; K1' returns colt2's tuple, its
@@ -89,6 +97,18 @@ class PacketPlan(NamedTuple):
     smem: int
 
 
+class ColzPlan(NamedTuple):
+    """K3c's launch plan: slots per warp batch, threads per block (W
+    warps, each a run of the column's batches), list entries per thread
+    and the shared-memory bytes (the stage of the U whole neighbour
+    columns, the lists, the counts and each warp's table of stage
+    rows)."""
+    rows: int
+    threads: int
+    depth: int
+    smem: int
+
+
 class ColumnPlan(NamedTuple):
     """K3d's launch plan: slots per warp batch, threads per block, list
     entries per thread and the shared-memory bytes (the stage of the S
@@ -113,6 +133,19 @@ PACKET_DEPTH = 4
 COLUMN_ROWS = 1
 COLUMN_THREADS = 256
 COLUMN_DEPTH = 4
+# K3c's and K1''s, measured on an H100 (PERF.md: ``kernel_matrix
+# --ladder``'s sweeps and rules in turns at 10k, cap 32).  K3c's threads
+# are also the most its block takes: at its 71 registers a thread, 28 warps
+# fill an SM's 64 Ki registers (a build held to 64 registers for 32 warps
+# spilled and was slower, PERF.md); the plan takes fewer where the stage
+# leaves no room for their lists and tables.
+COLZ_ROWS = 1
+COLZ_THREADS = 896
+COLZ_DEPTH = 4
+COLT1_SEG = 4
+COLT1_ROWS = 8
+COLT1_THREADS = 256
+COLT1_DEPTH = 4
 
 
 def resident_smem(threads: int, depth: int) -> int:
@@ -133,6 +166,24 @@ def column_smem(cap: int, dims, threads: int, depth: int) -> int:
     (the neighbour columns' windows) at ``cap`` rows each, the lists, and
     the stage row of each candidate (an int per stage row)."""
     return 20 * table_sizes(dims)[0] * cap + resident_smem(threads, depth)
+
+
+def colz_smem(cap: int, dims, threads: int, depth: int) -> int:
+    """Shared-memory bytes of K3c: a stage of the U whole neighbour
+    columns (nz * cap rows of 16 bytes each), the lists, the U * nz counts
+    and a table of S * cap 16-bit stage rows a warp."""
+    n_stencil, n_cols = table_sizes(dims)
+    nz = int(dims[2])
+    return (16 * n_cols * nz * cap + resident_smem(threads, depth)
+            + 4 * n_cols * nz + 2 * (threads // 32) * n_stencil * cap)
+
+
+def colt1_smem(cap: int, n_types: int, seg: int, threads: int,
+               depth: int) -> int:
+    """Shared-memory bytes of K1': K1's layout (``cell_pair.colt_smem``)
+    and a byte a list entry, its column."""
+    return cell_pair.colt_smem(cap, n_types, seg, threads, depth) \
+        + threads * depth
 
 
 def resident_launch_plan(cap: int, *, rows=None, threads=None,
@@ -215,6 +266,62 @@ def _column_plan(cap, dims, rows, threads, depth):
         raise ValueError("K3d: shared memory of %d bytes exceeds 227 KiB"
                          % smem)
     return ColumnPlan(rows, threads, depth, smem)
+
+
+def colz_launch_plan(cap: int, dims, *, rows=None, threads=None,
+                     depth=None) -> ColzPlan:
+    """The launch plan of ``ladder_colz`` (K3c) at cell cap ``cap`` on the
+    grid ``dims``: from the shapes alone, never the counts or the box.  The
+    stage of whole columns grows with nz * cap, so the default threads are
+    the most up to ``COLZ_THREADS`` whose bytes fit a block; ``rows``,
+    ``threads`` and ``depth`` override the measured choices (the kernel
+    matrix's sweep).  Raises ``ValueError`` naming K3c on a layout the
+    kernel cannot take (more than ``COLZ_THREADS`` threads among them), and
+    above 227 KiB of shared memory with the size."""
+    return _colz_plan(int(cap), tuple(int(d) for d in dims), rows, threads,
+                      depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _colz_plan(cap, dims, rows, threads, depth):
+    rows = min(COLZ_ROWS, cap) if rows is None else rows
+    depth = COLZ_DEPTH if depth is None else depth
+    if threads is None:
+        threads = next((th for th in range(COLZ_THREADS, 32, -32)
+                        if colz_smem(cap, dims, th, depth) <= SMEM_LIMIT),
+                       32)
+    if not (1 <= cap and 1 <= rows <= 32 and _warps_ok(threads, depth)
+            and threads <= COLZ_THREADS):
+        raise ValueError("K3c: no plan with cap %d, rows %d, threads %d, "
+                         "depth %d" % (cap, rows, threads, depth))
+    smem = colz_smem(cap, dims, threads, depth)
+    if smem > SMEM_LIMIT:
+        raise ValueError("K3c: shared memory of %d bytes exceeds 227 KiB"
+                         % smem)
+    return ColzPlan(rows, threads, depth, smem)
+
+
+def colt1_launch_plan(dims, cap: int, n_types: int, *, seg=None, rows=None,
+                      threads=None, depth=None) -> cell_pair.PackedPlan:
+    """The launch plan of ``ladder_colt1`` (K1') on the grid ``dims``: K1's
+    fields (``cell_pair.colt_launch_plan``'s segment rule with at most
+    ``COLT1_SEG`` cells; the grouping by xy column does not depend on the
+    segment, so every segment gives the same bits) and K1''s bytes
+    (``colt1_smem``), from the shapes alone; ``seg``, ``rows``,
+    ``threads`` and ``depth`` override the measured choices (the kernel
+    matrix's sweep).  Raises ``ValueError`` naming K1' on a layout the
+    kernel cannot take, and above 227 KiB of shared memory with the
+    size."""
+    return _colt1_plan(tuple(int(d) for d in dims), int(cap), int(n_types),
+                       seg, rows, threads, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _colt1_plan(dims, cap, n_types, seg, rows, threads, depth):
+    return cell_pair._packed_plan(
+        "K1'", dims, False, seg, rows, threads, depth,
+        (COLT1_SEG, COLT1_ROWS, COLT1_THREADS, COLT1_DEPTH),
+        lambda sg, th, dp: colt1_smem(cap, n_types, sg, th, dp))
 
 
 @functools.lru_cache(maxsize=None)
@@ -335,8 +442,8 @@ def colt1_rows_ref(cells, counts, box, params, dims, uniform_lj: bool,
 
 def _smem(kind: str, cap: int, dims, n_types: int) -> int:
     """The dynamic shared memory (bytes) of a launch that takes no plan, as
-    the entry points of ``cell_pair_ladder.cu`` size it: K3c, K1' and the
-    first designs of K3a and K3d."""
+    the entry points of ``cell_pair_ladder.cu`` size it: the first designs
+    of K3a, K3c, K3d and K1'."""
     nz = int(dims[2])
     n_stencil, n_cols = table_sizes(dims)
     par = 20 * n_types * n_types
@@ -358,9 +465,9 @@ def ladder_kernel(kind: str, cells, counts, box, params, dims,
                   uniform_lj: bool, ch3_mode: int = cell_pair.CH3_ENERGY,
                   plan=None):
     """Launch the CUDA kernel of ``kind`` ("packet" K3a, "resident" K3b,
-    "column" K3d, each with ``plan``, its ``*_launch_plan``'s by default;
-    "colz" K3c, "colt1" K1') on the current stream (CUDA tensors only);
-    returns (C, cap, 8) rows, (C, cap, 4) for K1'."""
+    "colz" K3c, "column" K3d, "colt1" K1') with ``plan``, its
+    ``*_launch_plan``'s by default, on the current stream (CUDA tensors
+    only); returns (C, cap, 8) rows, (C, cap, 4) for K1'."""
     return _launch(KERNEL_OF[kind], kind, cells, counts, box, params, dims,
                    uniform_lj, ch3_mode, plan)
 
@@ -385,6 +492,44 @@ def resident_packet_kernel(cells, counts, box, params, dims,
                    params, dims, uniform_lj, ch3_mode, None)
 
 
+def colz_baseline_kernel(cells, counts, box, params, dims,
+                         uniform_lj: bool,
+                         ch3_mode: int = cell_pair.CH3_ENERGY):
+    """Launch K3c's first design (``K3C_CELLWISE``: a thread per slot of a
+    block per xy column) on the same operands as ``ladder_kernel("colz",
+    ...)``: the baseline of the A/B, which no step reaches."""
+    return _launch(cell_pair.K3C_CELLWISE, "colz", cells, counts, box,
+                   params, dims, uniform_lj, ch3_mode, None)
+
+
+# K3c's body finding each candidate by the search over the lanes' prefix:
+# the other side of the table's A/B, which no step reaches
+_K3C_SEARCH = cell_pair._kernels.CudaKernel(
+    "cell_pair_ladder.cu", "ladder_colz_search", cell_pair._LADDER_PLAN_ARGS)
+
+
+def colz_search_kernel(cells, counts, box, params, dims, uniform_lj: bool,
+                       ch3_mode: int = cell_pair.CH3_ENERGY, plan=None):
+    """Launch K3c's body with the search over the lanes' prefix in place of
+    its table of stage rows, under ``plan`` (``colz_launch_plan``'s by
+    default): the A/B of the two sources of candidate k."""
+    if plan is None:
+        plan = colz_launch_plan(cells.shape[1], dims)
+    return _launch(_K3C_SEARCH, "colz", cells, counts, box, params, dims,
+                   uniform_lj, ch3_mode, plan)
+
+
+def colt1_baseline_kernel(cells, counts, box, params, dims,
+                          uniform_lj: bool,
+                          ch3_mode: int = cell_pair.CH3_ENERGY):
+    """Launch K1''s first design (``K1P_CELLWISE``: a thread per slot over
+    the 9 haloed columns) on the same operands as
+    ``ladder_kernel("colt1", ...)``: the baseline of the A/B, which no
+    step reaches."""
+    return _launch(cell_pair.K1P_CELLWISE, "colt1", cells, counts, box,
+                   params, dims, uniform_lj, ch3_mode, None)
+
+
 def column_baseline_kernel(cells, counts, box, params, dims,
                            uniform_lj: bool,
                            ch3_mode: int = cell_pair.CH3_ENERGY):
@@ -395,10 +540,17 @@ def column_baseline_kernel(cells, counts, box, params, dims,
                    params, dims, uniform_lj, ch3_mode, None)
 
 
-# the kernels that take a launch plan, and the plan each takes by default
-_PLANNED = {id(cell_pair.K3A): lambda cap, dims: packet_launch_plan(cap),
-            id(cell_pair.K3B): lambda cap, dims: resident_launch_plan(cap),
-            id(cell_pair.K3D): column_launch_plan}
+# the kernels that take a launch plan, and the plan each takes by default,
+# from (cap, dims, n_types)
+_PLANNED = {
+    id(cell_pair.K3A): lambda cap, dims, n_types: packet_launch_plan(cap),
+    id(cell_pair.K3B): lambda cap, dims, n_types: resident_launch_plan(cap),
+    id(cell_pair.K3C): lambda cap, dims, n_types: colz_launch_plan(cap, dims),
+    id(_K3C_SEARCH): lambda cap, dims, n_types: colz_launch_plan(cap, dims),
+    id(cell_pair.K3D): lambda cap, dims, n_types: column_launch_plan(
+        cap, dims),
+    id(cell_pair.K1P): lambda cap, dims, n_types: colt1_launch_plan(
+        dims, cap, n_types)}
 
 
 def _launch(kernel, kind: str, cells, counts, box, params, dims,
@@ -427,7 +579,7 @@ def _launch(kernel, kind: str, cells, counts, box, params, dims,
     n_types = params.shape[1]
     planned = _PLANNED.get(id(kernel))
     if planned is not None and plan is None:
-        plan = planned(cap, (nx, ny, nz))
+        plan = planned(cap, (nx, ny, nz), n_types)
     smem = plan.smem if planned is not None else _smem(kind, cap, dims,
                                                         n_types)
     if smem > SMEM_LIMIT:

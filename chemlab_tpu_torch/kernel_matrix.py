@@ -72,11 +72,22 @@ With ``--k2`` it times K2 and K3b against their first designs:
     fastest on its main-path grid) and ``cell_pair_variants``'
     ``RESIDENT_*`` choices.
 
-With ``--ladder`` it times K3a and K3d against their first designs:
+With ``--ladder`` it times K3a, K3c, K3d and K1' against their first
+designs:
 
+  - one ``{"melt", "rows", "threads", "depth", "device_ms"}`` line per
+    plan of ``COLZ_SWEEP`` for K3c and one ``{"melt", "seg", "rows",
+    "threads", "depth", "device_ms"}`` line per plan of ``COLT1_SWEEP`` for
+    K1', on the 10k LJ melt (11^3, cap 32), the first design's first, then
+    the list depths at the fastest plan, each followed by its
+    ``{"melt", "rules_in_turns"}`` line (``COLZ_RULES``, ``COLT1_RULES``):
+    the measurement behind ``cell_pair_variants``' ``COLZ_*`` and
+    ``COLT1_*`` choices; then K3c's table of stage rows against the
+    search over the lanes' prefix, in turns (``{"melt",
+    "table_or_search_in_turns"}``);
   - one ``{"melt", "threads", "depth", "device_ms"}`` line per plan of
-    ``PACKET_SWEEP`` for K3a on the 10k LJ melt (11^3, cap 32), the first
-    design's first;
+    ``PACKET_SWEEP`` for K3a on the 10k LJ melt, the first design's
+    first;
   - one ``{"melt", "rows", "threads", "depth", "device_ms"}`` line per
     plan of ``COLUMN_SWEEP`` for K3d on the 10k melt at cap 36 and on the
     film, the first design's first, then the list depths at the fastest
@@ -89,8 +100,8 @@ With ``--ladder`` it times K3a and K3d against their first designs:
   - one ``{"melt", "sources_in_turns"}`` line per operand (the 10k LJ
     melt, the 10k melt at cap 36, the film): the warp-per-row body over
     each source of candidates that takes the operand, in turns: none
-    staged (K3b), one stage per cell (K3a), column windows (K3d), column
-    segments (K2).
+    staged (K3b), one stage per cell (K3a), whole columns (K3c), column
+    windows (K3d), column segments (K2).
 
 Left out: ``cell_scatter`` (the TPU's scatter epilogue, which the port does
 not carry) and ``KM_RETUNE`` (it waits for capacity management's
@@ -448,13 +459,16 @@ def in_turns(runs, reps: int = 50) -> dict:
 # another, nor K1's)
 K2_NEW, K2_OLD = "cell_packed_kernel", "cell_cellwise_kernel"
 K3B_NEW, K3B_OLD = "ladder_resident_kernel", "ladder_resident_packet_kernel"
-# K3a's and K3d's: no name holds another, nor K3b's
+# K3a's, K3d's, K3c's and K1''s: no name holds another, nor K3b's or K1's
 K3A_NEW, K3A_OLD = "ladder_packet_kernel", "ladder_packet_cellwise_kernel"
 K3D_NEW, K3D_OLD = "ladder_column_kernel", "ladder_column_cellwise_kernel"
+K3C_NEW, K3C_OLD = "ladder_colz_kernel", "ladder_colz_cellwise_kernel"
+K3C_SEARCH = "ladder_colz_search_kernel"
+K1P_NEW, K1P_OLD = "ladder_colt1_kernel", "ladder_colt1_cellwise_kernel"
 # the device function of each ladder kind as the step launches it
 LADDER_KERNEL_NAMES = {"packet": K3A_NEW, "resident": K3B_NEW,
-                       "colz": "ladder_colz_kernel", "column": K3D_NEW,
-                       "colt1": "ladder_colt1_kernel"}
+                       "colz": K3C_NEW, "column": K3D_NEW,
+                       "colt1": K1P_NEW}
 # K3b's plans: slots a warp batch, threads a block, list depth
 RESIDENT_SWEEP = [dict(rows=rows, threads=threads, depth=depth)
                   for rows in (1, 2, 4, 8, 32) for threads in (128, 256)
@@ -475,6 +489,22 @@ COLUMN_DEPTHS = (2, 8)
 PACKET_RULES = [(64, 4), (128, 4), (64, 8), (128, 8)]
 COLUMN_RULES = [(2, 128, 4), (1, 256, 4), (1, 256, 2), (2, 256, 4),
                 (4, 128, 4), (1, 128, 4)]
+# K3c's plans (slots a warp batch, threads a block: its warps are the main
+# axis, one block per xy column; list depth 4, then the depths at the
+# fastest that fit beside its stage at 896 threads) and K1''s (segment, slots a warp batch, threads a block, list
+# depth 4: the segment nz = 11 is the reference's one program per xy
+# column, 3 is K1's rule at 10k), then their rules in turns
+COLZ_SWEEP = [dict(rows=rows, threads=threads, depth=4)
+              for rows in (1, 2, 4) for threads in (128, 256, 512, 768, 896)]
+COLZ_DEPTHS = (2, 6)
+COLT1_SWEEP = [dict(seg=seg, rows=rows, threads=threads, depth=4)
+               for seg in (1, 2, 3, 4, 11) for rows in (1, 2, 4, 8)
+               for threads in (128, 256)]
+COLT1_DEPTHS = (2, 8)
+COLZ_RULES = [(1, 896, 4), (2, 768, 4), (1, 768, 4), (2, 896, 4),
+              (1, 896, 2), (1, 896, 6), (2, 512, 4)]
+COLT1_RULES = [(4, 8, 256, 4), (4, 4, 256, 4), (2, 2, 256, 4),
+               (3, 2, 256, 4), (11, 2, 256, 4), (4, 8, 256, 2)]
 # the film: an LJ operand of 32 x 32 x 2 cells at the melt's density
 FILM_DIMS = (32, 32, 2)
 FILM_DENSITY = 0.27
@@ -568,18 +598,29 @@ def ladder_args(built, state, operands=None):
 
 
 # each planned ladder kernel: its first design's wrapper, its launch plan
-# from (cap, dims, **overrides), the overrides a rule names in order, and
-# its device functions' names, new and first design
+# from (cap, dims, n_types, **overrides), the overrides a rule names in
+# order, and its device functions' names, new and first design
 LADDER_AB = {
     "packet": (variants.packet_baseline_kernel,
-               lambda cap, dims, **kw: variants.packet_launch_plan(cap, **kw),
+               lambda cap, dims, n_types, **kw: variants.packet_launch_plan(
+                   cap, **kw),
                ("threads", "depth"), K3A_NEW, K3A_OLD),
     "resident": (variants.resident_packet_kernel,
-                 lambda cap, dims, **kw: variants.resident_launch_plan(
-                     cap, **kw),
+                 lambda cap, dims, n_types, **kw:
+                 variants.resident_launch_plan(cap, **kw),
                  ("rows", "threads", "depth"), K3B_NEW, K3B_OLD),
-    "column": (variants.column_baseline_kernel, variants.column_launch_plan,
-               ("rows", "threads", "depth"), K3D_NEW, K3D_OLD)}
+    "colz": (variants.colz_baseline_kernel,
+             lambda cap, dims, n_types, **kw: variants.colz_launch_plan(
+                 cap, dims, **kw),
+             ("rows", "threads", "depth"), K3C_NEW, K3C_OLD),
+    "column": (variants.column_baseline_kernel,
+               lambda cap, dims, n_types, **kw: variants.column_launch_plan(
+                   cap, dims, **kw),
+               ("rows", "threads", "depth"), K3D_NEW, K3D_OLD),
+    "colt1": (variants.colt1_baseline_kernel,
+              lambda cap, dims, n_types, **kw: variants.colt1_launch_plan(
+                  dims, cap, n_types, **kw),
+              ("seg", "rows", "threads", "depth"), K1P_NEW, K1P_OLD)}
 
 
 def ladder_sweep(kind: str, built, state, plans, reps: int = 30,
@@ -590,11 +631,11 @@ def ladder_sweep(kind: str, built, state, plans, reps: int = 30,
     (cells, counts, box, dims)."""
     baseline, make_plan, _, new_name, old_name = LADDER_AB[kind]
     args = ladder_args(built, state, operands)
-    cap, dims = args[0].shape[1], args[4]
+    cap, dims, n_types = args[0].shape[1], args[4], args[3].shape[1]
     return _plan_sweep(
         lambda: baseline(*args),
         lambda plan: variants.ladder_kernel(kind, *args, plan=plan),
-        lambda **kw: make_plan(cap, dims, **kw),
+        lambda **kw: make_plan(cap, dims, n_types, **kw),
         plans, old_name, new_name, reps)
 
 
@@ -606,10 +647,10 @@ def ladder_rules(kind: str, built, state, rules, operands=None,
     turns, on the melt's operands or on ``operands``."""
     baseline, make_plan, fields, new_name, old_name = LADDER_AB[kind]
     args = ladder_args(built, state, operands)
-    cap, dims = args[0].shape[1], args[4]
+    cap, dims, n_types = args[0].shape[1], args[4], args[3].shape[1]
     runs = {"baseline": (lambda: baseline(*args), old_name)}
     for rule in rules:
-        plan = make_plan(cap, dims, **dict(zip(fields, rule)))
+        plan = make_plan(cap, dims, n_types, **dict(zip(fields, rule)))
         runs[str(rule)] = (
             lambda plan=plan: variants.ladder_kernel(kind, *args, plan=plan),
             new_name)
@@ -620,9 +661,9 @@ def candidate_sources(built, state, operands=None, reps: int = 50) -> dict:
     """Device ms, in turns, of the one warp-per-row body over each source
     of candidates that takes these operands: none staged (K3b, a cap that
     is a multiple of 8), one stage per cell (K3a, the same caps), whole
-    column windows by bulk copies (K3d), and column segments (K2, K1's
-    body over the stencil mask), on the melt's operands or on
-    ``operands``."""
+    columns by bulk copies (K3c, the same caps), column windows by bulk
+    copies (K3d), and column segments (K2, K1's body over the stencil
+    mask), on the melt's operands or on ``operands``."""
     cells, counts, box, params, dims, uniform = ladder_args(built, state,
                                                             operands)
     args = (cells, counts, box, params, dims, uniform)
@@ -632,6 +673,8 @@ def candidate_sources(built, state, operands=None, reps: int = 50) -> dict:
             lambda: variants.ladder_kernel("resident", *args), K3B_NEW)
         runs["per cell (K3a)"] = (
             lambda: variants.ladder_kernel("packet", *args), K3A_NEW)
+        runs["whole columns (K3c)"] = (
+            lambda: variants.ladder_kernel("colz", *args), K3C_NEW)
     runs["column windows (K3d)"] = (
         lambda: variants.ladder_kernel("column", *args), K3D_NEW)
     runs["column segments (K2)"] = (
@@ -640,20 +683,47 @@ def candidate_sources(built, state, operands=None, reps: int = 50) -> dict:
     return in_turns(runs, reps)
 
 
+def colz_table_or_search(built, state, rules, reps: int = 50) -> dict:
+    """Device ms, in turns, of K3c's body finding each candidate in the
+    warp's table of stage rows and by the search over the lanes' prefix,
+    on the same stage, under each rule of ``rules`` (``COLZ_RULES``'
+    form)."""
+    args = ladder_args(built, state)
+    cap, dims = args[0].shape[1], args[4]
+    runs = {}
+    for rule in rules:
+        plan = variants.colz_launch_plan(
+            cap, dims, **dict(zip(("rows", "threads", "depth"), rule)))
+        runs["table %s" % (rule,)] = (
+            lambda plan=plan: variants.ladder_kernel("colz", *args,
+                                                     plan=plan), K3C_NEW)
+        runs["search %s" % (rule,)] = (
+            lambda plan=plan: variants.colz_search_kernel(*args, plan=plan),
+            K3C_SEARCH)
+    return in_turns(runs, reps)
+
+
 def ladder_main(n_mols: int) -> int:
-    """``--ladder``: K3a's plan sweep on the 10k LJ melt, K3d's on the 10k
-    melt at cap 36 and on the film, then the rules and the sources of
-    candidates in turns."""
+    """``--ladder``: K3a's, K3c's and K1''s plan sweeps on the 10k LJ melt,
+    K3d's on the 10k melt at cap 36 and on the film, then the rules, K3c's
+    table against its search and the sources of candidates in turns."""
     lj = _warm(testsystems.build_melt, n_mols, 600)
+    _print_melt("lj cap 32", lj[0])
+    for kind, sweep, depths, rules in (
+            ("colz", COLZ_SWEEP, COLZ_DEPTHS, COLZ_RULES),
+            ("colt1", COLT1_SWEEP, COLT1_DEPTHS, COLT1_RULES)):
+        label = "%s lj" % ("k3c" if kind == "colz" else "k1p")
+        _sweep_with_depths(label, lambda plans, kind=kind: ladder_sweep(
+            kind, *lj, plans), sweep, depths)
+        print(json.dumps({"melt": label, "rules_in_turns": ladder_rules(
+            kind, *lj, rules)}), flush=True)
+    print(json.dumps({"melt": "k3c lj", "table_or_search_in_turns":
+                      colz_table_or_search(*lj, COLZ_RULES[:3])}),
+          flush=True)
     k3d = _warm(functools.partial(testsystems.build_melt, cell_cap=36),
                 n_mols, 600)
     grids = [("k3d cap 36", None), ("k3d film", film_operands(k3d[0]))]
-    for label, (built, state) in (("k3a lj", lj), ("k3d cap 36", k3d)):
-        print(json.dumps({"melt": label, "n": built.cfg.n_particles,
-                          "cell_cap": built.cfg.cell_cap,
-                          "dims": list(built.cfg.cell_dims),
-                          "device": torch.cuda.get_device_name(0)}),
-              flush=True)
+    _print_melt("k3d cap 36", k3d[0])
     _print_sweep("k3a lj", ladder_sweep("packet", *lj, PACKET_SWEEP))
     for label, operands in grids:
         _sweep_with_depths(
@@ -719,6 +789,13 @@ def _warm(fn, n_mols: int, steps: int):
     built, _, _ = fn(n_mols=n_mols, reactive=True, device="cuda")
     state = runner.initial_forces(built.spec, built.cfg, built.state)
     return built, testsystems.warmup(built, state, steps=steps)
+
+
+def _print_melt(label: str, built):
+    print(json.dumps({"melt": label, "n": built.cfg.n_particles,
+                      "cell_cap": built.cfg.cell_cap,
+                      "dims": list(built.cfg.cell_dims),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 def _print_sweep(label: str, res, **extra):

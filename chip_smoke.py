@@ -34,10 +34,13 @@ once) and drives the port's paths at 10k particles:
      both parameter modes, K3a-K3d against K2 and K1 on the same operands
      (forces bit for bit), K1' against K1, the cancellation check, times
      and bounds (K3d's row on its own path's operands, the cap-36 melt);
-     K3a (a warp per live packet), K3b (a warp per row) and K3d (column
-     windows by bulk copies) against their first designs bit for bit in
-     both parameter modes, with device times in turns (K3a and K3b at 10k,
-     K3d at 10k cap 36 and on the film, bits also on the 2x2x2 melt); the
+     K3a (a warp per live packet), K3b (a warp per row), K3c (whole
+     neighbour columns by bulk copies), K3d (column windows by bulk
+     copies) and K1' (K1's body with colt1's per-column sums) against
+     their first designs bit for bit in both parameter modes, with device
+     times in turns (K3a, K3b and K3c at 10k, K3c's bits also on a random
+     grid with an axis of 2 at cap 24; K3d at 10k cap 36 and on the film,
+     bits also on the 2x2x2 melt; K1' at 10k in both of its channels); the
      five ladder kernels, K1 and K2 timed in turns on identical operands;
      one untimed and one timed reactive block through
      ``run_block(pair_kernel=...)`` for "colt1", "packet", "resident" and
@@ -863,7 +866,8 @@ LADDER_SOURCE = "chemlab_tpu_torch/csrc/cell_pair_ladder.cu"
 # launch count -> (row name, kind, TPU kernel replaced, the block's
 # pair_kernel)
 LADDER_ROWS = {
-    "K1p": ("K1p ladder_colt1 (colt1: per-column partial sums)", "colt1",
+    "K1p": ("K1p ladder_colt1 (K1's column-segment body with colt1's "
+            "per-column partial sums)", "colt1",
             "chemlab_tpu/engine/pallas_pair_variants.py:617", "colt1"),
     "K3a": ("K3a ladder_packet (a warp per live 8-row packet, one stage "
             "per cell)", "packet",
@@ -871,7 +875,8 @@ LADDER_ROWS = {
     "K3b": ("K3b ladder_resident (a warp per row, nothing staged)",
             "resident",
             "chemlab_tpu/engine/pallas_pair_variants.py:131", "resident"),
-    "K3c": ("K3c ladder_colz (one block per xy column)", "colz",
+    "K3c": ("K3c ladder_colz (a block per xy column, whole neighbour "
+            "columns by bulk copies, a warp per row)", "colz",
             "chemlab_tpu/engine/pallas_pair_variants.py:510", "column"),
     "K3d": ("K3d ladder_column (column windows by bulk copies, a warp per "
             "row)", "column",
@@ -1048,11 +1053,40 @@ def baseline_ab(key: str, label: str, new, old, new_name: str,
             "ms_before": _time_ms(lambda: old(*args), 50)}
 
 
+# a grid with an axis of 2 (U = 6 columns, S = 18) at a cap K3c takes
+RAGGED_DIMS, RAGGED_CAP = (6, 2, 5), 24
+
+
+def random_grid(dims, cap: int, n_types: int, seed: int, edge: float = 2.9,
+                fill: int = 16):
+    """Seeded random occupancy on the card: up to ``fill`` particles a
+    cell, uniform inside cells of side ``edge`` (the melt's cutoff + skin),
+    types 1..n_types: (cells, counts, box)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    n_cells = int(np.prod(dims))
+    cells = np.zeros((n_cells, cap, 4), np.float32)
+    counts = rng.randint(0, min(cap, fill) + 1, n_cells).astype(np.int32)
+    for c in range(n_cells):
+        at = np.array([c // (dims[1] * dims[2]), (c // dims[2]) % dims[1],
+                       c % dims[2]])
+        k = counts[c]
+        cells[c, :k, :3] = (at + rng.uniform(0, 1, (k, 3))) * edge
+        cells[c, :k, 3] = rng.randint(1, n_types + 1, k)
+    box = np.asarray(dims, np.float32) * edge
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (cells, counts, box))
+
+
 def ladder_abs(lj, cap36, small) -> dict:
-    """K3a, K3b and K3d against their first designs: K3a and K3b on the 10k
-    LJ melt (cap 32), K3d on the 10k melt at cap 36 (its path), the 2x2x2
-    melt (bits only) and the film.  Returns each row's numbers."""
+    """K3a, K3b, K3c, K3d and K1' against their first designs: K3a, K3b,
+    K3c and K1' (both channels) on the 10k LJ melt (cap 32), K3c also on a
+    random grid with an axis of 2 (bits only), K3d on the 10k melt at cap
+    36 (its path), the 2x2x2 melt (bits only) and the film.  Returns each
+    row's numbers."""
     from chemlab_tpu_torch import kernel_matrix as km
+    from chemlab_tpu_torch.engine import cell_pair
     from chemlab_tpu_torch.engine import cell_pair_variants as variants
 
     out = {}
@@ -1072,6 +1106,37 @@ def ladder_abs(lj, cap36, small) -> dict:
             lambda *a, kind=kind: variants.ladder_kernel(kind, *a), old,
             *names, *_cells(built, state), state.box, cfg.cell_dims,
             built.spec, cfg.n_types, cfg.uniform_lj)
+
+    built, _, state = lj
+    cfg = built.cfg
+    ragged = random_grid(RAGGED_DIMS, RAGGED_CAP, cfg.n_types, 24)
+    for operands in ((*_cells(built, state), state.box, cfg.cell_dims),
+                     (*ragged[:3], RAGGED_DIMS)):
+        cells, dims = operands[0], operands[3]
+        print("K3c launch plan at %s x cap %d: %s" % (
+            dims, cells.shape[1],
+            variants.colz_launch_plan(cells.shape[1], dims)))
+        nums = baseline_ab(
+            "K3c", "at %s x cap %d" % (dims, cells.shape[1]),
+            lambda *a: variants.ladder_kernel("colz", *a),
+            variants.colz_baseline_kernel, km.K3C_NEW, km.K3C_OLD, *operands,
+            built.spec, cfg.n_types, cfg.uniform_lj,
+            timed=dims == cfg.cell_dims)
+        out.setdefault("K3c", nums)
+    print("K1p launch plan at %s x cap %d: %s" % (
+        cfg.cell_dims, cfg.cell_cap,
+        variants.colt1_launch_plan(cfg.cell_dims, cfg.cell_cap,
+                                   cfg.n_types)))
+    for mode in (cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL):
+        nums = baseline_ab(
+            "K1p", "at %s x cap %d ch3=%d" % (cfg.cell_dims, cfg.cell_cap,
+                                              mode),
+            lambda *a, mode=mode: variants.ladder_kernel("colt1", *a, mode),
+            lambda *a, mode=mode: variants.colt1_baseline_kernel(*a, mode),
+            km.K1P_NEW, km.K1P_OLD, *_cells(built, state), state.box,
+            cfg.cell_dims, built.spec, cfg.n_types, cfg.uniform_lj,
+            timed=mode == cell_pair.CH3_ENERGY)
+        out.setdefault("K1p", nums)
 
     def new(*a):
         return variants.ladder_kernel("column", *a)
@@ -1103,8 +1168,9 @@ def ladder_abs(lj, cap36, small) -> dict:
 def ladder_path(card: str, lj, cap36, small):
     """The ladder on the warmed 10k LJ melt (cap 32) and the cap-36 melt:
     each kernel against plain, K2 and K1 (K3d also on its own cap-36
-    operands, which give its row), K3a, K3b and K3d against their first
-    designs (K3d also on the 2x2x2 melt and the film), the cancellation, a
+    operands, which give its row), K3a, K3b, K3c, K3d and K1' against
+    their first designs (K3c also on a random grid with an axis of 2, K3d
+    on the 2x2x2 melt and the film), the cancellation, a
     reactive block per choice (``run_block(pair_kernel=...)``: "column"
     takes K3c at cap 32 and K3d at cap 36), then the kernel matrix."""
     import torch

@@ -713,34 +713,46 @@ def test_cuda_ladder_ragged_cells(dims, cap):
 
 @pytest.mark.cuda
 def test_cuda_ladder_opts_in_at_the_100k_grid():
-    """The 100k melt's grid (24^3 cells) at cap 40: K3c (140 120 bytes of
-    shared memory) and K1' (151 712 bytes) take the opt-in above 48 KiB;
-    K3a-K3d equal K2 bit for bit and K1' agrees with K1.  A stage above
-    227 KiB raises with its size."""
+    """The 100k melt's grid (24^3 cells) at cap 40, and 48 after a
+    capacity regrowth: K3c's plan (its stage of whole columns 138 240 and
+    165 888 bytes) and K1''s at a segment of nz (one block per xy column)
+    take the opt-in above 48 KiB; K3a-K3d equal K2 bit for bit and K1'
+    agrees with K1 under its default plan and that one.  A stage above 227
+    KiB raises with its size, naming the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU build)")
-    dims, cap = (24, 24, 24), 40
-    dev = [t.cuda() for t in _random_cells(dims, cap, 7, fill=12)]
-    n_types = dev[3].shape[1]
-    assert variants._smem("colz", cap, dims, n_types) > 48 * 1024
-    assert variants._smem("colt1", cap, dims, n_types) > 48 * 1024
-    k2_e = cell_pair.cell_cells(*dev, dims, False, False,
-                                cell_pair.CH3_ENERGY)
-    k2_w = cell_pair.cell_cells(*dev, dims, False, False,
-                                cell_pair.CH3_VIRIAL)
-    for kind in ("packet", "resident", "colz", "column"):
-        got = variants.ladder_cells(kind, *dev, dims, False)
-        torch.cuda.synchronize()
-        assert torch.equal(got[..., :4], k2_e), kind
-        assert torch.equal(got[..., 4], k2_w[..., 3]), kind
-    k1 = cell_pair.colt_cells(*dev, dims, False, False, cell_pair.CH3_ENERGY)
-    k1p = variants.ladder_cells("colt1", *dev, dims, False)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(k1p, k1, rtol=0, atol=_tol(k1))
+    dims = (24, 24, 24)
+    for cap in (40, 48):
+        dev = [t.cuda() for t in _random_cells(dims, cap, 7, fill=12)]
+        n_types = dev[3].shape[1]
+        column = variants.colt1_launch_plan(dims, cap, n_types, seg=24)
+        assert variants.colz_launch_plan(cap, dims).smem > 48 * 1024
+        assert column.smem > 48 * 1024
+        k2_e = cell_pair.cell_cells(*dev, dims, False, False,
+                                    cell_pair.CH3_ENERGY)
+        k2_w = cell_pair.cell_cells(*dev, dims, False, False,
+                                    cell_pair.CH3_VIRIAL)
+        for kind in ("packet", "resident", "colz", "column"):
+            got = variants.ladder_cells(kind, *dev, dims, False)
+            torch.cuda.synchronize()
+            assert torch.equal(got[..., :4], k2_e), (kind, cap)
+            assert torch.equal(got[..., 4], k2_w[..., 3]), (kind, cap)
+        k1 = cell_pair.colt_cells(*dev, dims, False, False,
+                                  cell_pair.CH3_ENERGY)
+        for plan in (None, column):
+            k1p = variants.ladder_kernel("colt1", *dev, dims, False,
+                                         plan=plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k1p, k1, rtol=0, atol=_tol(k1))
     big = torch.zeros((24 * 24 * 24, 104, 4), device="cuda")
-    with pytest.raises(ValueError, match="227 KiB"):
-        variants.ladder_cells("colt1", big, dev[1], dev[2], dev[3], dims,
+    with pytest.raises(ValueError, match="K3c: shared memory .* 227 KiB"):
+        variants.ladder_cells("colz", big, dev[1], dev[2], dev[3], dims,
                               False)
+    with pytest.raises(ValueError, match="K1': shared-memory stage .* "
+                                         "227 KiB"):
+        variants.ladder_kernel("colt1", big, dev[1], dev[2], dev[3], dims,
+                               False, plan=variants.colt1_launch_plan(
+                                   dims, 104, n_types, seg=24))
 
 
 @pytest.mark.cuda
@@ -1265,40 +1277,64 @@ def test_cuda_resident_equals_baseline_at_the_100k_grid():
                                plan=plan._replace(smem=plan.smem + 20))
 
 
-# ---- K3a's and K3d's redesigns against their first designs ------------------
+# ---- the ladder's redesigns against their first designs ---------------------
+
+# each redesigned ladder kind: its first design's wrapper and handle, and
+# its launch plan from (cap, dims, n_types, **overrides)
+BASELINES = {
+    "packet": (variants.packet_baseline_kernel, cell_pair.K3A_CELLWISE,
+               lambda cap, dims, n_types, **kw: variants.packet_launch_plan(
+                   cap, **kw)),
+    "colz": (variants.colz_baseline_kernel, cell_pair.K3C_CELLWISE,
+             lambda cap, dims, n_types, **kw: variants.colz_launch_plan(
+                 cap, dims, **kw)),
+    "column": (variants.column_baseline_kernel, cell_pair.K3D_CELLWISE,
+               lambda cap, dims, n_types, **kw: variants.column_launch_plan(
+                   cap, dims, **kw)),
+    "colt1": (variants.colt1_baseline_kernel, cell_pair.K1P_CELLWISE,
+              lambda cap, dims, n_types, **kw: variants.colt1_launch_plan(
+                  dims, cap, n_types, **kw))}
+
 
 def _ladder_same_bits(kind, cells, counts, box, params, dims, plans=({},)):
-    """In both parameter modes: the first design of ``kind`` ("packet" K3a
-    or "column" K3d) against the cellwise K2 (both channels), and the new
-    kernel under each plan (dicts of its ``*_launch_plan``'s overrides)
-    against the first design, each launch counted once."""
-    old_fn = {"packet": variants.packet_baseline_kernel,
-              "column": variants.column_baseline_kernel}[kind]
-    old_k = {"packet": cell_pair.K3A_CELLWISE,
-             "column": cell_pair.K3D_CELLWISE}[kind]
+    """In both parameter modes (and, for K1', both of its channels): the
+    first design of ``kind`` ("packet" K3a, "colz" K3c, "column" K3d) against
+    the cellwise K2 (both channels) bit for bit, K1''s against K1 to f32
+    rounding, and the new kernel under each plan (dicts of its
+    ``*_launch_plan``'s overrides) against the first design, each launch
+    counted once."""
+    old_fn, old_k, make_plan = BASELINES[kind]
     new_k = variants.KERNEL_OF[kind]
     dev = [t.cuda() for t in (cells, counts, box, params)]
-    cap = cells.shape[1]
+    cap, n_types = cells.shape[1], params.shape[1]
+    modes = ((cell_pair.CH3_ENERGY, cell_pair.CH3_VIRIAL) if kind == "colt1"
+             else (cell_pair.CH3_ENERGY,))
     for uniform in (True, False):
-        o0 = old_k.launches
-        old = old_fn(*dev, dims, uniform)
-        k2_e = cell_pair.cell_pair_forces_cell_cellwise(
-            *dev, dims, uniform, False, cell_pair.CH3_ENERGY)
-        k2_w = cell_pair.cell_pair_forces_cell_cellwise(
-            *dev, dims, uniform, False, cell_pair.CH3_VIRIAL)
-        torch.cuda.synchronize()
-        assert old_k.launches == o0 + 1
-        assert torch.equal(old[..., :4], k2_e) and torch.equal(
-            old[..., 4], k2_w[..., 3])
-        for kw in plans:
-            plan = (variants.packet_launch_plan(cap, **kw) if kind == "packet"
-                    else variants.column_launch_plan(cap, dims, **kw))
-            n0 = new_k.launches
-            new = variants.ladder_kernel(kind, *dev, dims, uniform,
-                                         plan=plan)
+        for mode in modes:
+            o0 = old_k.launches
+            old = old_fn(*dev, dims, uniform, mode)
             torch.cuda.synchronize()
-            assert new_k.launches == n0 + 1
-            assert torch.equal(new, old), (kind, uniform, plan)
+            assert old_k.launches == o0 + 1
+            if kind == "colt1":
+                k1 = cell_pair.colt_cells(*dev, dims, uniform, False, mode)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(old, k1, rtol=0, atol=_tol(k1))
+            else:
+                k2_e = cell_pair.cell_pair_forces_cell_cellwise(
+                    *dev, dims, uniform, False, cell_pair.CH3_ENERGY)
+                k2_w = cell_pair.cell_pair_forces_cell_cellwise(
+                    *dev, dims, uniform, False, cell_pair.CH3_VIRIAL)
+                torch.cuda.synchronize()
+                assert torch.equal(old[..., :4], k2_e) and torch.equal(
+                    old[..., 4], k2_w[..., 3])
+            for kw in plans:
+                plan = make_plan(cap, dims, n_types, **kw)
+                n0 = new_k.launches
+                new = variants.ladder_kernel(kind, *dev, dims, uniform, mode,
+                                             plan=plan)
+                torch.cuda.synchronize()
+                assert new_k.launches == n0 + 1
+                assert torch.equal(new, old), (kind, uniform, mode, plan)
 
 
 @pytest.mark.cuda
@@ -1413,4 +1449,103 @@ def test_cuda_column_equals_baseline_at_the_100k_grid():
     plan = variants.column_launch_plan(40, dims)
     with pytest.raises(RuntimeError, match="launch failed"):
         variants.ladder_kernel("column", *dev, dims, False,
+                               plan=plan._replace(smem=plan.smem + 20))
+
+
+@pytest.mark.cuda
+def test_cuda_colz_equals_baseline_on_the_melt(melt32):
+    """The 70-trimer melt at cap 32, the melt's parameters and per-pair
+    ones: the same bits as K3c's first design (and K2) under the default
+    plan, one warp a block with lists of one pass, and batches of 3 rows."""
+    built, _, st = melt32
+    cfg = built.cfg
+    for spec in (built.spec, _mixed(built.spec, cfg.n_types, True)):
+        _ladder_same_bits("colz", *_melt_ops(built, st, spec), cfg.cell_dims,
+                          plans=({}, dict(rows=1, threads=32, depth=1),
+                                 dict(rows=3, threads=896, depth=2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 2, 4), 16), ((4, 3, 1), 8),
+                                      ((2, 2, 2), 24), ((5, 4, 3), 32)])
+def test_cuda_colz_equals_baseline_on_ragged_grids(dims, cap):
+    """Random occupancy on grids with axes of 2 and 1 (U < 9 columns, a
+    column of fewer than 3 distinct cells) at caps that are multiples of 8:
+    the same bits as the first design and K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    _ladder_same_bits("colz", *_random_cells(dims, cap, cap), dims,
+                      plans=({}, dict(rows=3, threads=96, depth=1)))
+
+
+@pytest.mark.cuda
+def test_cuda_colz_equals_baseline_at_the_100k_grid():
+    """24^3 cells at cap 40 and 48: the same bits as the first design and
+    K2; the default plan's warps shrink to fit the stage, a plan above 227
+    KiB raises naming K3c with its size, and the launcher refuses a plan
+    whose bytes are not its layout's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims = (24, 24, 24)
+    for cap in (40, 48):
+        _ladder_same_bits("colz", *_random_cells(dims, cap, 7, fill=12),
+                          dims, plans=({}, dict(rows=1, threads=256,
+                                                depth=2)))
+    with pytest.raises(ValueError, match="K3c: shared memory"):
+        variants.colz_launch_plan(48, dims, threads=896, depth=4)
+    dev = [t.cuda() for t in _random_cells(dims, 40, 7, fill=12)]
+    plan = variants.colz_launch_plan(40, dims)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        variants.ladder_kernel("colz", *dev, dims, False,
+                               plan=plan._replace(smem=plan.smem + 20))
+
+
+@pytest.mark.cuda
+def test_cuda_colt1_equals_baseline_on_the_melt(melt32):
+    """The 70-trimer melt at cap 32, the melt's parameters and per-pair
+    ones, ch3 modes 1 and 2: the same bits as K1''s first design (within
+    f32 rounding of K1) under the default plan, segments of 1 and nz, and
+    lists of one pass."""
+    built, _, st = melt32
+    cfg = built.cfg
+    for spec in (built.spec, _mixed(built.spec, cfg.n_types, True)):
+        _ladder_same_bits("colt1", *_melt_ops(built, st, spec),
+                          cfg.cell_dims,
+                          plans=({}, dict(seg=1, rows=1, threads=32, depth=1),
+                                 dict(seg=3, rows=4, threads=128, depth=2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,cap", [((3, 4, 5), 16), ((4, 3, 3), 24),
+                                      ((3, 3, 6), 8)])
+def test_cuda_colt1_equals_baseline_on_ragged_grids(dims, cap):
+    """Random occupancy on odd grids of at least 3 cells an axis: the same
+    bits as the first design, segments of 1, 3 and nz."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    _ladder_same_bits("colt1", *_random_cells(dims, cap, cap), dims,
+                      plans=({}, dict(seg=1), dict(seg=3, rows=3, threads=64,
+                                                   depth=1),
+                             dict(seg=dims[2])))
+
+
+@pytest.mark.cuda
+def test_cuda_colt1_equals_baseline_at_the_100k_grid():
+    """24^3 cells at cap 40 and 48: the same bits as the first design under
+    the default plan and a segment of nz (one block per xy column, ~205 KB
+    of shared memory at cap 48); a plan above 227 KiB raises naming K1'
+    with its size, and the launcher refuses a plan whose bytes are not its
+    layout's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    dims = (24, 24, 24)
+    for cap in (40, 48):
+        _ladder_same_bits("colt1", *_random_cells(dims, cap, 7, fill=12),
+                          dims, plans=({}, dict(seg=24)))
+    with pytest.raises(ValueError, match="K1': shared-memory stage"):
+        variants.colt1_launch_plan(dims, 48, 2, seg=24, threads=1024)
+    dev = [t.cuda() for t in _random_cells(dims, 40, 7, fill=12)]
+    plan = variants.colt1_launch_plan(dims, 40, 2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        variants.ladder_kernel("colt1", *dev, dims, False,
                                plan=plan._replace(smem=plan.smem + 20))

@@ -119,7 +119,7 @@
 //        second copy) and fill, the warp writes each candidate's stage row
 //        into its 16-bit table once per z, and warp_rows takes the batch.
 //        (The search over the lanes' prefix in place of the table was
-//        built and measured too: it lost by 16-20 %, PERF.md.)  Its first
+//        built and measured too: it lost by 13-18 %, PERF.md.)  Its first
 //        design, ladder_colz_cellwise (blockDim (cap rounded to a warp,
 //        zpar), a thread per slot walking its row's S cells alone, the
 //        stage copied element by element), stays as the baseline it is
@@ -146,8 +146,10 @@
 //        list, the terms over the list) under its kColumns sum policy:
 //        each list entry keeps its xy column in a byte, and lane r sums
 //        each column's terms apart and folds them in at the column's end,
-//        colt1's grouping (colt1_launch_plan; the grouping does not depend
-//        on the segment).  Its first design, ladder_colt1_cellwise (one
+//        colt1's grouping (colt1_launch_plan, K1's rule; the grouping does
+//        not depend on the segment), in blocks of at most 256 threads held
+//        to 64 registers a thread, so that 4 fit an SM as K1's do.  Its
+//        first design, ladder_colt1_cellwise (one
 //        block per xy column, blockDim (cap rounded to a warp, zpar), the
 //        9 haloed z-columns of (nz+2)*cap rows staged element by element,
 //        a thread per slot walking the 9 columns' windows alone), stays as
@@ -161,12 +163,12 @@
 // 16*9*(nz+2)*cap + 20*T*T + 4*9*(nz+3).  The melt has T = 7 types.  At
 // 10k (11^3 cells, S = 27, U = 9, cap 32) under the default plans: K3a
 // 24 064, K3c 171 148 (896 threads; its stage 50 688), K3d 39 920 at cap
-// 36, K1' 48 188 (segments of 4; 82 712 at a segment of nz); the first
+// 36, K1' 43 256 (segments of 3; 82 712 at a segment of nz); the first
 // designs of K3c and K1' 52 100 and 61 388.  At the 100k melt (24^3 cells,
 // cap 40, or 48 after a capacity regrowth): K3a 27 520 (30 976), K3c
 // 228 784 at 608 threads (228 576 at 384: the stage of 138 240, 165 888
-// bytes leaves room for fewer warps), K3d 42 080 (46 400), K1' 55 100
-// (62 012; 176 780, 206 732 at a segment of nz); the first designs of K3c
+// bytes leaves room for fewer warps), K3d 42 080 (46 400), K1' 49 016
+// (54 776; 176 780, 206 732 at a segment of nz); the first designs of K3c
 // and K1' 140 120 (167 768) and 151 712 (181 664); all within the 232 448
 // (227 KiB) a block may opt in to.  Above 48 KiB the launch opts in with
 // cudaFuncSetAttribute; the wrapper raises above 227 KiB with the size.
@@ -387,13 +389,14 @@ __global__ void ladder_resident_packet_kernel(
   write_both(out, c * cap + i, a);
 }
 
-// ---- the warp-per-row body of K3a, K3b and K3d ------------------------------
+// ---- the warp-per-row body of K3a, K3b, K3c and K3d -------------------------
 
 // Where a row's candidate k lies in the candidates' array (every lane of
 // the warp calls it, each with its own k; meaningful for k < rc.total):
 // found over the lanes' prefix (K3b: each neighbour cell's rows where the
 // cell array holds them), the candidate's own index (K3a: the occupied
-// rows packed in stencil order), or read from the block's table (K3d).
+// rows packed in stencil order), or read from a table of stage rows (K3d:
+// the block's, K3c: the warp's, 16-bit).
 struct SearchRows {
   __device__ __forceinline__ int operator()(const packed::RowCands& rc,
                                             int k) const {
@@ -925,9 +928,10 @@ __global__ void __launch_bounds__(512) ladder_colt1_cellwise_kernel(
 // writes each candidate's stage row into its own table once per z, which
 // the next items of the run (the same z) read again; warp_rows takes the
 // batch, in K2's order.  Stage rows stay below 2^16 (the stage holds at
-// most 14 528), so the tables are 16-bit.
-template <bool kTable>
-__device__ __forceinline__ void colz_rows(
+// most 14 528), so the tables are 16-bit.  (The search over the lanes'
+// prefix in place of the table was built and timed too: it lost by
+// 13-18 %, PERF.md.)
+__global__ void ladder_colz_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
@@ -1007,52 +1011,24 @@ __device__ __forceinline__ void colz_rows(
       const int zz = (z + dz_o) % nz;
       start = u_o * col_rows + zz * cap;
       c_o = lane < n_stencil ? cnt_s[u_o * nz + zz] : 0;
-      if (kTable) {
-        int pre = c_o;
-        for (int d = 1; d < 32; d <<= 1) {
-          const int v = __shfl_up_sync(packed::kAll, pre, d);
-          if (lane >= d) pre += v;
-        }
-        __syncwarp();  // the previous cell's table is no longer read
-        for (int j = 0; j < c_o; ++j) {
-          rtab[pre - c_o + j] = static_cast<uint16_t>(start + j);
-        }
-        __syncwarp();
+      int pre = c_o;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(packed::kAll, pre, d);
+        if (lane >= d) pre += v;
       }
+      __syncwarp();  // the previous cell's table is no longer read
+      for (int j = 0; j < c_o; ++j) {
+        rtab[pre - c_o + j] = static_cast<uint16_t>(start + j);
+      }
+      __syncwarp();
     }
     const int b0 = (i - z_item) * rows_w;
     const int nb = min(rows_w, own_cnt[z] - b0);
-    const float4* own = own_col + z * cap + b0;
-    Acc a;
-    if (kTable) {
-      a = warp_rows(stage, own, nb, start, c_o, TableRows<uint16_t>{rtab},
-                    params, n_types, uniform_lj, b, wl, wv, cap_w, lane);
-    } else {
-      a = warp_rows(stage, own, nb, start, c_o, SearchRows(), params,
-                    n_types, uniform_lj, b, wl, wv, cap_w, lane);
-    }
+    const Acc a = warp_rows(stage, own_col + z * cap + b0, nb, start, c_o,
+                            TableRows<uint16_t>{rtab}, params, n_types,
+                            uniform_lj, b, wl, wv, cap_w, lane);
     if (lane < nb) write_both(out, col * col_rows + z * cap + b0 + lane, a);
   }
-}
-
-__global__ void ladder_colz_kernel(
-    const float4* __restrict__ cells, const int* __restrict__ counts,
-    const float* __restrict__ box, const float* __restrict__ params,
-    const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
-    int nz, int cap, int n_types, int n_stencil, int n_cols, int uniform_lj,
-    int rows_w, int depth) {
-  colz_rows<true>(cells, counts, box, params, tab, out, nx, ny, nz, cap,
-                  n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
-}
-
-__global__ void ladder_colz_search_kernel(
-    const float4* __restrict__ cells, const int* __restrict__ counts,
-    const float* __restrict__ box, const float* __restrict__ params,
-    const int* __restrict__ tab, float4* __restrict__ out, int nx, int ny,
-    int nz, int cap, int n_types, int n_stencil, int n_cols, int uniform_lj,
-    int rows_w, int depth) {
-  colz_rows<false>(cells, counts, box, params, tab, out, nx, ny, nz, cap,
-                   n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
 }
 
 // ---- K1': K1's column-segment body with colt1's per-column sums ----------
@@ -1061,8 +1037,12 @@ __global__ void ladder_colz_search_kernel(
 // same stage, candidates and order as K1 (the lanes o < 27 in (dx, dy, dz)
 // order, dz fastest, which is colt1's column-major order), each xy column's
 // terms summed apart and folded in as colt1 does, under a name of its own
-// so that a trace tells K1' from K1
-__global__ void ladder_colt1_kernel(
+// so that a trace tells K1' from K1.  The partials take the body from K1's
+// 62 registers a thread to 71, which leaves room for 3 blocks of 256
+// threads an SM, and K1's rule (484 blocks at 10k) for 4: the launch
+// bounds (at most 256 threads, 4 blocks an SM) hold it to 64 (61, no
+// spill), and it runs K1's rule in one wave (PERF.md).
+__global__ void __launch_bounds__(256, 4) ladder_colt1_kernel(
     const float4* __restrict__ cells, const int* __restrict__ counts,
     const float* __restrict__ box, const float* __restrict__ params,
     float4* __restrict__ out, int nx, int ny, int nz, int cap, int n_types,
@@ -1114,32 +1094,6 @@ size_t colz_smem(int nz, int cap, int n_stencil, int n_cols, int threads,
          + static_cast<size_t>(n_cols) * nz * sizeof(int)
          + static_cast<size_t>(threads / 32) * n_stencil * cap
                * sizeof(uint16_t);
-}
-
-// Launch K3c's body (the table or the search) with its plan, after checking
-// that the plan describes the layout: a batch's rows one lane each, whole
-// warps, colz_smem's bytes.
-int colz_launch(void (*kernel)(const float4*, const int*, const float*,
-                               const float*, const int*, float4*, int, int,
-                               int, int, int, int, int, int, int, int),
-                const void* cells, const void* counts, const void* box,
-                const void* params, const void* table, void* out, int nx,
-                int ny, int nz, int cap, int n_types, int n_stencil,
-                int n_cols, int uniform_lj, int rows_w, int threads,
-                int depth, int smem_bytes, void* stream) {
-  if (rows_w < 1 || rows_w > 32 || !warps_ok(threads, depth)
-      || colz_smem(nz, cap, n_stencil, n_cols, threads, depth)
-             != static_cast<size_t>(smem_bytes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int rc = opt_in(reinterpret_cast<const void*>(kernel), smem_bytes);
-  if (rc) return rc;
-  kernel<<<nx * ny, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(cells), static_cast<const int*>(counts),
-      static_cast<const float*>(box), static_cast<const float*>(params),
-      static_cast<const int*>(table), static_cast<float4*>(out), nx, ny, nz,
-      cap, n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1266,25 +1220,23 @@ extern "C" int ladder_colz(const void* cells, const void* counts,
                            int rows_w, int threads, int depth,
                            int smem_bytes, void* stream) {
   (void)ch3_mode;
-  return colz_launch(ladder_colz_kernel, cells, counts, box, params, table,
-                     out, nx, ny, nz, cap, n_types, n_stencil, n_cols,
-                     uniform_lj, rows_w, threads, depth, smem_bytes, stream);
-}
-
-// K3c's body finding candidate k by the search over the lanes' prefix
-// (K3b's cand_row) instead of the table: the other side of the A/B of the
-// two, with the same plan
-extern "C" int ladder_colz_search(const void* cells, const void* counts,
-                                  const void* box, const void* params,
-                                  const void* table, void* out, int nx,
-                                  int ny, int nz, int cap, int n_types,
-                                  int n_stencil, int n_cols, int uniform_lj,
-                                  int ch3_mode, int rows_w, int threads,
-                                  int depth, int smem_bytes, void* stream) {
-  (void)ch3_mode;
-  return colz_launch(ladder_colz_search_kernel, cells, counts, box, params,
-                     table, out, nx, ny, nz, cap, n_types, n_stencil, n_cols,
-                     uniform_lj, rows_w, threads, depth, smem_bytes, stream);
+  // the plan must describe this layout: a batch's rows one lane each,
+  // whole warps, colz_smem's bytes
+  if (rows_w < 1 || rows_w > 32 || !warps_ok(threads, depth)
+      || colz_smem(nz, cap, n_stencil, n_cols, threads, depth)
+             != static_cast<size_t>(smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rc = opt_in(reinterpret_cast<const void*>(ladder_colz_kernel),
+                        smem_bytes);
+  if (rc) return rc;
+  ladder_colz_kernel<<<nx * ny, threads, smem_bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(cells), static_cast<const int*>(counts),
+      static_cast<const float*>(box), static_cast<const float*>(params),
+      static_cast<const int*>(table), static_cast<float4*>(out), nx, ny, nz,
+      cap, n_types, n_stencil, n_cols, uniform_lj, rows_w, depth);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K3c's first design (one block per xy column, a thread per slot walking
@@ -1374,9 +1326,10 @@ extern "C" int ladder_column_cellwise(const void* cells, const void* counts,
 }
 
 // K1' with its launch plan (seg, rows_w, threads, depth, smem_bytes:
-// cell_pair_variants.colt1_launch_plan), on a grid of at least 3 cells an
-// axis (a full 27-cell stencil); ch3 is e/2 (ch3_mode 1) or w/2 (2), and
-// mode 0 gives e/2 as the first design does
+// cell_pair_variants.colt1_launch_plan; at most 256 threads, the kernel's
+// launch bounds), on a grid of at least 3 cells an axis (a full 27-cell
+// stencil); ch3 is e/2 (ch3_mode 1) or w/2 (2), and mode 0 gives e/2 as
+// the first design does
 extern "C" int ladder_colt1(const void* cells, const void* counts,
                             const void* box, const void* params,
                             const void* table, void* out, int nx, int ny,
@@ -1387,7 +1340,7 @@ extern "C" int ladder_colt1(const void* cells, const void* counts,
   (void)table;
   (void)n_stencil;
   (void)n_cols;
-  if (nx < 3 || ny < 3 || nz < 3) {
+  if (nx < 3 || ny < 3 || nz < 3 || threads > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return packed::lj_launch(ladder_colt1_kernel, cells, counts, box, params,

@@ -134,16 +134,18 @@ COLUMN_ROWS = 1
 COLUMN_THREADS = 256
 COLUMN_DEPTH = 4
 # K3c's and K1''s, measured on an H100 (PERF.md: ``kernel_matrix
-# --ladder``'s sweeps and rules in turns at 10k, cap 32).  K3c's threads
-# are also the most its block takes: at its 71 registers a thread, 28 warps
-# fill an SM's 64 Ki registers (a build held to 64 registers for 32 warps
-# spilled and was slower, PERF.md); the plan takes fewer where the stage
-# leaves no room for their lists and tables.
+# --ladder``'s sweeps and rules in turns at 10k, cap 32).  Each one's
+# threads are also the most its block takes.  K3c: at its 71 registers a
+# thread, 28 warps fill an SM's 64 Ki registers (a build held to 64
+# registers for 32 warps spilled and was slower); the plan takes fewer
+# where the stage leaves no room for their lists and tables.  K1': the
+# kernel's launch bounds (256 threads, 4 blocks an SM) hold it to 64
+# registers, and K1's rule was the fastest under them.
 COLZ_ROWS = 1
 COLZ_THREADS = 896
 COLZ_DEPTH = 4
-COLT1_SEG = 4
-COLT1_ROWS = 8
+COLT1_SEG = 3
+COLT1_ROWS = 2
 COLT1_THREADS = 256
 COLT1_DEPTH = 4
 
@@ -310,14 +312,17 @@ def colt1_launch_plan(dims, cap: int, n_types: int, *, seg=None, rows=None,
     (``colt1_smem``), from the shapes alone; ``seg``, ``rows``,
     ``threads`` and ``depth`` override the measured choices (the kernel
     matrix's sweep).  Raises ``ValueError`` naming K1' on a layout the
-    kernel cannot take, and above 227 KiB of shared memory with the
-    size."""
+    kernel cannot take (more than ``COLT1_THREADS`` threads among them),
+    and above 227 KiB of shared memory with the size."""
     return _colt1_plan(tuple(int(d) for d in dims), int(cap), int(n_types),
                        seg, rows, threads, depth)
 
 
 @functools.lru_cache(maxsize=None)
 def _colt1_plan(dims, cap, n_types, seg, rows, threads, depth):
+    if threads is not None and threads > COLT1_THREADS:
+        raise ValueError("K1': no plan with threads %d (at most %d)"
+                         % (threads, COLT1_THREADS))
     return cell_pair._packed_plan(
         "K1'", dims, False, seg, rows, threads, depth,
         (COLT1_SEG, COLT1_ROWS, COLT1_THREADS, COLT1_DEPTH),
@@ -502,23 +507,6 @@ def colz_baseline_kernel(cells, counts, box, params, dims,
                    params, dims, uniform_lj, ch3_mode, None)
 
 
-# K3c's body finding each candidate by the search over the lanes' prefix:
-# the other side of the table's A/B, which no step reaches
-_K3C_SEARCH = cell_pair._kernels.CudaKernel(
-    "cell_pair_ladder.cu", "ladder_colz_search", cell_pair._LADDER_PLAN_ARGS)
-
-
-def colz_search_kernel(cells, counts, box, params, dims, uniform_lj: bool,
-                       ch3_mode: int = cell_pair.CH3_ENERGY, plan=None):
-    """Launch K3c's body with the search over the lanes' prefix in place of
-    its table of stage rows, under ``plan`` (``colz_launch_plan``'s by
-    default): the A/B of the two sources of candidate k."""
-    if plan is None:
-        plan = colz_launch_plan(cells.shape[1], dims)
-    return _launch(_K3C_SEARCH, "colz", cells, counts, box, params, dims,
-                   uniform_lj, ch3_mode, plan)
-
-
 def colt1_baseline_kernel(cells, counts, box, params, dims,
                           uniform_lj: bool,
                           ch3_mode: int = cell_pair.CH3_ENERGY):
@@ -546,7 +534,6 @@ _PLANNED = {
     id(cell_pair.K3A): lambda cap, dims, n_types: packet_launch_plan(cap),
     id(cell_pair.K3B): lambda cap, dims, n_types: resident_launch_plan(cap),
     id(cell_pair.K3C): lambda cap, dims, n_types: colz_launch_plan(cap, dims),
-    id(_K3C_SEARCH): lambda cap, dims, n_types: colz_launch_plan(cap, dims),
     id(cell_pair.K3D): lambda cap, dims, n_types: column_launch_plan(
         cap, dims),
     id(cell_pair.K1P): lambda cap, dims, n_types: colt1_launch_plan(

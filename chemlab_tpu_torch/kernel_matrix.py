@@ -82,9 +82,7 @@ designs:
     the list depths at the fastest plan, each followed by its
     ``{"melt", "rules_in_turns"}`` line (``COLZ_RULES``, ``COLT1_RULES``):
     the measurement behind ``cell_pair_variants``' ``COLZ_*`` and
-    ``COLT1_*`` choices; then K3c's table of stage rows against the
-    search over the lanes' prefix, in turns (``{"melt",
-    "table_or_search_in_turns"}``);
+    ``COLT1_*`` choices;
   - one ``{"melt", "threads", "depth", "device_ms"}`` line per plan of
     ``PACKET_SWEEP`` for K3a on the 10k LJ melt, the first design's
     first;
@@ -463,7 +461,6 @@ K3B_NEW, K3B_OLD = "ladder_resident_kernel", "ladder_resident_packet_kernel"
 K3A_NEW, K3A_OLD = "ladder_packet_kernel", "ladder_packet_cellwise_kernel"
 K3D_NEW, K3D_OLD = "ladder_column_kernel", "ladder_column_cellwise_kernel"
 K3C_NEW, K3C_OLD = "ladder_colz_kernel", "ladder_colz_cellwise_kernel"
-K3C_SEARCH = "ladder_colz_search_kernel"
 K1P_NEW, K1P_OLD = "ladder_colt1_kernel", "ladder_colt1_cellwise_kernel"
 # the device function of each ladder kind as the step launches it
 LADDER_KERNEL_NAMES = {"packet": K3A_NEW, "resident": K3B_NEW,
@@ -503,8 +500,8 @@ COLT1_SWEEP = [dict(seg=seg, rows=rows, threads=threads, depth=4)
 COLT1_DEPTHS = (2, 8)
 COLZ_RULES = [(1, 896, 4), (2, 768, 4), (1, 768, 4), (2, 896, 4),
               (1, 896, 2), (1, 896, 6), (2, 512, 4)]
-COLT1_RULES = [(4, 8, 256, 4), (4, 4, 256, 4), (2, 2, 256, 4),
-               (3, 2, 256, 4), (11, 2, 256, 4), (4, 8, 256, 2)]
+COLT1_RULES = [(3, 2, 256, 4), (4, 8, 256, 4), (2, 2, 256, 4),
+               (3, 4, 256, 4), (11, 2, 256, 4), (3, 2, 128, 4)]
 # the film: an LJ operand of 32 x 32 x 2 cells at the melt's density
 FILM_DIMS = (32, 32, 2)
 FILM_DENSITY = 0.27
@@ -683,30 +680,10 @@ def candidate_sources(built, state, operands=None, reps: int = 50) -> dict:
     return in_turns(runs, reps)
 
 
-def colz_table_or_search(built, state, rules, reps: int = 50) -> dict:
-    """Device ms, in turns, of K3c's body finding each candidate in the
-    warp's table of stage rows and by the search over the lanes' prefix,
-    on the same stage, under each rule of ``rules`` (``COLZ_RULES``'
-    form)."""
-    args = ladder_args(built, state)
-    cap, dims = args[0].shape[1], args[4]
-    runs = {}
-    for rule in rules:
-        plan = variants.colz_launch_plan(
-            cap, dims, **dict(zip(("rows", "threads", "depth"), rule)))
-        runs["table %s" % (rule,)] = (
-            lambda plan=plan: variants.ladder_kernel("colz", *args,
-                                                     plan=plan), K3C_NEW)
-        runs["search %s" % (rule,)] = (
-            lambda plan=plan: variants.colz_search_kernel(*args, plan=plan),
-            K3C_SEARCH)
-    return in_turns(runs, reps)
-
-
 def ladder_main(n_mols: int) -> int:
     """``--ladder``: K3a's, K3c's and K1''s plan sweeps on the 10k LJ melt,
-    K3d's on the 10k melt at cap 36 and on the film, then the rules, K3c's
-    table against its search and the sources of candidates in turns."""
+    K3d's on the 10k melt at cap 36 and on the film, then the rules and the
+    sources of candidates in turns."""
     lj = _warm(testsystems.build_melt, n_mols, 600)
     _print_melt("lj cap 32", lj[0])
     for kind, sweep, depths, rules in (
@@ -717,9 +694,6 @@ def ladder_main(n_mols: int) -> int:
             kind, *lj, plans), sweep, depths)
         print(json.dumps({"melt": label, "rules_in_turns": ladder_rules(
             kind, *lj, rules)}), flush=True)
-    print(json.dumps({"melt": "k3c lj", "table_or_search_in_turns":
-                      colz_table_or_search(*lj, COLZ_RULES[:3])}),
-          flush=True)
     k3d = _warm(functools.partial(testsystems.build_melt, cell_cap=36),
                 n_mols, 600)
     grids = [("k3d cap 36", None), ("k3d film", film_operands(k3d[0]))]

@@ -47,7 +47,7 @@ using std::min;
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 // a block's static shared arrays: one instance, as the blocks run in turn
 #define __shared__ static
 struct float4 { float x, y, z, w; };

@@ -60,8 +60,7 @@ def emu(tmp_path_factory):
                           tmp_path_factory.mktemp("colz_emu_k1"))
     for so, kernel in ((ladder, cell_pair.K3C), (ladder, cell_pair.K1P),
                        (ladder, cell_pair.K3C_CELLWISE),
-                       (ladder, cell_pair.K1P_CELLWISE),
-                       (ladder, variants._K3C_SEARCH), (k1, cell_pair.K1)):
+                       (ladder, cell_pair.K1P_CELLWISE), (k1, cell_pair.K1)):
         fn = getattr(so, kernel.symbol)
         fn.argtypes = kernel.argtypes
         fn.restype = ctypes.c_int
@@ -89,8 +88,7 @@ def _colz_same_bits(emu, cells, counts, box, params, dims, plans=COLZ_PLANS,
                     default=True):
     """In both parameter modes: K3c's first design against plain, then the
     new K3c under the default plan (when ``default``) and each of
-    ``plans`` against the first design, and the search over the lanes'
-    prefix under the first plan."""
+    ``plans`` against the first design."""
     ladder, _ = emu
     cap = cells.shape[1]
     for uniform in (True, False):
@@ -105,10 +103,6 @@ def _colz_same_bits(emu, cells, counts, box, params, dims, plans=COLZ_PLANS,
             new = _run(ladder, cell_pair.K3C.symbol, cells, counts, box,
                        params, dims, uniform, plan=plan)
             assert torch.equal(new, old), (uniform, plan)
-        plan = variants.colz_launch_plan(cap, dims, **plans[0])
-        search = _run(ladder, variants._K3C_SEARCH.symbol, cells, counts,
-                      box, params, dims, uniform, plan=plan)
-        assert torch.equal(search, old), uniform
 
 
 def _colt1_same_bits(emu, cells, counts, box, params, dims,
@@ -265,8 +259,9 @@ def test_emulated_colt1_with_whole_empty_columns(emu):
 def test_emulated_launchers_refuse_a_bad_plan(emu):
     """K3c's and K1''s launchers check the plan against their own layout:
     bytes that differ (K1' without its column bytes), a batch wider than a
-    warp, part of a warp, or (K1') a grid with an axis under 3 give
-    cudaErrorInvalidValue, and nothing runs."""
+    warp, part of a warp, or (K1') more threads than its launch bounds or a
+    grid with an axis under 3 give cudaErrorInvalidValue, and nothing
+    runs."""
     ladder, _ = emu
     dims, cap = (3, 3, 4), 16
     cells, counts, box = _random_cells(dims, cap, 3)
@@ -284,8 +279,10 @@ def test_emulated_launchers_refuse_a_bad_plan(emu):
         assert ladder.ladder_colz(*args(dims), *bad, None) == 1
     p1 = variants.colt1_launch_plan(dims, cap, 2)
     k1_bytes = cell_pair.colt_smem(cap, 2, p1.seg, p1.threads, p1.depth)
+    wide = p1._replace(threads=512, smem=variants.colt1_smem(
+        cap, 2, p1.seg, 512, p1.depth))
     for bad in (p1._replace(smem=k1_bytes), p1._replace(rows=33),
-                p1._replace(threads=80)):
+                p1._replace(threads=80), wide):
         assert ladder.ladder_colt1(*args(dims), *bad, None) == 1
     assert ladder.ladder_colt1(*args((3, 2, 6)), *p1, None) == 1
     assert bool((out == 7.0).all())

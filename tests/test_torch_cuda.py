@@ -1543,7 +1543,7 @@ def test_cuda_colt1_equals_baseline_at_the_100k_grid():
         _ladder_same_bits("colt1", *_random_cells(dims, cap, 7, fill=12),
                           dims, plans=({}, dict(seg=24)))
     with pytest.raises(ValueError, match="K1': shared-memory stage"):
-        variants.colt1_launch_plan(dims, 48, 2, seg=24, threads=1024)
+        variants.colt1_launch_plan(dims, 56, 2, seg=24)
     dev = [t.cuda() for t in _random_cells(dims, 40, 7, fill=12)]
     plan = variants.colt1_launch_plan(dims, 40, 2)
     with pytest.raises(RuntimeError, match="launch failed"):

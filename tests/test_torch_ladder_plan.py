@@ -137,9 +137,11 @@ def test_colz_plan_refuses_layouts_the_kernel_cannot_take(override):
 
 @pytest.mark.parametrize("override", [dict(seg=0), dict(rows=0),
                                       dict(rows=33), dict(threads=16),
-                                      dict(threads=100), dict(threads=2048),
+                                      dict(threads=100), dict(threads=512),
                                       dict(depth=0)])
 def test_colt1_plan_refuses_layouts_the_kernel_cannot_take(override):
+    """Among them more threads than ``COLT1_THREADS``, the kernel's launch
+    bounds."""
     with pytest.raises(ValueError, match="K1': no plan"):
         variants.colt1_launch_plan((11, 11, 11), 32, 7, **override)
 
@@ -165,10 +167,11 @@ def test_plans_raise_above_227_kib_naming_the_kernel():
         with pytest.raises(ValueError, match="K3c: shared memory") as err:
             variants.colz_launch_plan(cap, dims, **kw)
         assert str(size) in str(err.value) and "227 KiB" in str(err.value)
-    size = variants.colt1_smem(48, 7, 24, 1024, 4)
+    size = variants.colt1_smem(56, 7, 24, variants.COLT1_THREADS,
+                               variants.COLT1_DEPTH)
     assert size > 227 * 1024
     with pytest.raises(ValueError, match="K1': shared-memory stage") as err:
-        variants.colt1_launch_plan(dims, 48, 7, seg=24, threads=1024)
+        variants.colt1_launch_plan(dims, 56, 7, seg=24)
     assert str(size) in str(err.value) and "227 KiB" in str(err.value)
 
 
@@ -233,7 +236,7 @@ def test_the_first_designs_stay_off_the_step():
         for symbol in (new.symbol, old.symbol):
             assert 'extern "C" int %s(' % symbol in src
         for name in names:
-            assert re.search(r"__global__ void (__launch_bounds__\(\d+\) )?"
+            assert re.search(r"__global__ void (__launch_bounds__\([\d, ]+\) )?"
                              r"%s\(" % name, src), name
         handle = [n for n in dir(cell_pair) if getattr(cell_pair, n) is old]
         users = [block.split("(", 1)[0]
@@ -242,7 +245,7 @@ def test_the_first_designs_stay_off_the_step():
         assert users == [wrapper]
     names = list(km.LADDER_KERNEL_NAMES.values()) + [
         km.K3A_OLD, km.K3B_OLD, km.K3C_OLD, km.K3D_OLD, km.K1P_OLD,
-        km.K3C_SEARCH, "colt_packed_kernel", "cell_packed_kernel"]
+        "colt_packed_kernel", "cell_packed_kernel"]
     for a in names:
         assert sum(a in b for b in names) == 1, a
     assert km.LADDER_KERNEL_NAMES["colz"] == km.K3C_NEW
@@ -253,4 +256,4 @@ def test_the_first_designs_stay_off_the_step():
         body = text[text.index(step_fn):]
         body = body.split("\ndef ", 1)[0]
         assert "cellwise" not in body and "CELLWISE" not in body
-        assert "baseline" not in body and "search" not in body
+        assert "baseline" not in body

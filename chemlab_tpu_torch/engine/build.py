@@ -15,9 +15,16 @@ neighbor rows are made by the port's ``neighbor.build_neighbor_state``.
 
 A configuration outside the slice raises ``NotImplementedError`` naming
 the ROADMAP item that will bring it; nothing falls back to another path.
-Capacity regrowth (``shrink_*``/``grow_*``, ROADMAP M7) is not ported: the
-port runs at the build-time caps and the sticky overflow flag reports a
-cap that was too small.
+
+Capacity management (reference ``build.py:456-932``): the neighbor caps
+regrow off the sticky overflow flag and shrink to the observed occupancy
+(``grow_neighbor_caps``, ``shrink_neighbor_caps``); the term tables and
+the exclusion pair list regrow before they fill, shrink to their cursors,
+and are presized or laddered from a measured append rate
+(``grow_term_caps``, ``shrink_term_caps``, ``presize_term_caps``,
+``plan_cap_ladder``, all applied by ``apply_term_caps``).  A cap change is
+a new ``EngineConfig`` plus tensors re-padded on the state's device; the
+kernels take any cap (``cell_pair`` plans by cap), so nothing recompiles.
 """
 
 from __future__ import annotations
@@ -100,6 +107,7 @@ class BuiltSystem:
     systop: SystemTopology
     nb_names: list
     term_names: list
+    extra_obs_idx: list = dataclasses.field(default_factory=list)
 
 
 class ObsRegistry:
@@ -393,14 +401,378 @@ def _round_up(x, m):
     return int(-(-x // m) * m)
 
 
+NEIGHBOR_CAP_FIELDS = ("max_neighbors", "cell_cap", "excl_cap",
+                       "rx_cell_cap", "rx_k", "rx_rows_cap")
+
+
+def apply_neighbor_caps(cfg: EngineConfig, spec: SimSpec, state, caps: dict):
+    """Re-derive the config with explicit neighbor caps and rebuild the
+    neighbor scratch to match (a checkpoint restored into a fresh build
+    whose caps differ from the run that wrote it)."""
+    cfg = dataclasses.replace(cfg, **caps)
+    return _rebuild_neighbor_scratch(cfg, spec, state)
+
+
+def grow_neighbor_caps(cfg: EngineConfig, spec: SimSpec, state,
+                       factor: float = 1.5):
+    """Regrow every neighbor cap by ``factor`` (rounded up to 8) after the
+    sticky overflow flag latched, and rebuild the neighbor state with the
+    flag cleared.  Returns (cfg, state)."""
+    cfg = dataclasses.replace(
+        cfg,
+        **{f: _round_up(int(getattr(cfg, f) * factor), 8)
+           for f in NEIGHBOR_CAP_FIELDS})
+    return _rebuild_neighbor_scratch(cfg, spec, state)
+
+
+def _rc_skin(spec):
+    """cutoff + skin as the f32 tensor the reference computes."""
+    return torch.sqrt(torch.max(spec.pair_cutoff2)) + spec.skin
+
+
+def shrink_neighbor_caps(cfg: EngineConfig, spec: SimSpec, state,
+                         margin: float = 1.4):
+    """Tighten the neighbor caps to the occupancy observed in ``state``.
+
+    The build sizes ``cell_cap`` from the initial coordinates, which can be
+    far denser locally than the equilibrated fluid; every kernel tile is
+    ``cell_cap`` rows wide.  The caps come from a fresh binning and row
+    build at the current state, never grow, and are rounded up to 8 (so a
+    colt2 grid stays one); overflow and ``grow_neighbor_caps`` stay the
+    backstop.  Returns (cfg, state), the same objects when nothing
+    changed."""
+    rc_skin = float(_rc_skin(spec))
+    buckets, _, _, _ = neighbor.build_cell_buckets(
+        state.pos, state.box, state.active, cfg.cell_dims, cfg.cell_cap)
+    occ = int(torch.max((buckets[:-1] >= 0).sum(dim=1, dtype=torch.int32)))
+    nbr = neighbor.build_neighbor_state(
+        state.pos, state.box, state.active, state.excl, rc_skin,
+        dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
+        max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap)
+    self_idx = torch.arange(state.pos.shape[0], dtype=torch.int32,
+                            device=state.pos.device)[:, None]
+    kmax = int(torch.max((nbr.idx != self_idx).sum(dim=1,
+                                                   dtype=torch.int32)))
+
+    caps = {}
+    # the cell_cap margin is additive: every slot of margin widens each
+    # kernel tile, and the maximum over all cells already holds the tail
+    new_cell = _round_up(max(occ + max(4, (occ + 3) // 4), 8), 8)
+    if new_cell < cfg.cell_cap and not bool(nbr.overflow):
+        caps["cell_cap"] = new_cell
+    # K saturated at the current cap: the true count is unknown, skip
+    if kmax < cfg.max_neighbors:
+        new_k = _round_up(max(int(kmax * margin) + 4, 16), 8)
+        if new_k < cfg.max_neighbors:
+            caps["max_neighbors"] = new_k
+    if "cell_cap" in caps and cfg.rx_rc > 0:
+        # the reaction grid's cap scales with the force grid's occupancy
+        box = state.box.cpu().numpy()
+        rx_vol = float(np.prod(box / np.asarray(cfg.rx_dims)))
+        vol = float(np.prod(box / np.asarray(cfg.cell_dims)))
+        new_rx = _round_up(max(int(caps["cell_cap"] * rx_vol / vol) + 4, 8),
+                           8)
+        if new_rx < cfg.rx_cell_cap:
+            caps["rx_cell_cap"] = new_rx
+    if not caps:
+        return cfg, state
+    cfg = dataclasses.replace(cfg, **caps)
+    return _rebuild_neighbor_scratch(cfg, spec, state)
+
+
+def _rebuild_neighbor_scratch(cfg: EngineConfig, spec: SimSpec, state):
+    nbr = neighbor.build_neighbor_state(
+        state.pos, state.box, state.active, state.excl, _rc_skin(spec),
+        dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
+        max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap)
+    nbr = dataclasses.replace(nbr, n_rebuilds=state.nbr.n_rebuilds + 1)
+    return cfg, dataclasses.replace(state, nbr=nbr)
+
+
+TERM_CAP_FIELDS = ("bond_cap", "angle_cap", "dihedral_cap")
+
+
+def _repad_term_table(table: TermTable, new_cap: int) -> TermTable:
+    """The table at ``new_cap`` rows, contents and cursor kept; a shrink
+    may cut only padding."""
+    cap = table.idx.shape[0]
+    if new_cap == cap:
+        return table
+    if new_cap < cap:
+        if bool((table.idx[new_cap:, 0] >= 0).any()):
+            raise ValueError("term table shrink %d -> %d would drop valid "
+                             "rows" % (cap, new_cap))
+        return dataclasses.replace(table, **{
+            f.name: getattr(table, f.name)[:new_cap]
+            for f in dataclasses.fields(table)
+            if getattr(table, f.name).ndim})
+    pad = new_cap - cap
+
+    def cat(a, fill):
+        return torch.cat([a, torch.full((pad,) + tuple(a.shape[1:]), fill,
+                                        dtype=a.dtype, device=a.device)])
+
+    return dataclasses.replace(
+        table, idx=cat(table.idx, -1), func=cat(table.func, 0),
+        params=cat(table.params, 0.0), typelookup=cat(table.typelookup, False),
+        lam=cat(table.lam, 1.0), group=cat(table.group, -1))
+
+
+def apply_term_caps(cfg: EngineConfig, state, caps: dict,
+                    excl_pair_cap: int | None = None):
+    """Re-pad the term tables (and, with ``excl_pair_cap``, the exclusion
+    pair list) to explicit caps, clear the sticky overflow flag and
+    re-derive the dense operands.  Used by regrowth, shrink, presizing,
+    the cap ladder and checkpoint restore.  Returns (cfg, state)."""
+    if cfg.bonded_dense:
+        # lockstep: the irregular caps follow the canonical caps' deltas,
+        # so irr_cap - (cap - n_aligned_static) never shrinks; a caller
+        # that sized them from measured irregular counts passes them
+        caps = dict(caps)
+        if "bond_cap" in caps and "bond_irr_cap" not in caps:
+            caps["bond_irr_cap"] = max(
+                cfg.bond_irr_cap + caps["bond_cap"] - cfg.bond_cap, 128)
+        if "angle_cap" in caps and "angle_irr_cap" not in caps:
+            caps["angle_irr_cap"] = max(
+                cfg.angle_irr_cap + caps["angle_cap"] - cfg.angle_cap, 128)
+    if (cfg.excl_offsets and excl_pair_cap is not None
+            and "excl_irr_cap" not in caps):
+        # the same lockstep for the exclusions' irregular remainder
+        caps = dict(caps)
+        caps["excl_irr_cap"] = max(
+            cfg.excl_irr_cap + excl_pair_cap - state.excl.shape[0], 128)
+    cfg = dataclasses.replace(cfg, **caps)
+    state = dataclasses.replace(
+        state,
+        bonds=_repad_term_table(state.bonds, cfg.bond_cap),
+        angles=_repad_term_table(state.angles, cfg.angle_cap),
+        dihedrals=_repad_term_table(state.dihedrals, cfg.dihedral_cap))
+    state = bonded_dense.rederive(cfg, state)
+    if excl_pair_cap is not None and excl_pair_cap != state.excl.shape[0]:
+        if excl_pair_cap < state.excl.shape[0]:
+            if bool((state.excl[excl_pair_cap:, 0] >= 0).any()):
+                raise ValueError("exclusion list shrink would drop pairs")
+            state = dataclasses.replace(state,
+                                        excl=state.excl[:excl_pair_cap])
+        else:
+            pad = excl_pair_cap - state.excl.shape[0]
+            state = dataclasses.replace(state, excl=torch.cat(
+                [state.excl, torch.full((pad, 2), -1, dtype=state.excl.dtype,
+                                        device=state.excl.device)]))
+    state = dataclasses.replace(state, nbr=dataclasses.replace(
+        state.nbr, overflow=torch.zeros_like(state.nbr.overflow)))
+    # after the flag is cleared, so that a real irregular overflow at the
+    # new caps survives
+    return cfg, excl_dense.rederive(cfg, state)
+
+
+def _term_headroom_floor(cap: int) -> int:
+    """Free rows a term table keeps before it regrows: absolute, not a
+    fraction (a large static topology sits near its cap by design), at
+    most 512 (the build's own reactive slice), at least 8 (one event can
+    append a bond and its angles)."""
+    return max(min(512, cap // 8), cap // 64, 8)
+
+
+def term_caps_near_full(cfg: EngineConfig, counts: dict,
+                        prev_counts: dict | None = None) -> bool:
+    """True when a term table, the exclusion pair list or an irregular
+    table is within its headroom floor of its cap; with ``prev_counts``
+    (the last block's) the floor is at least twice the last block's
+    appends."""
+    def low(key, cap):
+        count = counts.get(key, 0)
+        need = _term_headroom_floor(cap)
+        if prev_counts is not None:
+            need = max(need, 2 * (count - prev_counts.get(key, count)))
+        return cap - count < need
+
+    return (low("n_bonds", cfg.bond_cap)
+            or low("n_angles", cfg.angle_cap)
+            or low("n_dihedrals", cfg.dihedral_cap)
+            or low("n_excl", counts.get("excl_pair_cap", 1 << 30))
+            or ("n_bonds_irr" in counts and low("n_bonds_irr",
+                                                cfg.bond_irr_cap))
+            or ("n_angles_irr" in counts and low("n_angles_irr",
+                                                 cfg.angle_irr_cap))
+            or ("n_excl_irr" in counts and low("n_excl_irr",
+                                               cfg.excl_irr_cap)))
+
+
+def shrink_term_caps(cfg: EngineConfig, state, headroom: int | None = None):
+    """Tighten the term tables and the exclusion pair list to their
+    cursors plus headroom (never growing; a reacting system keeps at least
+    half its free slice unless ``headroom`` is given).  Returns
+    (cfg, state)."""
+    def target(count, hr, cur_cap):
+        # clear the regrowth trigger at the new cap with slack, or the
+        # next block's check undoes the shrink
+        t0 = max(count + (headroom if headroom is not None else hr), 128)
+        t0 = max(t0, count + 2 * _term_headroom_floor(t0) + 256)
+        if cfg.has_reactions and headroom is None:
+            t0 = max(t0, count + (cur_cap - count) // 2)
+        return _round_up(t0, 128)
+
+    hr = max(2048, cfg.n_particles // 32)
+    tabs = {"bond_cap": state.bonds, "angle_cap": state.angles,
+            "dihedral_cap": state.dihedrals}
+    caps = {}
+    for f, table in tabs.items():
+        # the cursor bounds the live rows
+        tgt = target(int(table.count), hr, getattr(cfg, f))
+        if tgt < getattr(cfg, f):
+            caps[f] = tgt
+    excl_new = None
+    excl_tgt = target(int(state.n_excl), 2 * hr, state.excl.shape[0])
+    if excl_tgt < state.excl.shape[0]:
+        excl_new = excl_tgt
+    if not caps and excl_new is None:
+        return cfg, state
+    return apply_term_caps(cfg, state, caps, excl_new)
+
+
+_COUNT_KEY = {"bond_cap": "n_bonds", "angle_cap": "n_angles",
+              "dihedral_cap": "n_dihedrals"}
+
+
+def grow_term_caps(cfg: EngineConfig, state, factor: float = 1.5,
+                   counts: dict | None = None,
+                   prev_counts: dict | None = None):
+    """Regrow the term tables and the exclusion pair list by ``factor``
+    (rounded up to 128).  With ``counts`` (a ``measure_cheap`` dict) only
+    the tables within twice their headroom floor grow, and the irregular
+    caps are sized on their own counts.  Returns (cfg, state)."""
+    def need(key, cap):
+        n = 2 * _term_headroom_floor(cap)
+        if prev_counts is not None and counts is not None:
+            n = max(n, 4 * (counts.get(key, 0)
+                            - prev_counts.get(key, counts.get(key, 0))))
+        return n
+
+    caps = {}
+    for f in TERM_CAP_FIELDS:
+        cur = getattr(cfg, f)
+        if counts is None or cur - counts.get(_COUNT_KEY[f], 0) < \
+                need(_COUNT_KEY[f], cur):
+            caps[f] = _round_up(int(max(cur, 128) * factor), 128)
+    if cfg.bonded_dense and counts is not None and "n_bonds_irr" in counts:
+        for irr_f, key in (("bond_irr_cap", "n_bonds_irr"),
+                           ("angle_irr_cap", "n_angles_irr")):
+            cur = getattr(cfg, irr_f)
+            grown = _round_up(int(max(cur, 128) * factor), 128) \
+                if cur - counts.get(key, 0) < need(key, cur) else cur
+            caps[irr_f] = grown
+    excl_new = None
+    excl_cap = state.excl.shape[0]
+    if (counts is None or excl_cap - counts.get("n_excl", 0)
+            < need("n_excl", excl_cap)):
+        excl_new = _round_up(int(max(excl_cap, 128) * factor), 128)
+    if cfg.excl_offsets and counts is not None and "n_excl_irr" in counts:
+        cur = cfg.excl_irr_cap
+        if cur - counts.get("n_excl_irr", 0) < need("n_excl_irr", cur):
+            caps["excl_irr_cap"] = _round_up(int(max(cur, 128) * factor),
+                                             128)
+    return apply_term_caps(cfg, state, caps, excl_new)
+
+
+def presize_term_caps(cfg: EngineConfig, state, counts: dict,
+                      prev_counts: dict, block_steps: int,
+                      plan_steps: int, safety: float = 1.6):
+    """Grow the term tables once to cover ``plan_steps`` more steps at the
+    append rate measured between ``prev_counts`` and ``counts`` (one block
+    of ``block_steps`` apart), times ``safety``; tables nothing appended to
+    stay as they are.  Returns (cfg, state)."""
+    def tgt(key, cap):
+        rate = max(0, counts.get(key, 0) - prev_counts.get(key, 0)) \
+            / max(block_steps, 1)
+        if rate == 0:
+            return cap
+        t = counts.get(key, 0) + int(rate * plan_steps * safety) \
+            + 2 * _term_headroom_floor(cap) + 256
+        return _round_up(t, 128)
+
+    caps = {}
+    for f in TERM_CAP_FIELDS:
+        t = tgt(_COUNT_KEY[f], getattr(cfg, f))
+        if t > getattr(cfg, f):
+            caps[f] = t
+    if cfg.bonded_dense and "n_bonds_irr" in counts:
+        # the irregular caps from their own rate: every reaction-created
+        # term is irregular
+        for irr_f, key in (("bond_irr_cap", "n_bonds_irr"),
+                           ("angle_irr_cap", "n_angles_irr")):
+            caps[irr_f] = max(getattr(cfg, irr_f),
+                              tgt(key, getattr(cfg, irr_f)))
+    excl_new = None
+    t = tgt("n_excl", state.excl.shape[0])
+    if t > state.excl.shape[0]:
+        excl_new = t
+    if cfg.excl_offsets and "n_excl_irr" in counts:
+        t = tgt("n_excl_irr", cfg.excl_irr_cap)
+        if t > cfg.excl_irr_cap:
+            caps["excl_irr_cap"] = t
+    if not caps and excl_new is None:
+        return cfg, state
+    return apply_term_caps(cfg, state, caps, excl_new)
+
+
+def plan_cap_ladder(cfg: EngineConfig, state, counts: dict,
+                    rate_per_step: dict, plan_steps: int, rungs: int = 3,
+                    safety: float = 1.35):
+    """Term-cap rungs at horizons ``plan_steps * k / rungs`` from the
+    appends per step ``rate_per_step`` (keyed like ``counts``): a list of
+    ``(caps, excl_cap or None)``, strictly increasing and cumulative, for
+    ``apply_term_caps`` whenever ``term_caps_near_full`` fires.  Tables
+    with no appends stay as they are."""
+    count_key = dict(_COUNT_KEY)
+    if cfg.bonded_dense and "n_bonds_irr" in counts:
+        count_key["bond_irr_cap"] = "n_bonds_irr"
+        count_key["angle_irr_cap"] = "n_angles_irr"
+    if cfg.excl_offsets and "n_excl_irr" in counts:
+        count_key["excl_irr_cap"] = "n_excl_irr"
+
+    def tgt(key, cap, horizon):
+        rate = max(0.0, rate_per_step.get(key, 0.0))
+        if rate == 0:
+            return cap
+        t = counts.get(key, 0) + int(rate * horizon * safety) \
+            + 2 * _term_headroom_floor(cap) + 256
+        return max(cap, _round_up(t, 128))
+
+    ladder = []
+    prev_caps = {f: getattr(cfg, f) for f in count_key}
+    prev_excl = state.excl.shape[0]
+    for k in range(1, rungs + 1):
+        horizon = plan_steps * k // rungs
+        caps = {f: tgt(key, prev_caps[f], horizon)
+                for f, key in count_key.items()}
+        excl = tgt("n_excl", prev_excl, horizon)
+        if all(caps[f] <= prev_caps[f] for f in caps) and excl <= prev_excl:
+            continue
+        # cumulative targets, only the fields that move against cfg
+        rung = {f: v for f, v in caps.items() if v != getattr(cfg, f)}
+        if cfg.bonded_dense and "bond_irr_cap" in count_key and \
+                ("bond_cap" in rung or "angle_cap" in rung):
+            # explicit irregular caps, so apply_term_caps never inflates
+            # them in lockstep
+            rung.setdefault("bond_irr_cap", caps["bond_irr_cap"])
+            rung.setdefault("angle_irr_cap", caps["angle_irr_cap"])
+        ladder.append((rung, excl if excl > prev_excl else None))
+        prev_caps.update(caps)
+        prev_excl = max(prev_excl, excl)
+    return ladder
+
+
 def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
     """Refuse every configuration the port does not run yet."""
     if opts.dtype != "float32":
         _not_in_slice("dtype %s" % opts.dtype, "M13")
     if opts.use_pallas is False:
         _not_in_slice("the Verlet row force path", "M10")
-    if opts.coulomb_cutoff > 0:
-        _not_in_slice("Coulomb", "M10")
+    if opts.coulomb_cutoff > 0 and np.any(np.asarray(systop.charges) != 0):
+        # with every charge zero the Coulomb term is zero pair by pair (the
+        # CLI's default cutoff is 0.9), so only real charges need M10
+        _not_in_slice("Coulomb between charged particles", "M10")
     if opts.thermostat not in ("lv", "no"):
         _not_in_slice("thermostat %r" % opts.thermostat, "M12")
     if systop.dihedrals or systop.dihedralparams:
@@ -421,9 +793,12 @@ def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
 
 def build_system(systop: SystemTopology, coords, opts: SimOptions,
                  reaction_config: dict | None = None,
-                 device="cuda") -> BuiltSystem:
+                 extra_conversions=(), device="cuda") -> BuiltSystem:
     """Assemble the system on ``device`` (reference: build.build_system);
-    the card by default, ``device="cpu"`` for the plain versions."""
+    the card by default, ``device="cpu"`` for the plain versions.
+    ``extra_conversions`` are ``(((type, state or None), ...), total)``
+    conversion observables the caller reads (stop criteria, counters);
+    their indices are ``BuiltSystem.extra_obs_idx``."""
     T = systop.next_type_id
     n = systop.n_atoms
     if coords.n_atoms != n:
@@ -448,6 +823,9 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     dynamic_types = compiled.dynamic_types if compiled else set()
     change_bond_types = compiled.observed_bondtypes if compiled else set()
     n_real = n
+
+    extra_obs_idx = [obs.register(ts, total)
+                     for ts, total in extra_conversions]
 
     # ---- nonbonded ----
     pair_arrays = _build_pair_tables(systop, opts, nb_tb, obs)
@@ -929,4 +1307,5 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                   + ["angle_f%d" % f for f in angle_funcs])
     return BuiltSystem(cfg=cfg, spec=spec, state=state, obs=obs,
                        reactions=compiled, systop=systop,
-                       nb_names=nb_stack.names, term_names=term_names)
+                       nb_names=nb_stack.names, term_names=term_names,
+                       extra_obs_idx=extra_obs_idx)

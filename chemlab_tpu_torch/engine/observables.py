@@ -1,11 +1,14 @@
-"""Observables: conversions, temperature, kinetic energy, max force and
-bond counts per reaction group.
+"""Observables: conversions, temperature, kinetic energy, max force, bond
+counts per reaction group, the centre-of-mass velocity reset and the
+angle histogram.
 
-Port of ``chemlab_tpu/engine/observables.py`` (the reductions the melt's
-``measure`` reads).
+Port of ``chemlab_tpu/engine/observables.py`` (the reductions ``measure``
+reads, the CLI's start-up reset and the hooks' ``AngleDistribution``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,3 +59,38 @@ def group_bond_counts(bonds: TermTable, n_groups: int) -> torch.Tensor:
 def max_force(force, active) -> torch.Tensor:
     f2 = torch.sum(force * force, dim=-1)
     return torch.sqrt(torch.max(torch.where(active, f2, 0.0)))
+
+
+def cm_velocity(mass, vel, active) -> torch.Tensor:
+    m = torch.where(active, mass, 0.0)
+    p = torch.sum(m[:, None] * vel, dim=0)
+    return p / torch.clamp(torch.sum(m), min=1e-30)
+
+
+def reset_cm_velocity(mass, vel, active) -> torch.Tensor:
+    """The velocities with the centre-of-mass drift removed (the
+    reference's ``CMVelocity().reset()``)."""
+    v_cm = cm_velocity(mass, vel, active)
+    return torch.where(active[:, None], vel - v_cm, vel)
+
+
+def angle_distribution(pos, box, angles: TermTable,
+                       n_bins: int = 180) -> torch.Tensor:
+    """Histogram of the valid angle-table angles over [0, pi], (n_bins,)
+    int32 (espressopp's ``analysis.AngleDistribution``)."""
+    i, j, k = (torch.clamp(angles.idx[:, c], min=0).long() for c in range(3))
+    valid = angles.idx[:, 0] >= 0
+    rij = pos[i] - pos[j]
+    rij = rij - box * torch.round(rij / box)
+    rkj = pos[k] - pos[j]
+    rkj = rkj - box * torch.round(rkj / box)
+    nij = torch.sqrt(torch.sum(rij * rij, -1) + 1e-30)
+    nkj = torch.sqrt(torch.sum(rkj * rkj, -1) + 1e-30)
+    c = torch.clamp(torch.sum(rij * rkj, -1) / (nij * nkj), -1.0, 1.0)
+    theta = torch.arccos(c)
+    bins = torch.clamp((theta / math.pi * n_bins).to(torch.int32), 0,
+                       n_bins - 1)
+    hist = torch.zeros(n_bins + 1, dtype=torch.int32, device=pos.device)
+    hist.index_add_(0, torch.where(valid, bins, n_bins).long(),
+                    torch.ones_like(bins))
+    return hist[:n_bins]

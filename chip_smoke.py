@@ -78,7 +78,21 @@ once) and drives the port's paths at 10k particles:
      untimed and one timed block),
      one tabulated and one blended block and one NPT pressure, each against
      one rank from the same state and seed (positions, replicas, launches,
-     pressure).
+     pressure);
+  7. the CLI (``cli``): ``start_simulation.main`` in-process on a copy of
+     ``examples/atrp_melt`` (6000 particles, 9^3 cells, cap 40) with
+     ``@params --run 2400 --int_step 200 --start_ar 1200 --retune_caps
+     600 ...``: exit 0, K1 at least once a step and no other kernel, the
+     retune equal to ``shrink_neighbor_caps`` on the frame of its step, no
+     overflow, events fired and in ``_topol.top``, every energy row finite
+     with T in 0.5-1.5, 6000 atoms in ``_confout.gro``, the CLI's own
+     particle-steps/s and ``--timers`` phases (where h5py is missing a
+     recording stand-in takes the H5MD frames, and the script says so);
+     then caps changed on the card (a build at cell_cap 8 grown until the
+     overflow flag clears, grown once more and shrunk back, K1 against
+     plain at every cap and a block with no overflow; the term tables
+     grown from nearly full and the next blocks' events all landed) and a
+     checkpoint restored into a fresh build continuing bit for bit.
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -1845,6 +1859,411 @@ def slab_path(card: str):
     return rows, pps
 
 
+# ---- the CLI (start_simulation.main on examples/atrp_melt) ---------------------
+
+EXAMPLE = "examples/atrp_melt"
+CLI_STEPS = 2400
+CLI_BLOCK = 200
+
+
+def cli_flags():
+    """``@params --run 2400 --int_step 200 --start_ar 1200 --retune_caps
+    600 --trj_collect 200 --energy_collect 200 --topol_collect 200
+    --rng_seed 11``."""
+    b = str(CLI_BLOCK)
+    return ["@params", "--run", str(CLI_STEPS), "--int_step", b,
+            "--start_ar", str(CLI_STEPS // 2), "--retune_caps",
+            str(CLI_STEPS // 4), "--trj_collect", b, "--energy_collect", b,
+            "--topol_collect", b, "--rng_seed", "11"]
+
+
+class RecordingWriter:
+    """Stand-in for ``writers.H5MDWriter`` where h5py is missing: records
+    each frame's step and each array's shape instead of writing them."""
+
+    def __init__(self, path, n_particles, box, store=None, **kw):
+        self.path, self.n, self.store = path, n_particles, store
+        self.frames, self.connectivity, self.parameters = [], {}, None
+        self.positions = {}
+
+    def dump(self, step, t, **arrays):
+        for name, a in arrays.items():
+            if a.shape[0] != self.n:
+                raise AssertionError("frame %d: %s has %d rows, not %d"
+                                     % (step, name, a.shape[0], self.n))
+        self.frames.append((step, sorted(arrays)))
+        if "position" in arrays:
+            self.positions[step] = arrays["position"].copy()
+
+    def dump_connectivity(self, name, step, t, table):
+        self.connectivity.setdefault(name, []).append((step, table.shape))
+
+    def write_parameters(self, args_namespace=None, force_field=None):
+        self.parameters = (vars(args_namespace), force_field)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+class _Tee:
+    """Standard output copied into a buffer."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def example_copy() -> str:
+    """A copy of the example in a new temporary directory (the checkout's
+    example is never written)."""
+    import os
+    import shutil
+    import tempfile
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), EXAMPLE)
+    dst = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_cli_"),
+                       "atrp_melt")
+    shutil.copytree(src, dst)
+    return dst
+
+
+def example_build(example: str, **overrides):
+    """The example's system, built on the card as the CLI builds it, with
+    ``SimOptions`` fields in ``overrides``: (built, systop)."""
+    import os
+
+    from chemlab_tpu_torch import app_args, files_io, reaction_parser
+    from chemlab_tpu_torch.engine import build
+    from chemlab_tpu_torch.start_simulation import build_sim_options
+    from chemlab_tpu_torch.topology import build_system_topology
+
+    def at(name):
+        return os.path.join(example, name)
+
+    _, args = app_args.parse_args(["@" + at("params"), "--rng_seed", "11"])
+    systop = build_system_topology(at(args.top))
+    coords = files_io.read_coordinates(at(args.conf))
+    opts = dataclasses.replace(build_sim_options(args, (example, ".")),
+                               **overrides)
+    built = build.build_system(
+        systop, coords, opts,
+        reaction_config=reaction_parser.parse_config(at(args.reactions)),
+        device=DEVICE)
+    return built, systop
+
+
+def cli_path(card: str, example: str):
+    """``start_simulation.main`` on the example in its copy: 12 blocks of
+    200 steps at 6000 particles, the caps retuned at step 600, reactions
+    from step 1200; the launches of every kernel counted over the run."""
+    import contextlib
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from chemlab_tpu_torch import files_io, start_simulation
+    from chemlab_tpu_torch.engine import cell_pair
+    from chemlab_tpu_torch.topology import build_system_topology
+
+    recorded = []
+
+    def recording(*a, **kw):
+        recorded.append(RecordingWriter(*a, **kw))
+        return recorded[-1]
+
+    try:
+        import h5py  # noqa: F401
+        writer = None
+    except ImportError:
+        writer = recording
+        print("cli: h5py is missing on this machine: the H5MD trajectory "
+              "goes to a recording stand-in writer; every other output "
+              "file is written and checked")
+
+    cwd = os.getcwd()
+    os.chdir(example)
+    tee = _Tee(sys.stdout)
+    try:
+        n_bonds0 = len(build_system_topology("topol.top").bonds)
+        for k in cell_pair.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = start_simulation.main(cli_flags(), device=DEVICE,
+                                       h5md_writer=writer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in cell_pair.BY_NAME.items()
+                    if k.launches}
+        out = tee.buf.getvalue()
+        with open("atrp_benchmark.pck", "rb") as f:
+            timers = pickle.load(f)
+        head, *rows = open("atrp_energy.csv").read().splitlines()
+        head = head.split(",")
+        energy = np.array([[float(x) for x in r.split(",")] for r in rows])
+        counters = open("atrp_reaction_counters.csv").read().splitlines()
+        events = sum(int(ln.rsplit(",", 1)[1]) for ln in counters
+                     if not ln.startswith(("intra", "inter")))
+        n_bonds = sum(1 for ln in _section(open("atrp_topol.top"), "bonds"))
+        confout = files_io.read_gro("atrp_confout.gro")
+        frame = retune_frame(recorded)
+    finally:
+        os.chdir(cwd)
+    retune = [ln for ln in out.splitlines()
+              if ln.startswith(("caps retuned", "caps kept"))]
+    k_after, cell_after = _caps_of(retune[0]) if len(retune) == 1 \
+        else (None, None)
+    want_k, want_cell, occ = retune_expected(example, frame)
+    print("cli: at step %d the occupancy is %d (cap 40): shrink_neighbor_caps "
+          "on that frame gives cell %d, K %d; the run: %s"
+          % (CLI_STEPS // 4, occ, want_cell, want_k, retune))
+    T = energy[:, head.index("T")]
+    k1 = launches.get("K1", 0)
+    n = confout.n_atoms
+    pps = n * timers["steps"] / timers["integrator_loop"]
+    print("cli: main() returned %d in %.1f s; %d particles, %d steps, loop "
+          "%.3f s: %.1f particle-steps/s on %s" % (
+              rc, wall, n, timers["steps"], timers["integrator_loop"], pps,
+              card))
+    print("cli: launches over the run %s; %s" % (launches, retune))
+    print("cli: --timers phases (s per call) on %s: %s" % (card, {
+        k: timers[k] for k in ("neighbor_rebuild", "pair_forces",
+                               "bonded_forces", "integrate_step",
+                               "reaction_step", "observables")}))
+    print("cli: events %d, bonds %d (%d at start), T %s, neighbor rebuilds "
+          "%d" % (events, n_bonds, n_bonds0, np.round(T, 4).tolist(),
+                  timers["neighbor_rebuilds"]))
+    if recorded:
+        w = recorded[0]
+        print("cli: stand-in writer recorded %d frames (steps %s), "
+              "connectivity %s" % (len(w.frames), [f[0] for f in w.frames],
+                                   {k: len(v) for k, v in
+                                    w.connectivity.items()}))
+    checks = {
+        "main returned 0": rc == 0,
+        "K1 at least once a step": k1 >= CLI_STEPS,
+        "no other kernel on the path": set(launches) <= {"K1"},
+        "retune = the rule on its frame": (k_after, cell_after)
+        == (want_k, want_cell) and cell_after % 8 == 0,
+        "no overflow": "overflow" not in out,
+        "reaction events fired": events > 0,
+        "bonds = initial + events": n_bonds == n_bonds0 + events,
+        "energy rows finite": bool(np.isfinite(energy).all())
+        and len(rows) == CLI_STEPS // CLI_BLOCK,
+        "T within 0.5-1.5": bool(((T >= 0.5) & (T <= 1.5)).all()),
+        "confout holds 6000 atoms": n == 6000,
+        "frames every 200 steps": not recorded
+        or [f[0] for f in recorded[0].frames]
+        == list(range(0, CLI_STEPS, CLI_BLOCK)) + [CLI_STEPS],
+        "no jax, no JAX package": _no_reference_modules(),
+    }
+    for name, ok in checks.items():
+        print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
+    if not all(checks.values()):
+        raise AssertionError("cli checks failed")
+    return {"pps": pps, "launches": k1, "events": events,
+            "cell_cap": cell_after,
+            "timers": {k: timers[k] for k in timers
+                       if isinstance(timers[k], float)}}
+
+
+def retune_frame(recorded):
+    """The positions dumped at the ``--retune_caps`` step (the dump comes
+    before the retune in the loop), from the stand-in writer or from
+    ``trjout.h5`` in the working directory."""
+    step = CLI_STEPS // 4
+    if recorded:
+        return recorded[0].positions[step]
+    import h5py
+
+    with h5py.File("trjout.h5", "r") as f:
+        g = f["particles/atoms/position"]
+        return g["value"][list(g["step"][...]).index(step)]
+
+
+def retune_expected(example: str, frame):
+    """(K, cell_cap, max occupancy): ``shrink_neighbor_caps`` on the
+    example's build at the frame's positions (no reaction has run by then,
+    so the exclusions are the build's)."""
+    import numpy as np
+    import torch
+
+    from chemlab_tpu_torch.engine import build, neighbor
+
+    built, _ = example_build(example)
+    pos = built.state.pos.clone()
+    pos[:frame.shape[0]] = torch.from_numpy(np.asarray(frame)).to(pos)
+    state = dataclasses.replace(built.state, pos=pos)
+    cfg, _ = build.shrink_neighbor_caps(built.cfg, built.spec, state)
+    buckets, _, _, _ = neighbor.build_cell_buckets(
+        pos, state.box, state.active, built.cfg.cell_dims, built.cfg.cell_cap)
+    occ = int((buckets[:-1] >= 0).sum(1).max())
+    return cfg.max_neighbors, cfg.cell_cap, occ
+
+
+def _caps_of(line: str):
+    """(K, cell_cap) after a "caps retuned" or "caps kept" line."""
+    k = line.split(" K ")[1].split()[0].split("->")[-1]
+    cell = line.split(" cell ")[1].split()[0].split("->")[-1]
+    return int(k), int(cell)
+
+
+def _section(lines, name):
+    """The non-empty lines of a .top section."""
+    on = False
+    for ln in lines:
+        if ln.startswith("["):
+            on = ln.strip() == "[ %s ]" % name
+        elif on and ln.strip():
+            yield ln
+
+
+def _k1_at(built_cfg, spec, state, label):
+    """K1 (or K2) vs plain at the state's caps, every parameter mode."""
+    import types
+
+    check_kernel(types.SimpleNamespace(cfg=built_cfg, spec=spec), state,
+                 label, channels=((0, "none"),), timed=False)
+
+
+def cap_change_path(example: str):
+    """Neighbor caps changed on the card: a build at cell_cap 8 latches the
+    overflow flag, ``grow_neighbor_caps`` until it clears (K1 vs plain at
+    every cap, a block with no overflow), a grow above the need and
+    ``shrink_neighbor_caps`` back (the same checks); then ``grow_term_caps``
+    on a nearly full bond table and a reactive block whose events must all
+    land."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import build, runner
+
+    built, systop = example_build(example, cell_cap=8)
+    spec, cfg = built.spec, built.cfg
+    state = runner.initial_forces(spec, cfg, built.state)
+    gen = runner.make_generator(11, DEVICE)
+    steps = 0
+    while not bool(state.nbr.overflow) and steps < 200:
+        state = runner.run_block(spec, cfg, state, 10, gen=gen)
+        steps += 10
+    if not bool(state.nbr.overflow):
+        raise AssertionError("cell_cap 8 never overflowed")
+    print("cap change: cell_cap 8 latched the overflow flag after %d steps"
+          % steps)
+    _k1_at(cfg, spec, state, "K1 at cap 8 (overflowing)")
+    # the CLI's rule: regrow whenever a block ends with the flag latched,
+    # until a whole block runs without it
+    caps = [cfg.cell_cap]
+    ok_grown = False
+    while not ok_grown and len(caps) < 7:
+        while bool(state.nbr.overflow) and len(caps) < 7:
+            cfg, state = build.grow_neighbor_caps(cfg, spec, state)
+            caps.append(cfg.cell_cap)
+            _k1_at(cfg, spec, state, "K1 at grown cap %d" % cfg.cell_cap)
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+        ok_grown = not bool(state.nbr.overflow)
+    cfg_big, st_big = build.grow_neighbor_caps(cfg, spec, state)
+    _k1_at(cfg_big, spec, st_big, "K1 at cap %d" % cfg_big.cell_cap)
+    cfg_s, st_s = build.shrink_neighbor_caps(cfg_big, spec, st_big)
+    _k1_at(cfg_s, spec, st_s, "K1 at shrunk cap %d" % cfg_s.cell_cap)
+    st_s = runner.run_block(spec, cfg_s, st_s, BLOCK_STEPS, gen=gen)
+    ok_shrunk = not bool(st_s.nbr.overflow)
+    print("cap change: cell_cap %s until a block ran with no overflow (%s); "
+          "%d -> shrunk to %d (K %d -> %d), block with no overflow %s"
+          % (caps, ok_grown, cfg_big.cell_cap, cfg_s.cell_cap,
+             cfg_big.max_neighbors, cfg_s.max_neighbors, ok_shrunk))
+
+    built, systop = example_build(example, extra_bonds=8)
+    spec, cfg = built.spec, built.cfg
+    state = runner.initial_forces(spec, cfg, built.state)
+    counts = {k: int(v) for k, v in runner.measure_cheap(
+        spec, cfg, state).items() if k.startswith("n_")}
+    counts["excl_pair_cap"] = state.excl.shape[0]
+    near_full = build.term_caps_near_full(cfg, counts)
+    old = (cfg.bond_cap, cfg.angle_cap, state.excl.shape[0])
+    cfg, state = build.grow_term_caps(cfg, state, counts=counts)
+    state = testsystems.activate_initiators(built, systop, state, n=20)
+    n0 = int(state.bonds.valid.sum())
+    e0 = int(state.reaction_counts.sum())
+    for _ in range(2):      # two reaction steps
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+    torch.cuda.synchronize()
+    events = int(state.reaction_counts.sum()) - e0
+    landed = int(state.bonds.valid.sum()) - n0
+    print("term caps: near full %s at bonds/angles/excl %s (%d bonds), "
+          "grown to %s; the next 2 blocks: %d events, %d new bonds, overflow "
+          "%s" % (near_full, old, n0, (cfg.bond_cap, cfg.angle_cap,
+                                        state.excl.shape[0]), events, landed,
+                  bool(state.nbr.overflow)))
+    checks = {
+        "grown caps: a block with no overflow": ok_grown,
+        "shrunk below the grown cap": cfg_s.cell_cap < cfg_big.cell_cap,
+        "shrunk caps: a block with no overflow": ok_shrunk,
+        "caps stay multiples of 8": all(c % 8 == 0 for c in
+                                        caps + [cfg_s.cell_cap]),
+        "the bond table was near full": near_full,
+        "the tables grew": cfg.bond_cap > old[0],
+        "every event landed": events > 0 and landed == events
+        and not bool(state.nbr.overflow),
+    }
+    for name, ok in checks.items():
+        print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
+    if not all(checks.values()):
+        raise AssertionError("cap change checks failed")
+
+
+def checkpoint_path(example: str):
+    """``save_state`` then ``load_state`` into a fresh build, the
+    generator's state included: one block from each gives the same bits."""
+    import os
+    import tempfile
+
+    import torch
+
+    from chemlab_tpu_torch import checkpoint, testsystems
+    from chemlab_tpu_torch.engine import runner
+
+    built, systop = example_build(example)
+    spec, cfg = built.spec, built.cfg
+    state = runner.initial_forces(spec, cfg, built.state)
+    state = testsystems.activate_initiators(built, systop, state, n=20)
+    gen = runner.make_generator(11, DEVICE)
+    state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"),
+                        "state.npz")
+    checkpoint.save_state(path, state, cfg=cfg, gen=gen, rng_seed=11)
+    fresh, _ = example_build(example)
+    gen2 = runner.make_generator(0, DEVICE)
+    st2, cfg2 = checkpoint.load_state(path, fresh.state, cfg=fresh.cfg,
+                                      spec=fresh.spec, gen=gen2)
+    a = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+    b = runner.run_block(fresh.spec, cfg2, st2, BLOCK_STEPS, gen=gen2)
+    torch.cuda.synchronize()
+    same = {name: torch.equal(getattr(a, name), getattr(b, name))
+            for name in ("pos", "vel", "force", "type_id")}
+    same["bonds.idx"] = torch.equal(a.bonds.idx, b.bonds.idx)
+    events = int(a.reaction_counts.sum())
+    print("checkpoint: a block from the saved state and from its restore "
+          "into a fresh build, %d events: bitwise %s, max|dpos| %.3e"
+          % (events, same, (a.pos - b.pos).abs().max().item()))
+    if not (all(same.values()) and events > 0 and cfg2 == cfg):
+        raise AssertionError("the restored run differs")
+
+
 def main() -> int:
     import torch
 
@@ -1874,11 +2293,20 @@ def main() -> int:
     rows += tab_rows
     slab_rows, slab_pps = slab_path(card)
     rows += slab_rows
+    example = example_copy()
+    cli = cli_path(card, example)
+    lj_row["cli_launches"] = cli["launches"]
+    cap_change_path(example)
+    checkpoint_path(example)
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
           % (SLAB_RANKS, slab_pps, card))
     print("kernel matrix (ms): %s" % json.dumps(km))
+    print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
+          "K1 launches %d over %d steps, cell_cap 40 -> %d, %d events on %s"
+          % (cli["pps"], cli["launches"], CLI_STEPS, cli["cell_cap"],
+             cli["events"], card))
     if len(rows) != len(cell_pair.BY_NAME) or not all(
             r["launches"] > 0 for r in rows):
         raise AssertionError("the kernels line needs every launch count of "

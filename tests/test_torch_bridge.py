@@ -10,6 +10,8 @@ reference's PRNG ``key`` (the port's Langevin noise comes from a
 
 import dataclasses
 
+import numpy as np
+
 import pytest
 import torch
 
@@ -106,9 +108,30 @@ def test_port_state_dtypes(builds):
     dict(use_pallas=False),
     dict(coulomb_cutoff=1.0),
 ], ids=["csvr", "row_path", "coulomb"])
-def test_out_of_slice_configs_raise(override):
+def test_out_of_slice_configs_raise(override, monkeypatch):
+    if "coulomb_cutoff" in override:
+        # Coulomb over zero charges is zero pair by pair and builds (the
+        # CLI's default cutoff is 0.9); a charged melt needs M10
+        text = pts._melt_topology_text
+        monkeypatch.setattr(pts, "_melt_topology_text", lambda n: text(
+            n).replace("1 MA 1 MON AI 1 0.000000 1", "1 MA 1 MON AI 1 0.5 1"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pts.build_melt(n_mols=70, reactive=True, device="cpu", **override)
+
+
+def test_coulomb_over_zero_charges_builds(builds):
+    """The melt's charges are all zero: a Coulomb cutoff below the LJ
+    cutoff changes no leaf of the build but the cutoff itself."""
+    _, pb = builds
+    cb, _, _ = pts.build_melt(n_mols=70, reactive=True, device="cpu",
+                              coulomb_cutoff=0.9)
+    assert cb.cfg == pb.cfg
+    _, spec_p, state_p = bridge.to_numpy(pb.cfg, pb.spec, pb.state)
+    _, spec_c, state_c = bridge.to_numpy(cb.cfg, cb.spec, cb.state)
+    assert spec_p.pop("qq_cutoff2") == 0.0
+    assert spec_c.pop("qq_cutoff2") == np.float32(0.81)
+    _assert_bit_equal(spec_p, spec_c)
+    _assert_bit_equal(state_p, state_c)
 
 
 # NPT and K2 builds: a Berendsen build (margin 1.10 on both grids: the

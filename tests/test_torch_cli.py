@@ -1,0 +1,242 @@
+"""The CLI: the port's ``start_simulation.main`` against the reference's on
+the same input files.
+
+The inputs are the 70-trimer melt (warmed by the port, written as a .gro
+with 3 decimals), its .top, an ``atrp.cfg`` with ``interval: 10`` and a
+``hooks.py`` that activates 20 initiators as ``examples/atrp_melt``'s does.
+Both CLIs run ``--thermostat no --run 40 --int_step 20 --start_ar 0
+--energy_collect 10 --rng_seed 7 --timers False --node_grid 1,1,1`` (NVE:
+the reference's threefry noise cannot be matched) in their own directory;
+the reference needs ``--node_grid 1,1,1`` or it shards over conftest's 8
+virtual devices.  With the CLI's default Coulomb cutoff the reference
+runs its row path and the port the cell kernel K1 (every charge is zero).
+Tolerances: the energy-CSV rows relative 1e-4 (f32 sums, printed with 6
+digits); reaction counters and the bonds of ``_topol.top`` exactly;
+``_confout.gro`` positions within 2e-3 (the file holds 3 decimals; the
+run's positions agree to ~1e-5 at 40 steps); the H5MD ``species`` and
+``state`` exactly, ``position`` within 1e-4.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from chemlab_tpu import files_io as rfio
+from chemlab_tpu import start_simulation as rsim
+from chemlab_tpu_torch import files_io, start_simulation, testsystems, writers
+
+h5py = pytest.importorskip("h5py")
+
+HOOKS = '''"""Activate 20 random MA monomers as FA radicals when reactions start."""
+import numpy as np
+
+
+def hook_init_reaction(ctx):
+    rng = np.random.RandomState(ctx.args.rng_seed)
+    tid = np.asarray(ctx.state.type_id)
+    active = np.asarray(ctx.state.active)
+    rows = np.where((tid == ctx.type_id_of("MA")) & active)[0]
+    for r in rng.choice(rows, 20, replace=False):
+        ctx.modify_particle(int(r) + 1, type=ctx.type_id_of("FA"), state=3)
+    print("hook: activated 20 initiators")
+    return True
+'''
+
+PARAMS = """conf=conf.gro
+top=topol.top
+reactions=atrp.cfg
+dt=0.0025
+temperature=1.0
+kb=1.0
+mass_factor=1.0
+thermostat_gamma=1.0
+lj_cutoff=2.5
+cg_cutoff=2.5
+skin=0.4
+gen_velocity=True
+trj_collect=20
+topol_collect=20
+output_file=trjout.h5
+output_prefix=melt
+maximum_conversion=PL(1):200:210
+"""
+
+FLAGS = ["@params", "--thermostat", "no", "--run", "40", "--int_step", "20",
+         "--start_ar", "0", "--energy_collect", "10", "--rng_seed", "7",
+         "--timers", "False", "--node_grid", "1,1,1"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _write_inputs(d):
+    built, systop, coords = testsystems.build_melt(n_mols=70, reactive=False,
+                                                   device="cpu")
+    st = testsystems.warmup(built, built.state, steps=100)
+    out = writers.state_to_coordinates(st, systop, coords)
+    out.vel = None
+    files_io.write_gro(str(d / "conf.gro"), out, backup=False)
+    (d / "topol.top").write_text(testsystems._melt_topology_text(70))
+    (d / "atrp.cfg").write_text(testsystems.ATRP_CFG_TEXT.replace(
+        "interval: 200", "interval: 10"))
+    (d / "hooks.py").write_text(HOOKS)
+    (d / "params").write_text(PARAMS)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    base = tmp_path_factory.mktemp("cli")
+    inputs = base / "inputs"
+    inputs.mkdir()
+    _write_inputs(inputs)
+    dirs = {}
+    for side in ("ref", "port"):
+        d = base / side
+        d.mkdir()
+        for f in inputs.iterdir():
+            (d / f.name).write_bytes(f.read_bytes())
+        dirs[side] = d
+    cwd = os.getcwd()
+    try:
+        for side, main, kw in (("ref", rsim.main, {}),
+                               ("port", start_simulation.main,
+                                {"device": "cpu"})):
+            os.chdir(dirs[side])
+            assert main(FLAGS, **kw) == 0
+    finally:
+        os.chdir(cwd)
+    return dirs
+
+
+def _csv(path):
+    lines = path.read_text().splitlines()
+    head = lines[0].split(",")
+    return head, np.array([[float(x) for x in ln.split(",")]
+                           for ln in lines[1:]])
+
+
+def test_energy_rows_match(runs):
+    h_r, v_r = _csv(runs["ref"] / "melt_energy.csv")
+    h_p, v_p = _csv(runs["port"] / "melt_energy.csv")
+    assert h_p == h_r
+    assert v_p.shape == v_r.shape == (4, len(h_r))
+    assert np.isfinite(v_p).all()
+    np.testing.assert_allclose(v_p, v_r, rtol=1e-4, atol=1e-6)
+
+
+def test_reaction_counters_match(runs):
+    ref = (runs["ref"] / "melt_reaction_counters.csv").read_text()
+    got = (runs["port"] / "melt_reaction_counters.csv").read_text()
+    assert got == ref
+    events = sum(int(ln.rsplit(",", 1)[1]) for ln in ref.splitlines()[:2])
+    assert events > 0
+    for name in ("melt_reaction_counters_series.csv",):
+        assert (runs["port"] / name).read_text() == \
+            (runs["ref"] / name).read_text()
+
+
+def _bonds(path):
+    out, on = [], False
+    for ln in path.read_text().splitlines():
+        if ln.startswith("["):
+            on = ln.strip() == "[ bonds ]"
+            continue
+        if on and ln.strip():
+            out.append(ln)
+    return out
+
+
+def test_topology_bonds_match(runs):
+    ref = _bonds(runs["ref"] / "melt_topol.top")
+    got = _bonds(runs["port"] / "melt_topol.top")
+    assert got == ref and len(ref) > 140
+
+
+def test_confout_positions_match(runs):
+    for name in ("melt_confout.gro", "melt_confout_unfolded.gro"):
+        r = rfio.read_gro(str(runs["ref"] / name))
+        p = rfio.read_gro(str(runs["port"] / name))
+        assert p.n_atoms == r.n_atoms == 210
+        assert p.atom_names == r.atom_names
+        np.testing.assert_allclose(p.pos, r.pos, rtol=0, atol=2e-3)
+        np.testing.assert_allclose(p.box, r.box, rtol=0, atol=1e-6)
+
+
+def test_h5md_matches(runs):
+    with h5py.File(runs["ref"] / "trjout.h5", "r") as fr, \
+            h5py.File(runs["port"] / "trjout.h5", "r") as fp:
+        for name in ("species", "state", "position", "image", "mass",
+                     "res_id"):
+            r = fr["particles/atoms/%s" % name]
+            p = fp["particles/atoms/%s" % name]
+            np.testing.assert_array_equal(p["step"][...], r["step"][...])
+            if name == "position":
+                np.testing.assert_allclose(p["value"][...], r["value"][...],
+                                           rtol=0, atol=1e-4)
+            else:
+                np.testing.assert_array_equal(p["value"][...],
+                                              r["value"][...], err_msg=name)
+        for g in ("bonds_0", "chem_bonds_0"):
+            np.testing.assert_array_equal(
+                fp["connectivity/%s/value" % g][...],
+                fr["connectivity/%s/value" % g][...], err_msg=g)
+        assert sorted(fp["parameters"].attrs) == sorted(fr["parameters"].attrs)
+
+
+def test_main_defaults_to_the_card():
+    import inspect
+
+    assert inspect.signature(start_simulation.main).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU (the smoke's cli phase covers "
+                    "it)")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        start_simulation.main(["--conf", "x.gro", "--top", "x.top"])
+
+
+def test_node_grid_raises_naming_m14(runs):
+    cwd = os.getcwd()
+    os.chdir(runs["port"])
+    try:
+        with pytest.raises(NotImplementedError, match="M14"):
+            start_simulation.main(["@params", "--node_grid", "2,1,1"],
+                                  device="cpu")
+    finally:
+        os.chdir(cwd)
+
+
+def test_checkpoint_retune_and_restore(runs, tmp_path, capsys):
+    """The port's CLI writes ``_checkpoint.npz`` every 2 blocks, reports its
+    ``--retune_caps`` decision, and ``--restore`` resumes at the saved
+    step."""
+    for name in ("conf.gro", "topol.top", "atrp.cfg", "hooks.py", "params"):
+        (tmp_path / name).write_bytes((runs["port"] / name).read_bytes())
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        assert start_simulation.main(
+            FLAGS + ["--checkpoint_interval", "2", "--retune_caps", "10"],
+            device="cpu") == 0
+        first = capsys.readouterr().out
+        assert start_simulation.main(
+            FLAGS + ["--restore", "melt_checkpoint.npz", "--run", "20"],
+            device="cpu") == 0
+        second = capsys.readouterr().out
+    finally:
+        os.chdir(cwd)
+    assert [ln for ln in first.splitlines()
+            if ln.startswith(("caps retuned at step 10", "caps kept at step "
+                              "10"))]
+    assert "Restored device state from melt_checkpoint.npz (step 40)" \
+        in second
+    steps = [ln.split(",")[0] for ln in
+             (tmp_path / "melt_energy.csv").read_text().splitlines()[1:]]
+    assert steps == ["40", "50"]

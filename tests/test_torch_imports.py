@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax():
     for m in ("topfile", "topology", "reaction_parser", "files_io",
               "engine.tab_cheb", "engine.cell_pair_halo", "parallel",
               "parallel.sharding", "parallel.launch", "parallel.jobs",
-              "engine.cell_pair_variants", "kernel_matrix"):
+              "engine.cell_pair_variants", "kernel_matrix", "__main__",
+              "start_simulation", "app_args", "tools", "units", "writers",
+              "checkpoint", "hooks_compat", "engine.perf"):
         assert "chemlab_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r: importlib.import_module(m)\n"

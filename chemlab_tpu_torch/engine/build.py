@@ -763,15 +763,27 @@ def plan_cap_ladder(cfg: EngineConfig, state, counts: dict,
     return ladder
 
 
+def refuse_charges(spec: SimSpec, q):
+    """Raise where ``q`` (host values written into the state's charges)
+    holds a nonzero charge and the build has a Coulomb cutoff: the build
+    leaves the Coulomb term out only because every charge is zero."""
+    if np.any(np.asarray(q) != 0) and float(spec.qq_cutoff2) > 0:
+        _not_in_slice("Coulomb between charged particles", "M10")
+
+
 def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
     """Refuse every configuration the port does not run yet."""
     if opts.dtype != "float32":
         _not_in_slice("dtype %s" % opts.dtype, "M13")
     if opts.use_pallas is False:
         _not_in_slice("the Verlet row force path", "M10")
-    if opts.coulomb_cutoff > 0 and np.any(np.asarray(systop.charges) != 0):
+    if opts.coulomb_cutoff > 0 and (
+            np.any(np.asarray(systop.charges) != 0)
+            or any(float(t.get("charge", 0.0)) != 0
+                   for t in systop.top.atomtypes.values())):
         # with every charge zero the Coulomb term is zero pair by pair (the
-        # CLI's default cutoff is 0.9), so only real charges need M10
+        # CLI's default cutoff is 0.9); a reaction sets an atom's charge to
+        # its new atomtype's, so a charged atomtype needs M10 as well
         _not_in_slice("Coulomb between charged particles", "M10")
     if opts.thermostat not in ("lv", "no"):
         _not_in_slice("thermostat %r" % opts.thermostat, "M12")

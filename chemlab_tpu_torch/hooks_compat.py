@@ -36,6 +36,8 @@ import types
 import numpy as np
 import torch
 
+from .engine import build
+
 logger = logging.getLogger("chemlab.hooks_compat")
 
 _PRINT_STMT = re.compile(r"^(\s*)print\s+([^(\s=].*)$", re.M)
@@ -217,6 +219,8 @@ class _StorageAdapter:
         if not self._dirty:
             return
         import dataclasses
+        if "q" in self._dirty:
+            build.refuse_charges(self._ctx.built.spec, self.q)
         st = self._ctx.device_state
         updates = {f: torch.as_tensor(getattr(self, f),
                                       dtype=getattr(st, f).dtype,

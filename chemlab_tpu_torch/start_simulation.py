@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from . import app_args, files_io, reaction_parser, tools, writers
+from .engine import build
 from .topology import build_system_topology
 
 logger = logging.getLogger(__name__)
@@ -94,6 +95,8 @@ class SimulationContext:
                    "q": "q", "lambda_adr": "lam", "res_id": "res_id"}
         for k, v in props.items():
             field = mapping.get(k, k)
+            if field == "q":
+                build.refuse_charges(self.built.spec, v)
             arr = getattr(st, field).clone()
             arr[row] = v
             st = dataclasses.replace(st, **{field: arr})
@@ -249,11 +252,10 @@ def _check_node_grid(node_grid):
                       % node_grid, "M14")
 
 
-def main(argv=None, device="cuda", h5md_writer=None):
+def main(argv=None, device="cuda"):
     """Run the CLI on ``device`` (the card unless the caller asks for
-    another).  ``h5md_writer`` is the trajectory writer class, called as
-    ``writers.H5MDWriter`` is; None takes that one."""
-    from .engine import build, runner
+    another)."""
+    from .engine import runner
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -404,7 +406,7 @@ def main(argv=None, device="cuda", h5md_writer=None):
         ("res_id", args.store_res_id), ("charge", args.store_charge),
         ("velocity", args.store_velocity), ("force", args.store_force),
         ("lambda_adr", args.store_lambda)] if on}
-    h5 = (h5md_writer or writers.H5MDWriter)(
+    h5 = writers.H5MDWriter(
         args.output_file, cfg.n_particles, state.box, store=store,
         single_precision=args.store_single_precision,
         chunk_size=256)  # ref: start_simulation.py:591
@@ -449,11 +451,10 @@ def main(argv=None, device="cuda", h5md_writer=None):
                                      st.dihedrals.idx.cpu().numpy())
 
     # ---- reaction observability files ----
-    # accepted-pair distance dump (ref: reaction_parser.py:198) + FreezeRegion
-    # stats (ref: reaction_post_process.py:146-148) + per-interval running
-    # reaction counters (ref: start_simulation.py:1027-1036)
+    # accepted-pair distance dump (ref: reaction_parser.py:198) + per-interval
+    # running reaction counters (ref: start_simulation.py:1027-1036); the
+    # FreezeRegion stats come with M12
     pair_dist_file = None
-    freeze_stats_file = None
     counters_file = None
     last_ev_logged = -1
     if rcfg and rcfg.get("general") and \
@@ -462,13 +463,6 @@ def main(argv=None, device="cuda", h5md_writer=None):
         files_io.prepare_path(pair_dist_file)
         with open(pair_dist_file, "w") as f:
             f.write("# step reaction pid1 pid2 distance\n")
-    if cfg.has_freeze:
-        freeze_stats_file = (built.reactions.freeze.get("stats_file")
-                             or "%s_%d_freeze_stats.dat"
-                             % (out_prefix, args.rng_seed))
-        files_io.prepare_path(freeze_stats_file)
-        with open(freeze_stats_file, "w") as f:
-            f.write("# step frozen_total\n")
     if cfg.has_reactions and built.reactions:
         # running per-interval series; the final-total file written in the
         # output phase keeps the reference's name
@@ -494,9 +488,6 @@ def main(argv=None, device="cuda", h5md_writer=None):
                         for a_, b_, r_, d_ in zip(va[sel], vb, vr, vd):
                             f.write("%d %d %d %d %.6f\n"
                                     % (fired, r_, a_ + 1, b_ + 1, d_))
-        if freeze_stats_file is not None:
-            with open(freeze_stats_file, "a") as f:
-                f.write("%d %d\n" % (step, int(st.freeze_count)))
         if counters_file is not None:
             counts = st.reaction_counts.cpu().numpy()
             intra = st.intra_counts.cpu().numpy()
@@ -746,7 +737,7 @@ def main(argv=None, device="cuda", h5md_writer=None):
                                  rng_seed=args.rng_seed, gen=gen)
         global_step += integrator_step
         k += 1
-        if reactions_enabled or cfg.has_freeze:
+        if reactions_enabled:
             dump_reaction_observables(state, global_step)
 
         if args.checkpoint_interval and k % args.checkpoint_interval == 0:
@@ -808,15 +799,6 @@ def main(argv=None, device="cuda", h5md_writer=None):
                        writers.state_to_coordinates(state, systop, coords,
                                                     unfolded=True))
     writers.write_topology("%s_topol.top" % out_prefix, systop, state)
-
-    if cfg.has_atrp:
-        # ATRPActivator stats file (ref: reaction_post_process.py:390-396)
-        stats = state.atrp_stats.cpu().numpy()
-        ratios = state.atrp_ratios.cpu().numpy()
-        with open("%s_atrp_stats.dat" % out_prefix, "w") as f:
-            f.write("activated %d\ndeactivated %d\n"
-                    "ratio_activator %g\nratio_deactivator %g\n"
-                    % (stats[0], stats[1], ratios[0], ratios[1]))
 
     if cfg.has_reactions:
         with open("%s_reaction_counters.csv" % out_prefix, "w") as f:

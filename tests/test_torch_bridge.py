@@ -103,18 +103,24 @@ def test_port_state_dtypes(builds):
     assert st.excl_masks.dtype == torch.bool
 
 
-@pytest.mark.parametrize("override", [
-    dict(thermostat="vr"),
-    dict(use_pallas=False),
-    dict(coulomb_cutoff=1.0),
-], ids=["csvr", "row_path", "coulomb"])
-def test_out_of_slice_configs_raise(override, monkeypatch):
-    if "coulomb_cutoff" in override:
+@pytest.mark.parametrize("override, charge", [
+    (dict(thermostat="vr"), None),
+    (dict(use_pallas=False), None),
+    (dict(coulomb_cutoff=1.0),
+     ("1 MA 1 MON AI 1 0.000000 1", "1 MA 1 MON AI 1 0.5 1")),
+    (dict(coulomb_cutoff=0.9),
+     ("  PA    1.0      0.000 ", "  PA    1.0      0.500 ")),
+], ids=["csvr", "row_path", "coulomb", "coulomb_charged_product"])
+def test_out_of_slice_configs_raise(override, charge, monkeypatch):
+    if charge is not None:
         # Coulomb over zero charges is zero pair by pair and builds (the
-        # CLI's default cutoff is 0.9); a charged melt needs M10
+        # CLI's default cutoff is 0.9); a charged atom needs M10, and so
+        # does a charged atomtype that only a reaction product takes (PA:
+        # an event sets the atom's charge to its new type's)
         text = pts._melt_topology_text
-        monkeypatch.setattr(pts, "_melt_topology_text", lambda n: text(
-            n).replace("1 MA 1 MON AI 1 0.000000 1", "1 MA 1 MON AI 1 0.5 1"))
+        assert charge[0] in text(70)
+        monkeypatch.setattr(pts, "_melt_topology_text",
+                            lambda n: text(n).replace(*charge))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pts.build_melt(n_mols=70, reactive=True, device="cpu", **override)
 

@@ -2,14 +2,15 @@
 reference's on one state, and the reference's cap tests mirrored on the
 port.
 
-The state is the reference's 70-trimer reactive melt (3x3x3 cells, cap
-24), warmed, with 20 initiators on and reaction rates raised 40-fold; the
-port gets it through ``bridge.from_trees``.  Both packages' functions run
-on their own copy; the new caps must be equal and every leaf of the
-resulting state equal too (the neighbor rows, the re-padded tables, the
-re-derived dense operands), since both do the same integer work on equal
-positions.  Runs through a cap change use the port only: they must equal,
-bit for bit, the same run at the old caps (the reference's
+The compared state is the reference's 70-trimer reactive melt (3x3x3
+cells, cap 24) as built, with 20 initiators on and reaction rates raised
+40-fold; the port gets it through ``bridge.from_trees``.  Both packages'
+functions run on their own copy; the new caps must be equal and every leaf
+of the resulting state equal too (the neighbor rows, the re-padded tables,
+the re-derived dense operands), since both do the same integer work on
+equal positions.  Runs through a cap change use the port only, on the
+port's own build of that melt, warmed by the port: they must equal, bit
+for bit, the same run at the old caps (the reference's
 ``test_grow_term_caps_is_physics_inert`` and its siblings).
 """
 
@@ -21,8 +22,8 @@ import torch
 
 from chemlab_tpu import testsystems as rts
 from chemlab_tpu.engine import build as rbuild
-from chemlab_tpu.engine import runner as rrun
 from chemlab_tpu_torch import bridge
+from chemlab_tpu_torch import testsystems as pts
 from chemlab_tpu_torch.engine import build, runner
 
 INTERVAL = 10
@@ -37,17 +38,32 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _reactive(pkg, built, systop, st):
+    st = pkg.activate_initiators(built, systop, st, n=20)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
+    return dataclasses.replace(built.cfg, reaction_interval=INTERVAL), st
+
+
 @pytest.fixture(scope="module")
 def melt():
+    """The reference's build and the port's copy of it (the cap functions
+    move no particle, so the build's overlaps do not matter here)."""
     built, systop, _ = rts.build_melt(n_mols=70, reactive=True,
                                       use_pallas=True)
-    st = rrun.initial_forces(built.spec, built.cfg, built.state)
-    st = rts.warmup(built, st, steps=50, chunk=50)
-    st = rts.activate_initiators(built, systop, st, n=20)
-    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
-    rcfg = dataclasses.replace(built.cfg, reaction_interval=INTERVAL)
+    rcfg, st = _reactive(rts, built, systop, built.state)
     cfg, spec, pst = bridge.from_trees(rcfg, built.spec, st, "cpu")
     return (rcfg, built.spec, st), (cfg, spec, pst)
+
+
+@pytest.fixture(scope="module")
+def warm():
+    """The port's build of the melt, warmed by the port, for the runs."""
+    built, systop, _ = pts.build_melt(n_mols=70, reactive=True,
+                                      device="cpu")
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = pts.warmup(built, st, steps=50)
+    cfg, st = _reactive(pts, built, systop, st)
+    return cfg, built.spec, st
 
 
 def _same_cfg(rcfg, cfg):
@@ -176,8 +192,8 @@ def test_near_full_and_ladder_match(melt):
 
 # ---- the reference's cap tests, on the port -------------------------------
 
-def test_shrink_recovers_grown_caps(melt):
-    _, (cfg, spec, st) = melt
+def test_shrink_recovers_grown_caps(warm):
+    cfg, spec, st = warm
     cfg_big, st_big = build.grow_neighbor_caps(cfg, spec, st)
     e_big = float(runner.measure(spec, cfg_big, st_big)["epot"])
     cfg_s, st_s = build.shrink_neighbor_caps(cfg_big, spec, st_big)
@@ -190,17 +206,17 @@ def test_shrink_recovers_grown_caps(melt):
     assert np.isfinite(float(m["epot"])) and not bool(m["overflow"])
 
 
-def test_shrink_noop_when_tight(melt):
-    _, (cfg, spec, st) = melt
+def test_shrink_noop_when_tight(warm):
+    cfg, spec, st = warm
     cfg2, st2 = build.shrink_neighbor_caps(cfg, spec, st)
     cfg3, st3 = build.shrink_neighbor_caps(cfg2, spec, st2)
     assert cfg3 is cfg2 and st3 is st2
 
 
-def test_overflow_latches_and_regrowth_clears_it(melt):
+def test_overflow_latches_and_regrowth_clears_it(warm):
     """A cap too small for the melt latches the sticky flag; regrowth clears
     it, and the next block runs with none."""
-    _, (cfg, spec, st) = melt
+    cfg, spec, st = warm
     small = dataclasses.replace(cfg, cell_cap=8)
     _, st_small = build.apply_neighbor_caps(cfg, spec, st, {"cell_cap": 8})
     assert bool(st_small.nbr.overflow)
@@ -212,8 +228,8 @@ def test_overflow_latches_and_regrowth_clears_it(melt):
     assert not bool(st_g.nbr.overflow)
 
 
-def test_shrink_term_caps(melt):
-    _, (cfg, spec, st) = melt
+def test_shrink_term_caps(warm):
+    cfg, spec, st = warm
     e0 = float(runner.measure(spec, cfg, st)["epot"])
     cfg_s, st_s = build.shrink_term_caps(cfg, st, headroom=16)
     assert cfg_s.bond_cap < cfg.bond_cap or cfg_s.angle_cap < cfg.angle_cap
@@ -242,8 +258,8 @@ def _assert_same_run(cfg, a, b):
     assert torch.equal(a.reaction_counts, b.reaction_counts)
 
 
-def test_grow_term_caps_is_physics_inert(melt):
-    _, (cfg, spec, st) = melt
+def test_grow_term_caps_is_physics_inert(warm):
+    cfg, spec, st = warm
     cfg_big, st_big = build.grow_term_caps(cfg, st)
     assert cfg_big.bond_cap > cfg.bond_cap
     assert cfg_big.angle_cap > cfg.angle_cap
@@ -255,8 +271,8 @@ def test_grow_term_caps_is_physics_inert(melt):
     _assert_same_run(cfg, a, b)
 
 
-def test_presize_term_caps_covers_planned_run(melt):
-    _, (cfg, spec, st) = melt
+def test_presize_term_caps_covers_planned_run(warm):
+    cfg, spec, st = warm
     c0 = _counts(spec, cfg, st)
     st1 = _run(spec, cfg, st)
     c1 = _counts(spec, cfg, st1)
@@ -274,8 +290,8 @@ def test_presize_term_caps_covers_planned_run(melt):
     assert int(a.bonds.count) == int(b.bonds.count)
 
 
-def test_measure_cheap_reports_irregular_occupancy(melt):
-    _, (cfg, spec, st) = melt
+def test_measure_cheap_reports_irregular_occupancy(warm):
+    cfg, spec, st = warm
     assert cfg.bonded_dense
     c = _counts(spec, cfg, st)
     assert c["n_bonds_irr"] == int(st.bonds_irr.valid.sum())
@@ -284,8 +300,8 @@ def test_measure_cheap_reports_irregular_occupancy(melt):
         + c["n_angles_irr"]
 
 
-def test_apply_term_caps_honors_explicit_irr_caps(melt):
-    _, (cfg, spec, st) = melt
+def test_apply_term_caps_honors_explicit_irr_caps(warm):
+    cfg, spec, st = warm
     irr_keep = cfg.bond_irr_cap
     cfg2, st2 = build.apply_term_caps(
         cfg, st, {"bond_cap": cfg.bond_cap + 10240,
@@ -298,16 +314,16 @@ def test_apply_term_caps_honors_explicit_irr_caps(melt):
     assert cfg3.bond_irr_cap == cfg.bond_irr_cap + 10240
 
 
-def test_term_table_shrink_refuses_to_drop_rows(melt):
-    _, (cfg, spec, st) = melt
+def test_term_table_shrink_refuses_to_drop_rows(warm):
+    cfg, spec, st = warm
     with pytest.raises(ValueError, match="drop valid rows"):
         build.apply_term_caps(cfg, st, {"bond_cap": 8})
     with pytest.raises(ValueError, match="drop pairs"):
         build.apply_term_caps(cfg, st, {}, 8)
 
 
-def test_plan_cap_ladder_rungs_apply_and_preserve_physics(melt):
-    _, (cfg, spec, st) = melt
+def test_plan_cap_ladder_rungs_apply_and_preserve_physics(warm):
+    cfg, spec, st = warm
     c0 = _counts(spec, cfg, st)
     st1 = _run(spec, cfg, st)
     c1 = _counts(spec, cfg, st1)

@@ -5,9 +5,10 @@ The reference's MDState has one leaf more than the port's, its first: the
 threefry ``key``.  The port writes ``PRNGKey(rng_seed)`` there and skips
 it on reading; its own noise stream (the ``torch.Generator``) is stored
 under ``__torch_rng__`` and restored by ``load_state``.  States: the
-reference's 70-trimer reactive melt, warmed with 20 initiators on; the
-port continues it under Langevin noise from a generator, so that a resume
-that lost the generator's state would differ.
+reference's build of the 70-trimer reactive melt with 20 initiators on,
+and the port's build of it, warmed by the port, with the same initiators;
+the port continues it under Langevin noise from a generator, so that a
+resume that lost the generator's state would differ.
 """
 
 import dataclasses
@@ -19,7 +20,6 @@ import torch
 
 from chemlab_tpu import checkpoint as rckpt
 from chemlab_tpu import testsystems as rts
-from chemlab_tpu.engine import runner as rrun
 from chemlab_tpu_torch import bridge, checkpoint
 from chemlab_tpu_torch import testsystems as pts
 from chemlab_tpu_torch.engine import build, runner
@@ -35,17 +35,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _reactive(pkg, built, systop, st):
+    st = pkg.activate_initiators(built, systop, st, n=20)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
+    return dataclasses.replace(built.cfg, reaction_interval=10), st
+
+
 @pytest.fixture(scope="module")
 def melt():
     rb, systop, _ = rts.build_melt(n_mols=70, reactive=True,
                                    use_pallas=True)
-    st = rrun.initial_forces(rb.spec, rb.cfg, rb.state)
-    st = rts.warmup(rb, st, steps=50, chunk=50)
-    st = rts.activate_initiators(rb, systop, st, n=20)
-    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0)
-    rcfg = dataclasses.replace(rb.cfg, reaction_interval=10)
-    cfg, spec, pst = bridge.from_trees(rcfg, rb.spec, st, "cpu")
-    return (rb, rcfg, st), (cfg, spec, pst)
+    rcfg, rst = _reactive(rts, rb, systop, rb.state)
+    pb, psys, _ = pts.build_melt(n_mols=70, reactive=True, device="cpu")
+    st = runner.initial_forces(pb.spec, pb.cfg, pb.state)
+    cfg, st = _reactive(pts, pb, psys, pts.warmup(pb, st, steps=50))
+    return (rb, rcfg, rst), (cfg, pb.spec, st)
 
 
 def _fresh_port(cfg, **kw):

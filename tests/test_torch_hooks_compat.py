@@ -3,8 +3,10 @@ espressopp shim, the storage adapters and ``SimulationContext``, held to
 the reference's ``hooks_compat`` on the same input (mirroring
 ``test_hooks_compat.py``)."""
 
+import dataclasses
 import os
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -126,10 +128,34 @@ def test_host_view_and_modify_particle(ctxs):
     np.testing.assert_array_equal(ctx.state.type_id, st.type_id.numpy())
 
 
+@pytest.mark.parametrize("how", ["modify_particle", "modifyParticle"])
+def test_charge_write_over_skipped_coulomb_raises(melt, how):
+    """A build with a Coulomb cutoff over zero charges leaves the Coulomb
+    term out, so a hook that charges an atom must raise (M10), and one
+    that writes a zero charge must not."""
+    built, systop, st = melt
+    _, spec, _ = bridge.from_trees(built.cfg, built.spec, built.state, "cpu")
+    spec = dataclasses.replace(spec, qq_cutoff2=torch.tensor(0.81))
+    ctx = SimulationContext(args=None, systop=systop,
+                            built=types.SimpleNamespace(spec=spec), state=st)
+
+    def write(q):
+        if how == "modify_particle":
+            ctx.modify_particle(3, q=q)
+        else:
+            session = hooks_compat.HookSession(ctx)
+            session.system.storage.modifyParticle(3, "q", q)
+            session.commit()
+
+    write(0.0)
+    assert float(ctx.device_state.q[2]) == 0.0
+    with pytest.raises(NotImplementedError, match="M10"):
+        write(0.5)
+    assert not bool(ctx.device_state.q.any())
+
+
 def test_example_hook_runs_on_both(ctxs):
     """``examples/atrp_melt/hooks.py`` picks the same 20 rows on both."""
-    import types
-
     rctx, ctx = ctxs
     args = types.SimpleNamespace(rng_seed=11)
     for c in (rctx, ctx):

@@ -8,7 +8,8 @@
                           correction
   - ``cell_pair_halo``    the pair sum split by x-slab over a mesh's ranks
   - ``excl_dense``        exclusion correction on rolled planes
-  - ``bonded_forces``     bonds/angles, forces by autograd
+  - ``bonded_forces``     bonds, angles, dihedrals and 1-4 pairs (tabulated
+                          func 8 through ``tables``), forces by autograd
   - ``bonded_dense``      chain terms on rolled planes
   - ``integrate``         velocity Verlet + Langevin
   - ``reactions``, ``topo``  the reactive layer

@@ -4,11 +4,14 @@ Port of ``chemlab_tpu/engine/build.py`` ``build_system`` for the slice the
 port runs: LJ nonbonded pairs on the cell-tile kernel path (K1 on a colt2
 grid, the per-cell K2 on any other), or tabulated pairs (func 8, the func
 10/12 two-table blends, auto-tabulated ``table_groups``) on the kernel's
-Chebyshev modes (K1c/K1d/K1e, colt2 grids only), harmonic (and FENE)
-bonds, harmonic and cosine angles, the dense-static bonded and exclusion
-operands, Langevin or NVE, the Berendsen and Langevin barostats and the
-pressure observable, and normal reaction channels on the batched event
-path.  The lowering is the reference's numpy code; only the
+Chebyshev modes (K1c/K1d/K1e, colt2 grids only), bonds (harmonic, FENE,
+FENE + WCA, tabulated), angles (harmonic, tabulated, cosine), dihedrals
+(funcs 1, 3, 8 and 12, static and by type lookup) and 1-4 pairs
+(fudgeLJ, shifted at the LJ cutoff), the dense-static bonded and
+exclusion operands, Langevin or NVE, the Berendsen and Langevin barostats
+and the pressure observable, and normal reaction channels on the batched
+event path, matched on compacted rows or, when the type_1 side spans the
+bulk, on full rows.  The lowering is the reference's numpy code; only the
 last step differs: arrays become torch tensors on ``device`` (the card
 unless the caller asks for another) through the bridge, and the build-time
 neighbor rows are made by the port's ``neighbor.build_neighbor_state``.
@@ -165,13 +168,12 @@ def _asarray(a, dtype=None):
     return a
 
 
-def _pack_bond_params(func, fields):
+def _pack_bond_params(func, fields, bond_tb, table_dirs):
     """Raw .top bond fields -> engine params (reference:
-    build._pack_bond_params); tabulated bonds are not in the slice."""
+    build._pack_bond_params); a func-8 bond's table goes into ``bond_tb``
+    and its id into slot 0."""
     p = np.zeros(N_BOND_PARAMS, F32)
-    if func == 8:
-        _not_in_slice("tabulated bonds (func 8)", "M9")
-    f = [float(x) for x in fields]
+    f = [float(x) for x in fields] if func != 8 else fields
     if func == 1:
         p[0] = f[1] / 2.0   # GROMACS K -> U = K/2 (r-r0)^2
         p[1] = f[0]
@@ -179,6 +181,11 @@ def _pack_bond_params(func, fields):
         p[0] = f[1]
         p[1] = 0.0
         p[2] = f[0]
+    elif func == 8:
+        name = files_io.resolve_table("table_b%d" % int(float(fields[0])),
+                                      table_dirs)
+        r, e, fr, _ = files_io.read_table(name, kind="bond")
+        p[0] = bond_tb.add(name, r, e, fr)
     elif func == 9:
         p[0] = f[1]
         p[1] = 0.0
@@ -190,18 +197,44 @@ def _pack_bond_params(func, fields):
     return p
 
 
-def _pack_angle_params(func, fields):
+def _pack_angle_params(func, fields, angle_tb, table_dirs):
     p = np.zeros(N_BOND_PARAMS, F32)
     if func == 1:
         p[0] = float(fields[1]) / 2.0
         p[1] = math.radians(float(fields[0]))
+    elif func == 8:
+        name = files_io.resolve_table("table_a%d" % int(float(fields[0])),
+                                      table_dirs)
+        r, e, fr, _ = files_io.read_table(name, kind="angle")
+        p[0] = angle_tb.add(name, r, e, fr)
     elif func == 11:
         p[0] = float(fields[1])
         p[1] = math.radians(float(fields[0]))
-    elif func == 8:
-        _not_in_slice("tabulated angles (func 8)", "M9")
     else:
         raise NotImplementedError("angle func %d" % func)
+    return p
+
+
+def _pack_dihedral_params(func, fields, dih_tb, table_dirs):
+    """(reference: build._pack_dihedral_params)"""
+    p = np.zeros(N_BOND_PARAMS, F32)
+    if func == 1:
+        p[0] = float(fields[1])
+        p[1] = math.radians(float(fields[0]))
+        p[2] = float(fields[2]) if len(fields) > 2 else 1.0
+    elif func == 3:
+        vals = [float(x) for x in fields][-6:]
+        p[: len(vals)] = vals
+    elif func == 8:
+        name = files_io.resolve_table("table_d%d" % int(float(fields[0])),
+                                      table_dirs)
+        r, e, fr, _ = files_io.read_table(name, kind="dihedral")
+        p[0] = dih_tb.add(name, r, e, fr)
+    elif func == 12:
+        p[0] = float(fields[1])
+        p[1] = math.radians(float(fields[0]))
+    else:
+        raise NotImplementedError("dihedral func %d" % func)
     return p
 
 
@@ -787,10 +820,6 @@ def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
         _not_in_slice("Coulomb between charged particles", "M10")
     if opts.thermostat not in ("lv", "no"):
         _not_in_slice("thermostat %r" % opts.thermostat, "M12")
-    if systop.dihedrals or systop.dihedralparams:
-        _not_in_slice("dihedrals", "M4")
-    if systop.pairs:
-        _not_in_slice("1-4 pairs", "M4")
     if compiled is None:
         return
     if compiled.n_reactions and compiled.channels["r_is_diss"].any():
@@ -846,19 +875,27 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     bond_func_tt = np.zeros((T, T), I32)
     bond_par_tt = np.zeros((T, T, N_BOND_PARAMS), F32)
     for (a, b), rec in systop.bondparams.items():
-        p = _pack_bond_params(rec["func"], rec["params"])
+        p = _pack_bond_params(rec["func"], rec["params"], bond_tb,
+                              opts.table_dirs)
         for key in ((a, b), (b, a)):
             bond_func_tt[key] = rec["func"]
             bond_par_tt[key] = p
     angle_func_tt = np.zeros((T, T, T), I32)
     angle_par_tt = np.zeros((T, T, T, N_BOND_PARAMS), F32)
     for (a, b, c), rec in systop.angleparams.items():
-        p = _pack_angle_params(rec["func"], rec["params"])
+        p = _pack_angle_params(rec["func"], rec["params"], angle_tb,
+                               opts.table_dirs)
         for key in ((a, b, c), (c, b, a)):
             angle_func_tt[key] = rec["func"]
             angle_par_tt[key] = p
     dih_func_tt = np.zeros((T, T, T, T), I32)
     dih_par_tt = np.zeros((T, T, T, T, N_BOND_PARAMS), F32)
+    for (a, b, c, d), rec in systop.dihedralparams.items():
+        p = _pack_dihedral_params(rec["func"], rec["params"], dih_tb,
+                                  opts.table_dirs)
+        for key in ((a, b, c, d), (d, c, b, a)):
+            dih_func_tt[key] = rec["func"]
+            dih_par_tt[key] = p
 
     # ---- static bonded terms ----
     def term_entries(raw_terms, params_by_type, pack, canonical):
@@ -872,7 +909,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                 and ckey in params_by_type
             if fields:
                 f = int(fields[0])
-                p = pack(f, fields[1:])
+                p = pack(f, fields[1:], opts.table_dirs)
             else:
                 rec = params_by_type.get(ckey)
                 if rec is None:
@@ -881,19 +918,52 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                     raise ValueError("no parameters for term %s types %s"
                                      % (key_ids, tids))
                 f = rec["func"]
-                p = pack(f, rec["params"])
+                p = pack(f, rec["params"], opts.table_dirs)
             idx.append(rows)
             funcs.append(f)
             params.append(p)
             tl.append(is_dynamic)
         return idx, funcs, params, tl
 
+    def pack_b(f, fields, dirs):
+        return _pack_bond_params(f, fields, bond_tb, dirs)
+
+    def pack_a(f, fields, dirs):
+        return _pack_angle_params(f, fields, angle_tb, dirs)
+
+    def pack_d(f, fields, dirs):
+        return _pack_dihedral_params(f, fields, dih_tb, dirs)
+
     b_idx, b_func, b_par, b_tl = term_entries(
-        systop.bonds, systop.bondparams, _pack_bond_params,
-        lambda t: tuple(sorted(t)))
+        systop.bonds, systop.bondparams, pack_b, lambda t: tuple(sorted(t)))
     a_idx, a_func, a_par, a_tl = term_entries(
-        systop.angles, systop.angleparams, _pack_angle_params,
+        systop.angles, systop.angleparams, pack_a,
         lambda t: (t[2], t[1], t[0]) if t[0] > t[2] else t)
+    d_idx, d_func, d_par, d_tl = term_entries(
+        systop.dihedrals, systop.dihedralparams, pack_d,
+        lambda t: (t[3], t[2], t[1], t[0]) if t[3] > t[0] else t)
+
+    # 1-4 pairs: LJ with fudgeLJ, shifted at the LJ cutoff (reference
+    # build.py:1124-1142)
+    fudge_lj = systop.defaults.get("fudgeLJ", 1.0)
+    p14_idx, p14_par = [], []
+    for key_ids, fields in systop.pairs.items():
+        rows = tuple(k - 1 for k in key_ids)
+        if fields and len(fields) >= 3:
+            sig, eps = float(fields[1]), float(fields[2])
+        else:
+            s1 = systop.atomtype_atomsym[int(systop.type_ids[rows[0]])]
+            s2 = systop.atomtype_atomsym[int(systop.type_ids[rows[1]])]
+            a_t, b_t = systop.top.atomtypes[s1], systop.top.atomtypes[s2]
+            sig, eps = combine_lj(a_t["sigma"], a_t["epsilon"], b_t["sigma"],
+                                  b_t["epsilon"],
+                                  systop.defaults["combinationrule"])
+        p = np.zeros(N_BOND_PARAMS, F32)
+        p[0], p[1], p[2] = sig, fudge_lj * eps, opts.lj_cutoff**2
+        sr6 = (sig / opts.lj_cutoff) ** 6 if sig > 0 else 0.0
+        p[3] = 4.0 * fudge_lj * eps * (sr6 * sr6 - sr6)
+        p14_idx.append(rows)
+        p14_par.append(p)
 
     # ---- capacities ----
     n_pad = _round_up(max(n, 128), 128)
@@ -903,11 +973,12 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         else extra_default
     extra_a = opts.extra_angles if opts.extra_angles is not None \
         else 4 * extra_b
-    extra_d = opts.extra_dihedrals if opts.extra_dihedrals is not None else 0
+    extra_d = opts.extra_dihedrals if opts.extra_dihedrals is not None else (
+        6 * extra_b if systop.dihedralparams else 0)
     bond_cap = _round_up(max(len(b_idx) + extra_b, 8), 128)
     angle_cap = _round_up(max(len(a_idx) + extra_a, 8), 128)
-    dih_cap = _round_up(max(extra_d, 8), 128)
-    pair14_cap = 0
+    dih_cap = _round_up(max(len(d_idx) + extra_d, 8), 128)
+    pair14_cap = _round_up(len(p14_idx), 128) if p14_idx else 0
     excl_cap_pairs = _round_up(max(len(systop.exclusions) + 8 * extra_b, 8),
                                128)
     if opts.excl_cap is None:
@@ -1015,8 +1086,10 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     # ---- term tables ----
     bonds = TermTable.create_numpy(bond_cap, 2, b_idx, b_func, b_par, b_tl)
     angles = TermTable.create_numpy(angle_cap, 3, a_idx, a_func, a_par, a_tl)
-    dihedrals = TermTable.create_numpy(dih_cap, 4)
-    pairs14 = TermTable.create_numpy(1, 2, [], [], [])
+    dihedrals = TermTable.create_numpy(dih_cap, 4, d_idx, d_func, d_par,
+                                       d_tl)
+    pairs14 = TermTable.create_numpy(max(pair14_cap, 1), 2, p14_idx,
+                                     [1] * len(p14_idx), p14_par)
 
     # ---- exclusions / adjacency / molecules ----
     excl = np.full((excl_cap_pairs, 2), -1, I32)
@@ -1137,9 +1210,9 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     angle_funcs = tuple(int(f) for f in sorted(set(a_func)
                                                 | set(angle_func_tt.flatten()))
                         if f > 0)
-    for f in bond_funcs:
-        if f not in (1, 7, 9):
-            _not_in_slice("bond func %d" % f, "M9")
+    dih_funcs = tuple(int(f) for f in sorted(set(d_func)
+                                              | set(dih_func_tt.flatten()))
+                      if f > 0)
 
     # ---- compacted reaction matching gate ----
     rx_compact = False
@@ -1154,9 +1227,6 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                 rx_compact = True
                 rx_rows_cap = min(_round_up(max(4 * t1_pop, 1024), 128),
                                   _round_up(n_pad, 128))
-        if not rx_compact:
-            _not_in_slice("full-row reaction matching (type_1 side spans "
-                          "the bulk)", "M6")
 
     cfg = EngineConfig(
         n_types=T, n_particles=n, n_pad=n_pad, max_neighbors=max_neighbors,
@@ -1168,7 +1238,8 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         max_events=opts.max_events, n_reactions=n_r,
         n_groups=compiled.n_groups if compiled else 0,
         n_obs=max(len(obs.keys), 1),
-        bond_funcs=bond_funcs, angle_funcs=angle_funcs, dihedral_funcs=(),
+        bond_funcs=bond_funcs, angle_funcs=angle_funcs,
+        dihedral_funcs=dih_funcs,
         thermostat=opts.thermostat, iso_coupling=1,
         store_pressure=opts.store_pressure,
         barostat=opts.barostat if opts.pressure > 0 else "no",
@@ -1316,7 +1387,8 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         state = excl_dense.rederive(cfg, state, create=True)
 
     term_names = (["bond_f%d" % f for f in bond_funcs]
-                  + ["angle_f%d" % f for f in angle_funcs])
+                  + ["angle_f%d" % f for f in angle_funcs]
+                  + ["dihedral_f%d" % f for f in dih_funcs])
     return BuiltSystem(cfg=cfg, spec=spec, state=state, obs=obs,
                        reactions=compiled, systop=systop,
                        nb_names=nb_stack.names, term_names=term_names,

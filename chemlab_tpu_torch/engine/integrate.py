@@ -90,8 +90,9 @@ def compute_forces(spec, cfg, state, want_energy: bool = True,
               "coulomb": torch.zeros((), dtype=state.pos.dtype,
                                      device=state.pos.device)}
     f_bond, e_bond = bonded_forces.bonded_forces(
-        spec, cfg, state.pos, state.box, state.type_id, state.bonds,
-        state.angles, dense=_dense_of(cfg, state))
+        spec, cfg, state.pos, state.box, state.type_id, state.q, state.bonds,
+        state.angles, state.dihedrals, state.pairs14,
+        dense=_dense_of(cfg, state))
     force = f_pair + f_bond
     # global CapForce; overflow-safe norm (sum(F^2) can exceed f32 range)
     fmax = torch.amax(torch.abs(force), dim=-1, keepdim=True)
@@ -127,8 +128,9 @@ def virial_pressure(spec, cfg, state, pair_kernel: str = "auto"):
                                obs_x=obs_x, kernel=pair_kernel)
     _, _, _, w_ex = _excl_correction(spec, cfg, state, obs_x)
     w = (w_all - w_ex) - bonded_forces.bonded_strain_derivative(
-        spec, cfg, state.pos, state.box, state.type_id, state.bonds,
-        state.angles, dense=_dense_of(cfg, state))
+        spec, cfg, state.pos, state.box, state.type_id, state.q, state.bonds,
+        state.angles, state.dihedrals, state.pairs14,
+        dense=_dense_of(cfg, state))
     ekin = observables.kinetic_energy(state.mass, state.vel, state.active)
     return (2.0 * ekin + w) / (3.0 * torch.prod(state.box))
 

@@ -135,8 +135,13 @@ def build_neighbor_state(pos, box, active, excl_pairs, rc_skin, *, dims,
     cand_safe = torch.clamp(cand, min=0)
 
     self_idx = torch.arange(n_pad, dtype=I32, device=dev)
-    rc = torch.as_tensor(rc_skin, dtype=pos.dtype, device=dev)
-    valid = (cand >= 0) & (cand != self_idx[:, None]) & (d2 < rc * rc)
+    if isinstance(rc_skin, torch.Tensor):
+        rc2 = rc_skin.to(pos.dtype) * rc_skin.to(pos.dtype)
+    else:
+        # a Python cutoff squares in double and rounds once to f32, as a
+        # weakly typed scalar does in the reference
+        rc2 = torch.tensor(float(rc_skin) ** 2, dtype=pos.dtype, device=dev)
+    valid = (cand >= 0) & (cand != self_idx[:, None]) & (d2 < rc2)
     valid &= active[:, None]
 
     # nearest-K: a stable ascending sort equals jax.lax.top_k on -d2

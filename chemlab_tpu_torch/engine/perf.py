@@ -11,7 +11,7 @@ Phases (the reference's six):
   neighbor_rebuild  cell binning + the K-nearest rows + exclusion rows
   pair_forces       the pair kernel's all-pairs sum minus the excluded
                     pairs' correction (the port's only pair path)
-  bonded_forces     bond and angle terms
+  bonded_forces     bonds, angles, dihedrals and 1-4 pairs
   integrate_step    one full md_step (kicks, drift, rebuild trigger,
                     thermostat)
   reaction_step     one reactive interval (matching + event application)
@@ -71,8 +71,9 @@ def phase_timers(spec, cfg, state, repeats: int = 3) -> dict:
     timers["pair_forces"] = _time_fn(pair, dev, repeats)
     timers["bonded_forces"] = _time_fn(
         lambda: bonded_forces.bonded_forces(
-            spec, cfg, state.pos, state.box, state.type_id, state.bonds,
-            state.angles, dense=integrate._dense_of(cfg, state)),
+            spec, cfg, state.pos, state.box, state.type_id, state.q,
+            state.bonds, state.angles, state.dihedrals, state.pairs14,
+            dense=integrate._dense_of(cfg, state)),
         dev, repeats)
     gen = runner.make_generator(0, dev)
     timers["integrate_step"] = _time_fn(

@@ -1,18 +1,27 @@
-"""The reactive layer: compact matching and batched event application.
+"""The reactive layer: matching and batched event application.
 
-Port of ``chemlab_tpu/engine/reactions.py`` for the reactive melt's path:
-``reaction_step`` in its ``rx_compact`` + ``lazy_rows`` branch, which
-builds candidates on the reaction cell grid for the particles that can be
-the type_1 side of a channel (``side1_mask``,
-``compact_candidates_from_cells``), accepts them with the pair-symmetric
-integer hash (``pair_uniform``, bit-exact with the reference), resolves
-conflicts by deterministic scatter-min (``match_reactions_compact``), and
-applies the events in one batch (``apply_reaction_events`` dispatching to
-``_apply_events_batched``, ChangeNeighboursProperty transfers included).
+Port of ``chemlab_tpu/engine/reactions.py`` for the lazy-row paths of
+``reaction_step``:
+
+- compact (``cfg.rx_compact``, the type_1 side is a minority): candidates
+  on the reaction cell grid for the particles that can be the type_1 side
+  of a channel (``side1_mask``, ``compact_candidates_from_cells``),
+  conflicts resolved by deterministic scatter-min
+  (``match_reactions_compact``);
+- full-row (the type_1 side spans the bulk, as in step-growth chemistry):
+  fresh neighbour rows on the reaction grid
+  (``neighbor.build_neighbor_state`` at ``cfg.rx_rc``), both directions of
+  every channel tested for every slot (``_channel_accept``) and conflicts
+  resolved by mutual argmin (``match_reactions``).
+
+Both accept with the pair-symmetric integer hash (``pair_uniform``,
+bit-exact with the reference) and apply the events in one batch
+(``apply_reaction_events`` dispatching to ``_apply_events_batched``,
+ChangeNeighboursProperty transfers included).
 
 Out of the slice, raising at build: dissociation, the sequential event scan
-(RemoveNeighboursBonds, FixDistances), ATRP, ChangeParticleType, freeze
-regions (ROADMAP M12) and full-row matching (M6).
+(RemoveNeighboursBonds, FixDistances), RestrictReaction, ATRP,
+ChangeParticleType and freeze regions (ROADMAP M12).
 
 uint32 hashing runs in int64 with ``& 0xFFFFFFFF`` and a 16-bit split
 multiply (no signed overflow); every sort is ``stable=True``.
@@ -81,31 +90,23 @@ def _norm2(d):
 
 
 # ---------------------------------------------------------------------------
-# compact candidate matching
+# acceptance (both paths) and full-row matching
 # ---------------------------------------------------------------------------
 
-def side1_mask(spec, cfg, state):
-    """Particles that can be the type_1 side of any active normal channel."""
-    m = torch.zeros_like(state.active)
-    for r in range(cfg.n_reactions):
-        ok = state.reaction_active[r] & ~spec.r_is_diss[r]
-        m |= ok & (state.type_id == spec.r_t1[r]) \
-            & (state.chem_state >= spec.r_min1[r]) \
-            & (state.chem_state < spec.r_max1[r])
-    return m & state.active
-
-
-def _compact_channel_accept(spec, cfg, state, seed, a, j, r2, slot_valid,
-                            r: int):
-    """Directed acceptance of channel r with ``a`` (R, 1) the type_1 side;
-    draws are keyed by the unordered pair."""
-    lo = torch.minimum(a, j)
-    hi = torch.maximum(a, j)
-    al, jl = a.long(), j.long()
+def _accept(spec, cfg, state, seed, a, b, r2, slot_valid, r: int,
+            asym_salt):
+    """Acceptance of channel ``r`` with ``a`` the type_1 side and ``b`` the
+    type_2 side.  The draws are keyed by the unordered pair, so both rows
+    of a pair agree bit for bit; ``asym_salt`` (0 or 1 by direction) salts
+    the acceptance draw of an asymmetric channel only, so a symmetric
+    channel draws one number per pair.  Returns (accepted, draw)."""
+    lo = torch.minimum(a, b)
+    hi = torch.maximum(a, b)
+    al, bl = a.long(), b.long()
     ta = state.type_id[al]
-    tb = state.type_id[jl]
+    tb = state.type_id[bl]
     sa = state.chem_state[al]
-    sb = state.chem_state[jl]
+    sb = state.chem_state[bl]
 
     m = slot_valid
     m = m & (ta == spec.r_t1[r]) & (tb == spec.r_t2[r])
@@ -114,8 +115,7 @@ def _compact_channel_accept(spec, cfg, state, seed, a, j, r2, slot_valid,
     m = m & state.reaction_active[r] & ~spec.r_is_diss[r]
 
     symmetric = spec.r_t1[r] == spec.r_t2[r]
-    t1_is_lo = a == lo
-    dir_salt = torch.where(symmetric, 0, torch.where(t1_is_lo, 0, 1))
+    dir_salt = torch.where(symmetric, 0, asym_salt)
     u1 = pair_uniform(seed, state.step, lo, hi, 4 * r + 2)
     u2 = pair_uniform(seed, state.step, lo, hi, 4 * r + 3)
     gcut = spec.r_eq[r] + spec.r_sigma[r] * _gauss_from_uniform(u1, u2)
@@ -124,10 +124,10 @@ def _compact_channel_accept(spec, cfg, state, seed, a, j, r2, slot_valid,
                        spec.r_cutoff2[r])
     m = m & (r2 <= cut2) & (r2 >= spec.r_min_cutoff2[r])
 
-    m = m & (spec.r_intramolecular[r] | (state.mol_id[al] != state.mol_id[jl]))
-    m = m & (spec.r_intraresidual[r] | (state.res_id[al] != state.res_id[jl]))
-    adj_a = state.adj[al]                                 # (R, 1, DEG)
-    m = m & ~torch.any(adj_a == j[..., None], dim=-1)
+    m = m & (spec.r_intramolecular[r] | (state.mol_id[al] != state.mol_id[bl]))
+    m = m & (spec.r_intraresidual[r] | (state.res_id[al] != state.res_id[bl]))
+    adj_a = state.adj[al]
+    m = m & ~torch.any(adj_a == b[..., None], dim=-1)
 
     cnb = spec.r_cnb_type[r]
     nbr = torch.clamp(adj_a, min=0).long()
@@ -141,6 +141,95 @@ def _compact_channel_accept(spec, cfg, state, seed, a, j, r2, slot_valid,
     w = state.reaction_rates[r] * spec.dt * cfg.reaction_interval
     u = pair_uniform(seed, state.step, lo, hi, 4 * r + dir_salt)
     return m & (u < w), u
+
+
+def _channel_accept(spec, cfg, state, seed, i_idx, j, r2, slot_valid, r: int,
+                    t1_is_lo: bool):
+    """Directed acceptance of channel ``r`` for neighbour slots:
+    ``t1_is_lo`` tests the pair's lower index as the type_1 side."""
+    lo = torch.minimum(i_idx, j)
+    hi = torch.maximum(i_idx, j)
+    a, b = (lo, hi) if t1_is_lo else (hi, lo)
+    return _accept(spec, cfg, state, seed, a, b, r2, slot_valid, r,
+                   0 if t1_is_lo else 1)
+
+
+def match_reactions(spec, cfg, state, seed, nbr_idx, excl_mask):
+    """Fired events from full neighbour rows ``nbr_idx`` (N, K) with their
+    exclusion mask: each particle's best accepted slot over both
+    directions of every channel, matched mutually (each particle in at most
+    one event), then the first ``max_events`` by key.  Returns (ev_valid,
+    ev_a, ev_b, ev_r, ev_dist), ``a`` the type_1 side."""
+    if spec.restrict_lo.shape[0]:
+        raise NotImplementedError("RestrictReaction (ROADMAP M12)")
+    n = state.pos.shape[0]
+    dev = state.pos.device
+    i_idx = torch.arange(n, dtype=I32, device=dev)[:, None]
+    j = nbr_idx
+    jl = j.long()
+    dr = _min_image(state.pos[:, None, :] - state.pos[jl], state.box)
+    r2 = _norm2(dr)
+    # excluded pairs are not candidates: the reference's Verlet list is
+    # built with the exclusion list
+    slot_valid = (j != i_idx) & state.active[:, None] & state.active[jl] \
+        & ~excl_mask
+
+    big = torch.tensor(_BIG, dtype=F32, device=dev)
+    R = cfg.n_reactions
+    acc = [_channel_accept(spec, cfg, state, seed, i_idx, j, r2, slot_valid,
+                           r, d) for d in (True, False) for r in range(R)]
+    m_cat = torch.stack([m for m, _ in acc])              # (2R, N, K)
+    u_cat = torch.where(m_cat, torch.stack([u for _, u in acc]), big)
+    pick = torch.argmin(u_cat, dim=0)
+    best_u = torch.gather(u_cat, 0, pick[None])[0]
+    best_r = torch.where(best_u < big, pick % R, -1).to(I32)
+    best_dir = pick < R
+
+    accepted = best_r >= 0
+    key = torch.where(accepted, r2 if cfg.nearest_mode else best_u, big)
+
+    slot = torch.argmin(key, dim=1)
+    row = torch.arange(n, device=dev)
+    partner = torch.where(accepted[row, slot], j[row, slot], -1)
+    pp = torch.where(partner >= 0, partner[torch.clamp(partner, min=0).long()],
+                     -2)
+    fire = (partner >= 0) & (pp == row) & (row < partner)
+
+    my_key = key[row, slot]
+    my_r = best_r[row, slot]
+    my_dir = best_dir[row, slot]
+
+    order = torch.argsort(torch.where(fire, my_key, big), stable=True)
+    take = order[:cfg.max_events]
+    ev_valid = fire[take]
+    if cfg.max_per_interval > 0:
+        ev_valid = ev_valid & (torch.arange(take.shape[0], device=dev)
+                               < cfg.max_per_interval)
+    tp = partner[take]
+    lo = torch.minimum(take, tp)
+    hi = torch.maximum(take, tp)
+    ev_a = torch.where(ev_valid, torch.where(my_dir[take], lo, hi), -1)
+    ev_b = torch.where(ev_valid, torch.where(my_dir[take], hi, lo), -1)
+    ev_r = torch.where(ev_valid, my_r[take], -1)
+    dp = _min_image(state.pos[torch.clamp(ev_a, min=0)]
+                    - state.pos[torch.clamp(ev_b, min=0)], state.box)
+    ev_dist = torch.where(ev_valid, torch.sqrt(_norm2(dp)), -1.0)
+    return ev_valid, ev_a.to(I32), ev_b.to(I32), ev_r.to(I32), ev_dist
+
+
+# ---------------------------------------------------------------------------
+# compact candidate matching
+# ---------------------------------------------------------------------------
+
+def side1_mask(spec, cfg, state):
+    """Particles that can be the type_1 side of any active normal channel."""
+    m = torch.zeros_like(state.active)
+    for r in range(cfg.n_reactions):
+        ok = state.reaction_active[r] & ~spec.r_is_diss[r]
+        m |= ok & (state.type_id == spec.r_t1[r]) \
+            & (state.chem_state >= spec.r_min1[r]) \
+            & (state.chem_state < spec.r_max1[r])
+    return m & state.active
 
 
 def match_reactions_compact(spec, cfg, state, seed, rowsel, row_ok, cand,
@@ -161,8 +250,10 @@ def match_reactions_compact(spec, cfg, state, seed, rowsel, row_ok, cand,
         & state.active[jl] & ~excl_hit
 
     big = torch.tensor(_BIG, dtype=F32, device=dev)
-    ms, us = zip(*(_compact_channel_accept(spec, cfg, state, seed, a, j, r2,
-                                           slot_valid, r)
+    # ``a`` (R, 1) is the type_1 side of every candidate
+    asym_salt = torch.where(a == torch.minimum(a, j), 0, 1)
+    ms, us = zip(*(_accept(spec, cfg, state, seed, a, j, r2, slot_valid, r,
+                           asym_salt)
                    for r in range(cfg.n_reactions)))
     u_cat = torch.where(torch.stack(ms), torch.stack(us), big)
     pick = torch.argmin(u_cat, dim=0)
@@ -427,20 +518,32 @@ def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
 # ---------------------------------------------------------------------------
 
 def reaction_step(spec, cfg, state, rng_seed: int = 0):
-    """One ChemicalReaction invocation (every ``interval`` MD steps), in the
-    compact + lazy-row mode the build selects for the reactive melt."""
-    if not (cfg.rx_compact and cfg.lazy_rows) or cfg.has_dissociation:
-        raise NotImplementedError("reaction_step outside the compact "
-                                  "lazy-row batched path (ROADMAP M6/M12)")
-    s1 = side1_mask(spec, cfg, state)
-    order = torch.argsort((~s1).to(torch.uint8), stable=True)
-    rowsel = order[:cfg.rx_rows_cap].to(I32)
-    row_ok = s1[rowsel.long()]
-    rx_overflow = s1.sum() > cfg.rx_rows_cap
-    cand, excl_hit, c_ovf = compact_candidates_from_cells(spec, cfg, state,
-                                                          rowsel)
-    ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions_compact(
-        spec, cfg, state, rng_seed, rowsel, row_ok, cand, excl_hit)
+    """One ChemicalReaction invocation (every ``interval`` MD steps) on the
+    lazy-row path: compact matching when the build chose it, else full
+    rows built fresh on the reaction grid."""
+    if not cfg.lazy_rows or cfg.has_dissociation:
+        raise NotImplementedError("reaction_step with dissociation "
+                                  "(ROADMAP M12)")
+    if cfg.rx_compact:
+        s1 = side1_mask(spec, cfg, state)
+        order = torch.argsort((~s1).to(torch.uint8), stable=True)
+        rowsel = order[:cfg.rx_rows_cap].to(I32)
+        row_ok = s1[rowsel.long()]
+        rx_overflow = s1.sum() > cfg.rx_rows_cap
+        cand, excl_hit, c_ovf = compact_candidates_from_cells(
+            spec, cfg, state, rowsel)
+        rx_overflow = rx_overflow | c_ovf
+        ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions_compact(
+            spec, cfg, state, rng_seed, rowsel, row_ok, cand, excl_hit)
+    else:
+        # rows exist only here, on the reaction-sized grid
+        rx_nbr = neighbor.build_neighbor_state(
+            state.pos, state.box, state.active, state.excl, cfg.rx_rc,
+            dims=cfg.rx_dims, cell_cap=cfg.rx_cell_cap,
+            max_neighbors=cfg.rx_k, excl_cap=cfg.excl_cap)
+        rx_overflow = rx_nbr.overflow
+        ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
+            spec, cfg, state, rng_seed, rx_nbr.idx, rx_nbr.excl_mask)
     state = dataclasses.replace(
         state, ev_log_step=state.step.clone(), ev_log_a=ev_a, ev_log_b=ev_b,
         ev_log_r=ev_r, ev_log_dist=ev_dist.to(state.ev_log_dist.dtype))
@@ -448,5 +551,5 @@ def reaction_step(spec, cfg, state, rng_seed: int = 0):
                                                  ev_a, ev_b, ev_r)
     nbr = dataclasses.replace(
         state.nbr, overflow=state.nbr.overflow | topo_overflow
-        | rx_overflow | c_ovf)
+        | rx_overflow)
     return dataclasses.replace(state, nbr=nbr)

@@ -1,10 +1,10 @@
 """Potential table stacks (host side).
 
-Port of the numpy half of ``chemlab_tpu/engine/tables.py`` (the builder,
-the resamplers and ``interleave4``), copied because the reference module
-imports jax at its top.  The device lookups (``interpolate``,
-``interpolate4``) serve tabulated potentials, which the port does not run
-yet (ROADMAP M9/M10).
+Port of ``chemlab_tpu/engine/tables.py``: the builder, the resamplers and
+``interleave4`` are the reference's numpy code, copied because the
+reference module imports jax at its top; the device lookups
+(``interpolate``, ``interpolate4``) serve the tabulated bonded terms (bond,
+angle and dihedral func 8) in the reference's f32 operation order.
 
 The reference engine interpolates each tabulated potential from its own
 (r, E, F) file at runtime (espressopp ``Tabulated`` with itype 1/2/3 =
@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 DEFAULT_BINS = 4096
 
@@ -286,3 +287,40 @@ def interleave4(ef: np.ndarray) -> np.ndarray:
     hi = np.concatenate([ef[:, 1:], ef[:, -1:]], axis=1)
     return np.concatenate([ef, hi], axis=2)
 
+
+
+def _lookup(n_bins: int, stack_r0, stack_dr, table_idx, r):
+    """(table rows, lower bin, blend weight) of the reference's lookup:
+    ``u = (r - r0) / dr`` clipped to ``[0, n_bins - 1.000001]`` in f32 and
+    truncated toward zero (``astype(int32)``) for the bin."""
+    ti = table_idx.long()
+    u = (r - stack_r0[ti]) / stack_dr[ti]
+    u = torch.clamp(u, 0.0, n_bins - 1.000001)
+    i0 = u.to(torch.int32)
+    frac = (u - i0.to(u.dtype))[..., None]
+    return ti, i0.long(), frac
+
+
+def interpolate4(stack_ef4, stack_r0, stack_dr, table_idx, r):
+    """Linear interpolation from the interleaved stack (one row gather);
+    the same source values and blend as ``interpolate``."""
+    ti, i0, frac = _lookup(stack_ef4.shape[1], stack_r0, stack_dr,
+                           table_idx, r)
+    v = stack_ef4[ti, i0]
+    ef = v[..., :2] * (1.0 - frac) + v[..., 2:] * frac
+    return ef[..., 0], ef[..., 1]
+
+
+def interpolate(stack_ef, stack_r0, stack_dr, table_idx, r):
+    """Linear interpolation of stacked tables on the tensors' device.
+
+    ``stack_ef`` (n_tables, n_bins, 2) energies/forces, ``stack_r0`` and
+    ``stack_dr`` (n_tables,) grid start and spacing, ``table_idx`` the
+    table of each query ``r``.  Returns (E, F) shaped like ``r``; queries
+    outside the grid clamp to the boundary values."""
+    n_bins = stack_ef.shape[1]
+    ti, i0, frac = _lookup(n_bins, stack_r0, stack_dr, table_idx, r)
+    lo = stack_ef[ti, i0]
+    hi = stack_ef[ti, torch.clamp(i0 + 1, max=n_bins - 1)]
+    ef = lo * (1.0 - frac) + hi * frac
+    return ef[..., 0], ef[..., 1]

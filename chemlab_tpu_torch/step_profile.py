@@ -2,12 +2,14 @@
 
 Usage (on a machine with an NVIDIA GPU):
 
-    python -m chemlab_tpu_torch.step_profile [--melt lj|tab|npt]
+    python -m chemlab_tpu_torch.step_profile [--melt lj|tab|npt|chain]
 
 Builds the 10k melt (``lj``: ``build_melt``; ``tab``:
 ``build_tabulated_melt``; ``npt``: ``build_melt`` under the Berendsen
-barostat at pressure 0.15, tau 2.0), warms it up, runs one 200-step
-reactive block,
+barostat at pressure 0.15, tau 2.0; ``chain``: ``build_chain_melt``, the
+step-growth tetramers with dihedrals, 1-4 pairs, func-8 bonded terms and
+full-row reaction matching), warms it up, runs one 200-step reactive
+block,
 then times each layer of the step ``CALLS`` times (the reaction step 5
 times) with the host clock and with
 CUDA events, each series ending in a synchronize, and records 40 steps
@@ -30,6 +32,7 @@ from .engine import (bonded_dense, bonded_forces, cell_pair, excl_dense,
                      integrate, neighbor, reactions, runner)
 
 N_MOLS = 3334   # trimers: the 10 002-particle cells of PERF.md
+CHAIN_MOLS = 2500   # tetramers: 10 000 particles
 CALLS = 50      # timed calls per layer
 
 
@@ -61,7 +64,8 @@ def layers(spec, cfg, st):
         ("compute_forces", lambda: integrate.compute_forces(
             spec, cfg, st, want_energy=False), 1),
         ("bonded_forces (autograd)", lambda: bonded_forces.bonded_forces(
-            spec, cfg, st.pos, st.box, st.type_id, st.bonds, st.angles,
+            spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds,
+            st.angles, st.dihedrals, st.pairs14,
             dense=integrate._dense_of(cfg, st)), 1),
         ("excluded-pair correction", lambda: integrate._excl_correction(
             spec, cfg, st, obs_x), 1),
@@ -85,7 +89,8 @@ def layers(spec, cfg, st):
             **cheb), 1),
         ("  bonded strain derivative (autograd)",
          lambda: bonded_forces.bonded_strain_derivative(
-             spec, cfg, st.pos, st.box, st.type_id, st.bonds, st.angles,
+             spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds,
+             st.angles, st.dihedrals, st.pairs14,
              dense=integrate._dense_of(cfg, st)), 1),
         ("reaction_step + re-derivation (1 per interval)",
          lambda: excl_dense.rederive(cfg, bonded_dense.rederive(
@@ -95,7 +100,8 @@ def layers(spec, cfg, st):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="step_profile")
-    p.add_argument("--melt", choices=("lj", "tab", "npt"), default="tab")
+    p.add_argument("--melt", choices=("lj", "tab", "npt", "chain"),
+                   default="tab")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: no CUDA device")
@@ -107,14 +113,20 @@ def main(argv=None) -> int:
     elif a.melt == "npt":
         built, systop, _ = testsystems.build_melt(
             n_mols=N_MOLS, barostat="br", pressure=0.15, barostat_tau=2.0)
+    elif a.melt == "chain":
+        built, systop, _ = testsystems.build_chain_melt(n_mols=CHAIN_MOLS)
     else:
         built, systop, _ = testsystems.build_tabulated_melt(n_mols=N_MOLS,
                                                             reactive=True)
     spec, cfg = built.spec, built.cfg
     st = runner.initial_forces(spec, cfg, built.state)
     st = testsystems.warmup(built, st, steps=600)
-    st = testsystems.activate_initiators(built, systop, st,
-                                         n=max(cfg.n_particles // 300, 4))
+    if a.melt == "chain":
+        st = dataclasses.replace(st, reactions_on=torch.ones(
+            (), dtype=torch.bool, device=st.device))
+    else:
+        st = testsystems.activate_initiators(
+            built, systop, st, n=max(cfg.n_particles // 300, 4))
     gen = runner.make_generator(1234, "cuda")
     st = runner.run_block(spec, cfg, st, 200, gen=gen)
     torch.cuda.synchronize()

@@ -1,4 +1,5 @@
-"""The reactive trimer melts: build, warmup and initiator activation.
+"""The test systems: the reactive trimer melts, the step-growth chain melt,
+warmup and initiator activation.
 
 Port of ``chemlab_tpu/testsystems.py``: the melt's topology text,
 coordinates, reaction cfg and LJ pair tables are the port's own copies
@@ -8,6 +9,10 @@ on two type pairs) reproduce the reference's builds bit for bit (initial
 velocities included: both draw from ``np.random.RandomState``) on the card
 by default.  ``warmup`` re-draws velocities from a ``torch.Generator``, so
 its velocities differ from the reference's ``jax.random`` draw.
+``build_chain_melt`` (E-B-B-E tetramers linking end to end) is the port's
+own input for the dihedral, 1-4, tabulated bonded and full-row reaction
+paths; its text, coordinates and tables are plain functions, so the
+reference can build the same system.
 """
 
 from __future__ import annotations
@@ -290,6 +295,182 @@ def build_mixed_tab_melt(n_mols: int = 100, density: float = 0.27,
     return _build_tab(
         lambda t1, t2: blends.get((t1, t2), "%s %s 8" % (t1, t2)), n_mols,
         density, kT, reactive, seed, table_dir, device, opt_overrides)
+
+
+# ---- the step-growth chain melt ------------------------------------------
+
+CHAIN_CFG_TEXT = """
+[general]
+interval: 200
+nearest=0
+
+[group_link]
+potential=Harmonic
+potential_options=K=30.0,r0=0.97
+
+[reaction_link]
+reaction: E(0, 1) + E(0, 1) -> F(1):F(1)
+cutoff: 1.2
+rate: 0.8
+intramolecular: 0
+intraresidual: 0
+active: True
+group: link
+"""
+
+# Ryckaert-Bellemans C0..C5 of the static E-B-B-E dihedral
+CHAIN_RB = (1.0, 1.3, -0.5, -0.8, 0.0, 0.0)
+
+
+def chain_topology_text(n_mols: int) -> str:
+    """Linear E-B-B-E tetramers with unit LJ types: E-B harmonic and B-B
+    tabulated bonds (``table_b0``), tabulated E-B-B angles (``table_a0``),
+    a Ryckaert-Bellemans E-B-B-E dihedral with its 1-4 pair (fudgeLJ 0.5,
+    nrexcl 3), and the types a step-growth link E + E -> F:F creates: a
+    harmonic B-F-F angle, a tabulated B-F-F-B dihedral (``table_d0``), a
+    harmonic n-cos F-F-B-B dihedral and, once one end of a chain has
+    reacted, a harmonic (func 12) F-B-B-E dihedral by type lookup."""
+    return """
+[ defaults ]
+1 3 no 0.5 0.5
+
+[ atomtypes ]
+  E    1.0      0.000     A        1            1
+  B    1.0      0.000     A        1            1
+  F    1.0      0.000     A        1            1
+
+[ bondtypes ]
+E B 1 0.97 60.0
+B B 8 0
+
+[ angletypes ]
+E B B 8 0
+B F F 1 120.0 6.0
+
+[ dihedraltypes ]
+E B B E 3 %s
+F B B E 12 180.0 0.5
+B F F B 8 0
+F F B B 1 180.0 0.5 2
+
+[ moleculetype ]
+TET 3
+
+[ atoms ]
+1 E 1 TET E1 1 0.000000 1
+2 B 1 TET B1 2 0.000000 1
+3 B 1 TET B2 3 0.000000 1
+4 E 1 TET E2 4 0.000000 1
+
+[ bonds ]
+1 2
+2 3
+3 4
+
+[ angles ]
+1 2 3
+2 3 4
+
+[ dihedrals ]
+1 2 3 4
+
+[ pairs ]
+1 4
+
+[ system ]
+generated step-growth chain melt
+
+[ molecules ]
+TET %d
+""" % (" ".join("%g" % c for c in CHAIN_RB), n_mols)
+
+
+def chain_coordinates(n_mols: int, density: float, bond_r: float = 0.97,
+                      seed: int = 0) -> files_io.Coordinates:
+    """Place tetramers with bond angles of 120 degrees and a random
+    dihedral at random positions and orientations."""
+    rng = np.random.RandomState(seed)
+    n = 4 * n_mols
+    box_l = float((n / density) ** (1.0 / 3.0))
+    box = np.array([box_l, box_l, box_l])
+    s, c = np.sin(np.pi / 3), np.cos(np.pi / 3)
+    v, k = np.array([s, c, 0.0]), np.array([s, -c, 0.0])
+    # the third bond: the all-trans direction v turned about the middle
+    # bond k by phi - 180 degrees (Rodrigues)
+    alpha = rng.uniform(-np.pi, np.pi, size=(n_mols, 1)) - np.pi
+    v3 = (v * np.cos(alpha) + np.cross(k, v) * np.sin(alpha)
+          + k * np.dot(k, v) * (1.0 - np.cos(alpha)))
+    local = np.zeros((n_mols, 4, 3))
+    local[:, 1] = bond_r * v
+    local[:, 2] = local[:, 1] + bond_r * k
+    local[:, 3] = local[:, 2] + bond_r * v3
+    local -= local.mean(axis=1, keepdims=True)
+    q, _ = np.linalg.qr(rng.normal(size=(n_mols, 3, 3)))
+    centers = rng.uniform(0, box_l, size=(n_mols, 3))
+    pos = centers[:, None, :] + np.einsum("mij,mkj->mki", q, local)
+    pos = np.mod(pos.reshape(n, 3), box)
+    return files_io.Coordinates(
+        title="generated chain melt",
+        atom_ids=np.arange(1, n + 1),
+        res_idx=np.repeat(np.arange(1, n_mols + 1), 4),
+        res_names=["TET"] * n,
+        atom_names=["E1", "B1", "B2", "E2"] * n_mols,
+        pos=pos, vel=None, box=box)
+
+
+def write_chain_tables(out_dir: str) -> None:
+    """The chain melt's bonded tables in ``files_io.read_table``'s
+    formats: ``table_b0.xvg`` a harmonic bond (K 60, r0 0.97; nm),
+    ``table_a0.xvg`` the cosine-squared angle 30 (cos(theta) - cos(120))^2
+    and ``table_d0.xvg`` the cosine dihedral 0.75 (1 + cos(2 phi)), the
+    last two in degrees with F = -dE/d(degree)."""
+    r = np.arange(0.002, 3.0 + 1e-9, 0.002)
+    _write_table(os.path.join(out_dir, "table_b0.xvg"), r,
+                 30.0 * (r - 0.97) ** 2, -60.0 * (r - 0.97))
+    deg = np.arange(0.0, 180.0 + 1e-9, 0.5)
+    th = np.radians(deg)
+    c0 = np.cos(np.radians(120.0))
+    e = 30.0 * (np.cos(th) - c0) ** 2
+    f = 60.0 * (np.cos(th) - c0) * np.sin(th) * np.pi / 180.0
+    _write_table(os.path.join(out_dir, "table_a0.xvg"), deg, e, f)
+    deg = np.arange(-180.0, 180.0 + 1e-9, 1.0)
+    ph = np.radians(deg)
+    _write_table(os.path.join(out_dir, "table_d0.xvg"), deg,
+                 0.75 * (1.0 + np.cos(2.0 * ph)),
+                 1.5 * np.sin(2.0 * ph) * np.pi / 180.0)
+
+
+def chain_options(kT: float = 1.0, seed: int = 42, table_dir: str = ".",
+                  **opt_overrides) -> dict:
+    """The chain melt's ``SimOptions`` fields (LJ as in ``build_melt``)."""
+    opts_kw = dict(lj_cutoff=2.5, cg_cutoff=2.5, skin=0.4, dt=0.0025, kT=kT,
+                   thermostat="lv", thermostat_gamma=1.0, gen_velocity=True,
+                   rng_seed=seed, table_dirs=(table_dir,))
+    opts_kw.update(opt_overrides)
+    return opts_kw
+
+
+def build_chain_melt(n_mols: int = 2500, density: float = 0.27,
+                     kT: float = 1.0, reactive: bool = True, seed: int = 42,
+                     table_dir: str | None = None, device="cuda",
+                     **opt_overrides):
+    """Build the step-growth chain melt (``chain_topology_text``; 2500
+    tetramers are 10 000 particles) on ``device``; the tables go to a fresh
+    temporary directory unless ``table_dir`` holds them.  Returns
+    (BuiltSystem, SystemTopology, Coordinates)."""
+    if table_dir is None:
+        table_dir = tempfile.mkdtemp(prefix="chemlab_chain_")
+        write_chain_tables(table_dir)
+    systop = compile_system_topology(topfile.parse_lines(
+        chain_topology_text(n_mols).splitlines(), "<generated-chain>"))
+    coords = chain_coordinates(n_mols, density, seed=seed)
+    rcfg = (reaction_parser.parse_config_lines(CHAIN_CFG_TEXT.splitlines())
+            if reactive else None)
+    opts = build.SimOptions(**chain_options(kT, seed, table_dir,
+                                            **opt_overrides))
+    built = build.build_system(systop, coords, opts, reaction_config=rcfg,
+                               device=device)
+    return built, systop, coords
 
 
 def warmup(built, state, steps: int = 400, max_disp: float = 0.05, kT=None,

@@ -92,7 +92,19 @@ once) and drives the port's paths at 10k particles:
      overflow flag clears, grown once more and shrunk back, K1 against
      plain at every cap and a block with no overflow; the term tables
      grown from nearly full and the next blocks' events all landed) and a
-     checkpoint restored into a fresh build continuing bit for bit.
+     checkpoint restored into a fresh build continuing bit for bit;
+  8. the bonded layer (``bonded``): the 10k step-growth chain melt
+     (``testsystems.build_chain_melt``: E-B-B-E tetramers with func-8
+     bonds and angles, Ryckaert-Bellemans dihedrals and their 1-4 pairs,
+     and an E + E -> F:F link that creates func-1, func-8 and, by type
+     lookup, func-12 dihedrals; the type_1 side is half the particles, so
+     the full-row matcher runs): the build's funcs and gates, bonded
+     forces, every energy term and the bonded strain derivative on the
+     card against the CPU on the warmed state, one full-row reaction step
+     on both with equal event lists and tables, the 40-tetramer melt
+     (3x3x3 cells) stepped 20 NVE steps on both, and the main path: one
+     untimed and three timed reactive blocks, K1 exactly once a step in
+     each.
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -165,6 +177,14 @@ def _time_ms(fn, reps: int) -> float:
 def _no_reference_modules() -> bool:
     return not any(m == "jax" or m.startswith("jax.") or m == "chemlab_tpu"
                    or m.startswith("chemlab_tpu.") for m in sys.modules)
+
+
+def _require(checks: dict, label: str):
+    """Print each named check; raise if any failed."""
+    for name, ok in checks.items():
+        print("check %-42s %s" % (name, "ok" if ok else "FAILED"))
+    if not all(checks.values()):
+        raise AssertionError("%s checks failed" % label)
 
 
 def pair_counts(cells, box, cut2, dims, x_halo: bool = False):
@@ -542,13 +562,16 @@ def check_cancellation(built, state, obs_x=None, ladder=None):
         raise AssertionError("kernel minus correction does not cancel")
 
 
-def check_small_melt_against_cpu(builder, label: str, kernel):
-    """A 70-trimer melt on the GPU and on the CPU from one state: forces
-    and 20 NVE steps agree, and the GPU steps launched ``kernel``."""
+def check_small_melt_against_cpu(builder, label: str, kernel,
+                                 n_mols: int = 70, terms=(), **build_kw):
+    """A small melt (70 molecules unless ``n_mols``) on the GPU and on the
+    CPU from one state: forces, the energy ``terms`` and 20 NVE steps
+    agree, and the GPU steps launched ``kernel``."""
     from chemlab_tpu_torch import testsystems
     from chemlab_tpu_torch.engine import cell_pair, integrate, runner
 
-    built, _, _ = builder(n_mols=70, thermostat="no", device="cpu")
+    built, _, _ = builder(n_mols=n_mols, thermostat="no", device="cpu",
+                          **build_kw)
     cfg = built.cfg
     st_c = runner.initial_forces(built.spec, cfg, built.state)
     st_c = testsystems.warmup(built, st_c, steps=50)
@@ -570,6 +593,12 @@ def check_small_melt_against_cpu(builder, label: str, kernel):
           "%.5f" % (label, err, tol, key, float(e_g[key]), float(e_c[key])))
     if err > tol:
         raise AssertionError("GPU forces disagree with the CPU path")
+    for k in terms:
+        r, g = float(e_c[k]), float(e_g[k])
+        print("small %s melt %s GPU %.6f CPU %.6f" % (label, k, g, r))
+        if not abs(g - r) <= 2e-5 * (1.0 + abs(r)):
+            raise AssertionError("GPU energy %s disagrees with the CPU "
+                                 "path" % k)
     n0 = kernel.launches
     for _ in range(20):
         st_c = integrate.md_step(built.spec, cfg, st_c)
@@ -675,10 +704,7 @@ def run_path(built, systop, state, card: str, kernel, label: str,
             "cell grid still valid": edge >= rc_skin,
             "reaction grid still valid": rx_edge >= cfg.rx_rc,
         })
-    for name, ok in checks.items():
-        print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
-    if not all(checks.values()):
-        raise AssertionError("%s checks failed" % label)
+    _require(checks, label)
     return launches, pps, v_launches
 
 
@@ -1839,10 +1865,7 @@ def slab_path(card: str):
         "ranks import no jax": all(m["modules"] == [] for m in mods),
         "no jax, no JAX package": _no_reference_modules(),
     }
-    for name, ok in checks.items():
-        print("check %-42s %s" % (name, "ok" if ok else "FAILED"))
-    if not all(checks.values()):
-        raise AssertionError("slab path checks failed")
+    _require(checks, "slab path")
     rows = []
     for key, nums, launches in (
             ("K1f", k1f, int(r0["launches"]["K1f"])),
@@ -2085,10 +2108,7 @@ def cli_path(card: str, example: str):
         == list(range(0, CLI_STEPS, CLI_BLOCK)) + [CLI_STEPS],
         "no jax, no JAX package": _no_reference_modules(),
     }
-    for name, ok in checks.items():
-        print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
-    if not all(checks.values()):
-        raise AssertionError("cli checks failed")
+    _require(checks, "cli")
     return {"pps": pps, "launches": launches["K1"], "in_loop": in_loop,
             "events": events, "cell_cap": cell_after,
             "timers": {k: timers[k] for k in timers
@@ -2200,10 +2220,7 @@ def cap_change_path(example: str):
         "every event landed": events > 0 and landed == events
         and not bool(state.nbr.overflow),
     }
-    for name, ok in checks.items():
-        print("check %-32s %s" % (name, "ok" if ok else "FAILED"))
-    if not all(checks.values()):
-        raise AssertionError("cap change checks failed")
+    _require(checks, "cap change")
 
 
 def checkpoint_path(example: str):
@@ -2244,6 +2261,197 @@ def checkpoint_path(example: str):
         raise AssertionError("the restored run differs")
 
 
+# ---- the bonded layer: the step-growth chain melt -------------------------
+
+CHAIN_MOLS = 2500       # E-B-B-E tetramers: 10 000 particles
+SMALL_CHAIN = dict(n_mols=40, density=0.22)   # 3x3x3 cells: K1
+
+
+def _bonded_args(cfg, spec, st):
+    return (spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds,
+            st.angles, st.dihedrals, st.pairs14)
+
+
+def check_chain_events(spec, cfg, state):
+    """One full-row ``reaction_step`` on the card and on the CPU from one
+    state: the same events, and the same tables after them."""
+    import torch
+
+    from chemlab_tpu_torch.engine import reactions
+
+    st = dataclasses.replace(
+        state, step=torch.full_like(state.step, 200),
+        reactions_on=torch.ones((), dtype=torch.bool, device=DEVICE))
+    out_g = reactions.reaction_step(spec, cfg, st, 0)
+    out_c = reactions.reaction_step(spec.to("cpu"), cfg, st.to("cpu"), 0)
+    ev = [{(a, b, r) for a, b, r in zip(*(getattr(o, k).tolist() for k in
+                                          ("ev_log_a", "ev_log_b",
+                                           "ev_log_r"))) if a >= 0}
+          for o in (out_g, out_c)]
+    same = {k: torch.equal(getattr(out_g, k).cpu(), getattr(out_c, k))
+            for k in ("ev_log_a", "ev_log_b", "ev_log_r", "excl", "adj",
+                      "type_id", "mol_id")}
+    for t in ("bonds", "angles", "dihedrals"):
+        same[t] = torch.equal(getattr(out_g, t).idx.cpu(),
+                              getattr(out_c, t).idx)
+    cut = float(spec.r_cutoff2[0]) ** 0.5
+    print("full-row events: card %d, CPU %d, equal lists %s; tables %s"
+          % (len(ev[0]), len(ev[1]), ev[0] == ev[1], same))
+    pos, box = st.pos.cpu(), st.box.cpu()
+    for a, b, r in sorted(ev[0] ^ ev[1]):
+        d = pos[a] - pos[b]
+        d = d - box * torch.round(d / box)
+        print("  only on the %s: %d-%d (channel %d) at %.7f, cutoff %.7f"
+              % ("card" if (a, b, r) in ev[0] else "CPU", a, b, r,
+                 float(d.norm()), cut))
+    return len(ev[0]) > 0 and ev[0] == ev[1] and all(same.values())
+
+
+def bonded_path(card: str):
+    """The step-growth chain melt (dihedrals of funcs 1, 3, 8 and 12, 1-4
+    pairs, func-8 bonds and angles, full-row reaction matching) on K1:
+    (a) the build, (b) bonded forces, energies and strain derivative on
+    the card against the CPU, (c) one full-row reaction step on both, (d)
+    the 40-tetramer melt stepped on both, (e) the main path."""
+    import math
+
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import (bonded_forces, cell_pair,
+                                          integrate, runner)
+
+    t0 = time.perf_counter()
+    built, _, _ = testsystems.build_chain_melt(n_mols=CHAIN_MOLS,
+                                               device=DEVICE)
+    cfg, spec = built.cfg, built.spec
+    print("chain melt: %d particles, grid %s, cell_cap %d, rx grid %s cap "
+          "%d K %d, rx_compact %s, bond funcs %s, angle funcs %s, dihedral "
+          "funcs %s, pair14_cap %d, dihedral_cap %d"
+          % (cfg.n_particles, cfg.cell_dims, cfg.cell_cap, cfg.rx_dims,
+             cfg.rx_cell_cap, cfg.rx_k, cfg.rx_compact, cfg.bond_funcs,
+             cfg.angle_funcs, cfg.dihedral_funcs, cfg.pair14_cap,
+             cfg.dihedral_cap))
+    _require({
+        "(a) full-row matching": not cfg.rx_compact,
+        "(a) dihedral funcs include 1, 3, 8": {1, 3, 8} <= set(
+            cfg.dihedral_funcs),
+        "(a) 1-4 pairs": cfg.pair14_cap > 0,
+        "(a) bond funcs include 1, 8": {1, 8} <= set(cfg.bond_funcs),
+        "(a) angle funcs include 1, 8": {1, 8} <= set(cfg.angle_funcs),
+        "(a) K1's grid": cell_pair.colt_legal(cfg.cell_cap, cfg.cell_dims),
+    }, "chain build")
+    state = runner.initial_forces(spec, cfg, built.state)
+    state = testsystems.warmup(built, state, steps=600)
+    torch.cuda.synchronize()
+    print("chain melt build + warmup %.1f s" % (time.perf_counter() - t0))
+
+    # (b) the bonded pass on the card against the CPU
+    spec_c, st_c = spec.to("cpu"), state.to("cpu")
+    dense_g = integrate._dense_of(cfg, state)
+    dense_c = integrate._dense_of(cfg, st_c)
+    f_g, e_g = bonded_forces.bonded_forces(*_bonded_args(cfg, spec, state),
+                                           dense=dense_g)
+    f_c, e_c = bonded_forces.bonded_forces(*_bonded_args(cfg, spec_c, st_c),
+                                           dense=dense_c)
+    f_err = (f_g.cpu() - f_c).abs().max().item()
+    f_tol = _tol(f_c)
+    e_ok = {}
+    for k in sorted(e_c):
+        r, g = float(e_c[k]), float(e_g[k])
+        e_ok[k] = math.isfinite(g) and abs(g - r) <= 2e-5 * (1.0 + abs(r))
+        print("chain bonded %-13s card %.6f CPU %.6f" % (k, g, r))
+    w_g = float(bonded_forces.bonded_strain_derivative(
+        *_bonded_args(cfg, spec, state), dense=dense_g))
+    w_c = float(bonded_forces.bonded_strain_derivative(
+        *_bonded_args(cfg, spec_c, st_c), dense=dense_c))
+    w_pair = float(integrate._pair_sum(spec, cfg, state, want_virial=True,
+                                       obs_x=None, kernel="auto")[3]
+                   - integrate._excl_correction(spec, cfg, state, None)[3])
+    w_tol = 2e-5 * (1.0 + abs(w_pair) + abs(w_c))
+    print("chain bonded forces card vs CPU: max|dF| %.3e (tol %.3e); "
+          "strain derivative %.6f vs %.6f (tol %.3e, W_pair %.3f)"
+          % (f_err, f_tol, w_g, w_c, w_tol, w_pair))
+    bonded_ms = _time_ms(lambda: bonded_forces.bonded_forces(
+        *_bonded_args(cfg, spec, state), dense=dense_g), 20)
+    print("chain bonded_forces: %.4f ms a call (CUDA events, 20 calls) on "
+          "%s" % (bonded_ms, card))
+    _require({
+        "(b) bonded forces card = CPU": bool(torch.isfinite(f_g).all())
+        and f_err <= f_tol,
+        "(b) every energy term card = CPU": all(e_ok.values()),
+        "(b) strain derivative card = CPU": abs(w_g - w_c) <= w_tol,
+    }, "chain bonded pass")
+
+    # (c) one full-row reaction step on both
+    _require({"(c) full-row events card = CPU":
+              check_chain_events(spec, cfg, state)}, "chain events")
+
+    # (d) the small chain melt on both
+    check_small_melt_against_cpu(
+        testsystems.build_chain_melt, "chain", cell_pair.K1,
+        terms=("bond_f8", "angle_f8", "dihedral_f3", "lj14"), **SMALL_CHAIN)
+
+    # (e) the main path
+    state = dataclasses.replace(state, reactions_on=torch.ones(
+        (), dtype=torch.bool, device=DEVICE))
+    before = {k: int(getattr(state, k).valid.sum())
+              for k in ("bonds", "angles", "dihedrals")}
+    gen = runner.make_generator(1234, DEVICE)
+    per_block, wall = [], 0.0
+    for b in range(1 + TIMED_BLOCKS):
+        for k in cell_pair.KERNELS:
+            k.launches = 0
+        t1 = time.perf_counter()
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+        torch.cuda.synchronize()
+        if b:
+            wall += time.perf_counter() - t1
+        others = sum(k.launches for k in cell_pair.KERNELS
+                     if k is not cell_pair.K1)
+        per_block.append((cell_pair.K1.launches, others))
+        print("chain main path block %d%s: K1 launches %d over %d steps, "
+              "other kernels %d, events so far %d"
+              % (b, " (timed)" if b else " (untimed)",
+                 cell_pair.K1.launches, BLOCK_STEPS, others,
+                 int(state.reaction_counts.sum())))
+    pps = cfg.n_particles * TIMED_BLOCKS * BLOCK_STEPS / wall
+    print("chain melt main path: %d particles, %d timed steps in %.3f s: "
+          "%.1f particle-steps/s on %s" % (cfg.n_particles,
+                                           TIMED_BLOCKS * BLOCK_STEPS, wall,
+                                           pps, card))
+    m = runner.measure(spec, cfg, state)
+    after = {k: int(m["n_%s" % k]) for k in ("bonds", "angles", "dihedrals")}
+    events = int(m["reaction_counts"].sum())
+    T = float(m["T"])
+    terms = {k: float(v) for k, v in m.items()
+             if k.startswith("dihedral_f") or k in ("angle_f8", "bond_f8",
+                                                     "lj14")}
+    print("chain main path: events %d, bonds %d -> %d, angles %d -> %d, "
+          "dihedrals %d -> %d, T %.4f kT, overflow %s, terms %s"
+          % (events, before["bonds"], after["bonds"], before["angles"],
+             after["angles"], before["dihedrals"], after["dihedrals"], T,
+             bool(m["overflow"]), terms))
+    kT = float(spec.kT)
+    _require({
+        "(e) K1 once a step in every block": all(
+            k1 == BLOCK_STEPS and o == 0 for k1, o in per_block),
+        "(e) reaction events fired": events > 0,
+        "(e) one new bond per event": after["bonds"] - before["bonds"]
+        == events,
+        "(e) the angle count grew": after["angles"] > before["angles"],
+        "(e) the dihedral count grew": after["dihedrals"]
+        > before["dihedrals"],
+        "(e) bonded terms finite": len(terms) >= 6 and all(
+            math.isfinite(v) for v in terms.values()),
+        "(e) T within 0.5-1.5 kT": 0.5 * kT <= T <= 1.5 * kT,
+        "(e) no capacity overflow": not bool(m["overflow"]),
+        "(e) no jax, no JAX package": _no_reference_modules(),
+    }, "chain main path")
+    return {"launches": sum(k1 for k1, _ in per_block), "pps": pps,
+            "bonded_ms": bonded_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2278,10 +2486,16 @@ def main() -> int:
     lj_row["cli_launches"] = cli["launches"]
     cap_change_path(example)
     checkpoint_path(example)
+    chain = bonded_path(card)
+    lj_row["chain_launches"] = chain["launches"]
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
           % (SLAB_RANKS, slab_pps, card))
+    print("chain melt (10k, dihedrals, 1-4 pairs, func-8 bonded, full-row "
+          "reactions): %.1f particle-steps/s, K1 launches %d, bonded_forces "
+          "%.4f ms on %s" % (chain["pps"], chain["launches"],
+                             chain["bonded_ms"], card))
     print("kernel matrix (ms): %s" % json.dumps(km))
     print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
           "K1 launches %d (%d within the loop's %d steps), cell_cap 40 -> "

@@ -141,7 +141,8 @@ def test_bonded_energies_and_forces_match(melt, leg, variant):
                                  rst.q, rst.bonds, rst.angles, rst.dihedrals,
                                  rst.pairs14, dense=r_dense)
     f_p, e_p = pbf.bonded_forces(spec, cfg, pst.pos, pst.box, pst.type_id,
-                                 pst.bonds, pst.angles, dense=p_dense)
+                                 pst.q, pst.bonds, pst.angles, pst.dihedrals,
+                                 pst.pairs14, dense=p_dense)
     assert sorted(e_r) == sorted(e_p)
     for k in e_r:
         r, g = float(e_r[k]), float(e_p[k])
@@ -166,7 +167,8 @@ def test_fene_wca_forces_match_with_finite_padding(melt):
                                  rst.q, r_bonds, rst.angles, rst.dihedrals,
                                  rst.pairs14)
     f_p, e_p = pbf.bonded_forces(spec, cfg, pst.pos, pst.box, pst.type_id,
-                                 pst.bonds, pst.angles)
+                                 pst.q, pst.bonds, pst.angles, pst.dihedrals,
+                                 pst.pairs14)
     for k in e_r:
         assert abs(float(e_p[k]) - float(e_r[k])) \
             <= 1e-5 * (1.0 + abs(float(e_r[k]))), k
@@ -179,7 +181,8 @@ def test_fene_wca_forces_match_with_finite_padding(melt):
 def test_dense_and_flat_legs_agree(melt):
     """Inside the port: both legs give the same energies and forces."""
     _, _, _, cfg, spec, pst = _inputs(melt, "fene_wca")
-    args = (spec, cfg, pst.pos, pst.box, pst.type_id, pst.bonds, pst.angles)
+    args = (spec, cfg, pst.pos, pst.box, pst.type_id, pst.q, pst.bonds,
+            pst.angles, pst.dihedrals, pst.pairs14)
     f_flat, e_flat = pbf.bonded_forces(*args)
     f_dense, e_dense = pbf.bonded_forces(
         *args, dense=(pst.bonds_dense, pst.bonds_irr, pst.angles_dense,
@@ -190,10 +193,3 @@ def test_dense_and_flat_legs_agree(melt):
     torch.testing.assert_close(f_dense, f_flat, rtol=0,
                                atol=1e-5 * (1.0 + f_flat.abs().max().item()))
 
-
-def test_dihedrals_are_outside_the_slice(melt):
-    cfg, spec, st = bridge.from_trees(melt.cfg, melt.spec, melt.state, "cpu")
-    cfg = dataclasses.replace(cfg, dihedral_funcs=(1,))
-    with pytest.raises(NotImplementedError, match="M4"):
-        pbf.bonded_energy_terms(spec, cfg, st.pos, st.box, st.type_id,
-                                st.bonds, st.angles)

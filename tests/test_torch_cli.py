@@ -18,6 +18,7 @@ run's positions agree to ~1e-5 at 40 steps); the H5MD ``species`` and
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -28,6 +29,24 @@ from chemlab_tpu import start_simulation as rsim
 from chemlab_tpu_torch import files_io, start_simulation, testsystems, writers
 
 h5py = pytest.importorskip("h5py")
+
+_ESPP = ("espressopp", "espressopp.analysis")
+
+
+@pytest.fixture(autouse=True)
+def _own_espp_shim():
+    """Each package's hook path registers its own ``espressopp`` stand-in in
+    ``sys.modules`` and keeps one it finds there: each test here starts
+    without one and leaves the entries as it found them, so that no test
+    hands one package's stand-in to the other's on the same worker."""
+    saved = {k: sys.modules.pop(k, None) for k in _ESPP}
+    yield
+    for k, v in saved.items():
+        if v is None:
+            sys.modules.pop(k, None)
+        else:
+            sys.modules[k] = v
+
 
 HOOKS = '''"""Activate 20 random MA monomers as FA radicals when reactions start."""
 import numpy as np

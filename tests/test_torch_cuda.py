@@ -4,7 +4,8 @@ plain versions, K2 against K1 on a full grid and K3a-K3d against K2 bit
 for bit, the LJ and Chebyshev column-segment kernels against their
 cellwise baselines bit for bit, the cancellation at r -> 0, and short
 runs on the card against the CPU path: LJ, tabulated, and NPT on the K2
-grid.
+grid; the bonded layer of the step-growth chain melt (dihedrals, 1-4 pairs,
+func-8 bonds and angles) and its full-row reaction step against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -1549,3 +1550,79 @@ def test_cuda_colt1_equals_baseline_at_the_100k_grid():
     with pytest.raises(RuntimeError, match="launch failed"):
         variants.ladder_kernel("colt1", *dev, dims, False,
                                plan=plan._replace(smem=plan.smem + 20))
+
+
+# ---- the bonded layer: the step-growth chain melt ---------------------------
+
+@pytest.fixture(scope="module")
+def chain_melt(tmp_path_factory):
+    """The 40-tetramer chain melt (3x3x3 cells, K1), built and warmed on
+    the CPU: func-8 bonds and angles, Ryckaert-Bellemans dihedrals, 1-4
+    pairs and the full-row E + E link."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    table_dir = str(tmp_path_factory.mktemp("chain_tables"))
+    testsystems.write_chain_tables(table_dir)
+    built, _, _ = testsystems.build_chain_melt(
+        n_mols=40, density=0.22, device="cpu", table_dir=table_dir)
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = testsystems.warmup(built, st, steps=50)
+    return built, st
+
+
+@pytest.mark.cuda
+def test_cuda_chain_bonded_matches_cpu(chain_melt):
+    """Bonded forces, every energy term (dihedral funcs 1, 3, 8, 12, the
+    1-4 pairs, func-8 bonds and angles) and the bonded strain derivative
+    on the card against the CPU, the F ends turned so the type lookups
+    run; a second call on the card gives the same bits."""
+    from chemlab_tpu_torch.engine import bonded_forces
+
+    built, st = chain_melt
+    cfg = built.cfg
+    tid = st.type_id.clone()
+    tid[[0, 8, 15]] = int(built.spec.r_new_type1[0])
+    st = dataclasses.replace(st, type_id=tid)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s, spec = st.to(dev), built.spec.to(dev)
+        args = (spec, cfg, s.pos, s.box, s.type_id, s.q, s.bonds, s.angles,
+                s.dihedrals, s.pairs14)
+        dense = integrate._dense_of(cfg, s)
+        f, e = bonded_forces.bonded_forces(*args, dense=dense)
+        w = bonded_forces.bonded_strain_derivative(*args, dense=dense)
+        out[dev] = (f.cpu(), {k: float(v) for k, v in e.items()}, float(w))
+        if dev == "cuda":
+            f2, _ = bonded_forces.bonded_forces(*args, dense=dense)
+            assert torch.equal(f, f2)
+    (f_c, e_c, w_c), (f_g, e_g, w_g) = out["cpu"], out["cuda"]
+    assert e_c["dihedral_f12"] != 0.0 and e_c["lj14"] != 0.0
+    for k in e_c:
+        assert abs(e_g[k] - e_c[k]) <= 2e-5 * (1.0 + abs(e_c[k])), k
+    torch.testing.assert_close(f_g, f_c, rtol=0, atol=_tol(f_c))
+    assert abs(w_g - w_c) <= 2e-5 * (1.0 + abs(w_c))
+
+
+@pytest.mark.cuda
+def test_cuda_fullrow_events_equal_cpu(chain_melt):
+    """One full-row reaction step on the card and on the CPU from one
+    state: the same event lists and the same tables after them."""
+    from chemlab_tpu_torch.engine import reactions
+
+    built, st = chain_melt
+    st = dataclasses.replace(
+        st, step=torch.full_like(st.step, 200),
+        reactions_on=torch.ones((), dtype=torch.bool),
+        reaction_rates=st.reaction_rates * 2.5)
+    assert not built.cfg.rx_compact
+    outs = [reactions.reaction_step(built.spec.to(dev), built.cfg,
+                                    st.to(dev), 0) for dev in ("cpu", "cuda")]
+    assert int((outs[0].ev_log_a >= 0).sum()) > 0
+    for name in ("ev_log_a", "ev_log_b", "ev_log_r", "excl", "adj",
+                 "mol_id", "type_id"):
+        assert torch.equal(getattr(outs[1], name).cpu(),
+                           getattr(outs[0], name)), name
+    for t in ("bonds", "angles", "dihedrals"):
+        for k in ("idx", "func", "params", "lam"):
+            assert torch.equal(getattr(getattr(outs[1], t), k).cpu(),
+                               getattr(getattr(outs[0], t), k)), (t, k)

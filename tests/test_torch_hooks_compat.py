@@ -5,6 +5,7 @@ the reference's ``hooks_compat`` on the same input (mirroring
 
 import dataclasses
 import os
+import sys
 import textwrap
 import types
 
@@ -18,6 +19,24 @@ from chemlab_tpu.start_simulation import SimulationContext as RContext
 from chemlab_tpu_torch import bridge, hooks_compat
 from chemlab_tpu_torch.start_simulation import (SimulationContext,
                                                 _call_hook, _load_hooks)
+
+_ESPP = ("espressopp", "espressopp.analysis")
+
+
+@pytest.fixture(autouse=True)
+def _own_espp_shim():
+    """Each package's hook path registers its own ``espressopp`` stand-in in
+    ``sys.modules`` and keeps one it finds there: each test here starts
+    without one and leaves the entries as it found them, so that no test
+    hands one package's stand-in to the other's on the same worker."""
+    saved = {k: sys.modules.pop(k, None) for k in _ESPP}
+    yield
+    for k, v in saved.items():
+        if v is None:
+            sys.modules.pop(k, None)
+        else:
+            sys.modules[k] = v
+
 
 EXAMPLE_HOOKS = os.path.join(os.path.dirname(__file__), "..", "examples",
                              "atrp_melt", "hooks.py")

@@ -180,8 +180,8 @@ def test_npt_pressure_with_the_column_kernel(ref, monkeypatch):
         uniform_lj=cfg.uniform_lj)[3])
     w_pair = w_all - float(pint._excl_correction(spec, cfg, st, None)[3])
     w_bond = -float(bonded_forces.bonded_strain_derivative(
-        spec, cfg, st.pos, st.box, st.type_id, st.bonds, st.angles,
-        dense=pint._dense_of(cfg, st)))
+        spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds, st.angles,
+        st.dihedrals, st.pairs14, dense=pint._dense_of(cfg, st)))
     vol = float(np.prod(np.asarray(rst.box, np.float64)))
     ekin = float(observables.kinetic_energy(st.mass, st.vel, st.active))
     w_ref = 3.0 * vol * p_r - 2.0 * ekin

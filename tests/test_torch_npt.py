@@ -97,8 +97,8 @@ def _pieces(cfg, spec, st):
         cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix, obs_x=obs_x)[3]
     w_ex = pint._excl_correction(spec, cfg, st, obs_x)[3]
     du = bonded_forces.bonded_strain_derivative(
-        spec, cfg, st.pos, st.box, st.type_id, st.bonds, st.angles,
-        dense=pint._dense_of(cfg, st))
+        spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds, st.angles,
+        st.dihedrals, st.pairs14, dense=pint._dense_of(cfg, st))
     return float(w_all - w_ex), -float(du)
 
 
@@ -142,14 +142,15 @@ def test_bonded_strain_derivative_matches(systems, dense):
 
     ref = float(jax.grad(u)(jnp.asarray(1.0, jnp.float32)))
     got = bonded_forces.bonded_strain_derivative(
-        spec, cfg, st.pos, st.box, st.type_id, st.bonds, st.angles,
-        dense=p_dense)
+        spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds, st.angles,
+        st.dihedrals, st.pairs14, dense=p_dense)
     assert got.shape == () and ref != 0.0
     assert abs(float(got) - ref) <= 1e-5 * (1.0 + abs(ref)), (float(got), ref)
     # no bonded term: 0, not None
     empty = dataclasses.replace(cfg, bond_funcs=(), angle_funcs=())
     zero = bonded_forces.bonded_strain_derivative(
-        spec, empty, st.pos, st.box, st.type_id, st.bonds, st.angles)
+        spec, empty, st.pos, st.box, st.type_id, st.q, st.bonds, st.angles,
+        st.dihedrals, st.pairs14)
     assert float(zero) == 0.0
 
 

@@ -8,13 +8,18 @@ Chebyshev modes (K1c/K1d/K1e, colt2 grids only), bonds (harmonic, FENE,
 FENE + WCA, tabulated), angles (harmonic, tabulated, cosine), dihedrals
 (funcs 1, 3, 8 and 12, static and by type lookup) and 1-4 pairs
 (fudgeLJ, shifted at the LJ cutoff), the dense-static bonded and
-exclusion operands, Langevin or NVE, the Berendsen and Langevin barostats
-and the pressure observable, and normal reaction channels on the batched
-event path, matched on compacted rows or, when the type_1 side spans the
-bulk, on full rows.  The lowering is the reference's numpy code; only the
-last step differs: arrays become torch tensors on ``device`` (the card
-unless the caller asks for another) through the bridge, and the build-time
-neighbor rows are made by the port's ``neighbor.build_neighbor_state``.
+exclusion operands, Langevin, the rescaling thermostats (CSVR, Berendsen,
+isokinetic) or NVE, the Berendsen and Langevin barostats and the pressure
+observable, and reaction channels matched on compacted rows or, when the
+type_1 side spans the bulk, on full rows, with their extensions:
+dissociation, RestrictReaction (the ``connectivity_map`` whitelist),
+ChangeNeighboursProperty, RemoveNeighboursBonds, ReleaseMolecule (dummy
+particles appended after the real ones) and JoinMolecule (FixDistances),
+dynamic resolution, ATRPActivator, ChangeParticleType and FreezeRegion.
+The lowering is the reference's numpy code; only the last step differs:
+arrays become torch tensors on ``device`` (the card unless the caller asks
+for another) through the bridge, and the build-time neighbor rows are made
+by the port's ``neighbor.build_neighbor_state``.
 
 A configuration outside the slice raises ``NotImplementedError`` naming
 the ROADMAP item that will bring it; nothing falls back to another path.
@@ -35,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 
 import numpy as np
 import torch
@@ -818,18 +824,18 @@ def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
         # CLI's default cutoff is 0.9); a reaction sets an atom's charge to
         # its new atomtype's, so a charged atomtype needs M10 as well
         _not_in_slice("Coulomb between charged particles", "M10")
-    if opts.thermostat not in ("lv", "no"):
-        _not_in_slice("thermostat %r" % opts.thermostat, "M12")
-    if compiled is None:
+    if compiled is None or opts.slab_devices <= 1:
         return
-    if compiled.n_reactions and compiled.channels["r_is_diss"].any():
-        _not_in_slice("dissociation channels", "M12")
-    if (compiled.releases or compiled.joins or compiled.freeze
+    if ((compiled.n_reactions and compiled.channels["r_is_diss"].any())
+            or compiled.releases or compiled.joins or compiled.freeze
             or compiled.cpt or compiled.dyn_resolution or compiled.rb_rows
             or compiled.restrict_file
             or (compiled.atrp and compiled.atrp["entries"])):
-        _not_in_slice("reaction extensions other than "
-                      "ChangeNeighboursProperty", "M12")
+        # the slab path's replicas need these extensions' host reads and
+        # draws to agree rank by rank; not checked yet
+        _not_in_slice("dissociation and the reaction extensions other than "
+                      "ChangeNeighboursProperty under slab_devices > 1",
+                      "M14")
 
 
 def build_system(systop: SystemTopology, coords, opts: SimOptions,
@@ -863,7 +869,82 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     _check_slice(opts, systop, compiled)
     dynamic_types = compiled.dynamic_types if compiled else set()
     change_bond_types = compiled.observed_bondtypes if compiled else set()
+
+    # ---- ReleaseMolecule dummy particles (reference build.py:975-1026):
+    #      `replicate` dummies per host particle, constrained at eq_length,
+    #      appended after the real particles ----
+    releases = compiled.releases if compiled else []
+    joins = compiled.joins if compiled else []
+    freeze_d = compiled.freeze if compiled else None
+    # FixDistances definitions: releases first, then joins (the order
+    # reaction_compile assigns r_join_def indices in)
+    fd_defs = []
+    for release in releases:
+        fd_defs.append({
+            "eq": release["eq_length"],
+            "host_type": (release["host_type"]
+                          if release["release_on"] == "type" else -1),
+            "dummy_type": release["dummy_type"],
+            "target_type": release["target_type"],
+            "release_lam": 0.0,
+            "capture_lam": 0.0,
+            "capture_state": 0,
+        })
+    for join_d in joins:
+        fd_defs.append({
+            "eq": join_d["eq_length"],
+            "host_type": join_d["host_type"],
+            "dummy_type": join_d["dummy_type"],
+            "target_type": join_d["target_type"],
+            "release_lam": join_d["init_res"],
+            "capture_lam": join_d["init_res"],
+            "capture_state": join_d["state"],
+        })
     n_real = n
+    fix_pairs = np.zeros((0, 2), I32)
+    dummies = []
+    for release in releases:
+        host_rows = np.where(systop.type_ids == release["host_type"])[0]
+        n_dummy = len(host_rows) * release["replicate"]
+        trec = systop.top.atomtypes.get(
+            systop.atomtype_atomsym[release["target_type"]], {})
+        dummy = {
+            "rows": np.arange(n, n + n_dummy),
+            "host_of": np.repeat(host_rows,
+                                 release["replicate"]).astype(I32),
+            "type": release["dummy_type"],
+            "mass": float(trec.get("mass", 1.0)),
+            "state": int(trec.get("state", 0)),
+            "lam": release["init_res"],
+            "eq": release["eq_length"],
+        }
+        dummies.append(dummy)
+        pairs = np.stack([dummy["host_of"], dummy["rows"].astype(I32)],
+                         axis=1)
+        fix_pairs = np.concatenate([fix_pairs, pairs], axis=0).astype(I32)
+        n = n + n_dummy
+        logger.info("generated %d dummy particles (type %d) on %d hosts",
+                    n_dummy, release["dummy_type"], len(host_rows))
+
+    # ---- RestrictReaction connectivity whitelist: 1-based pairs read
+    #      from connectivity_map, searched in table_dirs ----
+    restrict_rows = np.zeros((0, 2), np.int64)
+    if compiled and compiled.restrict_file:
+        pairs = set()
+        rf = compiled.restrict_file
+        if not os.path.exists(rf):
+            for d in opts.table_dirs:
+                if os.path.exists(os.path.join(d, rf)):
+                    rf = os.path.join(d, rf)
+                    break
+        with open(rf) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 2:
+                    a, b = int(parts[0]) - 1, int(parts[1]) - 1
+                    pairs.add((min(a, b), max(a, b)))
+        restrict_rows = np.asarray(sorted(pairs), np.int64)
+        logger.info("restricted reactions to %d connections", len(pairs))
 
     extra_obs_idx = [obs.register(ts, total)
                      for ts, total in extra_conversions]
@@ -1139,6 +1220,15 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     lam = np.ones(n_pad, F32)
     active = np.zeros(n_pad, bool)
     active[:n] = True
+    for dummy in dummies:
+        rows = dummy["rows"]
+        pos[rows] = np.mod(pos[dummy["host_of"]]
+                           + np.asarray([dummy["eq"], 0.0, 0.0], F32), box)
+        type_id[rows] = dummy["type"]
+        mass[rows] = dummy["mass"]
+        chem_state[rows] = dummy["state"]
+        res_id[rows] = rows + 1     # a residue of its own per dummy
+        lam[rows] = dummy["lam"]
     if opts.gen_velocity and coords.vel is None:
         # the reference's draw, bit for bit
         rng = np.random.RandomState(opts.rng_seed)
@@ -1164,6 +1254,11 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         thermal_mask[:] = False
         for s in opts.thermal_groups:
             thermal_mask[systop.atomsym_atomtype[s]] = True
+    for d in fd_defs:
+        # dummy particles are not thermostatted
+        thermal_mask[d["dummy_type"]] = False
+    if freeze_d:
+        thermal_mask[freeze_d["final_type"]] = False
 
     # ---- reaction arrays ----
     r_dtypes = [
@@ -1193,13 +1288,30 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         n_pp = 0
         pp_arrays = {k: np.zeros(0, I32) for k in pp_names}
     atrp = compiled.atrp if compiled else None
-    atrp_arrays = dict(
-        atrp_type=np.zeros(0, I32), atrp_state=np.zeros(0, I32),
-        atrp_is_activator=np.zeros(0, bool), atrp_new_type=np.zeros(0, I32),
-        atrp_delta=np.zeros(0, I32), atrp_num=np.asarray(0, I32),
-        atrp_k_activate=np.asarray(0.0, F32),
-        atrp_k_deactivate=np.asarray(0.0, F32),
-        atrp_delta_catalyst=np.asarray(0.0, F32))
+    if atrp and atrp["entries"]:
+        ae = atrp["entries"]
+        atrp_arrays = dict(
+            atrp_type=np.asarray([e[0] for e in ae], I32),
+            atrp_state=np.asarray([e[1] for e in ae], I32),
+            atrp_is_activator=np.asarray([e[2] for e in ae], bool),
+            atrp_new_type=np.asarray([e[3] for e in ae], I32),
+            atrp_delta=np.asarray([e[4] for e in ae], I32),
+            atrp_num=np.asarray(atrp["num_particles"], I32),
+            atrp_k_activate=np.asarray(atrp["k_activate"], F32),
+            atrp_k_deactivate=np.asarray(atrp["k_deactivate"], F32),
+            atrp_delta_catalyst=np.asarray(atrp["delta_catalyst"], F32))
+        n_atrp = len(ae)
+    else:
+        n_atrp = 0
+        atrp_arrays = dict(
+            atrp_type=np.zeros(0, I32), atrp_state=np.zeros(0, I32),
+            atrp_is_activator=np.zeros(0, bool),
+            atrp_new_type=np.zeros(0, I32), atrp_delta=np.zeros(0, I32),
+            atrp_num=np.asarray(0, I32),
+            atrp_k_activate=np.asarray(0.0, F32),
+            atrp_k_deactivate=np.asarray(0.0, F32),
+            atrp_delta_catalyst=np.asarray(0.0, F32))
+    rb_rows_ = compiled.rb_rows if compiled else []
 
     obs_e_obs, obs_e_type, obs_e_state, obs_totals = obs.arrays()
 
@@ -1240,7 +1352,9 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         n_obs=max(len(obs.keys), 1),
         bond_funcs=bond_funcs, angle_funcs=angle_funcs,
         dihedral_funcs=dih_funcs,
-        thermostat=opts.thermostat, iso_coupling=1,
+        thermostat=opts.thermostat,
+        iso_coupling=(max(int(opts.thermostat_gamma), 1)
+                      if opts.thermostat == "iso" else 1),
         store_pressure=opts.store_pressure,
         barostat=opts.barostat if opts.pressure > 0 else "no",
         has_coulomb=False, has_reactions=has_reactions,
@@ -1271,13 +1385,30 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         has_lambda_pairs=False, use_thermal_group=bool(opts.thermal_groups),
         nb_bins=opts.n_bins, max_ppnb=n_pp,
         max_nb_level=compiled.max_nb_level if compiled else 0,
-        has_atrp=False, n_atrp=0,
+        has_atrp=n_atrp > 0, n_atrp=n_atrp,
         atrp_interval=atrp["interval"] if atrp else 0,
         atrp_num=atrp["num_particles"] if atrp else 0,
         atrp_select_from_all=bool(atrp["select_from_all"]) if atrp else True,
-        has_dissociation=False, has_fixd=False, fixd_cap=1, n_fd=1,
-        has_dyn_resolution=False, restrict_scan=1, n_rb=0, has_cpt=False,
-        cpt_interval=0, cpt_num=0, has_freeze=False, freeze_mode="prob")
+        has_dissociation=bool(compiled and compiled.n_reactions
+                              and any(compiled.channels["r_is_diss"])),
+        has_fixd=bool(fix_pairs.shape[0] > 0 or joins),
+        fixd_cap=max(_round_up(
+            fix_pairs.shape[0]
+            + sum(int(np.sum(systop.type_ids == jd["target_type"]))
+                  + int(np.sum(systop.type_ids == jd["final_type"]))
+                  for jd in joins), 128), 1),
+        n_fd=max(len(fd_defs), 1),
+        has_dyn_resolution=bool(compiled and compiled.dyn_resolution),
+        restrict_scan=(int(np.bincount(restrict_rows[:, 0]).max())
+                       if restrict_rows.size else 1),
+        n_rb=len(rb_rows_),
+        has_cpt=bool(compiled and compiled.cpt),
+        cpt_interval=compiled.cpt["interval"] if compiled and compiled.cpt
+        else 0,
+        cpt_num=compiled.cpt["num"] if compiled and compiled.cpt else 0,
+        has_freeze=bool(freeze_d),
+        freeze_mode=("num" if freeze_d and freeze_d["p_num"] else
+                     "pct" if freeze_d and freeze_d["p_pct"] else "prob"))
 
     def _type_prop(key, default):
         return [systop.top.atomtypes.get(systop.atomtype_atomsym.get(t, ""),
@@ -1286,6 +1417,9 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
 
     def _rate(t):
         return 1.0 / t if t > 0 else 0.0
+
+    dr = compiled.dyn_resolution if compiled else {}
+    cpt = compiled.cpt if compiled else None
 
     spec_np = dict(
         dt=_asarray(opts.dt, F32), kT=_asarray(opts.kT, F32),
@@ -1335,31 +1469,52 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         hybrid_bond_rate=_asarray(_rate(opts.t_hybrid_bond), F32),
         hybrid_angle_rate=_asarray(_rate(opts.t_hybrid_angle), F32),
         hybrid_dihedral_rate=_asarray(_rate(opts.t_hybrid_dihedral), F32),
-        dr_alpha=np.zeros(T, F32), dr_final_type=np.full(T, -1, I32),
-        dr_set_state=np.zeros(T, bool),
-        fd_eq=np.zeros(1, F32), fd_host_type=np.full(1, -1, I32),
-        fd_dummy_type=np.full(1, -1, I32), fd_target_type=np.full(1, -1, I32),
-        fd_release_lam=np.zeros(1, F32), fd_capture_lam=np.zeros(1, F32),
-        fd_capture_state=np.zeros(1, I32),
-        restrict_lo=np.zeros(0, I32), restrict_hi=np.zeros(0, I32),
-        rb_reaction=np.zeros(0, I32), rb_side=np.zeros(0, I32),
-        rb_anchor_type=np.zeros(0, I32), rb_level=np.zeros(0, I32),
-        rb_t1=np.zeros(0, I32), rb_t2=np.zeros(0, I32),
-        cpt_old=np.asarray(-1, I32), cpt_new=np.asarray(-1, I32),
-        fr_target_type=np.asarray(-1, I32), fr_final_type=np.asarray(-1, I32),
-        fr_width=np.zeros(3, F32), fr_dirs=np.zeros(6, bool),
-        fr_prob=np.asarray(0.0, F32), fr_p_num=np.asarray(0, I32),
-        fr_p_pct=np.asarray(0.0, F32), fr_remove=np.asarray(False),
+        dr_alpha=np.asarray([dr.get(t, (0.0, -1, False))[0]
+                             for t in range(T)], F32),
+        dr_final_type=np.asarray([dr.get(t, (0.0, -1, False))[1]
+                                  for t in range(T)], I32),
+        dr_set_state=np.asarray([dr.get(t, (0.0, -1, False))[2]
+                                 for t in range(T)], bool),
+        **{"fd_" + k: np.asarray([d[k] for d in fd_defs] or [v], dt_)
+           for k, v, dt_ in (("eq", 0.0, F32), ("host_type", -1, I32),
+                             ("dummy_type", -1, I32),
+                             ("target_type", -1, I32),
+                             ("release_lam", 0.0, F32),
+                             ("capture_lam", 0.0, F32),
+                             ("capture_state", 0, I32))},
+        restrict_lo=restrict_rows[:, 0].astype(I32),
+        restrict_hi=restrict_rows[:, 1].astype(I32),
+        **{"rb_" + k: np.asarray([e[k] for e in rb_rows_], I32)
+           for k in ("reaction", "side", "anchor_type", "level", "t1",
+                     "t2")},
+        cpt_old=np.asarray(cpt["old"] if cpt else -1, I32),
+        cpt_new=np.asarray(cpt["new"] if cpt else -1, I32),
+        fr_target_type=np.asarray(freeze_d["target_type"] if freeze_d
+                                  else -1, I32),
+        fr_final_type=np.asarray(freeze_d["final_type"] if freeze_d else -1,
+                                 I32),
+        fr_width=np.asarray(
+            (np.asarray(box) * freeze_d["width"] if freeze_d
+             and freeze_d["width_is_ratio"] else
+             np.full(3, freeze_d["width"] if freeze_d else 0.0)), F32),
+        fr_dirs=np.asarray([(freeze_d is not None and d in freeze_d["dirs"])
+                            for d in ("-x", "x", "-y", "y", "-z", "z")]),
+        fr_prob=np.asarray(freeze_d["prob"] if freeze_d else 0.0, F32),
+        fr_p_num=np.asarray(freeze_d["p_num"] if freeze_d else 0, I32),
+        fr_p_pct=np.asarray(freeze_d["p_pct"] if freeze_d else 0.0, F32),
+        fr_remove=np.asarray(bool(freeze_d and freeze_d["remove"])),
     )
 
     me = opts.max_events
+    fix_pad = (0, cfg.fixd_cap - fix_pairs.shape[0])
     state_np = dict(
         step=np.asarray(0, I32), pos=pos, vel=vel,
         force=np.zeros((n_pad, 3), F32), image=np.zeros((n_pad, 3), I32),
         type_id=type_id, mass=mass, q=q, chem_state=chem_state,
         res_id=res_id, mol_id=mol_id, lam=lam, active=active,
         bonds=bonds, angles=angles, dihedrals=dihedrals, pairs14=pairs14,
-        fixd_host=np.full(1, -1, I32), fixd_dummy=np.full(1, -1, I32),
+        fixd_host=np.pad(fix_pairs[:, 0], fix_pad, constant_values=-1),
+        fixd_dummy=np.pad(fix_pairs[:, 1], fix_pad, constant_values=-1),
         excl=excl, n_excl=np.asarray(n_excl, I32), adj=adj,
         box=box, baro_v=np.asarray(0.0, F32),
         reactions_on=np.asarray(False),

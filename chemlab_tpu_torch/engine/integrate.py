@@ -1,20 +1,23 @@
-"""Velocity-Verlet integration with a Langevin thermostat and barostats.
+"""Velocity-Verlet integration with the thermostats and barostats.
 
 Port of ``chemlab_tpu/engine/integrate.py`` for the slice: ``compute_forces``
 on the cell-tile path (kernel sum minus the excluded-pair correction, plus
 bonded forces, plus the global CapForce; LJ or Chebyshev-tabulated pairs,
 with the conversion observables computed on the device when a func-10
 blend reads them; the kernel sum split by x-slab over the ranks of a mesh
-when ``cell_pair_halo.supports`` the config), ``_langevin_adjust``, ``virial_pressure`` in its kernel
-branch (the kernel's pair-virial channel minus the excluded pairs' share,
-minus the bonded strain derivative), ``_barostat_step`` (Berendsen and the
-Langevin piston), ``maybe_rebuild_neighbors`` in its lazy-row branch, and
-``md_step``.
+when ``cell_pair_halo.supports`` the config), ``_langevin_adjust``, the
+rescaling thermostats (``_rescale_thermostat``: CSVR, Berendsen,
+isokinetic), ``_fix_distances`` and ``_dynamic_resolution``,
+``virial_pressure`` in its kernel branch (the kernel's pair-virial channel
+minus the excluded pairs' share, minus the bonded strain derivative),
+``_barostat_step`` (Berendsen and the Langevin piston),
+``maybe_rebuild_neighbors`` in its lazy-row branch, and ``md_step``.
 
-The noise is an argument: ``md_step`` takes the Langevin noise tensor and
-the Langevin barostat's scalar draw (the tests pass the reference's draws)
-or a ``torch.Generator`` to draw them from, the thermostat's first.  The
-rebuild trigger is read on the host each step; the box stays on the device.
+The noise is an argument: ``md_step`` takes the Langevin noise tensor,
+CSVR's scalar normal and the Langevin barostat's scalar draw (the tests
+pass the reference's draws) or a ``torch.Generator`` to draw them from, in
+that order.  The rebuild trigger is read on the host each step; the box
+stays on the device.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import dataclasses
 import torch
 
 from . import (bonded_forces, cell_pair, cell_pair_halo, excl_dense,
-               neighbor, observables)
+               neighbor, observables, reactions, topo)
+from .state import I32
 
 
 def _dense_of(cfg, state):
@@ -114,6 +118,97 @@ def _langevin_adjust(spec, state, force, noise):
     return force + torch.where(sel[:, None], adj, 0.0)
 
 
+def _rescale_thermostat(spec, cfg, state, r=None):
+    """The velocity-rescaling thermostats, after the kick: 'vr' (Bussi's
+    CSVR, with ``r`` its one standard normal), 'br' (Berendsen) and 'iso'
+    (isokinetic, every ``cfg.iso_coupling`` steps)."""
+    kT_now = observables.temperature(state.mass, state.vel, state.active,
+                                     spec.thermal_type_mask, state.type_id)
+    sel = state.active & spec.thermal_type_mask[state.type_id.long()]
+    nf = 3.0 * torch.clamp(sel.sum(), min=1)
+    if cfg.thermostat == "vr":
+        tau = torch.maximum(spec.gamma, spec.dt)
+        c = torch.exp(-spec.dt / tau)
+        k_now = 0.5 * nf * kT_now
+        k_target = 0.5 * nf * spec.kT
+        k_new = (k_now * c
+                 + k_target / nf * (1.0 - c) * (nf - 1.0 + r * r)
+                 + 2.0 * r * torch.sqrt(k_now * k_target / nf * (1.0 - c)
+                                        * c))
+        scale = torch.sqrt(torch.clamp(k_new, min=1e-30)
+                           / torch.clamp(k_now, min=1e-30))
+    elif cfg.thermostat == "br":
+        tau = torch.maximum(spec.gamma, spec.dt)
+        scale = torch.sqrt(1.0 + spec.dt / tau * (
+            spec.kT / torch.clamp(kT_now, min=1e-30) - 1.0))
+    else:  # 'iso'
+        due = (state.step % cfg.iso_coupling) == 0
+        scale = torch.where(
+            due, torch.sqrt(spec.kT / torch.clamp(kT_now, min=1e-30)), 1.0)
+    vel = torch.where(sel[:, None], state.vel * scale, state.vel)
+    return dataclasses.replace(state, vel=vel)
+
+
+def _fix_distances(spec, cfg, state):
+    """FixDistances: release a constraint whose host no longer has its
+    definition's host type (the dummy becomes the target type at the
+    release lambda), then pin each remaining dummy at ``eq`` from its
+    host along the current separation, with the host's velocity."""
+    h, d = state.fixd_host, state.fixd_dummy
+    valid = (h >= 0) & (d >= 0)
+    hc = torch.clamp(h, min=0).long()
+    dc = torch.clamp(d, min=0).long()
+    n = state.pos.shape[0]
+    def_idx = reactions._fd_def_of(spec, cfg, state.type_id, d)
+    eq = spec.fd_eq[def_idx]
+    host_t = spec.fd_host_type[def_idx]
+    target_t = torch.clamp(spec.fd_target_type[def_idx], min=0).long()
+
+    release = valid & (host_t >= 0) & (state.type_id[hc] != host_t)
+    dsel = torch.where(release, dc, n)
+    type_id = topo.set_drop(state.type_id, dsel, target_t)
+    mass = topo.set_drop(state.mass, dsel, spec.type_mass[target_t])
+    lam = topo.set_drop(state.lam, dsel, spec.fd_release_lam[def_idx])
+    h = torch.where(release, -1, h)
+    d = torch.where(release, -1, d)
+    valid = valid & ~release
+
+    box = state.box
+    dr = state.pos[dc] - state.pos[hc]
+    dr = dr - box * torch.round(dr / box)
+    norm = torch.sqrt(torch.sum(dr * dr, -1, keepdim=True))
+    unit = torch.where(norm > 1e-9, dr / torch.clamp(norm, min=1e-9),
+                       torch.tensor([[1.0, 0.0, 0.0]], dtype=dr.dtype,
+                                    device=dr.device))
+    target = state.pos[hc] + eq[:, None] * unit
+    target = target - box * torch.floor(target / box)
+    dest = torch.where(valid, dc, n)
+    pos = topo.set_drop(state.pos, dest, target)
+    vel = topo.set_drop(state.vel, dest, state.vel[hc])
+    return dataclasses.replace(state, pos=pos, vel=vel, type_id=type_id,
+                               mass=mass, lam=lam, fixd_host=h, fixd_dummy=d)
+
+
+def _dynamic_resolution(spec, state):
+    """BasicDynamicResolution: lambda += alpha(type) each step; a particle
+    whose lambda crosses 1 this step takes its type's final type (mass,
+    charge; the atomtype's chemical state where ``dr_set_state``)."""
+    tl = state.type_id.long()
+    alpha = spec.dr_alpha[tl]
+    ramp = state.active & (alpha > 0.0)
+    lam = torch.where(ramp, torch.clamp(state.lam + alpha, max=1.0),
+                      state.lam)
+    final = spec.dr_final_type[tl]
+    fire = ramp & (state.lam < 1.0) & (lam >= 1.0) & (final >= 0)
+    fc = torch.clamp(final, min=0).long()
+    return dataclasses.replace(
+        state, lam=lam, type_id=torch.where(fire, fc.to(I32), state.type_id),
+        mass=torch.where(fire, spec.type_mass[fc], state.mass),
+        q=torch.where(fire, spec.type_q[fc], state.q),
+        chem_state=torch.where(fire & spec.dr_set_state[tl],
+                               spec.type_state[fc], state.chem_state))
+
+
 def virial_pressure(spec, cfg, state, pair_kernel: str = "auto"):
     """Instantaneous pressure P = (2 Ekin + W) / 3V (reference: the kernel
     branch of ``integrate.virial_pressure``).  W is the pair virial from
@@ -185,12 +280,13 @@ def _draw(gen, shape, like, what: str):
 
 
 def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None,
-            pair_kernel: str = "auto"):
-    """One velocity-Verlet step, then the barostat.  With the Langevin
-    thermostat the noise is ``noise`` when given, else a standard normal
-    draw from ``gen``; the Langevin barostat's scalar draw is
-    ``baro_noise`` when given, else drawn from ``gen`` after it.  The force
-    and the pressure passes run the pair kernel ``pair_kernel``."""
+            pair_kernel: str = "auto", rescale_noise=None):
+    """One velocity-Verlet step (FixDistances and dynamic resolution after
+    the drift), then the rescaling thermostat and the barostat.  The draws,
+    in this order: the Langevin noise (``noise``), CSVR's scalar normal
+    (``rescale_noise``) and the Langevin barostat's (``baro_noise``); each
+    one not given comes from ``gen``.  The force and the pressure passes
+    run the pair kernel ``pair_kernel``."""
     dt = spec.dt
     inv_m = torch.where(state.active, 1.0 / state.mass, 0.0)[:, None]
 
@@ -202,6 +298,10 @@ def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None,
     pos = pos - shift.to(pos.dtype) * state.box
     state = dataclasses.replace(state, pos=pos, vel=vel,
                                 image=state.image + shift)
+    if cfg.has_fixd:
+        state = _fix_distances(spec, cfg, state)
+    if cfg.has_dyn_resolution:
+        state = _dynamic_resolution(spec, state)
 
     state = maybe_rebuild_neighbors(spec, cfg, state)
     force, _, _ = compute_forces(spec, cfg, state, want_energy=False,
@@ -215,6 +315,10 @@ def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None,
     vel = state.vel + 0.5 * dt * force * inv_m
     state = dataclasses.replace(state, vel=vel, force=force,
                                 step=state.step + 1)
+    if cfg.thermostat in ("vr", "br", "iso"):
+        if cfg.thermostat == "vr" and rescale_noise is None:
+            rescale_noise = _draw(gen, (), state.vel, "the CSVR thermostat")
+        state = _rescale_thermostat(spec, cfg, state, rescale_noise)
     if cfg.barostat != "no":
         if cfg.barostat != "br" and baro_noise is None:
             baro_noise = _draw(gen, (), state.baro_v,

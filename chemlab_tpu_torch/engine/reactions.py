@@ -1,4 +1,5 @@
-"""The reactive layer: matching and batched event application.
+"""The reactive layer: matching, event application and the periodic
+extensions.
 
 Port of ``chemlab_tpu/engine/reactions.py`` for the lazy-row paths of
 ``reaction_step``:
@@ -15,13 +16,16 @@ Port of ``chemlab_tpu/engine/reactions.py`` for the lazy-row paths of
   resolved by mutual argmin (``match_reactions``).
 
 Both accept with the pair-symmetric integer hash (``pair_uniform``,
-bit-exact with the reference) and apply the events in one batch
-(``apply_reaction_events`` dispatching to ``_apply_events_batched``,
-ChangeNeighboursProperty transfers included).
-
-Out of the slice, raising at build: dissociation, the sequential event scan
-(RemoveNeighboursBonds, FixDistances), RestrictReaction, ATRP,
-ChangeParticleType and freeze regions (ROADMAP M12).
+bit-exact with the reference) and the RestrictReaction whitelist.  The
+events apply in one batch (``_apply_events_batched``,
+ChangeNeighboursProperty included) or, with RemoveNeighboursBonds or
+FixDistances (ReleaseMolecule, JoinMolecule), one at a time
+(``_apply_events_sequential``).  Dissociation channels break bonds after
+the events (``match_dissociations``, ``apply_dissociation_events``).  The
+periodic extensions ``atrp_step``, ``change_particle_type_step`` and
+``freeze_region_step`` take their draws as arguments or from a
+``torch.Generator``.  The reference's persistent-row branch of
+``reaction_step`` waits for the row path (ROADMAP M10).
 
 uint32 hashing runs in int64 with ``& 0xFFFFFFFF`` and a 16-bit split
 multiply (no signed overflow); every sort is ``stable=True``.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import neighbor, topo
@@ -129,6 +134,18 @@ def _accept(spec, cfg, state, seed, a, b, r2, slot_valid, r: int,
     adj_a = state.adj[al]
     m = m & ~torch.any(adj_a == b[..., None], dim=-1)
 
+    # RestrictReaction whitelist: binary search on lo, then a bounded scan
+    # over the equal-lo run (the bound is the build's longest run)
+    if spec.restrict_lo.shape[0]:
+        mm = spec.restrict_lo.shape[0]
+        pos_ = torch.searchsorted(spec.restrict_lo, lo.contiguous())
+        listed = torch.zeros_like(m)
+        for k in range(cfg.restrict_scan):
+            pk = torch.clamp(pos_ + k, max=mm - 1)
+            listed = listed | ((spec.restrict_lo[pk] == lo)
+                               & (spec.restrict_hi[pk] == hi))
+        m = m & (listed | ~spec.r_restricted[r])
+
     cnb = spec.r_cnb_type[r]
     nbr = torch.clamp(adj_a, min=0).long()
     nbr_t = state.type_id[nbr]
@@ -160,8 +177,6 @@ def match_reactions(spec, cfg, state, seed, nbr_idx, excl_mask):
     directions of every channel, matched mutually (each particle in at most
     one event), then the first ``max_events`` by key.  Returns (ev_valid,
     ev_a, ev_b, ev_r, ev_dist), ``a`` the type_1 side."""
-    if spec.restrict_lo.shape[0]:
-        raise NotImplementedError("RestrictReaction (ROADMAP M12)")
     n = state.pos.shape[0]
     dev = state.pos.device
     i_idx = torch.arange(n, dtype=I32, device=dev)[:, None]
@@ -477,9 +492,260 @@ def _apply_events_batched(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
     return state, ov1 | ov2 | ov3 | ov4 | ov5
 
 
-def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
+def _generate_terms_for_bond(spec, state, a, b, enable, add_excl: bool):
+    """The topology manager's answer to one new bond (a, b) (0-d): the
+    angles and dihedrals it closes, by type signature, and their
+    exclusions.  Returns (state, overflow)."""
+    ac = torch.clamp(a, min=0)[None]
+    bc = torch.clamp(b, min=0)[None]
+    dev = state.pos.device
+    ang_idx, ang_v = topo.enumerate_new_angles(state.adj, ac, bc)
+    ang_idx, ang_v = ang_idx[0], ang_v[0] & enable
+    t = state.type_id[torch.clamp(ang_idx, min=0).long()].long()
+    funcs = spec.angle_func_tt[t[:, 0], t[:, 1], t[:, 2]]
+    pars = spec.angle_par_tt[t[:, 0], t[:, 1], t[:, 2]]
+    ang_v = ang_v & (funcs > 0)
+    ang_lam = torch.where(spec.hybrid_angle_rate > 0, 0.0, 1.0).to(
+        state.angles.lam.dtype).expand(ang_idx.shape[0])
+    angles, ov1 = topo.table_append(state.angles, ang_idx, funcs, pars,
+                                    ang_v, lam=ang_lam)
+
+    dih_idx, dih_v = topo.enumerate_new_dihedrals(state.adj, ac, bc)
+    dih_idx, dih_v = dih_idx[0], dih_v[0] & enable
+    if state.dihedrals.capacity > 1:
+        td = state.type_id[torch.clamp(dih_idx, min=0).long()].long()
+        dfuncs = spec.dih_func_tt[td[:, 0], td[:, 1], td[:, 2], td[:, 3]]
+        dpars = spec.dih_par_tt[td[:, 0], td[:, 1], td[:, 2], td[:, 3]]
+        dih_v = dih_v & (dfuncs > 0)
+        dih_lam = torch.where(spec.hybrid_dihedral_rate > 0, 0.0, 1.0).to(
+            state.dihedrals.lam.dtype).expand(dih_idx.shape[0])
+        dihedrals, ov2 = topo.table_append(state.dihedrals, dih_idx, dfuncs,
+                                           dpars, dih_v, lam=dih_lam)
+    else:
+        dihedrals = state.dihedrals
+        ov2 = torch.zeros((), dtype=torch.bool, device=dev)
+        dih_v = torch.zeros_like(dih_v)
+
+    excl, n_excl = state.excl, state.n_excl
+    ov3 = torch.zeros((), dtype=torch.bool, device=dev)
+    if add_excl:
+        pairs = torch.cat([torch.stack([ac, bc], dim=1), ang_idx[:, [0, 2]],
+                           dih_idx[:, [0, 3]]])
+        pv = torch.cat([torch.as_tensor(enable, device=dev).reshape(1),
+                        ang_v, dih_v])
+        excl, n_excl, ov3 = topo.excl_append(excl, n_excl, pairs, pv)
+    return dataclasses.replace(state, angles=angles, dihedrals=dihedrals,
+                               excl=excl, n_excl=n_excl), ov1 | ov2 | ov3
+
+
+def _first_rows(mask, k: int):
+    """The first ``k`` row ids of a stable sort putting ``mask`` first
+    (the reference's ``argsort(~mask)[:k]``)."""
+    return torch.argsort((~mask).to(torch.uint8), stable=True)[:k]
+
+
+def _remove_terms_of_edges(state, edges, edge_valid, cap_a: int,
+                           cap_d: int):
+    """Invalidate the angles and dihedrals that hold any valid row of
+    ``edges``, and remove the exclusions of the edges and of those terms'
+    end pairs; the term hits are compacted to their first ``cap_a`` and
+    ``cap_d`` rows before the exclusion sweep.  Returns (angles,
+    dihedrals, excl)."""
+    angles, hit_a = topo.invalidate_terms_with_edges(state.angles, edges,
+                                                     edge_valid)
+    dihedrals, hit_d = topo.invalidate_terms_with_edges(state.dihedrals,
+                                                        edges, edge_valid)
+    excl = topo.excl_remove(state.excl, edges, edge_valid)
+    ha = _first_rows(hit_a, cap_a)
+    excl = topo.excl_remove(excl, state.angles.idx[ha][:, [0, 2]], hit_a[ha])
+    if state.dihedrals.capacity > 1:
+        hd = _first_rows(hit_d, cap_d)
+        excl = topo.excl_remove(excl, state.dihedrals.idx[hd][:, [0, 3]],
+                                hit_d[hd])
+    return angles, dihedrals, excl
+
+
+MAX_RM = 8   # bonds one RemoveNeighboursBonds side may remove per event
+
+
+def _apply_ppnb(spec, cfg, st, valid, a, b, r):
+    """ChangeNeighboursProperty around one event: BFS type transfers."""
+    dist_a = topo.bfs_distances(st.adj, torch.where(valid, a, -1),
+                                cfg.max_nb_level)
+    dist_b = topo.bfs_distances(st.adj, torch.where(valid, b, -1),
+                                cfg.max_nb_level)
+    tid, chem, mass, q = st.type_id, st.chem_state, st.mass, st.q
+    for p in range(cfg.max_ppnb):
+        owner = spec.ppnb_reaction[p] == r
+        side = spec.ppnb_side[p]
+        nt = spec.ppnb_new_type[p]
+        ns = spec.ppnb_new_state[p]
+        for s_code, dist in ((0, dist_a), (1, dist_b)):
+            use = valid & owner & ((side == s_code) | (side == 2))
+            m = use & (dist == spec.ppnb_level[p]) \
+                & (tid == spec.ppnb_old_type[p]) \
+                & (chem >= spec.ppnb_min_state[p]) \
+                & (chem < spec.ppnb_max_state[p]) & st.active
+            tid = torch.where(m, nt, tid)
+            mass = torch.where(m, spec.type_mass[nt.long()], mass)
+            q = torch.where(m, spec.type_q[nt.long()], q)
+            chem = torch.where(
+                m, torch.where(ns >= 0, ns, chem + spec.ppnb_incr_state[p]),
+                chem)
+    return dataclasses.replace(st, type_id=tid, chem_state=chem, mass=mass,
+                               q=q)
+
+
+def _fd_def_of(spec, cfg, type_id, fixd_dummy):
+    """Each constraint row's FixDistances definition, by its dummy's
+    type."""
+    t_dummy = type_id[torch.clamp(fixd_dummy, min=0).long()]
+    def_idx = torch.zeros_like(fixd_dummy)
+    for k in range(cfg.n_fd):
+        def_idx = torch.where(t_dummy == spec.fd_dummy_type[k], k, def_idx)
+    return def_idx.long()
+
+
+def _release_constraints(spec, cfg, st, p, count, enable):
+    """PostProcessReleaseParticles: free up to ``count`` dummies of host
+    ``p``; each takes its definition's target type and release lambda."""
+    mask = enable & (st.fixd_host == p) & (st.fixd_host >= 0)
+    rank = torch.cumsum(mask.to(I32), 0) - 1
+    rel = mask & (rank < count)
+    n = st.pos.shape[0]
+    dsel = torch.where(rel, torch.clamp(st.fixd_dummy, min=0), n)
+    def_idx = _fd_def_of(spec, cfg, st.type_id, st.fixd_dummy)
+    return dataclasses.replace(
+        st,
+        type_id=topo.set_drop(st.type_id, dsel, torch.clamp(
+            spec.fd_target_type[def_idx], min=0)),
+        lam=topo.set_drop(st.lam, dsel, spec.fd_release_lam[def_idx]),
+        fixd_host=torch.where(rel, -1, st.fixd_host),
+        fixd_dummy=torch.where(rel, -1, st.fixd_dummy))
+
+
+def _remove_neighbour_bonds(spec, cfg, st, valid, anchor, r, s_code: int):
+    """PostProcessRemoveNeighbourBond: break the (t1, t2) bonds whose
+    nearer endpoint lies ``level`` hops from the anchor, with their
+    dependent angles, dihedrals, exclusions and adjacency edges.  At most
+    ``MAX_RM`` bonds are removed with their dependents; more raise the
+    sticky overflow flag.  Returns (state, overflow)."""
+    dist = topo.bfs_distances(st.adj, torch.where(valid, anchor, -1),
+                              cfg.max_nb_level + 1)
+    bi = torch.clamp(st.bonds.idx[:, 0], min=0).long()
+    bj = torch.clamp(st.bonds.idx[:, 1], min=0).long()
+    ti, tj = st.type_id[bi], st.type_id[bj]
+    anchor_t = st.type_id[torch.clamp(anchor, min=0).long()]
+    dmin = torch.minimum(dist[bi], dist[bj])
+    hit = torch.zeros(st.bonds.capacity, dtype=torch.bool, device=bi.device)
+    for p in range(cfg.n_rb):
+        owner = valid & (spec.rb_reaction[p] == r) \
+            & (anchor_t == spec.rb_anchor_type[p]) \
+            & ((spec.rb_side[p] == s_code) | (spec.rb_side[p] == 2))
+        tmatch = ((ti == spec.rb_t1[p]) & (tj == spec.rb_t2[p])) \
+            | ((ti == spec.rb_t2[p]) & (tj == spec.rb_t1[p]))
+        hit = hit | (owner & st.bonds.valid & tmatch
+                     & (dmin == spec.rb_level[p]))
+    rm_overflow = hit.sum() > MAX_RM
+    order = _first_rows(hit, MAX_RM)
+    rm_valid = hit[order]
+    edges = torch.where(rm_valid[:, None], st.bonds.idx[order], -1)
+    bonds = dataclasses.replace(
+        st.bonds, idx=torch.where(hit[:, None], -1, st.bonds.idx))
+    angles, dihedrals, excl = _remove_terms_of_edges(
+        st, edges, rm_valid, 4 * MAX_RM, 8 * MAX_RM)
+    adj = topo.adj_remove_edges(st.adj, edges, rm_valid)
+    return dataclasses.replace(st, bonds=bonds, angles=angles,
+                               dihedrals=dihedrals, excl=excl,
+                               adj=adj), rm_overflow
+
+
+def _join(spec, st, valid, a, b, r):
+    """JoinMolecule: capture the type_2 particle ``b`` as an invisible
+    dummy constrained to the type_1 host ``a``.  Every write is gated on a
+    free constraint slot.  Returns (state, overflow: no free slot)."""
+    jdef = spec.r_join_def[torch.clamp(r, min=0).long()]
+    jsel = torch.clamp(jdef, min=0).long()
+    do_join = valid & (jdef >= 0)
+    n = st.pos.shape[0]
+    cap = st.fixd_host.shape[0]
+    free = torch.argmax((st.fixd_host < 0).to(torch.uint8))
+    slot_ok = do_join & (st.fixd_host[free] < 0)
+    bsel = torch.where(slot_ok, torch.clamp(b, min=0), n)
+    fsel = torch.where(slot_ok, free, cap)
+    return dataclasses.replace(
+        st,
+        type_id=topo.set_drop(st.type_id, bsel, torch.clamp(
+            spec.fd_dummy_type[jsel], min=0)),
+        lam=topo.set_drop(st.lam, bsel, spec.fd_capture_lam[jsel]),
+        chem_state=topo.set_drop(st.chem_state, bsel,
+                                 spec.fd_capture_state[jsel]),
+        fixd_host=topo.set_drop(st.fixd_host, fsel, torch.clamp(a, min=0)),
+        fixd_dummy=topo.set_drop(st.fixd_dummy, fsel,
+                                 torch.clamp(b, min=0))), do_join & ~slot_ok
+
+
+def _apply_events_sequential(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r,
+                             rows=None):
+    """One event at a time, so that each sees the topology of all earlier
+    ones.  Per event: the bond, ChangeNeighboursProperty, the releases,
+    RemoveNeighboursBonds on each side, the JoinMolecule capture, then the
+    angles, dihedrals and exclusions the bond closes.
+
+    A row whose ``ev_valid`` is False writes nothing (every write is
+    gated), so only the fired rows run: ``rows`` defaults to their ids,
+    read once; any superset in order (all ``max_events`` rows) gives the
+    same state."""
+    dev = state.pos.device
+    if rows is None:
+        rows = torch.nonzero(ev_valid).flatten().tolist()
+    new_lam = torch.where(spec.hybrid_bond_rate > 0.0, 0.0, 1.0).to(
+        state.bonds.lam.dtype).reshape(1)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    st = state
+    for k in rows:
+        valid, a, b, r = ev_valid[k], ev_a[k], ev_b[k], ev_r[k]
+        rc = torch.clamp(r, min=0).long()
+        grp = torch.clamp(spec.r_group[rc], min=0)
+        make_bond = valid & ~spec.r_virtual[rc]
+        bonds, ov1 = topo.table_append(
+            st.bonds, torch.stack([a, b])[None], spec.g_func[grp.long()][None],
+            spec.g_params[grp.long()][None], make_bond[None],
+            typelookup=torch.zeros(1, dtype=torch.bool, device=dev),
+            lam=new_lam, group=grp[None])
+        adj, ov2 = topo.adj_add_edge(st.adj, a, b, make_bond)
+        mol = topo.merge_molecules(st.mol_id, a, b, make_bond)
+        st = dataclasses.replace(st, bonds=bonds, adj=adj, mol_id=mol)
+        overflow = overflow | ov1 | ov2
+        if cfg.max_ppnb > 0:
+            st = _apply_ppnb(spec, cfg, st, valid, a, b, r)
+        if cfg.has_fixd:
+            rn = spec.r_release_n[rc]
+            side = spec.r_release_side[rc]
+            st = _release_constraints(spec, cfg, st, a, rn,
+                                      valid & (rn > 0) & (side != 1))
+            st = _release_constraints(spec, cfg, st, b, rn,
+                                      valid & (rn > 0) & (side != 0))
+        if cfg.n_rb > 0:
+            for s_code, anchor in ((0, a), (1, b)):
+                st, rm_ov = _remove_neighbour_bonds(spec, cfg, st, valid,
+                                                    anchor, rc, s_code)
+                overflow = overflow | rm_ov
+        if cfg.has_fixd:
+            st, j_ov = _join(spec, st, valid, a, b, r)
+            overflow = overflow | j_ov
+        st, ov3 = _generate_terms_for_bond(spec, st, a, b, make_bond,
+                                           cfg.exclude_new_bonds)
+        overflow = overflow | ov3
+    return st, overflow
+
+
+def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r,
+                          rows=None):
     """Apply fired normal-reaction events: per-particle updates, then the
-    batched topology path."""
+    batched topology path, or, with RemoveNeighboursBonds or FixDistances,
+    the sequential scan (``rows`` as in ``_apply_events_sequential``).
+    Returns (state, overflow)."""
     rr = torch.clamp(ev_r, min=0).long()
     ac = torch.clamp(ev_a, min=0).long()
     bc = torch.clamp(ev_b, min=0).long()
@@ -507,10 +773,112 @@ def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
             q=topo.set_drop(state.q, dest, spec.type_q[tc]))
 
     if cfg.n_rb or cfg.has_fixd:
-        raise NotImplementedError("the sequential event scan "
-                                  "(RemoveNeighboursBonds, FixDistances): "
-                                  "ROADMAP M12")
+        return _apply_events_sequential(spec, cfg, state, ev_valid, ev_a,
+                                        ev_b, ev_r, rows)
     return _apply_events_batched(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r)
+
+
+# ---------------------------------------------------------------------------
+# dissociation
+# ---------------------------------------------------------------------------
+
+def match_dissociations(spec, cfg, state, seed):
+    """Bond rows to break: (ev_valid, ev_row, ev_r), each (max_events,).
+    A bond breaks by channel r when it is farther than the channel's
+    cutoff and the draw (salt ``1024 + 4r``) passes ``rate * dt *
+    interval``, or spontaneously when the draw of salt ``1024 + 4r + 1``
+    passes ``diss_rate * dt * interval``; among channels the smallest
+    first draw wins (the first channel on ties), and the first
+    ``max_events`` breaks by that draw are kept."""
+    bonds = state.bonds
+    dev = state.pos.device
+    i = torch.clamp(bonds.idx[:, 0], min=0)
+    j = torch.clamp(bonds.idx[:, 1], min=0)
+    il, jl = i.long(), j.long()
+    r2 = _norm2(_min_image(state.pos[il] - state.pos[jl], state.box))
+    lo = torch.minimum(i, j)
+    hi = torch.maximum(i, j)
+    ti, tj = state.type_id[il], state.type_id[jl]
+    si, sj = state.chem_state[il], state.chem_state[jl]
+    dt_i = spec.dt * cfg.reaction_interval
+    big = torch.tensor(_BIG, dtype=F32, device=dev)
+    us = []
+    for r in range(cfg.n_reactions):
+        fwd = (ti == spec.r_t1[r]) & (tj == spec.r_t2[r]) \
+            & (si >= spec.r_min1[r]) & (si < spec.r_max1[r]) \
+            & (sj >= spec.r_min2[r]) & (sj < spec.r_max2[r])
+        bwd = (tj == spec.r_t1[r]) & (ti == spec.r_t2[r]) \
+            & (sj >= spec.r_min1[r]) & (sj < spec.r_max1[r]) \
+            & (si >= spec.r_min2[r]) & (si < spec.r_max2[r])
+        m = bonds.valid & spec.r_is_diss[r] & state.reaction_active[r] \
+            & (fwd | bwd)
+        u1 = pair_uniform(seed, state.step, lo, hi, 1024 + 4 * r)
+        u2 = pair_uniform(seed, state.step, lo, hi, 1024 + 4 * r + 1)
+        far_break = (r2 > spec.r_cutoff2[r]) \
+            & (u1 < state.reaction_rates[r] * dt_i)
+        spont = u2 < spec.r_diss_rate[r] * dt_i
+        us.append(torch.where(m & (far_break | spont), u1, big))
+    u_all = torch.stack(us)
+    pick = torch.argmin(u_all, dim=0)
+    best_u = torch.gather(u_all, 0, pick[None])[0]
+    best_r = torch.where(best_u < big, pick, -1).to(I32)
+    broke = best_r >= 0
+    order = torch.argsort(torch.where(broke, best_u, big), stable=True)
+    take = order[:cfg.max_events]
+    ev_valid = broke[take]
+    ev_row = torch.where(ev_valid, take, -1).to(I32)
+    ev_r = torch.where(ev_valid, best_r[take], -1).to(I32)
+    return ev_valid, ev_row, ev_r
+
+
+def apply_dissociation_events(spec, cfg, state, ev_valid, ev_row, ev_r):
+    """Break bonds: per-side deltas and types (oriented by the channel's
+    type_1), or with ``alpha`` set the old type kept at lambda 0 (the fade
+    that ``integrate._dynamic_resolution`` completes); the bond rows, their
+    dependent angles, dihedrals and exclusions and their adjacency edges
+    removed; molecules relabelled.  Invalid rows write nothing, so after
+    one read nothing runs when none fired."""
+    if not bool(ev_valid.any()):
+        return state
+    rows = torch.clamp(ev_row, min=0).long()
+    edges = state.bonds.idx[rows]
+    a = torch.clamp(edges[:, 0], min=0).long()
+    b = torch.clamp(edges[:, 1], min=0).long()
+    rr = torch.clamp(ev_r, min=0).long()
+    n = state.chem_state.shape[0]
+
+    a_is_t1 = state.type_id[a] == spec.r_t1[rr]
+    d_a = torch.where(a_is_t1, spec.r_delta1[rr], spec.r_delta2[rr])
+    d_b = torch.where(a_is_t1, spec.r_delta2[rr], spec.r_delta1[rr])
+    nt_a = torch.where(a_is_t1, spec.r_new_type1[rr], spec.r_new_type2[rr])
+    nt_b = torch.where(a_is_t1, spec.r_new_type2[rr], spec.r_new_type1[rr])
+    chem = _add(state.chem_state, torch.where(ev_valid, a, n), d_a)
+    chem = _add(chem, torch.where(ev_valid, b, n), d_b)
+    fade = spec.r_diss_fade[rr]
+    tid, mass, q, lam = state.type_id, state.mass, state.q, state.lam
+    for p, nt in ((a, nt_a), (b, nt_b)):
+        sel = torch.where(ev_valid & (nt >= 0) & ~fade, p, n)
+        ntc = torch.clamp(nt, min=0).long()
+        tid = topo.set_drop(tid, sel, ntc)
+        mass = topo.set_drop(mass, sel, spec.type_mass[ntc])
+        q = topo.set_drop(q, sel, spec.type_q[ntc])
+        lam = topo.set_drop(lam, torch.where(ev_valid & fade, p, n), 0.0)
+    counts = _add(state.reaction_counts,
+                  torch.where(ev_valid, rr, cfg.n_reactions),
+                  torch.ones_like(ev_r))
+    bonds = dataclasses.replace(state.bonds, idx=topo.set_drop(
+        state.bonds.idx, torch.where(ev_valid, rows, state.bonds.capacity),
+        -1))
+    cap_a = 4 * edges.shape[0]
+    angles, dihedrals, excl = _remove_terms_of_edges(state, edges, ev_valid,
+                                                     cap_a, 2 * cap_a)
+    adj = topo.adj_remove_edges(state.adj, edges, ev_valid)
+    # molecules may have split
+    return dataclasses.replace(
+        state, chem_state=chem, type_id=tid, mass=mass, q=q, lam=lam,
+        reaction_counts=counts, bonds=bonds, angles=angles,
+        dihedrals=dihedrals, excl=excl, adj=adj,
+        mol_id=topo.relabel_components(adj, state.active))
 
 
 # ---------------------------------------------------------------------------
@@ -520,10 +888,11 @@ def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
 def reaction_step(spec, cfg, state, rng_seed: int = 0):
     """One ChemicalReaction invocation (every ``interval`` MD steps) on the
     lazy-row path: compact matching when the build chose it, else full
-    rows built fresh on the reaction grid."""
-    if not cfg.lazy_rows or cfg.has_dissociation:
-        raise NotImplementedError("reaction_step with dissociation "
-                                  "(ROADMAP M12)")
+    rows built fresh on the reaction grid; then the dissociation channels
+    over the bond table."""
+    if not cfg.lazy_rows:
+        raise NotImplementedError("reaction_step on persistent Verlet rows "
+                                  "(ROADMAP M10)")
     if cfg.rx_compact:
         s1 = side1_mask(spec, cfg, state)
         order = torch.argsort((~s1).to(torch.uint8), stable=True)
@@ -549,7 +918,226 @@ def reaction_step(spec, cfg, state, rng_seed: int = 0):
         ev_log_r=ev_r, ev_log_dist=ev_dist.to(state.ev_log_dist.dtype))
     state, topo_overflow = apply_reaction_events(spec, cfg, state, ev_valid,
                                                  ev_a, ev_b, ev_r)
+    if cfg.has_dissociation:
+        dv, drow, dr = match_dissociations(spec, cfg, state, rng_seed)
+        state = apply_dissociation_events(spec, cfg, state, dv, drow, dr)
     nbr = dataclasses.replace(
         state.nbr, overflow=state.nbr.overflow | topo_overflow
         | rx_overflow)
     return dataclasses.replace(state, nbr=nbr)
+
+
+# ---------------------------------------------------------------------------
+# the periodic extensions: ATRPActivator, ChangeParticleType, FreezeRegion
+# ---------------------------------------------------------------------------
+
+def _on(x, device):
+    """An injected draw as a tensor on ``device`` (numpy input copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def _uniform(gen, shape, like, what: str):
+    if gen is None:
+        raise ValueError("%s needs its draws or a torch.Generator" % what)
+    return torch.rand(shape, generator=gen, dtype=F32, device=like.device)
+
+
+def atrp_step(spec, cfg, state, draws=None, gen=None):
+    """ATRPActivator: activator/deactivator Monte Carlo over sampled
+    particles.  ``draws`` is (ranks, u), each (atrp_num,): the ranks index
+    all particles (``select_from_all``) or the active reactive centres in
+    row order, in [0, max(count, 1)); u are the acceptance uniforms.
+    Without ``draws`` both come from ``gen``, ranks first.  A particle
+    sampled twice acts once (its first sample).  The picks are scanned in
+    order on the host, after three reads (the picks, the draws and pool,
+    the entries), because each accepted flip shifts the catalyst pool
+    that the next acceptance reads; the pool and the acceptance run in f32
+    as on the device."""
+    num = cfg.atrp_num
+    n = state.pos.shape[0]
+    dev = state.pos.device
+    if cfg.atrp_select_from_all:
+        high = cfg.n_particles
+        picks_ok = True
+    else:
+        center = torch.zeros_like(state.active)
+        for e in range(cfg.n_atrp):
+            center |= (state.type_id == spec.atrp_type[e]) \
+                & (state.chem_state == spec.atrp_state[e])
+        elig = state.active & center
+        order = torch.argsort((~elig).to(torch.uint8), stable=True)
+        cnt = elig.sum()
+        high = torch.clamp(cnt, min=1)
+        picks_ok = cnt > 0
+    if draws is None:
+        ranks = torch.clamp((_uniform(gen, (num,), state.pos, "atrp_step")
+                             * high).long(), max=high - 1)
+        u = _uniform(gen, (num,), state.pos, "atrp_step")
+    else:
+        ranks, u = (_on(d, dev) for d in draws)
+    ranks = ranks.long()
+    picks = ranks if cfg.atrp_select_from_all else order[ranks]
+
+    # first occurrence of each pick
+    rev = torch.arange(num - 1, -1, -1, dtype=I32, device=dev)
+    seen = torch.zeros(n, dtype=I32, device=dev).scatter_reduce(
+        0, picks, rev, reduce="amax")
+    fresh = (seen[picks] == rev) & picks_ok
+
+    # one read of the picks' integers, one of the floats, one of the
+    # entries and the counters
+    ints = torch.stack([picks, fresh.long(), state.type_id[picks].long(),
+                        state.chem_state[picks].long(),
+                        state.active[picks].long()]).cpu().numpy()
+    floats = torch.cat([u.to(F32), state.atrp_ratios.to(F32),
+                        torch.stack([spec.atrp_k_activate,
+                                     spec.atrp_k_deactivate,
+                                     spec.atrp_delta_catalyst]).to(F32)]
+                       ).cpu().numpy()
+    entries = torch.cat([spec.atrp_type.long(), spec.atrp_state.long(),
+                         spec.atrp_is_activator.long(),
+                         state.atrp_stats.long()]).cpu().numpy()
+    p_h, fresh_h, t_h, s_h, act_h = ints
+    u_h, ratios = floats[:num], floats[num:num + 2]
+    k_act, k_deact, dcat = floats[num + 2:]
+    a_type, a_state, a_act = entries[:3 * cfg.n_atrp].reshape(3, -1)
+    stats = entries[3 * cfg.n_atrp:].astype(np.int32)
+    f32 = np.float32
+    ratios = ratios.copy()
+    flips = []
+    for i in range(num):
+        if not (fresh_h[i] and act_h[i]):
+            continue
+        for e in range(cfg.n_atrp):
+            if not (t_h[i] == a_type[e] and s_h[i] == a_state[e]):
+                continue
+            is_act = bool(a_act[e])
+            pool = ratios[0] if is_act else ratios[1]
+            k = k_act if is_act else k_deact
+            if u_h[i] < f32(k * pool):
+                dc = -dcat if is_act else dcat
+                ratios = ratios + np.asarray([dc, -dc], f32)
+                stats[0 if is_act else 1] += 1
+                flips.append((int(p_h[i]), e))
+                break
+    out = dataclasses.replace(
+        state, atrp_ratios=torch.from_numpy(ratios).to(dev),
+        atrp_stats=torch.from_numpy(stats).to(dev))
+    if not flips:
+        return out
+    sel = torch.tensor([p for p, _ in flips], dtype=torch.long, device=dev)
+    ent = torch.tensor([e for _, e in flips], dtype=torch.long, device=dev)
+    nt = spec.atrp_new_type[ent]
+    tid, chem = state.type_id.clone(), state.chem_state.clone()
+    mass, q = state.mass.clone(), state.q.clone()
+    tid[sel] = nt
+    mass[sel] = spec.type_mass[nt.long()]
+    q[sel] = spec.type_q[nt.long()]
+    chem[sel] = chem[sel] + spec.atrp_delta[ent]
+    return dataclasses.replace(out, type_id=tid, chem_state=chem, mass=mass,
+                               q=q)
+
+
+def change_particle_type_step(spec, cfg, state, u=None, gen=None):
+    """ChangeParticleType: up to ``cpt_num`` active particles of type
+    ``cpt_old`` become ``cpt_new``, those with the smallest of the
+    uniforms ``u`` (N,) (drawn from ``gen`` when not given)."""
+    n = state.pos.shape[0]
+    if u is None:
+        u = _uniform(gen, (n,), state.pos, "change_particle_type_step")
+    match = state.active & (state.type_id == spec.cpt_old)
+    score = torch.where(match, _on(u, state.device), 2.0)
+    order = torch.argsort(score, stable=True)[:cfg.cpt_num]
+    sel = torch.where(match[order], order, n)
+    nt = torch.clamp(spec.cpt_new, min=0).long()
+    return dataclasses.replace(
+        state, type_id=topo.set_drop(state.type_id, sel, nt),
+        mass=topo.set_drop(state.mass, sel, spec.type_mass[nt]),
+        q=topo.set_drop(state.q, sel, spec.type_q[nt]))
+
+
+def _remove_dead(cfg, st):
+    """Scrub removed (inactive) particles from the term tables (and their
+    dense and irregular copies), the adjacency and the exclusions, then
+    re-derive the dense exclusion operands."""
+    from . import excl_dense
+
+    dead = ~st.active
+
+    def scrub(table):
+        t_idx = table.idx
+        bad = torch.any(torch.where(
+            t_idx >= 0, dead[torch.clamp(t_idx, min=0).long()], False), -1)
+        return dataclasses.replace(
+            table, idx=torch.where(bad[:, None], -1, t_idx))
+
+    adj = st.adj
+    adj = torch.where((adj >= 0) & dead[torch.clamp(adj, min=0).long()], -1,
+                      adj)
+    adj = torch.where(dead[:, None], -1, adj)
+    e = st.excl
+    bad_e = torch.any(torch.where(e >= 0, dead[torch.clamp(e, min=0).long()],
+                                  False), -1)
+    upd = dict(bonds=scrub(st.bonds), angles=scrub(st.angles),
+               dihedrals=scrub(st.dihedrals), adj=adj,
+               excl=torch.where(bad_e[:, None], -1, e))
+    if cfg.bonded_dense and st.bonds_dense is not None:
+        # the derived copies are re-derived only at reaction steps
+        upd.update(bonds_dense=scrub(st.bonds_dense),
+                   bonds_irr=scrub(st.bonds_irr),
+                   angles_dense=scrub(st.angles_dense),
+                   angles_irr=scrub(st.angles_irr))
+    st = dataclasses.replace(st, **upd)
+    if cfg.excl_offsets and st.excl_masks is not None:
+        st = excl_dense.rederive(cfg, st)
+    return st
+
+
+def freeze_region_step(spec, cfg, state, u=None, gen=None):
+    """FreezeRegion: active particles of ``fr_target_type`` within
+    ``fr_width`` of the chosen box faces freeze (type ``fr_final_type``,
+    velocity and force zero from then on) or, with ``fr_remove``, leave
+    the system.  ``fr_prob`` per particle, or ``fr_p_num`` / a
+    ``fr_p_pct`` share of the candidates with the smallest uniforms.  The
+    uniforms ``u`` (N,) come from ``gen`` when not given (every step).  A
+    removal scrubs the topology (``_remove_dead``); whether one happened
+    is read on the host."""
+    pos, box, w = state.pos, state.box, spec.fr_width
+    n = pos.shape[0]
+    if u is None:
+        u = _uniform(gen, (n,), pos, "freeze_region_step")
+    u = _on(u, state.device)
+    in_region = torch.zeros_like(state.active)
+    for k, (axis, low_side) in enumerate(((0, True), (0, False), (1, True),
+                                          (1, False), (2, True),
+                                          (2, False))):
+        side = (pos[:, axis] < w[axis]) if low_side else \
+            (pos[:, axis] > box[axis] - w[axis])
+        in_region |= spec.fr_dirs[k] & side
+    cand = state.active & in_region & (state.type_id == spec.fr_target_type)
+    if cfg.freeze_mode == "prob":
+        hit = cand & (u < spec.fr_prob)
+    else:
+        n_cand = cand.sum()
+        k = (spec.fr_p_num if cfg.freeze_mode == "num"
+             else torch.floor(spec.fr_p_pct * n_cand).to(I32))
+        order = torch.argsort(torch.where(cand, u, torch.inf), stable=True)
+        rank = torch.empty(n, dtype=I32, device=state.device)
+        rank[order] = torch.arange(n, dtype=I32, device=state.device)
+        hit = cand & (rank < k)
+    type_id = torch.where(hit & ~spec.fr_remove,
+                          torch.clamp(spec.fr_final_type, min=0),
+                          state.type_id)
+    pinned = hit | (state.active & (type_id == spec.fr_final_type))
+    removed = hit & spec.fr_remove
+    state = dataclasses.replace(
+        state, type_id=type_id,
+        vel=torch.where(pinned[:, None], 0.0, state.vel),
+        force=torch.where(pinned[:, None], 0.0, state.force),
+        active=state.active & ~removed,
+        freeze_count=state.freeze_count + hit.sum().to(I32))
+    if bool(removed.any()):
+        state = _remove_dead(cfg, state)
+    return state

@@ -1,15 +1,19 @@
-"""Run blocks: MD steps with the interval-gated reaction extension.
+"""Run blocks: MD steps with the interval-gated extensions.
 
 Port of ``chemlab_tpu/engine/runner.py``.  The reference runs a block as
 one ``lax.fori_loop`` program with ``lax.cond`` on the rebuild trigger and
 the reaction interval; here a block is a Python loop that branches on the
-host.  The reaction gate needs no per-step read: ``reactions_on`` and the
-step counter are read once per block and the step is counted on the host.
-The rebuild trigger is read every step (``integrate.maybe_rebuild_neighbors``).
+host.  The gates of the reaction, ATRP and ChangeParticleType steps need
+no per-step read: ``reactions_on`` and the step counter are read once per
+block and the step is counted on the host.  The rebuild trigger is read
+every step (``integrate.maybe_rebuild_neighbors``), and so is
+FreezeRegion's removal flag where the system has one.  A reaction step
+reads its fired events' count once (the sequential scan, the bond
+breaking), an ATRP step its picks once.
 
-The Langevin noise (and the Langevin barostat's draw) comes from a
-``torch.Generator`` that the caller owns and passes to ``run_block``
-(``make_generator``).
+The noise (Langevin, CSVR, the Langevin barostat, the ATRP, FreezeRegion
+and ChangeParticleType draws) comes from a ``torch.Generator`` that the
+caller owns and passes to ``run_block`` (``make_generator``).
 
 Under a mesh (``parallel.sharding``) every rank holds the whole state and
 runs the same step; only the pair sum is split by slab.  The host reads
@@ -71,22 +75,46 @@ def _fire_reactions(spec, cfg, state, rng_seed: int):
     return excl_dense.rederive(cfg, bonded_dense.rederive(cfg, state))
 
 
+def _due(given, state, interval: int) -> bool:
+    """The host's gate ``given``, or when None the reference's
+    ``reactions_on & (step % interval == 0)`` read from the state."""
+    if given is not None:
+        return given
+    return bool(state.reactions_on) and int(state.step) % interval == 0
+
+
 def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
-                         fire=None, noise=None, pair_kernel: str = "auto"):
-    """One MD step + the interval-gated reaction step.  ``fire`` is the
-    host's reaction gate; None reads it from the state.  The Langevin noise
-    is ``noise`` when given, else drawn from ``gen`` (as is the Langevin
-    barostat's draw).  ``pair_kernel`` names the pair kernel
+                         fire=None, noise=None, pair_kernel: str = "auto",
+                         gates=None, draws=None):
+    """One MD step, the interval-gated reaction step, then the ATRP step
+    (every ``atrp_interval``), FreezeRegion (every step) and
+    ChangeParticleType (every ``cpt_interval``).  ``fire`` is the host's
+    reaction gate and ``gates`` its ``{"atrp": bool, "cpt": bool}``; those
+    not given are read from the state.  The draws, in this order: the
+    Langevin noise (``noise``), CSVR's normal, the barostat's, then the
+    ATRP ranks and uniforms, FreezeRegion's and ChangeParticleType's
+    uniforms; ``draws`` may hold any of them under the keys "rescale",
+    "baro", "atrp" ((ranks, u)), "freeze" and "cpt", and the rest come from
+    ``gen``.  ``pair_kernel`` names the pair kernel
     (``integrate.compute_forces``)."""
+    draws = draws or {}
+    gates = gates or {}
     state = integrate.md_step(spec, cfg, state, noise=noise, gen=gen,
-                              pair_kernel=pair_kernel)
+                              pair_kernel=pair_kernel,
+                              rescale_noise=draws.get("rescale"),
+                              baro_noise=draws.get("baro"))
     if cfg.has_reactions:
         state = _hybrid_lambda_ramp(spec, state, cfg)
-        if fire is None:
-            fire = (bool(state.reactions_on)
-                    and int(state.step) % cfg.reaction_interval == 0)
-        if fire:
+        if _due(fire, state, cfg.reaction_interval):
             state = _fire_reactions(spec, cfg, state, rng_seed)
+    if cfg.has_atrp and _due(gates.get("atrp"), state, cfg.atrp_interval):
+        state = reactions.atrp_step(spec, cfg, state, draws.get("atrp"), gen)
+    if cfg.has_freeze:
+        state = reactions.freeze_region_step(spec, cfg, state,
+                                             draws.get("freeze"), gen)
+    if cfg.has_cpt and _due(gates.get("cpt"), state, cfg.cpt_interval):
+        state = reactions.change_particle_type_step(spec, cfg, state,
+                                                    draws.get("cpt"), gen)
     return state
 
 
@@ -94,13 +122,22 @@ def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None,
               pair_kernel: str = "auto"):
     """Run ``n_steps`` steps (one outer-loop iteration) with the pair kernel
     ``pair_kernel``; under a mesh, then check that the ranks' replicas still
-    agree."""
-    on = cfg.has_reactions and bool(state.reactions_on)
+    agree.  The gates of the reaction, ATRP and ChangeParticleType steps
+    come from one read of the step and the switch."""
+    on = bool(state.reactions_on)
     step0 = int(state.step)
+
+    def due(interval, step):
+        return on and step % interval == 0
+
     for k in range(n_steps):
-        fire = on and (step0 + k + 1) % cfg.reaction_interval == 0
+        step = step0 + k + 1
+        fire = cfg.has_reactions and due(cfg.reaction_interval, step)
+        gates = {"atrp": cfg.has_atrp and due(cfg.atrp_interval, step),
+                 "cpt": cfg.has_cpt and due(cfg.cpt_interval, step)}
         state = step_with_extensions(spec, cfg, state, rng_seed, gen=gen,
-                                     fire=fire, pair_kernel=pair_kernel)
+                                     fire=fire, pair_kernel=pair_kernel,
+                                     gates=gates)
     check_replicas(cfg, state)
     return state
 

@@ -1,8 +1,9 @@
-"""Topology-manager primitives for the batched reaction-event path.
+"""Topology-manager primitives of the reactive layer.
 
-Port of ``chemlab_tpu/engine/topo.py``: adjacency insert, molecule merge,
-term-table and exclusion appends, and the enumeration of the angles and
-dihedrals a new bond creates.  The enumerations take whole event vectors
+Port of ``chemlab_tpu/engine/topo.py``: adjacency insert and removal,
+molecule merge and the connected-components relabel, term-table and
+exclusion appends and removals, the bounded BFS, and the enumeration of
+the angles and dihedrals a new bond creates.  The enumerations take whole event vectors
 (``a``, ``b`` of shape (E,)) where the reference vmaps a per-event
 function; row order inside each event is the reference's.
 
@@ -11,6 +12,8 @@ sliced off.  Indices are 0-based rows; -1 is padding.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -150,3 +153,109 @@ def excl_append(excl, n_excl, pairs, valid):
     dest = torch.where(valid & (dest < cap), dest, cap).long()
     n_new = torch.clamp(n_excl + valid.to(I32).sum(), max=cap).to(I32)
     return set_drop(excl, dest, pairs), n_new, overflow
+
+
+# ---------------------------------------------------------------------------
+# removal primitives (bond breaking, the sequential event scan, freezing)
+# ---------------------------------------------------------------------------
+
+def adj_remove_edge(adj, i, j, enable=True):
+    """Remove undirected edge (i, j) (0-d tensors); a no-op if absent,
+    disabled or i/j < 0."""
+    valid = torch.as_tensor(enable, device=adj.device) & (i >= 0) & (j >= 0)
+    a = torch.clamp(i, min=0).long()
+    b = torch.clamp(j, min=0).long()
+    row_a = adj[a]
+    row_b = adj[b]
+    new_a = torch.where(valid & (row_a == b), -1, row_a)
+    new_b = torch.where(valid & (row_b == a), -1, row_b)
+    adj = adj.clone()
+    adj[a] = new_a
+    adj[b] = new_b
+    return adj
+
+
+def adj_remove_edges(adj, edges, valid):
+    """``adj_remove_edge`` for each row of ``edges`` (E, 2) in order (the
+    reference's ``fori_loop``), in one scatter per side: a removal only
+    writes -1, so no row changes what another row matches, and rows may
+    share endpoints or repeat."""
+    n, deg = adj.shape
+    valid = valid & (edges[:, 0] >= 0) & (edges[:, 1] >= 0)
+    flat = torch.cat([adj.reshape(-1), adj.new_full((1,), -1)])
+    slot = torch.arange(deg, device=adj.device)
+    for x, y in ((edges[:, 0], edges[:, 1]), (edges[:, 1], edges[:, 0])):
+        xl = torch.clamp(x, min=0).long()
+        hit = (adj[xl] == y[:, None]) & valid[:, None]
+        flat[torch.where(hit, xl[:, None] * deg + slot, n * deg)] = -1
+    return flat[:n * deg].reshape(n, deg)
+
+
+def adj_has_edge(adj, i, j):
+    return (torch.any(adj[torch.clamp(i, min=0).long()] == j, dim=-1)
+            & (i >= 0) & (j >= 0))
+
+
+def relabel_components(adj, active):
+    """Connected components by min-label propagation with pointer jumping
+    (the reference's ``while_loop``): one host read of the convergence
+    flag per iteration, O(log N) iterations.  Labels are particle rows,
+    equal to the reference's.  ``active`` is unused, as in the
+    reference."""
+    n = adj.shape[0]
+    label = torch.arange(n, dtype=I32, device=adj.device)
+    has = adj >= 0
+    nbr_idx = torch.clamp(adj, min=0).long()
+    while True:
+        nbr = torch.where(has, label[nbr_idx], n)
+        new = torch.minimum(label, torch.amin(nbr, dim=1).to(I32))
+        new = torch.minimum(new, new[new.long()])      # pointer jumping
+        if not bool(torch.any(new != label)):
+            return new
+        label = new
+
+
+def invalidate_terms_with_edges(table: TermTable, edges, edge_valid):
+    """Invalidate rows whose consecutive-index pairs include any valid row
+    of ``edges`` (E, 2), in either order.  Returns (table, hit)."""
+    idx = table.idx
+    elo = torch.minimum(edges[:, 0], edges[:, 1])[None, :]
+    ehi = torch.maximum(edges[:, 0], edges[:, 1])[None, :]
+    hit = torch.zeros(idx.shape[0], dtype=torch.bool, device=idx.device)
+    for k in range(idx.shape[1] - 1):
+        a, b = idx[:, k], idx[:, k + 1]
+        lo = torch.minimum(a, b)[:, None]
+        hi = torch.maximum(a, b)[:, None]
+        hit |= torch.any((lo == elo) & (hi == ehi) & edge_valid[None, :],
+                         dim=1)
+    hit &= table.valid
+    return dataclasses.replace(
+        table, idx=torch.where(hit[:, None], -1, idx)), hit
+
+
+def excl_remove(excl, pairs, valid):
+    """Remove exclusion pairs (unordered match); leaves -1 holes and does
+    not lower the cursor."""
+    lo = torch.minimum(excl[:, 0], excl[:, 1])[:, None]
+    hi = torch.maximum(excl[:, 0], excl[:, 1])[:, None]
+    plo = torch.minimum(pairs[:, 0], pairs[:, 1])[None, :]
+    phi = torch.maximum(pairs[:, 0], pairs[:, 1])[None, :]
+    hit = torch.any((lo == plo) & (hi == phi) & valid[None, :], dim=1)
+    hit &= excl[:, 0] >= 0
+    return torch.where(hit[:, None], -1, excl)
+
+
+def bfs_distances(adj, source, max_level: int):
+    """Hop distance from ``source`` (0-d) up to ``max_level``, else
+    ``max_level + 1``; the bounded relaxation of the reference."""
+    n = adj.shape[0]
+    big = max_level + 1
+    dist = torch.full((n,), big, dtype=I32, device=adj.device)
+    dist[torch.clamp(source, min=0).long()] = torch.where(
+        source >= 0, 0, big).to(I32)
+    has = adj >= 0
+    nbr_idx = torch.clamp(adj, min=0).long()
+    for _ in range(max_level):
+        nbr_dist = torch.where(has, dist[nbr_idx], big)
+        dist = torch.minimum(dist, torch.amin(nbr_dist, dim=1) + 1).to(I32)
+    return dist

@@ -7,7 +7,8 @@ loop (capacity decisions, dumps, the ``--retune_caps`` latch, reactions
 enabled at ``start_ar``, conversion stop criteria, ``run_block``,
 checkpoints, hooks, Arrhenius rate updates), and write the output set
 (H5MD trajectory + connectivity, energy CSV, final and unfolded .gro,
-regenerated .top, reaction counters, benchmark row and timers).
+regenerated .top, reaction counters, the FreezeRegion and ATRPActivator
+stats, benchmark row and timers).
 
 ``main(argv, device="cuda")``: the CLI runs on the card and raises without
 one; tests pass ``device="cpu"``.  One ``torch.Generator`` carries the
@@ -451,10 +452,11 @@ def main(argv=None, device="cuda"):
                                      st.dihedrals.idx.cpu().numpy())
 
     # ---- reaction observability files ----
-    # accepted-pair distance dump (ref: reaction_parser.py:198) + per-interval
-    # running reaction counters (ref: start_simulation.py:1027-1036); the
-    # FreezeRegion stats come with M12
+    # accepted-pair distance dump (ref: reaction_parser.py:198) + FreezeRegion
+    # stats (ref: reaction_post_process.py:146-148) + per-interval running
+    # reaction counters (ref: start_simulation.py:1027-1036)
     pair_dist_file = None
+    freeze_stats_file = None
     counters_file = None
     last_ev_logged = -1
     if rcfg and rcfg.get("general") and \
@@ -463,6 +465,13 @@ def main(argv=None, device="cuda"):
         files_io.prepare_path(pair_dist_file)
         with open(pair_dist_file, "w") as f:
             f.write("# step reaction pid1 pid2 distance\n")
+    if cfg.has_freeze:
+        freeze_stats_file = (built.reactions.freeze.get("stats_file")
+                             or "%s_%d_freeze_stats.dat"
+                             % (out_prefix, args.rng_seed))
+        files_io.prepare_path(freeze_stats_file)
+        with open(freeze_stats_file, "w") as f:
+            f.write("# step frozen_total\n")
     if cfg.has_reactions and built.reactions:
         # running per-interval series; the final-total file written in the
         # output phase keeps the reference's name
@@ -488,6 +497,9 @@ def main(argv=None, device="cuda"):
                         for a_, b_, r_, d_ in zip(va[sel], vb, vr, vd):
                             f.write("%d %d %d %d %.6f\n"
                                     % (fired, r_, a_ + 1, b_ + 1, d_))
+        if freeze_stats_file is not None:
+            with open(freeze_stats_file, "a") as f:
+                f.write("%d %d\n" % (step, int(st.freeze_count)))
         if counters_file is not None:
             counts = st.reaction_counts.cpu().numpy()
             intra = st.intra_counts.cpu().numpy()
@@ -737,7 +749,7 @@ def main(argv=None, device="cuda"):
                                  rng_seed=args.rng_seed, gen=gen)
         global_step += integrator_step
         k += 1
-        if reactions_enabled:
+        if reactions_enabled or cfg.has_freeze:
             dump_reaction_observables(state, global_step)
 
         if args.checkpoint_interval and k % args.checkpoint_interval == 0:
@@ -799,6 +811,15 @@ def main(argv=None, device="cuda"):
                        writers.state_to_coordinates(state, systop, coords,
                                                     unfolded=True))
     writers.write_topology("%s_topol.top" % out_prefix, systop, state)
+
+    if cfg.has_atrp:
+        # ATRPActivator stats file (ref: reaction_post_process.py:390-396)
+        stats = state.atrp_stats.cpu().numpy()
+        ratios = state.atrp_ratios.cpu().numpy()
+        with open("%s_atrp_stats.dat" % out_prefix, "w") as f:
+            f.write("activated %d\ndeactivated %d\n"
+                    "ratio_activator %g\nratio_deactivator %g\n"
+                    % (stats[0], stats[1], ratios[0], ratios[1]))
 
     if cfg.has_reactions:
         with open("%s_reaction_counters.csv" % out_prefix, "w") as f:

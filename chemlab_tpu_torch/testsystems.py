@@ -216,22 +216,34 @@ def build_melt(n_mols: int = 2000, density: float = 0.27, kT: float = 1.0,
     SystemTopology, Coordinates) like the reference.  ``opt_overrides``
     go to ``SimOptions`` (``slab_devices=D`` for the slab path, as in the
     reference)."""
-    top = topfile.parse_lines(_melt_topology_text(n_mols).splitlines(),
-                              "<generated>")
-    systop = compile_system_topology(top)
-    coords = melt_coordinates(n_mols, density, seed=seed)
-    rcfg = None
-    if reactive:
-        rcfg = reaction_parser.parse_config_lines(ATRP_CFG_TEXT.splitlines())
-    # capacity sizing for liquid density (the reference's choice)
+    return _build_trimer_melt(ATRP_CFG_TEXT if reactive else None, n_mols,
+                              density, kT, seed, device, opt_overrides)
+
+
+def melt_options(kT: float = 1.0, seed: int = 42, **opt_overrides) -> dict:
+    """The trimer melts' ``SimOptions`` fields (the reference's choice:
+    capacities sized for liquid density)."""
     rc_skin = 2.5 + 0.4
     k_liq = int(0.95 * 4.0 / 3.0 * np.pi * rc_skin**3 * 1.25)
     opts_kw = dict(lj_cutoff=2.5, cg_cutoff=2.5, skin=0.4, dt=0.0025, kT=kT,
                    thermostat="lv", thermostat_gamma=1.0, gen_velocity=True,
                    rng_seed=seed, max_neighbors=-(-k_liq // 8) * 8)
     opts_kw.update(opt_overrides)
-    built = build.build_system(systop, coords, build.SimOptions(**opts_kw),
-                               reaction_config=rcfg, device=device)
+    return opts_kw
+
+
+def _build_trimer_melt(cfg_text, n_mols, density, kT, seed, device,
+                       opt_overrides, coords=None):
+    systop = compile_system_topology(topfile.parse_lines(
+        _melt_topology_text(n_mols).splitlines(), "<generated>"))
+    if coords is None:
+        coords = melt_coordinates(n_mols, density, seed=seed)
+    rcfg = (reaction_parser.parse_config_lines(cfg_text.splitlines())
+            if cfg_text else None)
+    built = build.build_system(
+        systop, coords, build.SimOptions(**melt_options(kT, seed,
+                                                        **opt_overrides)),
+        reaction_config=rcfg, device=device)
     return built, systop, coords
 
 
@@ -526,3 +538,207 @@ def activate_initiators(built, systop, state, n: int = 20, seed: int = 1):
     return dataclasses.replace(
         state, type_id=tid, chem_state=chem,
         reactions_on=torch.ones((), dtype=torch.bool, device=state.device))
+
+
+# ---- the reaction extensions: two trimer melts -------------------------------
+
+BREAK_CFG_TEXT = """
+[general]
+interval: 200
+nearest=0
+
+[ext_change_neighbour_type]
+ext_type=ChangeNeighboursProperty
+invoke_on=both
+type_transfers=MA:2->PA,ML:1->PL(state=1),ML:2->PL(state=1)
+
+[ext_cut_end]
+ext_type=RemoveNeighboursBonds
+bonds_to_remove=FA->PL:PA:1
+invoke_on=type_1
+
+[group_reaction_1]
+potential=Harmonic
+potential_options=K=30.0,r0=0.97
+extensions=change_neighbour_type,cut_end
+
+[reaction_a]
+reaction: FA(3, 4) + MA(1, 2) -> FA(1):DA(2)
+cutoff: 1.2
+rate: 0.8
+intramolecular: 1
+intraresidual: 0
+active: True
+group: reaction_1
+
+[group_restricted]
+potential=Harmonic
+potential_options=K=30.0,r0=0.97
+connectivity_map=%(cmap)s
+
+[reaction_b]
+reaction: DA(3, 4) + MA(1, 2) -> RA(1):DA(2)
+cutoff: 1.2
+rate: 2.0
+intramolecular: 1
+intraresidual: 0
+active: True
+group: restricted
+
+[group_break]
+potential=Harmonic
+potential_options=K=30.0,r0=0.97
+
+[reaction_d]
+reaction: MA(0, 9):ML(0, 9) -> PA(0) + PL(0)
+cutoff: 50.0
+rate: 0.0
+diss_rate: %(diss_rate)s
+alpha: 0.01
+active: True
+group: break
+"""
+
+RELEASE_CFG_TEXT = """
+[general]
+interval: 200
+nearest=0
+
+[ext_rel]
+ext_type=ReleaseMolecule
+host_type=MA
+target_type=RA
+eq_length=1.0
+alpha=0.02
+init_res=0.000000001
+final_type=PL
+replicate=1
+release_on=bond
+release_count=1
+release_host=both
+
+[ext_join]
+ext_type=JoinMolecule
+eq_length=0.97
+init_res=0.000000001
+final_type=PL
+host_type=FA
+target_type=ML
+
+[ext_atrp]
+ext_type=ATRPActivator
+interval=10
+num_particles=200
+select_from_all=0
+ratio_activator=1.0
+ratio_deactivator=1.0
+delta_catalyst=0.001
+k_activate=0.5
+k_deactivate=0.5
+options=FA(3,A)->FA(1);FA(4,DA)->FA(-1)
+
+[ext_flip]
+ext_type=ChangeParticleType
+interval=10
+num_particles=5
+type_id=0
+new_type_id=2
+
+[ext_freeze]
+ext_type=FreezeRegion
+target_type=ML
+width=%(freeze_width)s
+directions=-x,x
+prob=%(freeze_prob)s
+remove_particles=True
+
+[group_g1]
+potential=Harmonic
+potential_options=K=30.0,r0=0.97
+extensions=rel,join,atrp,flip,freeze
+
+[reaction_a]
+reaction: FA(3, 4) + ML(0, 1) -> FA(1):DA(2)
+cutoff: 1.2
+rate: 4.0
+intramolecular: 1
+active: True
+group: g1
+"""
+
+RESTRICT_MAP = "restrict.list"
+RESTRICT_RANGE = 2.5
+
+
+def write_restrict_map(path: str, coords, type_ids, type_id: int,
+                       r_max: float = RESTRICT_RANGE) -> int:
+    """Write a RestrictReaction connectivity map: every pair of particles
+    of ``type_id`` within ``r_max`` (minimum image) at ``coords``, 1-based
+    ids.  Returns the number of pairs."""
+    rows = np.where(np.asarray(type_ids) == type_id)[0]
+    pos = np.asarray(coords.pos, np.float64)[rows]
+    box = np.asarray(coords.box, np.float64)
+    n_pairs = 0
+    with open(path, "w") as out:
+        for lo in range(0, len(rows), 512):
+            d = pos[lo:lo + 512, None, :] - pos[None, :, :]
+            d -= box * np.round(d / box)
+            close = np.sum(d * d, axis=-1) <= r_max * r_max
+            i, j = np.nonzero(close)
+            i = i + lo
+            keep = i < j
+            for a, b in zip(rows[i[keep]], rows[j[keep]]):
+                out.write("%d %d\n" % (a + 1, b + 1))
+            n_pairs += int(keep.sum())
+    return n_pairs
+
+
+def build_break_melt(n_mols: int = 3334, density: float = 0.27,
+                     kT: float = 1.0, seed: int = 42,
+                     table_dir: str | None = None, diss_rate: float = 0.01,
+                     device="cuda", **opt_overrides):
+    """The trimer melt under ``BREAK_CFG_TEXT`` (3334 trimers are 10 002
+    particles) with the CSVR thermostat: the ATRP forward reaction whose
+    events run ChangeNeighboursProperty and RemoveNeighboursBonds (the
+    sequential event scan; each event cuts the type_1 side's far PL-PA
+    bond), chain growth restricted to the MA pairs of the connectivity map
+    (``write_restrict_map`` at the build coordinates, into ``table_dir`` or
+    a fresh temporary directory), and MA:ML dissociation at ``diss_rate``
+    with a lambda fade (alpha 0.01) whose products the dynamic resolution
+    fires.  Returns (BuiltSystem, SystemTopology, Coordinates)."""
+    if table_dir is None:
+        table_dir = tempfile.mkdtemp(prefix="chemlab_break_")
+    coords = melt_coordinates(n_mols, density, seed=seed)
+    systop = compile_system_topology(topfile.parse_lines(
+        _melt_topology_text(n_mols).splitlines(), "<generated>"))
+    write_restrict_map(os.path.join(table_dir, RESTRICT_MAP), coords,
+                       systop.type_ids, systop.atomsym_atomtype["MA"])
+    text = BREAK_CFG_TEXT % {"cmap": RESTRICT_MAP,
+                             "diss_rate": repr(float(diss_rate))}
+    overrides = dict(thermostat="vr", table_dirs=(table_dir,))
+    overrides.update(opt_overrides)
+    return _build_trimer_melt(text, n_mols, density, kT, seed, device,
+                              overrides, coords=coords)
+
+
+def build_release_melt(n_mols: int = 3334, density: float = 0.27,
+                       kT: float = 1.0, seed: int = 42,
+                       freeze_width: float = 0.2, freeze_prob: float = 0.002,
+                       device="cuda", **opt_overrides):
+    """The trimer melt under ``RELEASE_CFG_TEXT`` with Langevin: one
+    ReleaseMolecule dummy per MA (3334 trimers: 6668 dummies, 16 670
+    particles) released when its host reacts, the reaction's ML captured
+    by JoinMolecule, an ATRPActivator cycling FA between states 3 and 4,
+    ChangeParticleType flipping 5 MA to PA every 10 steps, and a
+    FreezeRegion removing ML particles within ``freeze_width`` of the x
+    faces with probability ``freeze_prob`` a step.  ``cell_cap`` is 48
+    unless given: the build sizes it from the real particles' occupancy,
+    and the invisible dummies share their cells (43 in the fullest cell of
+    the 10k melt against the rule's 32).  Returns (BuiltSystem,
+    SystemTopology, Coordinates)."""
+    text = RELEASE_CFG_TEXT % {"freeze_width": repr(float(freeze_width)),
+                               "freeze_prob": repr(float(freeze_prob))}
+    overrides = dict(cell_cap=48)
+    overrides.update(opt_overrides)
+    return _build_trimer_melt(text, n_mols, density, kT, seed, device,
+                              overrides)

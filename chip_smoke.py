@@ -104,7 +104,26 @@ once) and drives the port's paths at 10k particles:
      on both with equal event lists and tables, the 40-tetramer melt
      (3x3x3 cells) stepped 20 NVE steps on both, and the main path: one
      untimed and three timed reactive blocks, K1 exactly once a step in
-     each.
+     each;
+  9. the reaction extensions (``extensions``) on two 10k trimer melts:
+     the break melt (``testsystems.build_break_melt``: CSVR, the ATRP
+     forward reaction with ChangeNeighboursProperty and
+     RemoveNeighboursBonds, so the sequential event scan runs, chain
+     growth restricted to a connectivity map, MA:ML dissociation with a
+     lambda fade) and the release melt (``build_release_melt``: a
+     ReleaseMolecule dummy per MA, JoinMolecule, ATRPActivator,
+     ChangeParticleType, a removing FreezeRegion): (a) the build's flags,
+     (b) one reaction step and the ATRP, FreezeRegion and
+     ChangeParticleType steps on the card and on the CPU from one state
+     under the same draws, event lists and integer tables equal, (c) the
+     70-trimer melt stepped 20 NVE steps on both, (d) the main path: one
+     untimed and four timed blocks, K1 exactly once a step in each, every
+     mechanism counted (each must fire), (e) the invariants (adjacency =
+     bonds, angle and dihedral pairs are bonds, molecules = components
+     away from unrelabelled removals, bond balance, FixDistances pairs at
+     eq, lambda in [0, 1], removed particles in no table and at rest, T,
+     no overflow), then the launches a step and a reaction step and the
+     ms of a reaction step; the total wall time is printed last.
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -2452,9 +2471,528 @@ def bonded_path(card: str):
             "bonded_ms": bonded_ms}
 
 
+# ---- the reaction extensions: the break and release melts -------------------
+
+EXT_MOLS = 3334         # trimers: 10 002 particles (+ 6 668 dummies)
+EXT_WARMUP = 300        # descent steps (the LJ path takes 600)
+EXT_TIMED = 4           # timed 200-step blocks after one untimed
+EXT_SMALL = 70          # the small melt stepped on both (3x3x3 cells: K1)
+
+
+def _sync():
+    import torch
+
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _Tally:
+    """Counters of what the extensions did on the main path: each wrapped
+    function adds its count on the device (no host read); read once at the
+    end.  ``touched`` marks the particles whose molecule a removal split
+    without a relabel.  Wrapping is undone by ``close``."""
+
+    def __init__(self):
+        self.sums, self.saved, self.host = {}, [], {}
+        self.touched = None
+
+    def count(self, module, name, fn_count, state_of=None):
+        """``fn_count(args, out)``; with ``state_of(args, out)`` giving
+        (state in, state out), the ends of the bonds the call removed are
+        marked ``touched``."""
+        import torch
+
+        orig = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            k = fn_count(a, out)
+            self.sums[name] = self.sums.get(name, 0) + k
+            if state_of is not None:
+                before, after = state_of(a, out)
+                gone = before.bonds.valid & ~after.bonds.valid
+                ends = before.bonds.idx[gone].reshape(-1).long()
+                if self.touched is None:
+                    self.touched = torch.zeros_like(before.active)
+                self.touched = self.touched.index_fill(0, ends, True)
+            return out
+
+        self.saved.append((module, name, orig))
+        setattr(module, name, wrapped)
+
+    def timed(self, module, name):
+        """Host ms of each call, between synchronizes."""
+        orig = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            _sync()
+            self.host.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.saved.append((module, name, orig))
+        setattr(module, name, wrapped)
+
+    def read(self):
+        return {k: int(v) for k, v in self.sums.items()}
+
+    def close(self):
+        for module, name, orig in reversed(self.saved):
+            setattr(module, name, orig)
+
+
+def _live(st):
+    return int((st.fixd_host >= 0).sum())
+
+
+def _bonds(st):
+    return st.bonds.valid.sum()
+
+
+def _atrp_centres(spec, cfg, st):
+    import torch
+
+    c = torch.zeros_like(st.active)
+    for e in range(cfg.n_atrp):
+        c |= (st.type_id == spec.atrp_type[e]) \
+            & (st.chem_state == spec.atrp_state[e])
+    return int((c & st.active).sum())
+
+
+def capacity_report(cfg, state) -> str:
+    """Each capacity the sticky overflow flag may stand for, with its use
+    in ``state``."""
+    import torch
+
+    from chemlab_tpu_torch.engine import neighbor
+
+    def occupancy(dims):
+        b, _, _, _ = neighbor.build_cell_buckets(
+            state.pos, state.box, state.active, dims, 256)
+        return int((b[:-1] >= 0).sum(dim=1).max())
+
+    e = state.excl[state.excl[:, 0] >= 0]
+    deg = torch.bincount(e.reshape(-1).long(), minlength=1)
+    adj_deg = int((state.adj >= 0).sum(dim=1).max())
+    out = {"cell": (occupancy(cfg.cell_dims), cfg.cell_cap),
+           "rx cell": (occupancy(cfg.rx_dims), cfg.rx_cell_cap),
+           "excl rows": (int(deg.max()), cfg.excl_cap),
+           "adj": (adj_deg, cfg.deg_cap),
+           "bonds": (int(state.bonds.count), cfg.bond_cap),
+           "angles": (int(state.angles.count), cfg.angle_cap),
+           "excl pairs": (int(state.n_excl), state.excl.shape[0]),
+           "fixd": (int((state.fixd_host >= 0).sum()), cfg.fixd_cap)}
+    if cfg.bonded_dense:
+        out["bonds irr"] = (int(state.bonds_irr.count), cfg.bond_irr_cap)
+        out["angles irr"] = (int(state.angles_irr.count), cfg.angle_irr_cap)
+    if state.excl_irr is not None:
+        out["excl irr"] = (int((state.excl_irr[:, 0] >= 0).sum()),
+                           cfg.excl_irr_cap)
+    return ", ".join("%s %d of %d" % (k, u, c) for k, (u, c) in out.items())
+
+
+def check_ext_events(spec, cfg, state):
+    """(b) One reaction step on the card and on the CPU from one state,
+    then the ATRP, FreezeRegion and ChangeParticleType steps under the
+    same draws: event lists and every integer table equal.  Returns the
+    event count and the checks."""
+    import torch
+
+    from chemlab_tpu_torch.engine import reactions
+
+    st = dataclasses.replace(
+        state, step=torch.full_like(state.step, 200),
+        reactions_on=torch.ones((), dtype=torch.bool, device=state.device))
+    gen = torch.Generator().manual_seed(17)
+    n = st.pos.shape[0]
+    draws = {}
+    if cfg.has_atrp:
+        hi = (cfg.n_particles if cfg.atrp_select_from_all
+              else max(_atrp_centres(spec, cfg, st), 1))
+        draws["atrp"] = (torch.randint(0, hi, (cfg.atrp_num,),
+                                       generator=gen),
+                         torch.rand(cfg.atrp_num, generator=gen))
+    draws["freeze"] = torch.rand(n, generator=gen)
+    draws["cpt"] = torch.rand(n, generator=gen)
+    outs = []
+    for dev in ("cpu", DEVICE):
+        sp, s = spec.to(dev), st.to(dev)
+        s = reactions.reaction_step(sp, cfg, s, 0)
+        if cfg.has_atrp:
+            s = reactions.atrp_step(sp, cfg, s, draws=draws["atrp"])
+        if cfg.has_freeze:
+            s = reactions.freeze_region_step(sp, cfg, s, u=draws["freeze"])
+        if cfg.has_cpt:
+            s = reactions.change_particle_type_step(sp, cfg, s,
+                                                    u=draws["cpt"])
+        outs.append(s)
+    cpu, card = outs
+    same = {k: torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+            for k in ("ev_log_a", "ev_log_b", "ev_log_r", "excl", "n_excl",
+                      "adj", "type_id", "chem_state", "mol_id", "fixd_host",
+                      "fixd_dummy", "active", "reaction_counts", "atrp_stats",
+                      "freeze_count")}
+    for t in ("bonds", "angles", "dihedrals"):
+        same[t] = all(torch.equal(getattr(getattr(card, t), k).cpu(),
+                                  getattr(getattr(cpu, t), k))
+                      for k in ("idx", "func", "group"))
+    n_ev = int((cpu.ev_log_a >= 0).sum())
+    print("extension events card vs CPU: %d normal events, counts %s, "
+          "equal: %s" % (n_ev, cpu.reaction_counts.tolist(),
+                         {k: v for k, v in same.items() if not v} or "all"))
+    return n_ev, all(same.values())
+
+
+def _partition(labels):
+    """Each label replaced by the index of its first occurrence."""
+    first = {}
+    return [first.setdefault(x, i) for i, x in enumerate(labels)]
+
+
+def check_invariants(spec, cfg, state, removed_rows, touched):
+    """(e) The topology invariants at the end of the main path; returns the
+    checks (the caller adds the counts).  ``touched``: the ends of the
+    bonds that RemoveNeighboursBonds and FreezeRegion removals took."""
+    import collections
+    import math
+
+    import torch
+
+    from chemlab_tpu_torch.engine import topo
+
+    st = state.to("cpu")
+    active = st.active.numpy()
+    bidx = st.bonds.idx.numpy()
+    bonds = [tuple(sorted(r)) for r in bidx.tolist() if r[0] >= 0]
+    bond_set = set(bonds)
+    adj = st.adj.numpy()
+    edges = collections.Counter(
+        tuple(sorted((i, int(j)))) for i, row in enumerate(adj.tolist())
+        for j in row if j >= 0)
+    adj_ok = (len(bond_set) == len(bonds) and set(edges) == bond_set
+              and all(c == 2 for c in edges.values()))
+    terms_ok = True
+    for t in ("angles", "dihedrals"):
+        for row in getattr(st, t).idx.numpy().tolist():
+            if row[0] >= 0 and not all(
+                    tuple(sorted(row[k:k + 2])) in bond_set
+                    for k in range(len(row) - 1)):
+                terms_ok = False
+    # molecules: the relabel's components equal the mol_id classes, except
+    # where RemoveNeighboursBonds or a FreezeRegion removal took a bond: the
+    # reference relabels only after a dissociation, so such a molecule keeps
+    # one label and its components refine it (a later break's relabel
+    # repairs it, so a touched class may also be exact)
+    label = topo.relabel_components(st.adj, st.active).numpy()
+    mol = st.mol_id.numpy()
+    touched = {int(mol[r]) for r in list(removed_rows) + list(touched)}
+    keep = [i for i in range(len(mol)) if active[i]
+            and int(mol[i]) not in touched]
+    mol_ok = (_partition([int(mol[i]) for i in keep])
+              == _partition([int(label[i]) for i in keep]))
+    by_label = {}
+    for i in range(len(mol)):
+        if active[i]:
+            by_label.setdefault(int(label[i]), set()).add(int(mol[i]))
+    mol_ok = mol_ok and all(len(v) == 1 for v in by_label.values())
+    lam = st.lam.numpy()[active]
+    dead = set(removed_rows)
+    scrubbed = not any(
+        int(x) in dead for t in ("bonds", "angles", "dihedrals")
+        for x in getattr(st, t).idx.numpy().reshape(-1) if x >= 0) \
+        and not any(int(x) in dead for x in adj.reshape(-1) if x >= 0) \
+        and not any(int(x) in dead for x in st.excl.numpy().reshape(-1)
+                    if x >= 0)
+    frozen = (st.type_id == spec.fr_final_type.cpu()) & st.active
+    still = frozen.clone()
+    still[list(removed_rows)] = True
+    vel0 = bool((st.vel[still] == 0).all())
+    fix = (st.fixd_host >= 0) & (st.fixd_dummy >= 0)
+    h = st.fixd_host[fix].long()
+    d = st.fixd_dummy[fix].long()
+    dr = st.pos[d] - st.pos[h]
+    dr = dr - st.box * torch.round(dr / st.box)
+    from chemlab_tpu_torch.engine import reactions
+
+    eq = spec.fd_eq.cpu()[reactions._fd_def_of(spec.to("cpu"), cfg,
+                                                st.type_id, st.fixd_dummy)
+                           [fix]]
+    fix_err = float((dr.norm(dim=-1) - eq).abs().max()) if fix.any() else 0.0
+    print("invariants: %d bonds, %d adjacency edges, %d molecules (%d "
+          "touched by removals), lambda in [%.4f, %.4f], %d live "
+          "FixDistances pairs (max |d - eq| %.2e), %d removed, %d frozen"
+          % (len(bonds), len(edges), len(by_label), len(touched),
+             float(lam.min()), float(lam.max()), int(fix.sum()), fix_err,
+             len(dead), int(frozen.sum())))
+    return {
+        "(e) adjacency = valid bond edges": adj_ok,
+        "(e) angle/dihedral pairs are bonds": terms_ok,
+        "(e) mol_id partition = relabel_components'": mol_ok,
+        "(e) FixDistances pairs at eq within 1e-4": fix_err <= 1e-4,
+        "(e) lambda in [0, 1]": float(lam.min()) >= 0.0
+        and float(lam.max()) <= 1.0 and math.isfinite(float(lam.sum())),
+        "(e) removed particles in no table": scrubbed,
+        "(e) frozen / removed particles at zero velocity": vel0,
+    }
+
+
+def ext_path(card: str, name: str, builder, flags, mechanisms, **kw):
+    """One extension melt on K1: (a) the build's flags, (b) a reaction
+    step and the periodic steps card vs CPU, (c) the small melt stepped on
+    both, (d) the main path with the extensions' counters, (e) the
+    invariants.  ``flags(cfg, spec, state)`` gives (a)'s checks,
+    ``mechanisms(counts)`` the counts that must be > 0."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import (cell_pair, integrate, reactions,
+                                          runner)
+
+    t0 = time.perf_counter()
+    built, systop, _ = builder(n_mols=EXT_MOLS, device=DEVICE, **kw)
+    cfg, spec = built.cfg, built.spec
+    print("%s melt: %d particles (%d real), grid %s, cell_cap %d, rx grid "
+          "%s cap %d, rx_compact %s, thermostat %s, has_dissociation %s, "
+          "has_dyn_resolution %s, n_rb %d, restrict rows %d (scan %d), "
+          "has_fixd %s (n_fd %d, fixd_cap %d, live %d), has_atrp %s "
+          "(select_from_all %s), has_cpt %s, has_freeze %s (%s)"
+          % (name, cfg.n_particles, 3 * EXT_MOLS, cfg.cell_dims,
+             cfg.cell_cap, cfg.rx_dims, cfg.rx_cell_cap, cfg.rx_compact,
+             cfg.thermostat, cfg.has_dissociation, cfg.has_dyn_resolution,
+             cfg.n_rb, spec.restrict_lo.shape[0], cfg.restrict_scan,
+             cfg.has_fixd, cfg.n_fd, cfg.fixd_cap, _live(built.state),
+             cfg.has_atrp, cfg.atrp_select_from_all, cfg.has_cpt,
+             cfg.has_freeze, cfg.freeze_mode))
+    checks = flags(cfg, spec, built.state)
+    checks["(a) K1's grid"] = cell_pair.colt_legal(cfg.cell_cap,
+                                                    cfg.cell_dims)
+    _require(checks, "%s build" % name)
+    state = runner.initial_forces(spec, cfg, built.state)
+    state = testsystems.warmup(built, state, steps=EXT_WARMUP)
+    state = testsystems.activate_initiators(
+        built, systop, state, n=max(3 * EXT_MOLS // 300, 4))
+    _sync()
+    print("%s melt build + warmup %.1f s" % (name, time.perf_counter() - t0))
+
+    # (b) a reaction step and the periodic steps on both
+    n_ev, same = check_ext_events(spec, cfg, state)
+    _require({"(b) events card = CPU": same}, "%s events" % name)
+
+    # (c) the small melt on both
+    check_small_melt_against_cpu(builder, name, cell_pair.K1,
+                                 n_mols=EXT_SMALL)
+
+    # (d) the main path, with the extensions' counters
+    tally = _Tally()
+    tally.count(reactions, "_remove_neighbour_bonds",
+                lambda a, out: _bonds(a[2]) - _bonds(out[0]),
+                lambda a, out: (a[2], out[0]))
+    tally.count(reactions, "_remove_dead",
+                lambda a, out: _bonds(a[1]) - _bonds(out),
+                lambda a, out: (a[1], out))
+    tally.count(reactions, "_apply_ppnb",
+                lambda a, out: (out.type_id != a[2].type_id).sum())
+    tally.count(reactions, "_release_constraints",
+                lambda a, out: (a[2].fixd_host >= 0).sum()
+                - (out.fixd_host >= 0).sum())
+    tally.count(reactions, "_join",
+                lambda a, out: (out[0].fixd_dummy != a[1].fixd_dummy).sum())
+    tally.count(reactions, "change_particle_type_step",
+                lambda a, out: (out.type_id != a[2].type_id).sum())
+    tally.count(integrate, "_dynamic_resolution",
+                lambda a, out: (out.type_id != a[1].type_id).sum())
+    tally.count(integrate, "_fix_distances",
+                lambda a, out: (a[2].fixd_host >= 0).sum()
+                - (out.fixd_host >= 0).sum())
+    tally.timed(runner, "_fire_reactions")
+    tally.timed(reactions, "atrp_step")
+    state = dataclasses.replace(state, step=torch.zeros_like(state.step))
+    bonds0 = int(state.bonds.valid.sum())
+    active0 = state.active.clone()
+    counts0 = state.reaction_counts.clone()
+    gen = runner.make_generator(1234, DEVICE)
+    per_block, wall = [], 0.0
+    try:
+        for b in range(1 + EXT_TIMED):
+            for k in cell_pair.KERNELS:
+                k.launches = 0
+            t1 = time.perf_counter()
+            state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+            _sync()
+            if b:
+                wall += time.perf_counter() - t1
+            others = sum(k.launches for k in cell_pair.KERNELS
+                         if k is not cell_pair.K1)
+            per_block.append((cell_pair.K1.launches, others))
+            print("%s main path block %d%s: K1 launches %d over %d steps, "
+                  "other kernels %d, events so far %s, overflow %s"
+                  % (name, b, " (timed)" if b else " (untimed)",
+                     cell_pair.K1.launches, BLOCK_STEPS, others,
+                     state.reaction_counts.tolist(),
+                     bool(state.nbr.overflow)))
+        # one more step (not a reaction step) settles the constraints the
+        # last reaction step made
+        state = runner.step_with_extensions(spec, cfg, state, gen=gen,
+                                            fire=False)
+        counts = tally.read()
+        touched = ([] if tally.touched is None else
+                   torch.nonzero(tally.touched.cpu()).flatten().tolist())
+        rx_ms = tally.host.get("_fire_reactions", [])
+        atrp_ms = tally.host.get("atrp_step", [])
+    finally:
+        tally.close()
+    pps = cfg.n_particles * EXT_TIMED * BLOCK_STEPS / wall
+    m = runner.measure(spec, cfg, state)
+    T = float(m["T"])
+    diss = spec.r_is_diss.cpu()
+    events = (state.reaction_counts - counts0).cpu()
+    formed = int(events[~diss].sum())
+    broken = int(events[diss].sum())
+    removed = counts.get("_remove_neighbour_bonds", 0) + counts.get(
+        "_remove_dead", 0)
+    bonds1 = int(m["n_bonds"])
+    removed_rows = torch.nonzero((active0 & ~state.active).cpu()).flatten()
+    counts.update(formed=formed, broken=broken,
+                  restricted=int(events[spec.r_restricted.cpu()].sum()),
+                  atrp=int(state.atrp_stats.sum()),
+                  frozen=int(state.freeze_count),
+                  removed=int(removed_rows.numel()))
+    print("%s main path: %d particles, %d timed steps in %.3f s: %.1f "
+          "particle-steps/s on %s" % (name, cfg.n_particles,
+                                      EXT_TIMED * BLOCK_STEPS, wall, pps,
+                                      card))
+    print("%s mechanisms: %s; bonds %d -> %d (formed %d, broken %d, "
+          "removed %d); T %.4f kT; overflow %s"
+          % (name, counts, bonds0, bonds1, formed, broken, removed, T,
+             bool(m["overflow"])))
+    print("%s reaction steps (host ms each, synchronized): %s; ATRP steps: "
+          "%d, mean %.3f ms" % (name, ["%.3f" % x for x in rx_ms],
+                                len(atrp_ms), sum(atrp_ms)
+                                / max(len(atrp_ms), 1)))
+    print("%s capacities: %s" % (name, capacity_report(cfg, state)))
+    kT = float(spec.kT)
+    checks = check_invariants(spec, cfg, state, removed_rows.tolist(),
+                              touched)
+    checks.update({
+        "(d) K1 once a step in every block": all(
+            k1 == BLOCK_STEPS and o == 0 for k1, o in per_block),
+        "(e) bonds = before + formed - broken - removed":
+            bonds1 == bonds0 + formed - broken - removed,
+        "(e) T within 0.5-1.5 kT": 0.5 * kT <= T <= 1.5 * kT,
+        "(e) no capacity overflow": not bool(m["overflow"]),
+        "(e) no jax, no JAX package": _no_reference_modules(),
+    })
+    for mech in mechanisms:
+        checks["(d) %s fired" % mech] = counts.get(mech, 0) > 0
+    _require(checks, "%s main path" % name)
+    launches = ext_launches(spec, cfg, state, gen)
+    print("%s launches: %.1f a step, %d in a reaction step (%.3f ms), %s in "
+          "an ATRP step on %s" % (name, launches["step"],
+                                  launches["reaction"],
+                                  launches["reaction_ms"],
+                                  launches.get("atrp", "none"), card))
+    return {"launches": sum(k1 for k1, _ in per_block), "pps": pps,
+            "rx_ms": sum(rx_ms[1:]) / max(len(rx_ms) - 1, 1),
+            "atrp_ms": sum(atrp_ms) / max(len(atrp_ms), 1),
+            "events": counts, **launches}
+
+
+def ext_launches(spec, cfg, state, gen):
+    """Kernel launches of 10 steps without a reaction step, of one
+    reaction step and of one ATRP step, under ``torch.profiler``; the
+    reaction step's time by the host clock between synchronizes (profiler
+    off)."""
+    import torch
+
+    from chemlab_tpu_torch.engine import runner
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    st = dataclasses.replace(state, reactions_on=torch.ones(
+        (), dtype=torch.bool, device=state.device))
+
+    def kernels(prof):
+        return len([e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA])
+
+    with torch.profiler.profile(activities=acts) as prof:
+        s = st
+        for _ in range(10):
+            s = runner.step_with_extensions(spec, cfg, s, gen=gen,
+                                            fire=False,
+                                            gates={"atrp": False,
+                                                   "cpt": False})
+        _sync()
+    step = kernels(prof) / 10.0
+    with torch.profiler.profile(activities=acts) as prof:
+        runner._fire_reactions(spec, cfg, st, 0)
+        _sync()
+    reaction = kernels(prof)
+    _sync()
+    t0 = time.perf_counter()
+    runner._fire_reactions(spec, cfg, st, 0)
+    _sync()
+    out = {"step": step, "reaction": reaction,
+           "reaction_ms": (time.perf_counter() - t0) * 1e3}
+    if cfg.has_atrp:
+        from chemlab_tpu_torch.engine import reactions
+
+        with torch.profiler.profile(activities=acts) as prof:
+            reactions.atrp_step(spec, cfg, st, gen=gen)
+            _sync()
+        out["atrp"] = kernels(prof)
+    return out
+
+
+def _break_flags(cfg, spec, state):
+    return {"(a) dissociation": cfg.has_dissociation,
+            "(a) dynamic resolution": cfg.has_dyn_resolution,
+            "(a) RemoveNeighboursBonds (the sequential scan)": cfg.n_rb > 0,
+            "(a) restrict rows": spec.restrict_lo.shape[0] > 0
+            and bool(spec.r_restricted.any()),
+            "(a) CSVR thermostat": cfg.thermostat == "vr",
+            "(a) ChangeNeighboursProperty": cfg.max_ppnb > 0}
+
+
+def _release_flags(cfg, spec, state):
+    return {"(a) FixDistances (2 definitions)": cfg.has_fixd
+            and cfg.n_fd == 2,
+            "(a) a dummy per MA": cfg.n_particles == 5 * EXT_MOLS
+            and _live(state) == 2 * EXT_MOLS,
+            "(a) ATRPActivator": cfg.has_atrp,
+            "(a) ChangeParticleType": cfg.has_cpt,
+            "(a) FreezeRegion removing": cfg.has_freeze
+            and bool(spec.fr_remove),
+            "(a) Langevin": cfg.thermostat == "lv"}
+
+
+def extensions_path(card: str):
+    """The reaction extensions on two 10k melts (``build_break_melt``,
+    ``build_release_melt``), K1 once a step."""
+    import tempfile
+
+    from chemlab_tpu_torch import testsystems
+
+    table_dir = tempfile.mkdtemp(prefix="chip_smoke_break_")
+    brk = ext_path(card, "break", testsystems.build_break_melt, _break_flags,
+                   ("formed", "broken", "restricted",
+                    "_remove_neighbour_bonds", "_apply_ppnb",
+                    "_dynamic_resolution"), table_dir=table_dir)
+    rel = ext_path(card, "release", testsystems.build_release_melt,
+                   _release_flags,
+                   ("formed", "_release_constraints", "_join",
+                    "_dynamic_resolution", "atrp",
+                    "change_particle_type_step", "removed", "_remove_dead"))
+    return brk, rel
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2488,6 +3026,9 @@ def main() -> int:
     checkpoint_path(example)
     chain = bonded_path(card)
     lj_row["chain_launches"] = chain["launches"]
+    brk, rel = extensions_path(card)
+    lj_row["break_launches"] = brk["launches"]
+    lj_row["release_launches"] = rel["launches"]
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
@@ -2496,6 +3037,14 @@ def main() -> int:
           "reactions): %.1f particle-steps/s, K1 launches %d, bonded_forces "
           "%.4f ms on %s" % (chain["pps"], chain["launches"],
                              chain["bonded_ms"], card))
+    for label, ext in (("break", brk), ("release", rel)):
+        print("%s melt (10k, reaction extensions): %.1f particle-steps/s, K1 "
+              "launches %d, %.3f ms a reaction step on the main path (%.3f "
+              "ms, %d launches alone), %.1f launches a step, ATRP step "
+              "%.3f ms on %s" % (label, ext["pps"], ext["launches"],
+                                 ext["rx_ms"], ext["reaction_ms"],
+                                 ext["reaction"], ext["step"],
+                                 ext["atrp_ms"], card))
     print("kernel matrix (ms): %s" % json.dumps(km))
     print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
           "K1 launches %d (%d within the loop's %d steps), cell_cap 40 -> "
@@ -2508,6 +3057,8 @@ def main() -> int:
                              "cell_pair.BY_NAME (%d), each > 0: %s"
                              % (len(cell_pair.BY_NAME),
                                 [(r["name"], r["launches"]) for r in rows]))
+    print("chip_smoke total wall time: %.1f s" % (time.perf_counter()
+                                                  - t_start))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -104,13 +104,12 @@ def test_port_state_dtypes(builds):
 
 
 @pytest.mark.parametrize("override, charge", [
-    (dict(thermostat="vr"), None),
     (dict(use_pallas=False), None),
     (dict(coulomb_cutoff=1.0),
      ("1 MA 1 MON AI 1 0.000000 1", "1 MA 1 MON AI 1 0.5 1")),
     (dict(coulomb_cutoff=0.9),
      ("  PA    1.0      0.000 ", "  PA    1.0      0.500 ")),
-], ids=["csvr", "row_path", "coulomb", "coulomb_charged_product"])
+], ids=["row_path", "coulomb", "coulomb_charged_product"])
 def test_out_of_slice_configs_raise(override, charge, monkeypatch):
     if charge is not None:
         # Coulomb over zero charges is zero pair by pair and builds (the
@@ -123,6 +122,33 @@ def test_out_of_slice_configs_raise(override, charge, monkeypatch):
                             lambda n: text(n).replace(*charge))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pts.build_melt(n_mols=70, reactive=True, device="cpu", **override)
+
+
+@pytest.mark.parametrize("builder", ["break", "release"])
+def test_extensions_under_slabs_raise_naming_m14(builder, tmp_path):
+    """Dissociation and the reaction extensions build on one rank; under
+    ``slab_devices > 1`` they raise, naming M14."""
+    fn = {"break": lambda **kw: pts.build_break_melt(table_dir=str(tmp_path),
+                                                     **kw),
+          "release": pts.build_release_melt}[builder]
+    with pytest.raises(NotImplementedError, match="M14"):
+        fn(n_mols=70, device="cpu", slab_devices=2)
+    built, _, _ = fn(n_mols=70, device="cpu")
+    assert built.cfg.has_dissociation or built.cfg.has_fixd
+
+
+@pytest.mark.parametrize("thermostat", ["vr", "br", "iso"])
+def test_rescaling_thermostats_build(thermostat):
+    """CSVR, Berendsen and isokinetic build, with the reference's
+    ``iso_coupling`` rule (``max(int(thermostat_gamma), 1)`` for 'iso')."""
+    kw = dict(n_mols=70, reactive=True, thermostat=thermostat,
+              thermostat_gamma=3.7)
+    pb, _, _ = pts.build_melt(device="cpu", **kw)
+    assert pb.cfg.thermostat == thermostat
+    assert pb.cfg.iso_coupling == (3 if thermostat == "iso" else 1)
+    if thermostat == "iso":
+        rb, _, _ = rts.build_melt(use_pallas=True, **kw)
+        assert bridge.config_to_dict(rb.cfg) == bridge.config_to_dict(pb.cfg)
 
 
 def test_coulomb_over_zero_charges_builds(builds):

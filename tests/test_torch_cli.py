@@ -259,3 +259,61 @@ def test_checkpoint_retune_and_restore(runs, tmp_path, capsys):
     steps = [ln.split(",")[0] for ln in
              (tmp_path / "melt_energy.csv").read_text().splitlines()[1:]]
     assert steps == ["40", "50"]
+
+
+FREEZE_ATRP_EXT = """
+[ext_freeze]
+ext_type=FreezeRegion
+target_type=ML
+width=0.5
+directions=-x,x
+prob=1.0
+remove_particles=True
+
+[ext_atrp]
+ext_type=ATRPActivator
+interval=10
+num_particles=50
+select_from_all=0
+ratio_activator=1.0
+ratio_deactivator=0.5
+delta_catalyst=0.001
+k_activate=0.0
+k_deactivate=0.0
+options=FA(3,A)->FA(1);DA(2,A)->DA(1)
+
+[group_reaction_1]"""
+
+
+def test_freeze_and_atrp_stats_match(runs, tmp_path):
+    """A FreezeRegion (removal with probability 1: no draw decides) and an
+    ATRPActivator (rates 0: no draw flips anything) added to the cfg: both
+    CLIs write ``melt_7_freeze_stats.dat`` and ``melt_atrp_stats.dat`` with
+    the same lines, counts included."""
+    text = (runs["port"] / "atrp.cfg").read_text().replace(
+        "[group_reaction_1]", FREEZE_ATRP_EXT).replace(
+        "extensions=change_neighbour_type",
+        "extensions=change_neighbour_type,freeze,atrp")
+    cwd = os.getcwd()
+    out = {}
+    try:
+        for side, main, kw in (("ref", rsim.main, {}),
+                               ("port", start_simulation.main,
+                                {"device": "cpu"})):
+            d = tmp_path / side
+            d.mkdir()
+            for name in ("conf.gro", "topol.top", "hooks.py", "params"):
+                (d / name).write_bytes((runs[side] / name).read_bytes())
+            (d / "atrp.cfg").write_text(text)
+            os.chdir(d)
+            assert main(FLAGS[:4] + ["20"] + FLAGS[5:], **kw) == 0
+            out[side] = [(d / f).read_text().splitlines() for f in
+                         ("melt_7_freeze_stats.dat", "melt_atrp_stats.dat")]
+    finally:
+        os.chdir(cwd)
+    assert out["port"] == out["ref"]
+    freeze, atrp = out["port"]
+    assert freeze[0] == "# step frozen_total" and int(
+        freeze[-1].split()[1]) > 0
+    assert atrp == ["activated 0", "deactivated 0", "ratio_activator 1",
+                    "ratio_deactivator 0.5"]

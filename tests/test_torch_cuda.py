@@ -5,7 +5,10 @@ for bit, the LJ and Chebyshev column-segment kernels against their
 cellwise baselines bit for bit, the cancellation at r -> 0, and short
 runs on the card against the CPU path: LJ, tabulated, and NPT on the K2
 grid; the bonded layer of the step-growth chain melt (dihedrals, 1-4 pairs,
-func-8 bonds and angles) and its full-row reaction step against the CPU.
+func-8 bonds and angles) and its full-row reaction step against the CPU;
+one reaction step of the break and release melts (the sequential event
+scan, dissociation, restrict, releases, joins) and the ATRP,
+ChangeParticleType and FreezeRegion steps against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -1626,3 +1629,84 @@ def test_cuda_fullrow_events_equal_cpu(chain_melt):
         for k in ("idx", "func", "params", "lam"):
             assert torch.equal(getattr(getattr(outs[1], t), k).cpu(),
                                getattr(getattr(outs[0], t), k)), (t, k)
+
+
+# ---- the reaction extensions: the break and release melts -------------------
+
+EXT_FIELDS = ("ev_log_a", "ev_log_b", "ev_log_r", "excl", "n_excl", "adj",
+              "mol_id", "type_id", "chem_state", "fixd_host", "fixd_dummy",
+              "active", "lam", "reaction_counts", "atrp_stats",
+              "atrp_ratios", "freeze_count")
+
+
+def _ext_state(built, systop, seed):
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = testsystems.warmup(built, st, steps=30)
+    st = testsystems.activate_initiators(built, systop, st, n=12, seed=seed)
+    return dataclasses.replace(st, step=torch.full_like(st.step, 200),
+                               reaction_rates=st.reaction_rates * 5.0)
+
+
+def _assert_ext_equal(card, cpu):
+    for name in EXT_FIELDS:
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), \
+            name
+    for t in ("bonds", "angles", "dihedrals"):
+        for k in ("idx", "func", "params", "lam", "group"):
+            assert torch.equal(getattr(getattr(card, t), k).cpu(),
+                               getattr(getattr(cpu, t), k)), (t, k)
+    assert bool(card.nbr.overflow) == bool(cpu.nbr.overflow)
+
+
+@pytest.mark.cuda
+def test_cuda_break_reaction_step_equals_cpu(tmp_path):
+    """The break melt (40 trimers): one reaction step with the sequential
+    scan (ChangeNeighboursProperty, RemoveNeighboursBonds), the restricted
+    chain growth and the dissociation, on the card and on the CPU from one
+    state: the same events, tables, molecules and lambdas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chemlab_tpu_torch.engine import reactions
+
+    built, systop, _ = testsystems.build_break_melt(
+        n_mols=40, density=0.4, seed=5, table_dir=str(tmp_path),
+        diss_rate=2.0, device="cpu", max_events=16)
+    st = _ext_state(built, systop, 1)
+    outs = [reactions.reaction_step(built.spec.to(dev), built.cfg,
+                                    st.to(dev), 0) for dev in ("cpu", "cuda")]
+    counts = outs[0].reaction_counts.tolist()
+    assert counts[0] > 0 and counts[2] > 0, counts
+    _assert_ext_equal(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_release_reaction_step_equals_cpu():
+    """The release melt (80 trimers and 160 dummies): one reaction step
+    (releases and joins), then the ATRP, ChangeParticleType and
+    FreezeRegion steps under the same draws (removal included), on the
+    card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chemlab_tpu_torch.engine import reactions
+
+    built, systop, _ = testsystems.build_release_melt(
+        n_mols=80, density=0.3, seed=3, freeze_width=1.5, freeze_prob=0.5,
+        device="cpu", max_events=16)
+    cfg = built.cfg
+    st = _ext_state(built, systop, 2)
+    gen = torch.Generator().manual_seed(9)
+    n = st.pos.shape[0]
+    atrp = (torch.randint(0, 12, (cfg.atrp_num,), generator=gen),
+            torch.rand(cfg.atrp_num, generator=gen))
+    u_cpt, u_fr = torch.rand(n, generator=gen), torch.rand(n, generator=gen)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        spec, s = built.spec.to(dev), st.to(dev)
+        s = reactions.reaction_step(spec, cfg, s, 0)
+        s = reactions.atrp_step(spec, cfg, s, draws=atrp)
+        s = reactions.freeze_region_step(spec, cfg, s, u=u_fr)
+        s = reactions.change_particle_type_step(spec, cfg, s, u=u_cpt)
+        outs.append(s)
+    assert int((outs[0].ev_log_a >= 0).sum()) > 0
+    assert int(outs[0].atrp_stats.sum()) > 0 and int(outs[0].freeze_count)
+    _assert_ext_equal(outs[1], outs[0])

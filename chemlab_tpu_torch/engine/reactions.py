@@ -685,67 +685,66 @@ def _join(spec, st, valid, a, b, r):
                                  torch.clamp(b, min=0))), do_join & ~slot_ok
 
 
-def _apply_events_sequential(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r,
-                             rows=None):
-    """One event at a time, so that each sees the topology of all earlier
-    ones.  Per event: the bond, ChangeNeighboursProperty, the releases,
+def _apply_event(spec, cfg, st, valid, a, b, r):
+    """One event of the sequential scan (0-d ``valid``, ``a``, ``b``,
+    ``r``): the bond, ChangeNeighboursProperty, the releases,
     RemoveNeighboursBonds on each side, the JoinMolecule capture, then the
-    angles, dihedrals and exclusions the bond closes.
-
-    A row whose ``ev_valid`` is False writes nothing (every write is
-    gated), so only the fired rows run: ``rows`` defaults to their ids,
-    read once; any superset in order (all ``max_events`` rows) gives the
-    same state."""
-    dev = state.pos.device
-    if rows is None:
-        rows = torch.nonzero(ev_valid).flatten().tolist()
+    angles, dihedrals and exclusions the bond closes.  Every write is gated
+    on ``valid``.  Returns (state, overflow)."""
+    dev = st.pos.device
     new_lam = torch.where(spec.hybrid_bond_rate > 0.0, 0.0, 1.0).to(
-        state.bonds.lam.dtype).reshape(1)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    st = state
-    for k in rows:
-        valid, a, b, r = ev_valid[k], ev_a[k], ev_b[k], ev_r[k]
-        rc = torch.clamp(r, min=0).long()
-        grp = torch.clamp(spec.r_group[rc], min=0)
-        make_bond = valid & ~spec.r_virtual[rc]
-        bonds, ov1 = topo.table_append(
-            st.bonds, torch.stack([a, b])[None], spec.g_func[grp.long()][None],
-            spec.g_params[grp.long()][None], make_bond[None],
-            typelookup=torch.zeros(1, dtype=torch.bool, device=dev),
-            lam=new_lam, group=grp[None])
-        adj, ov2 = topo.adj_add_edge(st.adj, a, b, make_bond)
-        mol = topo.merge_molecules(st.mol_id, a, b, make_bond)
-        st = dataclasses.replace(st, bonds=bonds, adj=adj, mol_id=mol)
-        overflow = overflow | ov1 | ov2
-        if cfg.max_ppnb > 0:
-            st = _apply_ppnb(spec, cfg, st, valid, a, b, r)
-        if cfg.has_fixd:
-            rn = spec.r_release_n[rc]
-            side = spec.r_release_side[rc]
-            st = _release_constraints(spec, cfg, st, a, rn,
-                                      valid & (rn > 0) & (side != 1))
-            st = _release_constraints(spec, cfg, st, b, rn,
-                                      valid & (rn > 0) & (side != 0))
-        if cfg.n_rb > 0:
-            for s_code, anchor in ((0, a), (1, b)):
-                st, rm_ov = _remove_neighbour_bonds(spec, cfg, st, valid,
-                                                    anchor, rc, s_code)
-                overflow = overflow | rm_ov
-        if cfg.has_fixd:
-            st, j_ov = _join(spec, st, valid, a, b, r)
-            overflow = overflow | j_ov
-        st, ov3 = _generate_terms_for_bond(spec, st, a, b, make_bond,
-                                           cfg.exclude_new_bonds)
-        overflow = overflow | ov3
-    return st, overflow
+        st.bonds.lam.dtype).reshape(1)
+    rc = torch.clamp(r, min=0).long()
+    grp = torch.clamp(spec.r_group[rc], min=0)
+    make_bond = valid & ~spec.r_virtual[rc]
+    bonds, ov1 = topo.table_append(
+        st.bonds, torch.stack([a, b])[None], spec.g_func[grp.long()][None],
+        spec.g_params[grp.long()][None], make_bond[None],
+        typelookup=torch.zeros(1, dtype=torch.bool, device=dev),
+        lam=new_lam, group=grp[None])
+    adj, ov2 = topo.adj_add_edge(st.adj, a, b, make_bond)
+    mol = topo.merge_molecules(st.mol_id, a, b, make_bond)
+    st = dataclasses.replace(st, bonds=bonds, adj=adj, mol_id=mol)
+    overflow = ov1 | ov2
+    if cfg.max_ppnb > 0:
+        st = _apply_ppnb(spec, cfg, st, valid, a, b, r)
+    if cfg.has_fixd:
+        rn = spec.r_release_n[rc]
+        side = spec.r_release_side[rc]
+        st = _release_constraints(spec, cfg, st, a, rn,
+                                  valid & (rn > 0) & (side != 1))
+        st = _release_constraints(spec, cfg, st, b, rn,
+                                  valid & (rn > 0) & (side != 0))
+    if cfg.n_rb > 0:
+        for s_code, anchor in ((0, a), (1, b)):
+            st, rm_ov = _remove_neighbour_bonds(spec, cfg, st, valid,
+                                                anchor, rc, s_code)
+            overflow = overflow | rm_ov
+    if cfg.has_fixd:
+        st, j_ov = _join(spec, st, valid, a, b, r)
+        overflow = overflow | j_ov
+    st, ov3 = _generate_terms_for_bond(spec, st, a, b, make_bond,
+                                       cfg.exclude_new_bonds)
+    return st, overflow | ov3
 
 
-def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r,
-                          rows=None):
+def _apply_events_sequential(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
+    """``_apply_event`` for one event at a time, so that each sees the
+    topology of all earlier ones.  A row whose ``ev_valid`` is False writes
+    nothing, so only the fired rows run, their ids read once; the loop
+    over all ``max_events`` rows gives the same state."""
+    overflow = torch.zeros((), dtype=torch.bool, device=state.pos.device)
+    for k in torch.nonzero(ev_valid).flatten().tolist():
+        state, ov = _apply_event(spec, cfg, state, ev_valid[k], ev_a[k],
+                                 ev_b[k], ev_r[k])
+        overflow = overflow | ov
+    return state, overflow
+
+
+def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
     """Apply fired normal-reaction events: per-particle updates, then the
     batched topology path, or, with RemoveNeighboursBonds or FixDistances,
-    the sequential scan (``rows`` as in ``_apply_events_sequential``).
-    Returns (state, overflow)."""
+    the sequential scan.  Returns (state, overflow)."""
     rr = torch.clamp(ev_r, min=0).long()
     ac = torch.clamp(ev_a, min=0).long()
     bc = torch.clamp(ev_b, min=0).long()
@@ -774,7 +773,7 @@ def apply_reaction_events(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r,
 
     if cfg.n_rb or cfg.has_fixd:
         return _apply_events_sequential(spec, cfg, state, ev_valid, ev_a,
-                                        ev_b, ev_r, rows)
+                                        ev_b, ev_r)
     return _apply_events_batched(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r)
 
 

@@ -75,44 +75,49 @@ def _fire_reactions(spec, cfg, state, rng_seed: int):
     return excl_dense.rederive(cfg, bonded_dense.rederive(cfg, state))
 
 
-def _due(given, state, interval: int) -> bool:
-    """The host's gate ``given``, or when None the reference's
-    ``reactions_on & (step % interval == 0)`` read from the state."""
-    if given is not None:
-        return given
-    return bool(state.reactions_on) and int(state.step) % interval == 0
+def _gates(cfg, on: bool, step: int) -> dict:
+    """The host's gates of the interval-gated steps at ``step``: the
+    reference's ``reactions_on & (step % interval == 0)`` for the reaction
+    (``reaction_interval``), ATRP (``atrp_interval``) and
+    ChangeParticleType (``cpt_interval``) steps."""
+    return {"reaction": cfg.has_reactions and on
+            and step % cfg.reaction_interval == 0,
+            "atrp": cfg.has_atrp and on and step % cfg.atrp_interval == 0,
+            "cpt": cfg.has_cpt and on and step % cfg.cpt_interval == 0}
 
 
 def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
-                         fire=None, noise=None, pair_kernel: str = "auto",
-                         gates=None, draws=None):
+                         gates=None, noise=None, pair_kernel: str = "auto",
+                         draws=None):
     """One MD step, the interval-gated reaction step, then the ATRP step
     (every ``atrp_interval``), FreezeRegion (every step) and
-    ChangeParticleType (every ``cpt_interval``).  ``fire`` is the host's
-    reaction gate and ``gates`` its ``{"atrp": bool, "cpt": bool}``; those
-    not given are read from the state.  The draws, in this order: the
-    Langevin noise (``noise``), CSVR's normal, the barostat's, then the
-    ATRP ranks and uniforms, FreezeRegion's and ChangeParticleType's
-    uniforms; ``draws`` may hold any of them under the keys "rescale",
-    "baro", "atrp" ((ranks, u)), "freeze" and "cpt", and the rest come from
-    ``gen``.  ``pair_kernel`` names the pair kernel
+    ChangeParticleType (every ``cpt_interval``).  ``gates`` holds the
+    host's ``{"reaction": bool, "atrp": bool, "cpt": bool}`` (``_gates``);
+    when None they are read from the state.  The draws, in this
+    order: the Langevin noise (``noise``), CSVR's normal, the barostat's,
+    then the ATRP ranks and uniforms, FreezeRegion's and
+    ChangeParticleType's uniforms; ``draws`` may hold any of them under
+    the keys "rescale", "baro", "atrp" ((ranks, u)), "freeze" and "cpt",
+    and the rest come from ``gen``.  ``pair_kernel`` names the pair kernel
     (``integrate.compute_forces``)."""
     draws = draws or {}
-    gates = gates or {}
     state = integrate.md_step(spec, cfg, state, noise=noise, gen=gen,
                               pair_kernel=pair_kernel,
                               rescale_noise=draws.get("rescale"),
                               baro_noise=draws.get("baro"))
+    if gates is None and (cfg.has_reactions or cfg.has_atrp
+                          or cfg.has_cpt):
+        gates = _gates(cfg, bool(state.reactions_on), int(state.step))
     if cfg.has_reactions:
         state = _hybrid_lambda_ramp(spec, state, cfg)
-        if _due(fire, state, cfg.reaction_interval):
+        if gates["reaction"]:
             state = _fire_reactions(spec, cfg, state, rng_seed)
-    if cfg.has_atrp and _due(gates.get("atrp"), state, cfg.atrp_interval):
+    if cfg.has_atrp and gates["atrp"]:
         state = reactions.atrp_step(spec, cfg, state, draws.get("atrp"), gen)
     if cfg.has_freeze:
         state = reactions.freeze_region_step(spec, cfg, state,
                                              draws.get("freeze"), gen)
-    if cfg.has_cpt and _due(gates.get("cpt"), state, cfg.cpt_interval):
+    if cfg.has_cpt and gates["cpt"]:
         state = reactions.change_particle_type_step(spec, cfg, state,
                                                     draws.get("cpt"), gen)
     return state
@@ -126,18 +131,10 @@ def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None,
     come from one read of the step and the switch."""
     on = bool(state.reactions_on)
     step0 = int(state.step)
-
-    def due(interval, step):
-        return on and step % interval == 0
-
     for k in range(n_steps):
-        step = step0 + k + 1
-        fire = cfg.has_reactions and due(cfg.reaction_interval, step)
-        gates = {"atrp": cfg.has_atrp and due(cfg.atrp_interval, step),
-                 "cpt": cfg.has_cpt and due(cfg.cpt_interval, step)}
         state = step_with_extensions(spec, cfg, state, rng_seed, gen=gen,
-                                     fire=fire, pair_kernel=pair_kernel,
-                                     gates=gates)
+                                     gates=_gates(cfg, on, step0 + k + 1),
+                                     pair_kernel=pair_kernel)
     check_replicas(cfg, state)
     return state
 

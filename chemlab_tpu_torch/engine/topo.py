@@ -159,27 +159,12 @@ def excl_append(excl, n_excl, pairs, valid):
 # removal primitives (bond breaking, the sequential event scan, freezing)
 # ---------------------------------------------------------------------------
 
-def adj_remove_edge(adj, i, j, enable=True):
-    """Remove undirected edge (i, j) (0-d tensors); a no-op if absent,
-    disabled or i/j < 0."""
-    valid = torch.as_tensor(enable, device=adj.device) & (i >= 0) & (j >= 0)
-    a = torch.clamp(i, min=0).long()
-    b = torch.clamp(j, min=0).long()
-    row_a = adj[a]
-    row_b = adj[b]
-    new_a = torch.where(valid & (row_a == b), -1, row_a)
-    new_b = torch.where(valid & (row_b == a), -1, row_b)
-    adj = adj.clone()
-    adj[a] = new_a
-    adj[b] = new_b
-    return adj
-
-
 def adj_remove_edges(adj, edges, valid):
-    """``adj_remove_edge`` for each row of ``edges`` (E, 2) in order (the
-    reference's ``fori_loop``), in one scatter per side: a removal only
-    writes -1, so no row changes what another row matches, and rows may
-    share endpoints or repeat."""
+    """Remove the undirected edge of each row of ``edges`` (E, 2) where
+    ``valid`` and both ends are >= 0, a no-op where absent: the reference's
+    ``adj_remove_edge`` over the rows in order, in one scatter per side.  A
+    removal only writes -1, so no row changes what another row matches, and
+    rows may share endpoints or repeat."""
     n, deg = adj.shape
     valid = valid & (edges[:, 0] >= 0) & (edges[:, 1] >= 0)
     flat = torch.cat([adj.reshape(-1), adj.new_full((1,), -1)])
@@ -189,11 +174,6 @@ def adj_remove_edges(adj, edges, valid):
         hit = (adj[xl] == y[:, None]) & valid[:, None]
         flat[torch.where(hit, xl[:, None] * deg + slot, n * deg)] = -1
     return flat[:n * deg].reshape(n, deg)
-
-
-def adj_has_edge(adj, i, j):
-    return (torch.any(adj[torch.clamp(i, min=0).long()] == j, dim=-1)
-            & (i >= 0) & (j >= 0))
 
 
 def relabel_components(adj, active):

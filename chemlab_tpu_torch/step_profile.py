@@ -143,14 +143,16 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     st2 = dataclasses.replace(st)
+    no_gates = {"reaction": False, "atrp": False, "cpt": False}
     for _ in range(5):
-        st2 = runner.step_with_extensions(spec, cfg, st2, gen=gen, fire=False)
+        st2 = runner.step_with_extensions(spec, cfg, st2, gen=gen,
+                                          gates=no_gates)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             st2 = runner.step_with_extensions(spec, cfg, st2, gen=gen,
-                                              fire=False)
+                                              gates=no_gates)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     kern = [e for e in prof.events()

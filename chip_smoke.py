@@ -112,13 +112,15 @@ once) and drives the port's paths at 10k particles:
      growth restricted to a connectivity map, MA:ML dissociation with a
      lambda fade) and the release melt (``build_release_melt``: a
      ReleaseMolecule dummy per MA, JoinMolecule, ATRPActivator,
-     ChangeParticleType, a removing FreezeRegion): (a) the build's flags,
-     (b) one reaction step and the ATRP, FreezeRegion and
-     ChangeParticleType steps on the card and on the CPU from one state
-     under the same draws, event lists and integer tables equal, (c) the
-     70-trimer melt stepped 20 NVE steps on both, (d) the main path: one
-     untimed and four timed blocks, K1 exactly once a step in each, every
-     mechanism counted (each must fire), (e) the invariants (adjacency =
+     ChangeParticleType, a removing FreezeRegion): (a) the build's flags
+     and K1 against plain at the melt's own caps, (b) one reaction step
+     and the ATRP, FreezeRegion and ChangeParticleType steps on the card
+     and on the CPU from one state under the same draws, event lists and
+     integer tables equal, (c) the 70-trimer melt stepped 20 NVE steps on
+     both, (d) the main path: one untimed and four timed blocks, K1
+     exactly once a step in each, then the same run from the same start,
+     not timed, with every mechanism counted (each must fire), (e) the
+     invariants of the counted run's end (adjacency =
      bonds, angle and dihedral pairs are bonds, molecules = components
      away from unrelabelled removals, bond balance, FixDistances pairs at
      eq, lambda in [0, 1], removed particles in no table and at rest, T,
@@ -2487,8 +2489,8 @@ def _sync():
 
 
 class _Tally:
-    """Counters of what the extensions did on the main path: each wrapped
-    function adds its count on the device (no host read); read once at the
+    """Counters of what the extensions did in a run that is not timed:
+    each wrapped function adds its count on the device, read once at the
     end.  ``touched`` marks the particles whose molecule a removal split
     without a relabel.  Wrapping is undone by ``close``."""
 
@@ -2739,10 +2741,56 @@ def check_invariants(spec, cfg, state, removed_rows, touched):
     }
 
 
+def _ext_blocks(spec, cfg, state, name, timed):
+    """One untimed and ``EXT_TIMED`` timed ``run_block`` calls of
+    ``BLOCK_STEPS`` steps from a generator seeded 1234, the kernels' counts
+    set to 0 before each block; returns (state, [(K1 launches, other
+    launches)] a block, wall seconds of the timed blocks)."""
+    from chemlab_tpu_torch.engine import cell_pair, runner
+
+    gen = runner.make_generator(1234, DEVICE)
+    per_block, wall = [], 0.0
+    for b in range(1 + EXT_TIMED):
+        for k in cell_pair.KERNELS:
+            k.launches = 0
+        _sync()
+        t1 = time.perf_counter()
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+        _sync()
+        if b:
+            wall += time.perf_counter() - t1
+        others = sum(k.launches for k in cell_pair.KERNELS
+                     if k is not cell_pair.K1)
+        per_block.append((cell_pair.K1.launches, others))
+        print("%s %s block %d%s: K1 launches %d over %d steps, other "
+              "kernels %d, events so far %s, overflow %s"
+              % (name, "main path" if timed else "counted run", b,
+                 " (timed)" if timed and b else " (untimed)",
+                 cell_pair.K1.launches, BLOCK_STEPS, others,
+                 state.reaction_counts.tolist(), bool(state.nbr.overflow)))
+    return state, per_block, wall
+
+
+def _ext_deltas(spec, cfg, start, state):
+    """What a run from ``start`` (on the CPU) to ``state`` did, read from
+    the state alone: bonds formed and broken, restricted events, ATRP
+    flips, frozen and removed particles."""
+    end = state.to("cpu")
+    diss = spec.r_is_diss.cpu()
+    events = end.reaction_counts - start.reaction_counts
+    return {"formed": int(events[~diss].sum()),
+            "broken": int(events[diss].sum()),
+            "restricted": int(events[spec.r_restricted.cpu()].sum()),
+            "atrp": int((end.atrp_stats - start.atrp_stats).sum()),
+            "frozen": int(end.freeze_count - start.freeze_count),
+            "removed": int((start.active & ~end.active).sum())}
+
+
 def ext_path(card: str, name: str, builder, flags, mechanisms, **kw):
-    """One extension melt on K1: (a) the build's flags, (b) a reaction
-    step and the periodic steps card vs CPU, (c) the small melt stepped on
-    both, (d) the main path with the extensions' counters, (e) the
+    """One extension melt on K1: (a) the build's flags, K1 against plain
+    at the melt's caps, (b) a reaction step and the periodic steps card vs
+    CPU, (c) the small melt stepped on both, (d) the main path, then the
+    same run from the same start with the extensions' counters, (e) the
     invariants.  ``flags(cfg, spec, state)`` gives (a)'s checks,
     ``mechanisms(counts)`` the counts that must be > 0."""
     import torch
@@ -2777,6 +2825,9 @@ def ext_path(card: str, name: str, builder, flags, mechanisms, **kw):
     _sync()
     print("%s melt build + warmup %.1f s" % (name, time.perf_counter() - t0))
 
+    # K1 against plain at the main path's own cap, grid and occupancy
+    _k1_at(cfg, spec, state, "%s melt K1 at cap %d" % (name, cfg.cell_cap))
+
     # (b) a reaction step and the periodic steps on both
     n_ev, same = check_ext_events(spec, cfg, state)
     _require({"(b) events card = CPU": same}, "%s events" % name)
@@ -2785,7 +2836,16 @@ def ext_path(card: str, name: str, builder, flags, mechanisms, **kw):
     check_small_melt_against_cpu(builder, name, cell_pair.K1,
                                  n_mols=EXT_SMALL)
 
-    # (d) the main path, with the extensions' counters
+    # (d) the main path: one untimed and EXT_TIMED timed blocks through
+    # run_block, with nothing of the smoke's own inside them
+    state = dataclasses.replace(state, step=torch.zeros_like(state.step))
+    start = state.to("cpu")
+    bonds0 = int(state.bonds.valid.sum())
+    state, per_block, wall = _ext_blocks(spec, cfg, state, name, True)
+    timed_end, timed_counts = state, _ext_deltas(spec, cfg, start, state)
+    # the same run again from the same start, its mechanisms counted by
+    # wrappers that add on the device; it is not timed, and only its host
+    # ms of each reaction and ATRP step (between synchronizes) are kept
     tally = _Tally()
     tally.count(reactions, "_remove_neighbour_bonds",
                 lambda a, out: _bonds(a[2]) - _bonds(out[0]),
@@ -2809,34 +2869,15 @@ def ext_path(card: str, name: str, builder, flags, mechanisms, **kw):
                 - (out.fixd_host >= 0).sum())
     tally.timed(runner, "_fire_reactions")
     tally.timed(reactions, "atrp_step")
-    state = dataclasses.replace(state, step=torch.zeros_like(state.step))
-    bonds0 = int(state.bonds.valid.sum())
-    active0 = state.active.clone()
-    counts0 = state.reaction_counts.clone()
-    gen = runner.make_generator(1234, DEVICE)
-    per_block, wall = [], 0.0
+    active0 = start.active.to(DEVICE)
     try:
-        for b in range(1 + EXT_TIMED):
-            for k in cell_pair.KERNELS:
-                k.launches = 0
-            t1 = time.perf_counter()
-            state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
-            _sync()
-            if b:
-                wall += time.perf_counter() - t1
-            others = sum(k.launches for k in cell_pair.KERNELS
-                         if k is not cell_pair.K1)
-            per_block.append((cell_pair.K1.launches, others))
-            print("%s main path block %d%s: K1 launches %d over %d steps, "
-                  "other kernels %d, events so far %s, overflow %s"
-                  % (name, b, " (timed)" if b else " (untimed)",
-                     cell_pair.K1.launches, BLOCK_STEPS, others,
-                     state.reaction_counts.tolist(),
-                     bool(state.nbr.overflow)))
+        counted, per_block_c, _ = _ext_blocks(spec, cfg, start.to(DEVICE),
+                                              name, False)
         # one more step (not a reaction step) settles the constraints the
         # last reaction step made
-        state = runner.step_with_extensions(spec, cfg, state, gen=gen,
-                                            fire=False)
+        state = runner.step_with_extensions(
+            spec, cfg, counted, gen=runner.make_generator(99, DEVICE),
+            gates={"reaction": False, "atrp": False, "cpt": False})
         counts = tally.read()
         touched = ([] if tally.touched is None else
                    torch.nonzero(tally.touched.cpu()).flatten().tolist())
@@ -2845,50 +2886,50 @@ def ext_path(card: str, name: str, builder, flags, mechanisms, **kw):
     finally:
         tally.close()
     pps = cfg.n_particles * EXT_TIMED * BLOCK_STEPS / wall
+    m_t = runner.measure(spec, cfg, timed_end)
     m = runner.measure(spec, cfg, state)
     T = float(m["T"])
-    diss = spec.r_is_diss.cpu()
-    events = (state.reaction_counts - counts0).cpu()
-    formed = int(events[~diss].sum())
-    broken = int(events[diss].sum())
     removed = counts.get("_remove_neighbour_bonds", 0) + counts.get(
         "_remove_dead", 0)
     bonds1 = int(m["n_bonds"])
     removed_rows = torch.nonzero((active0 & ~state.active).cpu()).flatten()
-    counts.update(formed=formed, broken=broken,
-                  restricted=int(events[spec.r_restricted.cpu()].sum()),
-                  atrp=int(state.atrp_stats.sum()),
-                  frozen=int(state.freeze_count),
-                  removed=int(removed_rows.numel()))
+    deltas = _ext_deltas(spec, cfg, start, state)
+    formed, broken = deltas["formed"], deltas["broken"]
+    counts.update(deltas)
     print("%s main path: %d particles, %d timed steps in %.3f s: %.1f "
-          "particle-steps/s on %s" % (name, cfg.n_particles,
-                                      EXT_TIMED * BLOCK_STEPS, wall, pps,
-                                      card))
-    print("%s mechanisms: %s; bonds %d -> %d (formed %d, broken %d, "
-          "removed %d); T %.4f kT; overflow %s"
+          "particle-steps/s on %s; its end: %s, T %.4f kT, overflow %s"
+          % (name, cfg.n_particles, EXT_TIMED * BLOCK_STEPS, wall, pps,
+             card, timed_counts,
+             float(m_t["T"]), bool(m_t["overflow"])))
+    print("%s mechanisms (the counted run): %s; bonds %d -> %d (formed %d, "
+          "broken %d, removed %d); T %.4f kT; overflow %s"
           % (name, counts, bonds0, bonds1, formed, broken, removed, T,
              bool(m["overflow"])))
-    print("%s reaction steps (host ms each, synchronized): %s; ATRP steps: "
-          "%d, mean %.3f ms" % (name, ["%.3f" % x for x in rx_ms],
-                                len(atrp_ms), sum(atrp_ms)
-                                / max(len(atrp_ms), 1)))
+    print("%s reaction steps (host ms each, synchronized, the counted "
+          "run): %s; ATRP steps: %d, mean %.3f ms"
+          % (name, ["%.3f" % x for x in rx_ms], len(atrp_ms),
+             sum(atrp_ms) / max(len(atrp_ms), 1)))
     print("%s capacities: %s" % (name, capacity_report(cfg, state)))
     kT = float(spec.kT)
     checks = check_invariants(spec, cfg, state, removed_rows.tolist(),
                               touched)
     checks.update({
         "(d) K1 once a step in every block": all(
-            k1 == BLOCK_STEPS and o == 0 for k1, o in per_block),
+            k1 == BLOCK_STEPS and o == 0
+            for k1, o in per_block + per_block_c),
         "(e) bonds = before + formed - broken - removed":
             bonds1 == bonds0 + formed - broken - removed,
-        "(e) T within 0.5-1.5 kT": 0.5 * kT <= T <= 1.5 * kT,
-        "(e) no capacity overflow": not bool(m["overflow"]),
+        "(e) T within 0.5-1.5 kT": all(
+            0.5 * kT <= float(x["T"]) <= 1.5 * kT for x in (m, m_t)),
+        "(e) no capacity overflow": not (bool(m["overflow"])
+                                         or bool(m_t["overflow"])),
         "(e) no jax, no JAX package": _no_reference_modules(),
     })
     for mech in mechanisms:
         checks["(d) %s fired" % mech] = counts.get(mech, 0) > 0
     _require(checks, "%s main path" % name)
-    launches = ext_launches(spec, cfg, state, gen)
+    launches = ext_launches(spec, cfg, state,
+                            runner.make_generator(4321, DEVICE))
     print("%s launches: %.1f a step, %d in a reaction step (%.3f ms), %s in "
           "an ATRP step on %s" % (name, launches["step"],
                                   launches["reaction"],
@@ -2921,10 +2962,9 @@ def ext_launches(spec, cfg, state, gen):
     with torch.profiler.profile(activities=acts) as prof:
         s = st
         for _ in range(10):
-            s = runner.step_with_extensions(spec, cfg, s, gen=gen,
-                                            fire=False,
-                                            gates={"atrp": False,
-                                                   "cpt": False})
+            s = runner.step_with_extensions(
+                spec, cfg, s, gen=gen,
+                gates={"reaction": False, "atrp": False, "cpt": False})
         _sync()
     step = kernels(prof) / 10.0
     with torch.profiler.profile(activities=acts) as prof:

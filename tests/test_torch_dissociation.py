@@ -4,9 +4,8 @@ forward reaction with ChangeNeighboursProperty and RemoveNeighboursBonds,
 chain growth restricted to a connectivity map, MA:ML dissociation with a
 lambda fade) at 40 trimers, density 0.4.
 
-Both packages build the same text, coordinates and connectivity map; the
-build must be leaf for leaf equal (the K-nearest build rows as per-row
-sets, as in ``test_torch_bridge.py``).  From one warmed state the
+The build is held to the reference's in ``test_torch_ext_builds.py``.
+From one warmed state the
 reference's jitted ``reaction_step`` and the port's give the same event
 lists and integer tables exactly (the draws are the integer hash, every
 sort is stable); lambda values are set, not computed, so they are exact
@@ -17,25 +16,21 @@ thermostat, with the reference's normal draws injected, hold positions to
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from chemlab_tpu import reaction_parser as rrp
-from chemlab_tpu import topfile as rtopfile
-from chemlab_tpu.engine import build as rbuild
 from chemlab_tpu.engine import integrate as rint
 from chemlab_tpu.engine import reactions as rrx
 from chemlab_tpu.engine import runner as rrun
-from chemlab_tpu.topology import compile_system_topology
 from chemlab_tpu_torch import bridge
 from chemlab_tpu_torch import testsystems as pts
 from chemlab_tpu_torch.engine import build, integrate, runner
 from chemlab_tpu_torch.engine import reactions as prx
 from test_torch_bonded_tab import reference_trees
-from test_torch_bridge import _assert_bit_equal, _sorted_rows
 
 TABLES = ("bonds", "angles", "dihedrals")
 INT_FIELDS = ("type_id", "chem_state", "mol_id", "adj", "excl", "n_excl",
@@ -50,36 +45,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def reference_build(text, n_mols, density, seed, **opts):
-    """The reference's build of the trimer melt under ``text``, with the
-    options of ``testsystems.melt_options`` and its pallas path."""
-    systop = compile_system_topology(rtopfile.parse_lines(
-        pts._melt_topology_text(n_mols).splitlines(), "<generated>"))
-    return rbuild.build_system(
-        systop, pts.melt_coordinates(n_mols, density, seed=seed),
-        rbuild.SimOptions(**pts.melt_options(seed=seed, use_pallas=True,
-                                             **opts)),
-        reaction_config=rrp.parse_config_lines(text.splitlines()))
-
-
-def assert_builds_equal(rb, pb, part):
-    """Config, spec or state of two builds, leaf for leaf (the build-time
-    K-nearest rows as per-row sets)."""
-    if part == "config":
-        assert bridge.config_to_dict(rb.cfg) == bridge.config_to_dict(pb.cfg)
-        return
-    ref = bridge.tree_to_numpy(getattr(rb, part))
-    got = bridge.tree_to_numpy(getattr(pb, part))
-    if part == "state":
-        rows = []
-        for tree in (ref, got):
-            nbr = dict(tree["nbr"])
-            rows.append(_sorted_rows(nbr.pop("idx"), nbr.pop("excl_mask")))
-            tree["nbr"] = nbr
-        assert rows[0] == rows[1]
-    _assert_bit_equal(ref, got)
 
 
 def assert_same_state(r_out, p_out, floats=("lam",), pos_tol=None):
@@ -116,35 +81,59 @@ def assert_same_state(r_out, p_out, floats=("lam",), pos_tol=None):
                                        err_msg=name)
 
 
+@functools.partial(jax.jit, static_argnames=(
+    "n", "lv", "rescale", "vr", "baro", "atrp", "freeze", "cpt"))
+def _ref_draw_arrays(key, *, n, lv, rescale, vr, baro, atrp, freeze, cpt):
+    """The reference's split chain of one ``step_with_extensions``
+    (``atrp`` is None or (count, hi)), jitted: the bits are the eager
+    ones."""
+    out = {}
+    key, sub = jax.random.split(key)
+    if lv:
+        out["noise"] = jax.random.normal(sub, (n, 3))
+    if rescale:
+        key, sub = jax.random.split(key)
+        if vr:
+            out["rescale"] = jax.random.normal(sub, ())
+    if baro:
+        key, sub = jax.random.split(key)
+        out["baro"] = jax.random.normal(sub, ())
+    if atrp is not None:
+        key, k1, k2 = jax.random.split(key, 3)
+        out["atrp"] = (jax.random.randint(k1, (atrp[0],), 0, atrp[1]),
+                       jax.random.uniform(k2, (atrp[0],)))
+    if freeze:
+        key, sub = jax.random.split(key)
+        out["freeze"] = jax.random.uniform(sub, (n,))
+    if cpt:
+        key, sub = jax.random.split(key)
+        out["cpt"] = jax.random.uniform(sub, (n,))
+    return key, out
+
+
 def ref_draws(key, cfg, n, gates, atrp_count=None):
     """The reference's draws for one ``step_with_extensions`` from its
     state's ``key``, in its split order: (key after the step, the
     Langevin noise or None, the port's ``draws`` dict)."""
-    key, sub = jax.random.split(key)
-    noise = (np.asarray(jax.random.normal(sub, (n, 3)))
-             if cfg.thermostat == "lv" else None)
-    draws = {}
-    if cfg.thermostat in ("vr", "br", "iso"):
-        key, sub = jax.random.split(key)
-        if cfg.thermostat == "vr":
-            draws["rescale"] = torch.tensor(np.asarray(
-                jax.random.normal(sub, ())))
-    if cfg.barostat != "no":
-        key, sub = jax.random.split(key)
-        draws["baro"] = torch.tensor(np.asarray(jax.random.normal(sub, ())))
+    atrp = None
     if cfg.has_atrp and gates.get("atrp"):
-        key, k1, k2 = jax.random.split(key, 3)
-        hi = (cfg.n_particles if cfg.atrp_select_from_all
-              else max(atrp_count, 1))
-        draws["atrp"] = (np.asarray(jax.random.randint(
-            k1, (cfg.atrp_num,), 0, hi)), np.asarray(
-            jax.random.uniform(k2, (cfg.atrp_num,))))
-    if cfg.has_freeze:
-        key, sub = jax.random.split(key)
-        draws["freeze"] = np.asarray(jax.random.uniform(sub, (n,)))
-    if cfg.has_cpt and gates.get("cpt"):
-        key, sub = jax.random.split(key)
-        draws["cpt"] = np.asarray(jax.random.uniform(sub, (n,)))
+        atrp = (cfg.atrp_num, cfg.n_particles if cfg.atrp_select_from_all
+                else max(atrp_count, 1))
+    key, out = _ref_draw_arrays(
+        key, n=n, lv=cfg.thermostat == "lv",
+        rescale=cfg.thermostat in ("vr", "br", "iso"),
+        vr=cfg.thermostat == "vr", baro=cfg.barostat != "no", atrp=atrp,
+        freeze=cfg.has_freeze, cpt=bool(cfg.has_cpt and gates.get("cpt")))
+    noise = np.asarray(out.pop("noise")) if "noise" in out else None
+    draws = {}
+    for k in ("rescale", "baro"):
+        if k in out:
+            draws[k] = torch.tensor(np.asarray(out[k]))
+    if "atrp" in out:
+        draws["atrp"] = tuple(np.asarray(x) for x in out["atrp"])
+    for k in ("freeze", "cpt"):
+        if k in out:
+            draws[k] = np.asarray(out[k])
     return key, noise, draws
 
 
@@ -159,16 +148,11 @@ def run_steps_both(cfg, spec, st, n_steps, atrp_count=None):
     key = rst.key
     n = st.pos.shape[0]
     for _ in range(n_steps):
-        step = int(st.step) + 1
-        on = bool(st.reactions_on)
-        gates = {"atrp": cfg.has_atrp and on and step % cfg.atrp_interval
-                 == 0,
-                 "cpt": cfg.has_cpt and on and step % cfg.cpt_interval == 0}
-        fire = cfg.has_reactions and on and step % cfg.reaction_interval == 0
+        gates = runner._gates(cfg, bool(st.reactions_on), int(st.step) + 1)
         key, noise, draws = ref_draws(key, cfg, n, gates, atrp_count)
         rst = ref_ext_step(rspec, rcfg, rst, 0)
         st = runner.step_with_extensions(
-            spec, cfg, st, 0, fire=fire, gates=gates, draws=draws,
+            spec, cfg, st, 0, gates=gates, draws=draws,
             noise=None if noise is None else torch.tensor(noise))
         assert np.array_equal(np.asarray(rst.key), np.asarray(key))
     return rst, st
@@ -179,34 +163,22 @@ def run_steps_both(cfg, spec, st, n_steps, atrp_count=None):
 
 @pytest.fixture(scope="module")
 def break_builds(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("break"))
-    pb, psys, _ = pts.build_break_melt(n_mols=40, density=0.4, seed=5,
-                                       table_dir=d, diss_rate=2.0,
-                                       device="cpu", max_events=16)
-    text = pts.BREAK_CFG_TEXT % {"cmap": pts.RESTRICT_MAP, "diss_rate": "2.0"}
-    rb = reference_build(text, 40, 0.4, 5, thermostat="vr", max_events=16,
-                         table_dirs=(d,))
-    return rb, pb, psys
+    """The port's break melt (the build is held to the reference's in
+    ``test_torch_ext_builds.py``)."""
+    pb, psys, _ = pts.build_break_melt(
+        n_mols=40, density=0.4, seed=5,
+        table_dir=str(tmp_path_factory.mktemp("break")), diss_rate=2.0,
+        device="cpu", max_events=16)
+    return pb, psys
 
 
 @pytest.fixture(scope="module")
 def warm(break_builds):
     """The port's warmed state with 12 initiators, reactions on."""
-    _, pb, psys = break_builds
+    pb, psys = break_builds
     st = runner.initial_forces(pb.spec, pb.cfg, pb.state)
     st = pts.warmup(pb, st, steps=30)
     return pts.activate_initiators(pb, psys, st, n=12)
-
-
-@pytest.mark.parametrize("part", ["config", "spec", "state"])
-def test_break_build_is_leaf_for_leaf_equal(break_builds, part):
-    rb, pb, _ = break_builds
-    cfg = pb.cfg
-    assert cfg.has_dissociation and cfg.has_dyn_resolution
-    assert cfg.n_rb == 1 and cfg.thermostat == "vr" and cfg.rx_compact
-    assert pb.spec.restrict_lo.shape[0] > 0 and cfg.restrict_scan > 1
-    assert bool(pb.spec.r_restricted.any())
-    assert_builds_equal(rb, pb, part)
 
 
 # ---- matching and events --------------------------------------------------
@@ -223,7 +195,7 @@ def test_reaction_step_with_breaks_equal(break_builds, warm, step):
     """Events of all three channels: the ATRP forward reaction (sequential
     scan, ChangeNeighboursProperty, RemoveNeighboursBonds), the restricted
     chain growth and the dissociation, capped at 16 breaks."""
-    _, pb, _ = break_builds
+    pb, _ = break_builds
     cfg, spec = pb.cfg, pb.spec
     st = _at(warm, step, reaction_rates=warm.reaction_rates * 5.0)
     rcfg, rspec, rst = reference_trees(cfg, spec, st)
@@ -251,7 +223,7 @@ def test_products_fire_after_the_ramp(break_builds, warm):
     climbs by alpha a step on both sides and, crossing 1, the products
     take their types (PA, PL), mass and charge; particles already at 1
     never convert."""
-    rb, pb, psys = break_builds
+    pb, psys = break_builds
     cfg, spec = pb.cfg, pb.spec
     st = prx.reaction_step(spec, cfg, _at(warm, 200), 0)
     rcfg, rspec, rst = reference_trees(cfg, spec, st)
@@ -279,7 +251,7 @@ def test_restrict_admits_only_listed_pairs(break_builds, warm):
     the others get ``hi`` -1, which no pair has, so that the shapes stay),
     and without the restriction the same state reacts on pairs it does not
     list."""
-    _, pb, psys = break_builds
+    pb, psys = break_builds
     cfg = pb.cfg
     hi = pb.spec.restrict_hi.clone()
     hi[torch.arange(hi.shape[0]) % 3 != 0] = -1
@@ -314,7 +286,7 @@ def test_restrict_admits_only_listed_pairs(break_builds, warm):
 def test_twenty_csvr_steps_equal(break_builds, warm):
     """From step 190: a reaction step (200) inside the run, breaks fading,
     the CSVR thermostat's normal draw injected every step."""
-    _, pb, _ = break_builds
+    pb, _ = break_builds
     cfg, spec = pb.cfg, pb.spec
     st = _at(warm, 190, reaction_rates=warm.reaction_rates * 5.0)
     r_out, p_out = run_steps_both(cfg, spec, st, 20)
@@ -328,7 +300,7 @@ def test_exclusion_holes_count_toward_regrowth(break_builds, warm):
     """``excl_remove`` leaves -1 holes and keeps the cursor, so breaks use
     up exclusion capacity: the regrowth check reads the cursor, and
     ``grow_term_caps`` grows the pair list and clears the flag."""
-    _, pb, _ = break_builds
+    pb, _ = break_builds
     cfg, spec = pb.cfg, pb.spec
     st = prx.reaction_step(spec, cfg, _at(warm, 200), 0)
     n_excl = int(st.n_excl)

@@ -12,8 +12,6 @@ reference's tables, constraint rows, types and lambdas exactly:
 - a reaction step whose events release dummies and capture partners;
 - the loop over the fired rows only equals the loop over all
   ``max_events`` rows (invalid rows write nothing);
-- TWO_RELEASE_CFG builds leaf for leaf equal (two FixDistances
-  definitions, dummies of two types);
 - ``_fix_distances``: releases on a host type change (types, masses,
   lambdas exact) and the projection (positions within
   ``2e-5 (1 + max|ref|)``, velocities exact).
@@ -36,8 +34,7 @@ from chemlab_tpu_torch.engine.state import N_BOND_PARAMS
 from test_multi_release_join import RELEASE_PLUS_JOIN_CFG, TWO_RELEASE_CFG
 from test_remove_bonds_overflow import RB_CFG
 from test_torch_bonded_tab import reference_trees
-from test_torch_dissociation import (assert_builds_equal, assert_same_state,
-                                     ref_step, reference_build)
+from test_torch_dissociation import assert_same_state, ref_step
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,16 +163,19 @@ def test_release_and_join_events_equal(join_melt):
 
 
 def test_fired_rows_equal_all_rows(join_melt):
-    """The scan over the fired rows only (one read) against the scan over
-    all ``max_events`` rows, on the events of a reaction step."""
+    """The scan over the fired rows only (one read) against
+    ``_apply_event`` looped over all ``max_events`` rows, on the events of
+    a reaction step."""
     pb, st = join_melt
     cfg, spec = pb.cfg, pb.spec
     out = prx.reaction_step(spec, cfg, st, 0)
     ev = (out.ev_log_a >= 0, out.ev_log_a, out.ev_log_b, out.ev_log_r)
     assert 0 < int(ev[0].sum()) < cfg.max_events
-    fired, f_ov = prx.apply_reaction_events(spec, cfg, st, *ev)
-    every, e_ov = prx.apply_reaction_events(
-        spec, cfg, st, *ev, rows=list(range(cfg.max_events)))
+    fired, f_ov = prx._apply_events_sequential(spec, cfg, st, *ev)
+    every, e_ov = st, torch.zeros((), dtype=torch.bool)
+    for k in range(cfg.max_events):
+        every, ov = prx._apply_event(spec, cfg, every, *(e[k] for e in ev))
+        e_ov = e_ov | ov
     assert bool(f_ov) == bool(e_ov)
     for f in dataclasses.fields(fired):
         a, b = getattr(fired, f.name), getattr(every, f.name)
@@ -192,23 +192,17 @@ def test_fired_rows_equal_all_rows(join_melt):
 
 @pytest.fixture(scope="module")
 def two_release():
+    """The port's TWO_RELEASE_CFG melt (the build is held to the
+    reference's in ``test_torch_ext_builds.py``)."""
     pb, psys, _ = _port_build(TWO_RELEASE_CFG, 80, 0.3, 3, max_events=16)
-    rb = reference_build(TWO_RELEASE_CFG, 80, 0.3, 3, max_events=16)
-    return rb, pb, psys
-
-
-@pytest.mark.parametrize("part", ["config", "spec", "state"])
-def test_two_release_build_is_leaf_for_leaf_equal(two_release, part):
-    rb, pb, _ = two_release
-    assert pb.cfg.n_fd == 2 and pb.cfg.n_particles == 240 + 80 + 160
-    assert_builds_equal(rb, pb, part)
+    return pb, psys
 
 
 def test_fix_distances_equal(two_release):
     """Displaced dummies, and the ML hosts of the type-released block
     turned PA: the released dummies take the target type at the release
     lambda, the others snap back to ``eq`` from their hosts."""
-    _, pb, psys = two_release
+    pb, psys = two_release
     cfg, spec, st = pb.cfg, pb.spec, pb.state
     rng = np.random.RandomState(4)
     pos = st.pos + torch.from_numpy(

@@ -1,6 +1,7 @@
 """The topology removal primitives against the reference, exactly.
 
-``adj_remove_edge``, ``adj_has_edge``, ``relabel_components``,
+``adj_remove_edges`` (against the reference's ``adj_remove_edge``, one
+row and a loop of rows), ``relabel_components``,
 ``invalidate_terms_with_edges``, ``excl_remove`` and ``bfs_distances`` of
 ``chemlab_tpu_torch/engine/topo.py`` run on random adjacency tables,
 term tables and exclusion lists (numpy, from a seed) beside the
@@ -74,10 +75,9 @@ def test_adj_edges_and_bfs_equal():
         ti, tj = torch.tensor(i, dtype=torch.int32), torch.tensor(
             j, dtype=torch.int32)
         ri, rj = jnp.asarray(i, jnp.int32), jnp.asarray(j, jnp.int32)
-        assert bool(ptopo.adj_has_edge(a_p, ti, tj)) == bool(
-            rtopo.adj_has_edge(a_r, ri, rj))
         for en in (True, False):
-            got = ptopo.adj_remove_edge(a_p, ti, tj, torch.tensor(en))
+            got = ptopo.adj_remove_edges(a_p, torch.stack([ti, tj])[None],
+                                         torch.tensor([en]))
             ref = rtopo.adj_remove_edge(a_r, ri, rj, jnp.asarray(en))
             np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     # the ordered loop over edge rows (rows share endpoints)

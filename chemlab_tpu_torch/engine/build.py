@@ -1,10 +1,16 @@
 """System assembly: SystemTopology + Coordinates (+ reactions) -> tensors.
 
-Port of ``chemlab_tpu/engine/build.py`` ``build_system`` for the slice the
-port runs: LJ nonbonded pairs on the cell-tile kernel path (K1 on a colt2
-grid, the per-cell K2 on any other), or tabulated pairs (func 8, the func
-10/12 two-table blends, auto-tabulated ``table_groups``) on the kernel's
-Chebyshev modes (K1c/K1d/K1e, colt2 grids only), bonds (harmonic, FENE,
+Port of ``chemlab_tpu/engine/build.py`` ``build_system``: every nonbonded
+func the reference lowers (LJ, funcs 1 and 8-17, auto-tabulated
+``table_groups``) with the reference's choice of force path
+(``_pallas_enabled`` and the two fit fallbacks): the cell-tile kernels
+where they admit the system (LJ on K1 on a colt2 grid, on the per-cell K2
+on any other; tabulated-only systems, func 10/12 blends included, on the
+Chebyshev modes K1c/K1d/K1e, colt2 grids only), the Verlet row path
+(``pair_forces``, persistent rows) for everything else: ``use_pallas=
+False``, Coulomb between charges, LJ beside tables, caps, λ-scaled,
+multi-range and scaled pairs, a table that fails the fit, more than 8
+blended fits, a tabulated system on a K2 grid.  Bonds (harmonic, FENE,
 FENE + WCA, tabulated), angles (harmonic, tabulated, cosine), dihedrals
 (funcs 1, 3, 8 and 12, static and by type lookup) and 1-4 pairs
 (fudgeLJ, shifted at the LJ cutoff), the dense-static bonded and
@@ -21,8 +27,11 @@ arrays become torch tensors on ``device`` (the card unless the caller asks
 for another) through the bridge, and the build-time neighbor rows are made
 by the port's ``neighbor.build_neighbor_state``.
 
-A configuration outside the slice raises ``NotImplementedError`` naming
-the ROADMAP item that will bring it; nothing falls back to another path.
+One divergence is kept on purpose: Coulomb over all-zero charges (no
+charged atom and no charged atomtype) builds on the kernel path with the
+Coulomb term left out, where the reference takes its row path
+(``refuse_charges`` guards it).  A configuration outside the port raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
 
 Capacity management (reference ``build.py:456-932``): the neighbor caps
 regrow off the sticky overflow flag and shrink to the observed occupancy
@@ -46,11 +55,12 @@ import numpy as np
 import torch
 
 from .. import bridge, files_io
+from ..units import COULOMB_PREFACTOR
 from ..topology import SystemTopology, combine_lj
-from . import (bonded_dense, cell_pair, excl_dense, neighbor,
-               reaction_compile, tables, tab_cheb)
-from .spec import (MIX_MULTIRANGE, MIX_OBS, PAIR_LJ, PAIR_TAB, EngineConfig,
-                   SimSpec)
+from . import (bonded_dense, excl_dense, neighbor, reaction_compile,
+               tables, tab_cheb)
+from .spec import (MIX_MULTIRANGE, MIX_OBS, MIX_STATIC, PAIR_LJ, PAIR_TAB,
+                   EngineConfig, SimSpec)
 from .state import N_BOND_PARAMS, MDState, TermTable
 
 logger = logging.getLogger(__name__)
@@ -77,6 +87,7 @@ class SimOptions:
     barostat_gammaP: float = 1.0
     barostat_mass: float = 50.0
     max_force: float = -1.0
+    fudge_qq: float | None = None   # None = the topology's [ defaults ]
     table_groups: tuple = ()
     thermal_groups: tuple = ()
     rng_seed: int = 12345
@@ -99,7 +110,8 @@ class SimOptions:
     extra_dihedrals: int | None = None
     max_events: int = 128
     dtype: str = "float32"
-    use_pallas: bool | None = None    # None = on: the port's only force path
+    use_pallas: bool | None = None    # None = the cell kernels where they
+                                      # admit the system, else the row path
     bonded_dense: bool | None = None  # None = on
     excl_dense: bool | None = None    # None = on
     slab_devices: int = 0  # >1: round the grid's x-layer count down to a
@@ -261,11 +273,15 @@ def _load_auto_nb_table(s1, s2, nb_tb, table_dirs):
 
 def _build_pair_tables(systop: SystemTopology, opts: SimOptions, nb_tb,
                        obs: ObsRegistry):
-    """Per-type-pair dispatch arrays (reference: build._build_pair_tables)
-    for the nonbonded funcs of the slice: LJ (combination or func 1),
-    tables (func 8 and auto-tabulated ``table_groups`` pairs) and the
-    two-table blends (func 10 by a conversion observable, func 12 by a
-    static factor).  The other funcs need the row path (M10)."""
+    """Per-type-pair dispatch arrays and the multi-range mix entries
+    (reference: build._build_pair_tables) for every nonbonded func: LJ
+    (combination or func 1), tables (func 8 and auto-tabulated
+    ``table_groups`` pairs), the MultiTabulated range switch (9), the
+    two-table blends (10 by a conversion observable, 12 by a static
+    factor), λ-scaled tables with a force cap (11), capped tables (13),
+    ParticlePairScaling (14), λ-scaled LJ (15), energy-capped LJ (16) and
+    multi-range blended tables (17).  Returns (arrays, mix_entries), each
+    entry (pair_flat, lo, hi, tab_a, tab_b, obs, default)."""
     T = systop.next_type_id
     n2 = T * T
     out = {
@@ -284,24 +300,35 @@ def _build_pair_tables(systop: SystemTopology, opts: SimOptions, nb_tb,
         "pair_max_force": np.full(n2, -1.0, F32),
         "pair_pps_incr": np.zeros(n2, F32),
     }
+    mix_entries = []
     cr = systop.defaults["combinationrule"]
     atomtypes = systop.top.atomtypes
     sym2id = systop.atomsym_atomtype
     tab_groups = set(opts.table_groups or ())
     lj_cut, tab_cut = opts.lj_cutoff, opts.cg_cutoff
 
+    def flat(t1, t2):
+        return [t1 * T + t2, t2 * T + t1]
+
     def set_pair(t1, t2, **kw):
-        for p in (t1 * T + t2, t2 * T + t1):
+        for p in flat(t1, t2):
             for k, v in kw.items():
                 out["pair_%s" % k][p] = v
 
-    def set_lj(t1, t2, sig, eps):
-        shift = 0.0
-        if eps != 0.0 and sig > 0.0:
-            sr6 = (sig / lj_cut) ** 6
-            shift = 4.0 * eps * (sr6 * sr6 - sr6)
+    def lj_shift(sig, eps):
+        if eps == 0.0 or sig <= 0.0:
+            return 0.0
+        sr6 = (sig / lj_cut) ** 6
+        return 4.0 * eps * (sr6 * sr6 - sr6)
+
+    def set_lj(t1, t2, sig, eps, **kw):
         set_pair(t1, t2, kind=PAIR_LJ, sig=sig, eps=eps, cutoff2=lj_cut**2,
-                 shift=shift)
+                 shift=lj_shift(sig, eps), **kw)
+
+    def set_tab(t1, t2, tab_a, tab_b=None, **kw):
+        set_pair(t1, t2, kind=PAIR_TAB, tab_a=tab_a,
+                 tab_b=tab_a if tab_b is None else tab_b,
+                 cutoff2=tab_cut**2, **kw)
 
     def raw_combination(s1, s2):
         a, b = atomtypes.get(s1), atomtypes.get(s2)
@@ -310,16 +337,22 @@ def _build_pair_tables(systop: SystemTopology, opts: SimOptions, nb_tb,
         return combine_lj(a["sigma"], a["epsilon"], b["sigma"], b["epsilon"],
                           cr)
 
+    def table(name):
+        return _load_nb_table(name, nb_tb, opts.table_dirs)
+
+    def register_obs(type_sym, total):
+        return obs.register([(sym2id[type_sym], None)], int(total))
+
     syms = sorted(sym2id, key=sym2id.get)
     for i1, s1 in enumerate(syms):
         for s2 in syms[i1:]:
             t1, t2 = sym2id[s1], sym2id[s2]
             param = systop.top.nonbond_params.get(tuple(sorted((s1, s2))))
+            auto = (lambda: _load_auto_nb_table(s1, s2, nb_tb,
+                                                opts.table_dirs))
             if param is None:
                 if s1 in tab_groups and s2 in tab_groups:
-                    tab = _load_auto_nb_table(s1, s2, nb_tb, opts.table_dirs)
-                    set_pair(t1, t2, kind=PAIR_TAB, tab_a=tab, tab_b=tab,
-                             cutoff2=tab_cut**2)
+                    set_tab(t1, t2, auto())
                 else:
                     sig, eps = raw_combination(s1, s2)
                     if sig > 0.0:
@@ -332,28 +365,81 @@ def _build_pair_tables(systop: SystemTopology, opts: SimOptions, nb_tb,
                 if sig > 0.0:
                     set_lj(t1, t2, sig, eps)
             elif func == 8:
-                tab = (_load_nb_table(pp[0], nb_tb, opts.table_dirs) if pp
-                       else _load_auto_nb_table(s1, s2, nb_tb,
-                                                opts.table_dirs))
-                set_pair(t1, t2, kind=PAIR_TAB, tab_a=tab, tab_b=tab,
-                         cutoff2=tab_cut**2)
+                set_tab(t1, t2, table(pp[0]) if pp else auto())
+            elif func == 9:
+                # conversion-switched MultiTabulated: the table serves the
+                # pair while the observable lies in [lo, hi)
+                tab = table(pp[0])
+                o = register_obs(pp[1], int(pp[2]))
+                lo, hi = float(pp[3]), float(pp[4])
+                default = bool(int(pp[5])) if len(pp) > 5 else False
+                for p in flat(t1, t2):
+                    mix_entries.append((p, lo, hi, tab, tab, o, default))
+                base = tab if default else 0
+                set_tab(t1, t2, base, mix_mode=MIX_MULTIRANGE)
             elif func == 10:
-                ta = _load_nb_table(pp[0], nb_tb, opts.table_dirs)
-                tb_ = _load_nb_table(pp[1], nb_tb, opts.table_dirs)
-                o = obs.register([(sym2id[pp[2]], None)], int(pp[3]))
-                set_pair(t1, t2, kind=PAIR_TAB, tab_a=ta, tab_b=tb_,
-                         cutoff2=tab_cut**2, mix_mode=MIX_OBS, obs=o)
+                o = register_obs(pp[2], int(pp[3]))
+                set_tab(t1, t2, table(pp[0]), table(pp[1]), mix_mode=MIX_OBS,
+                        obs=o)
+            elif func == 11:
+                mf = float(pp[1]) if len(pp) > 1 else -1.0
+                set_tab(t1, t2, table(pp[0]) if pp else auto(),
+                        lam_scale=True, max_force=mf)
             elif func == 12:
-                ta = _load_nb_table(pp[0], nb_tb, opts.table_dirs)
-                tb_ = _load_nb_table(pp[1], nb_tb, opts.table_dirs)
-                set_pair(t1, t2, kind=PAIR_TAB, tab_a=ta, tab_b=tb_,
-                         cutoff2=tab_cut**2, mix_x=float(pp[2]))
+                set_tab(t1, t2, table(pp[0]), table(pp[1]),
+                        mix_mode=MIX_STATIC, mix_x=float(pp[2]))
+            elif func == 13:
+                set_tab(t1, t2, table(pp[0]), caprad=float(pp[1]))
+            elif func == 14:
+                # ParticlePairScaling: a new neighbour pair fades in by
+                # pps_incr a step
+                mf = float(pp[2]) if len(pp) > 2 else -1.0
+                set_tab(t1, t2, table(pp[0]), max_force=mf,
+                        pps_incr=float(pp[1]))
+            elif func == 15:
+                mf = -1.0
+                if pp and len(pp) == 1:
+                    mf = float(pp[0])
+                    sig, eps = raw_combination(s1, s2)
+                elif pp:
+                    sig, eps = float(pp[0]), float(pp[1])
+                    if len(pp) == 3:
+                        mf = float(pp[2])
+                else:
+                    sig, eps = raw_combination(s1, s2)
+                set_lj(t1, t2, sig, eps, lam_scale=True, max_force=mf)
+            elif func == 16:
+                if len(pp) == 1:
+                    cap = float(pp[0])
+                    sig, eps = raw_combination(s1, s2)
+                else:
+                    sig, eps, cap = float(pp[0]), float(pp[1]), float(pp[2])
+                set_lj(t1, t2, sig, eps, caprad=cap)
+            elif func == 17:
+                o = register_obs(pp[0], int(pp[1]))
+                for spec_str in pp[2:]:
+                    t = spec_str.split(":")
+                    lo, hi = float(t[0]), float(t[1])
+                    ta, tb_ = table(t[2]), table(t[3])
+                    for p in flat(t1, t2):
+                        mix_entries.append((p, lo, hi, ta, tb_, o, False))
+                set_tab(t1, t2, 0, mix_mode=MIX_MULTIRANGE)
             elif func == 18:
                 logger.warning("func 18 (connectivity-scaled) is a no-op, "
                                "as in the reference")
             else:
-                _not_in_slice("nonbonded func %d" % func, "M10 (row path)")
-    return out
+                raise ValueError("nonbonded func %d not supported" % func)
+    return out, mix_entries
+
+
+def supports_lj(pair_arrays) -> bool:
+    """The reference's gate of the LJ kernels (``pallas_pair.supports``):
+    no tables, caps, λ scaling, blends or pair-age ramps."""
+    return not ((pair_arrays["pair_kind"] == PAIR_TAB).any()
+                or (pair_arrays["pair_caprad"] > 0).any()
+                or pair_arrays["pair_lam_scale"].any()
+                or (pair_arrays["pair_mix_mode"] != 0).any()
+                or (pair_arrays["pair_pps_incr"] > 0).any())
 
 
 def supports_cheb(pair_arrays) -> bool:
@@ -373,13 +459,38 @@ def supports_cheb(pair_arrays) -> bool:
                 or (pair_arrays["pair_pps_incr"] > 0).any())
 
 
+def _pallas_enabled(opts: SimOptions, pair_arrays, qq_pref: float,
+                    charged: bool, cell_dims, n_mix: int = 0) -> tuple:
+    """The reference's gate of the cell-tile kernels (``_pallas_enabled``):
+    wanted (``use_pallas`` None or True) and the system's nonbonded physics
+    in their scope.  Returns (use_pallas, cheb_candidate); a candidate
+    keeps the kernel only if its tables pass the Chebyshev fit
+    (``_cheb_tables``).  Coulomb sends the system to the row path only
+    where a charge can be nonzero (``charged``): over all-zero charges the
+    kernel runs with the term left out."""
+    if opts.use_pallas is False:
+        return False, False
+    if qq_pref > 0 and charged:
+        logger.warning("pallas pair kernel disabled: coulomb not supported")
+        return False, False
+    if supports_lj(pair_arrays):
+        return True, False
+    if (n_mix == 0 and supports_cheb(pair_arrays)
+            and min(int(d) for d in cell_dims) >= 3
+            and (opts.cell_cap is None or opts.cell_cap % 8 == 0)):
+        return True, True
+    logger.warning("pallas pair kernel disabled: unsupported pair variant "
+                   "(mixing/caps/lambda/pps) or colt2-ineligible geometry")
+    return False, False
+
+
 def _cheb_tables(pair_arrays, nb_stack):
     """Fit every used table and choose the kernel mode (reference:
     build.py:1388-1466).  Returns (fit, ntab, slot, slot_b, sc, mix):
     table-scalar mode (K1c, K1d when mixed) when at most 8 distinct fits
     fill at most 128 coefficients, else coefficient-plane mode (K1e,
-    ``ntab`` 0).  A failed fit, or mixed tables with more than 8 distinct
-    fits, sends the reference to its row path; here it raises."""
+    ``ntab`` 0); or None where the reference falls back to its row path: a
+    failed fit, or blended tables with more than 8 distinct fits."""
     is_tab_pair = pair_arrays["pair_kind"] == PAIR_TAB
     used_tabs = np.zeros(nb_stack.ef.shape[0], bool)
     used_tabs[pair_arrays["pair_tab_a"][is_tab_pair]] = True
@@ -387,8 +498,9 @@ def _cheb_tables(pair_arrays, nb_stack):
     fit = tab_cheb.fit_stack(tables.interleave4(nb_stack.ef), nb_stack.r0,
                              nb_stack.dr, used_tabs)
     if fit is None:
-        _not_in_slice("a pair table that fails the Chebyshev fit (the exact "
-                      "row path)", "M10")
+        logger.warning("tabulated fast path disabled: a pair table failed "
+                       "Chebyshev fit validation; exact row path selected")
+        return None
     logger.info("tabulated pairs: %d tables fit (kw=%d ko=%d, worst err "
                 "%.2e)", int(used_tabs.sum()), fit.kw, fit.ko,
                 float(fit.err[used_tabs].max()))
@@ -412,8 +524,9 @@ def _cheb_tables(pair_arrays, nb_stack):
         return fit, int(len(uniq_rows)), slot, (slot_b if mix else None), \
             uniq_rows, mix
     if is_mixed.any():
-        _not_in_slice("mixed tables with more than 8 distinct fits (the "
-                      "row path)", "M10")
+        logger.warning("tabulated fast path disabled: mixed tables with >8 "
+                       "distinct fits; exact row path selected")
+        return None
     return fit, 0, None, None, None, False
 
 
@@ -520,10 +633,13 @@ def shrink_neighbor_caps(cfg: EngineConfig, spec: SimSpec, state,
 
 
 def _rebuild_neighbor_scratch(cfg: EngineConfig, spec: SimSpec, state):
+    """Fresh rows at the new caps; every func-14 pair restarts its ramp at
+    the current step (no previous rows, as in the reference)."""
     nbr = neighbor.build_neighbor_state(
         state.pos, state.box, state.active, state.excl, _rc_skin(spec),
         dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
-        max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap)
+        max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap,
+        track_birth=cfg.has_pps, prev=None, step=state.step)
     nbr = dataclasses.replace(nbr, n_rebuilds=state.nbr.n_rebuilds + 1)
     return cfg, dataclasses.replace(state, nbr=nbr)
 
@@ -804,26 +920,20 @@ def plan_cap_ladder(cfg: EngineConfig, state, counts: dict,
 
 def refuse_charges(spec: SimSpec, q):
     """Raise where ``q`` (host values written into the state's charges)
-    holds a nonzero charge and the build has a Coulomb cutoff: the build
-    leaves the Coulomb term out only because every charge is zero."""
-    if np.any(np.asarray(q) != 0) and float(spec.qq_cutoff2) > 0:
-        _not_in_slice("Coulomb between charged particles", "M10")
+    holds a nonzero charge and the build left its Coulomb cutoff's term
+    out: it chose the kernel path because every charge was zero."""
+    if (np.any(np.asarray(q) != 0) and float(spec.qq_cutoff2) > 0
+            and float(spec.qq_prefactor) == 0):
+        raise NotImplementedError(
+            "a nonzero charge in a build that left Coulomb out: the build "
+            "chose the cell kernel (K1) because every charge was zero; a "
+            "charged system runs with use_pallas=False (the row path)")
 
 
-def _check_slice(opts: SimOptions, systop: SystemTopology, compiled):
+def _check_slice(opts: SimOptions, compiled):
     """Refuse every configuration the port does not run yet."""
     if opts.dtype != "float32":
         _not_in_slice("dtype %s" % opts.dtype, "M13")
-    if opts.use_pallas is False:
-        _not_in_slice("the Verlet row force path", "M10")
-    if opts.coulomb_cutoff > 0 and (
-            np.any(np.asarray(systop.charges) != 0)
-            or any(float(t.get("charge", 0.0)) != 0
-                   for t in systop.top.atomtypes.values())):
-        # with every charge zero the Coulomb term is zero pair by pair (the
-        # CLI's default cutoff is 0.9); a reaction sets an atom's charge to
-        # its new atomtype's, so a charged atomtype needs M10 as well
-        _not_in_slice("Coulomb between charged particles", "M10")
     if compiled is None or opts.slab_devices <= 1:
         return
     if ((compiled.n_reactions and compiled.channels["r_is_diss"].any())
@@ -866,7 +976,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
             reaction_config, systop, bond_tb, opts.table_dirs,
             opts.output_prefix)
         T = systop.next_type_id
-    _check_slice(opts, systop, compiled)
+    _check_slice(opts, compiled)
     dynamic_types = compiled.dynamic_types if compiled else set()
     change_bond_types = compiled.observed_bondtypes if compiled else set()
 
@@ -950,7 +1060,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                      for ts, total in extra_conversions]
 
     # ---- nonbonded ----
-    pair_arrays = _build_pair_tables(systop, opts, nb_tb, obs)
+    pair_arrays, mix_entries = _build_pair_tables(systop, opts, nb_tb, obs)
 
     # ---- bonded type-lookup tables ----
     bond_func_tt = np.zeros((T, T), I32)
@@ -1087,16 +1197,24 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         nx_r = (cell_dims[0] // opts.slab_devices) * opts.slab_devices
         if nx_r >= 3:
             cell_dims = (nx_r,) + tuple(cell_dims[1:])
-    has_tab = bool((pair_arrays["pair_kind"] == PAIR_TAB).any())
-    if has_tab and not supports_cheb(pair_arrays):
-        _not_in_slice("tabulated pairs beside LJ pairs, or capped / lambda "
-                      "/ multi-range / scaled tabulated pairs", "M10")
-    if not has_tab and ((pair_arrays["pair_caprad"] > 0).any()
-                        or pair_arrays["pair_lam_scale"].any()
-                        or (pair_arrays["pair_mix_mode"] != 0).any()
-                        or (pair_arrays["pair_pps_incr"] > 0).any()):
-        _not_in_slice("capped / lambda / mixed / scaled pairs", "M10")
-    use_pallas = True
+    fudge_qq = (opts.fudge_qq if opts.fudge_qq is not None
+                else systop.defaults.get("fudgeQQ", 1.0))
+    qq_pref = COULOMB_PREFACTOR * fudge_qq if opts.coulomb_cutoff > 0 else 0.0
+    # a reaction sets an atom's charge to its new atomtype's, so a charged
+    # atomtype counts as a charge
+    charged = bool(np.any(np.asarray(systop.charges) != 0)
+                   or any(float(t.get("charge", 0.0)) != 0
+                          for t in systop.top.atomtypes.values()))
+    use_pallas, cheb_candidate = _pallas_enabled(
+        opts, pair_arrays, qq_pref, charged, cell_dims,
+        n_mix=len(mix_entries))
+    if use_pallas:
+        # Coulomb over all-zero charges is zero pair by pair: the kernel
+        # path leaves the term out
+        qq_pref = 0.0
+    elif opts.slab_devices > 1:
+        _not_in_slice("the row path under slab_devices > 1 (the slab path "
+                      "runs the cell kernels only)", "M14")
 
     # ---- dense-static bonded operands (bonded_dense.py) ----
     bd_enable = opts.bonded_dense if opts.bonded_dense is not None else True
@@ -1130,18 +1248,21 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         max_neighbors = _round_up(max(int(k_est * 2.2) + 16, 24), 8)
     else:
         max_neighbors = opts.max_neighbors
-    if opts.cell_cap is None:
-        cell_vol = float(np.prod(box / np.asarray(cell_dims)))
+    cell_vol = float(np.prod(box / np.asarray(cell_dims)))
+
+    def row_path_cell_cap():
+        # the kernel's cost grows with cap^2 and runs tight (1.7x the mean
+        # occupancy); the row rebuild's only linearly, with a 3x margin
+        return _round_up(max(int(density * cell_vol * 3.0) + 8,
+                             int(obs_cell_max * 1.3) + 4, 8), 8)
+
+    if opts.cell_cap is not None:
+        cell_cap = opts.cell_cap
+    elif use_pallas:
         cell_cap = _round_up(max(int(density * cell_vol * 1.7) + 8,
                                  int(obs_cell_max * 1.3) + 4, 8), 8)
     else:
-        cell_cap = opts.cell_cap
-    if has_tab and not cell_pair.colt_legal(cell_cap, cell_dims):
-        # the Chebyshev modes exist only in colt2; the reference sends such
-        # a system to its row path (build.py:428-434), K2 takes LJ only
-        _not_in_slice("a tabulated system on cell grid %s with cap %d (the "
-                      "Chebyshev modes need min dim >= 3 and cap %% 8 == 0; "
-                      "the row path)" % (cell_dims, cell_cap), "M10")
+        cell_cap = row_path_cell_cap()
 
     # ---- lazy-row reaction geometry ----
     rc_rx = 0.0
@@ -1241,9 +1362,16 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     cheb_fit = None
     cheb_ntab, cheb_mix = 0, False
     cheb_tab_slot = cheb_sc = cheb_tab_slot_b = None
-    if has_tab:
-        (cheb_fit, cheb_ntab, cheb_tab_slot, cheb_tab_slot_b, cheb_sc,
-         cheb_mix) = _cheb_tables(pair_arrays, nb_stack)
+    if use_pallas and cheb_candidate:
+        cheb = _cheb_tables(pair_arrays, nb_stack)
+        if cheb is None:
+            # the row path; the reaction grid's caps stay as sized above
+            use_pallas = False
+            if opts.cell_cap is None:
+                cell_cap = row_path_cell_cap()
+        else:
+            (cheb_fit, cheb_ntab, cheb_tab_slot, cheb_tab_slot_b, cheb_sc,
+             cheb_mix) = cheb
     bond_stack = bond_tb.build()
     angle_stack = angle_tb.build()
     dih_stack = dih_tb.build()
@@ -1357,16 +1485,18 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
                       if opts.thermostat == "iso" else 1),
         store_pressure=opts.store_pressure,
         barostat=opts.barostat if opts.pressure > 0 else "no",
-        has_coulomb=False, has_reactions=has_reactions,
+        has_coulomb=qq_pref > 0, has_reactions=has_reactions,
         reaction_interval=compiled.interval if compiled else 0,
         nearest_mode=compiled.nearest if compiled else False,
         max_per_interval=compiled.max_per_interval if compiled else -1,
-        exclude_new_bonds=opts.exclude_new_bonds, n_mix_entries=0,
+        exclude_new_bonds=opts.exclude_new_bonds,
+        n_mix_entries=len(mix_entries),
         has_mixed_tables=bool(
-            (pair_arrays["pair_mix_mode"] != 0).any()
+            mix_entries
+            or (pair_arrays["pair_mix_mode"] != 0).any()
             or (pair_arrays["pair_tab_b"] != pair_arrays["pair_tab_a"]).any()),
         needs_conversions=bool(
-            (pair_arrays["pair_mix_mode"] == MIX_OBS).any()),
+            mix_entries or (pair_arrays["pair_mix_mode"] == MIX_OBS).any()),
         use_pallas=use_pallas, lazy_rows=use_pallas,
         tab_cheb=cheb_fit is not None,
         cheb_kw=cheb_fit.kw if cheb_fit is not None else 0,
@@ -1381,8 +1511,12 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         rx_dims=rx_dims, rx_cell_cap=rx_cell_cap, rx_k=rx_k, rx_rc=rc_rx,
         rx_compact=rx_compact, rx_rows_cap=rx_rows_cap,
         has_lj=bool((pair_arrays["pair_kind"] == PAIR_LJ).any()),
-        has_tabulated=has_tab, has_caps=False, has_pps=False,
-        has_lambda_pairs=False, use_thermal_group=bool(opts.thermal_groups),
+        has_tabulated=bool((pair_arrays["pair_kind"] == PAIR_TAB).any()),
+        has_caps=bool((pair_arrays["pair_caprad"] > 0).any()
+                      or (pair_arrays["pair_max_force"] > 0).any()),
+        has_pps=bool((pair_arrays["pair_pps_incr"] > 0).any()),
+        has_lambda_pairs=bool(pair_arrays["pair_lam_scale"].any()),
+        use_thermal_group=bool(opts.thermal_groups),
         nb_bins=opts.n_bins, max_ppnb=n_pp,
         max_nb_level=compiled.max_nb_level if compiled else 0,
         has_atrp=n_atrp > 0, n_atrp=n_atrp,
@@ -1435,11 +1569,12 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         type_q=_asarray(_type_prop("charge", 0.0), F32),
         type_state=_asarray(_type_prop("state", 0), I32),
         **pair_arrays,
-        qq_prefactor=_asarray(0.0, F32),
+        qq_prefactor=_asarray(qq_pref, F32),
         qq_cutoff2=_asarray(opts.coulomb_cutoff**2, F32),
-        mix_pair=np.zeros(0, I32), mix_lo=np.zeros(0, F32),
-        mix_hi=np.zeros(0, F32), mix_tab_a=np.zeros(0, I32),
-        mix_tab_b=np.zeros(0, I32), mix_obs=np.zeros(0, I32),
+        **{"mix_" + k: np.asarray([m[c] for m in mix_entries], dt_)
+           for c, (k, dt_) in enumerate((("pair", I32), ("lo", F32),
+                                         ("hi", F32), ("tab_a", I32),
+                                         ("tab_b", I32), ("obs", I32)))},
         nb_ef=nb_stack.ef, nb_ef4=tables.interleave4(nb_stack.ef),
         nb_r0=nb_stack.r0, nb_dr=nb_stack.dr,
         **({} if cheb_fit is None else dict(
@@ -1533,7 +1668,8 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     state_np["nbr"] = neighbor.build_neighbor_state(
         *(torch.from_numpy(a).to(device) for a in (pos, box, active, excl)),
         rc_skin, dims=cell_dims, cell_cap=cell_cap,
-        max_neighbors=max_neighbors, excl_cap=excl_cap)
+        max_neighbors=max_neighbors, excl_cap=excl_cap,
+        track_birth=cfg.has_pps)
     spec = bridge.dataclass_from_numpy(SimSpec, spec_np, device)
     state = bridge.dataclass_from_numpy(MDState, state_np, device)
     if cfg.bonded_dense:

@@ -1,17 +1,21 @@
 """Velocity-Verlet integration with the thermostats and barostats.
 
-Port of ``chemlab_tpu/engine/integrate.py`` for the slice: ``compute_forces``
-on the cell-tile path (kernel sum minus the excluded-pair correction, plus
-bonded forces, plus the global CapForce; LJ or Chebyshev-tabulated pairs,
-with the conversion observables computed on the device when a func-10
-blend reads them; the kernel sum split by x-slab over the ranks of a mesh
-when ``cell_pair_halo.supports`` the config), ``_langevin_adjust``, the
-rescaling thermostats (``_rescale_thermostat``: CSVR, Berendsen,
-isokinetic), ``_fix_distances`` and ``_dynamic_resolution``,
-``virial_pressure`` in its kernel branch (the kernel's pair-virial channel
-minus the excluded pairs' share, minus the bonded strain derivative),
-``_barostat_step`` (Berendsen and the Langevin piston),
-``maybe_rebuild_neighbors`` in its lazy-row branch, and ``md_step``.
+Port of ``chemlab_tpu/engine/integrate.py``: ``compute_forces`` on the
+cell-tile path (kernel sum minus the excluded-pair correction; LJ or
+Chebyshev-tabulated pairs, with the conversion observables computed on the
+device when a func-10 blend reads them; the kernel sum split by x-slab
+over the ranks of a mesh when ``cell_pair_halo.supports`` the config) or
+on the Verlet row path (``pair_forces`` over the persistent rows, every
+nonbonded variant), plus bonded forces, plus the global CapForce;
+``_langevin_adjust``, the rescaling thermostats (``_rescale_thermostat``:
+CSVR, Berendsen, isokinetic), ``_fix_distances`` and
+``_dynamic_resolution``, ``virial_pressure`` (kernel path: the kernel's
+pair-virial channel minus the excluded pairs' share, minus the bonded
+strain derivative; row path: W = -dU/ds over the rows and the bonded
+terms by autograd at s = 1), ``_barostat_step`` (Berendsen and
+the Langevin piston), ``maybe_rebuild_neighbors`` (a bucket refresh on
+the lazy-row path, the full row rebuild with func-14 births on the row
+path), and ``md_step``.
 
 The noise is an argument: ``md_step`` takes the Langevin noise tensor,
 CSVR's scalar normal and the Langevin barostat's scalar draw (the tests
@@ -27,7 +31,7 @@ import dataclasses
 import torch
 
 from . import (bonded_forces, cell_pair, cell_pair_halo, excl_dense,
-               neighbor, observables, reactions, topo)
+               neighbor, observables, pair_forces, reactions, topo)
 from .state import I32
 
 
@@ -85,14 +89,18 @@ def compute_forces(spec, cfg, state, want_energy: bool = True,
     else:
         obs_x = torch.zeros(spec.obs_total.shape[0], dtype=torch.float32,
                             device=state.pos.device)
-    f_all, e_lj_all, e_tab_all, _ = _pair_sum(spec, cfg, state,
-                                              want_energy=want_energy,
-                                              obs_x=obs_x, kernel=pair_kernel)
-    f_ex, e_lj_ex, e_tab_ex, _ = _excl_correction(spec, cfg, state, obs_x)
-    f_pair = f_all - f_ex
-    e_pair = {"lj": e_lj_all - e_lj_ex, "lj-tab": e_tab_all - e_tab_ex,
-              "coulomb": torch.zeros((), dtype=state.pos.dtype,
-                                     device=state.pos.device)}
+    if cfg.use_pallas:
+        f_all, e_lj_all, e_tab_all, _ = _pair_sum(
+            spec, cfg, state, want_energy=want_energy, obs_x=obs_x,
+            kernel=pair_kernel)
+        f_ex, e_lj_ex, e_tab_ex, _ = _excl_correction(spec, cfg, state,
+                                                      obs_x)
+        f_pair = f_all - f_ex
+        e_pair = {"lj": e_lj_all - e_lj_ex, "lj-tab": e_tab_all - e_tab_ex,
+                  "coulomb": torch.zeros((), dtype=state.pos.dtype,
+                                         device=state.pos.device)}
+    else:
+        f_pair, e_pair = row_pair_forces(spec, cfg, state, obs_x)
     f_bond, e_bond = bonded_forces.bonded_forces(
         spec, cfg, state.pos, state.box, state.type_id, state.q, state.bonds,
         state.angles, state.dihedrals, state.pairs14,
@@ -107,6 +115,20 @@ def compute_forces(spec, cfg, state, want_energy: bool = True,
         cap / torch.clamp(fmag, min=1e-30), max=1.0), force)
     force = torch.where(state.active[:, None], force, 0.0)
     return force, {**e_pair, **e_bond}, obs_x
+
+
+def row_pair_forces(spec, cfg, state, obs_x):
+    """The row path's pair forces and energies (reference
+    ``integrate.py:106-113``): the step's tables resolved from the
+    conversions, then ``pair_forces.pair_forces`` over the persistent rows
+    with the func-14 ramp where the system has one."""
+    tab_a, tab_b, mix_x = pair_forces.resolve_pair_tables(
+        spec, obs_x, cfg.n_mix_entries)
+    return pair_forces.pair_forces(
+        spec, cfg.n_types, state.pos, state.box, state.type_id, state.q,
+        state.lam, state.nbr.idx, state.nbr.excl_mask, tab_a, tab_b, mix_x,
+        cfg=cfg, pps_step=state.step if cfg.has_pps else None,
+        pps_birth=state.nbr.birth if cfg.has_pps else None)
 
 
 def _langevin_adjust(spec, state, force, noise):
@@ -209,23 +231,52 @@ def _dynamic_resolution(spec, state):
                                spec.type_state[fc], state.chem_state))
 
 
+def row_strain_derivative(spec, cfg, state):
+    """dU/ds at s = 1 on the row path, positions and box scaled by s: every
+    pair of the rows plus the bonded terms (reference
+    ``integrate.py:224-241``).  The pair energies come from ``pair_forces``
+    without ``cfg``, as the reference calls it there: every branch runs
+    and no func-14 ramp applies."""
+    obs_x = observables.conversions(spec, state.type_id, state.chem_state,
+                                    state.active)
+    tab_a, tab_b, mix_x = pair_forces.resolve_pair_tables(
+        spec, obs_x, cfg.n_mix_entries)
+    with torch.enable_grad():
+        s = torch.ones((), dtype=state.pos.dtype, device=state.pos.device,
+                       requires_grad=True)
+        _, e_pair = pair_forces.pair_forces(
+            spec, cfg.n_types, state.pos.detach() * s,
+            state.box.detach() * s, state.type_id, state.q, state.lam,
+            state.nbr.idx, state.nbr.excl_mask, tab_a, tab_b, mix_x)
+        (grad,) = torch.autograd.grad(sum(e_pair.values()), s)
+    return grad + bonded_forces.bonded_strain_derivative(
+        spec, cfg, state.pos, state.box, state.type_id, state.q,
+        state.bonds, state.angles, state.dihedrals, state.pairs14,
+        dense=_dense_of(cfg, state))
+
+
 def virial_pressure(spec, cfg, state, pair_kernel: str = "auto"):
-    """Instantaneous pressure P = (2 Ekin + W) / 3V (reference: the kernel
-    branch of ``integrate.virial_pressure``).  W is the pair virial from
+    """Instantaneous pressure P = (2 Ekin + W) / 3V (reference
+    ``integrate.virial_pressure``).  Kernel path: W is the pair virial from
     the kernel's virial channel (K1/K1b or K2; K1c/K1d/K1e on a tabulated
     system) minus the excluded pairs' share, minus the bonded strain
     derivative dU_bonded/ds; on a mesh the kernel's channel is summed slab
-    by slab (K1f); ``pair_kernel`` as in ``compute_forces``.  The row
-    path's branch waits for M10."""
-    obs_x = (observables.conversions(spec, state.type_id, state.chem_state,
-                                     state.active) if cfg.cheb_mix else None)
-    _, _, _, w_all = _pair_sum(spec, cfg, state, want_virial=True,
-                               obs_x=obs_x, kernel=pair_kernel)
-    _, _, _, w_ex = _excl_correction(spec, cfg, state, obs_x)
-    w = (w_all - w_ex) - bonded_forces.bonded_strain_derivative(
-        spec, cfg, state.pos, state.box, state.type_id, state.q, state.bonds,
-        state.angles, state.dihedrals, state.pairs14,
-        dense=_dense_of(cfg, state))
+    by slab (K1f); ``pair_kernel`` as in ``compute_forces``.  Row path:
+    W = -dU/ds over the rows and the bonded terms
+    (``row_strain_derivative``)."""
+    if cfg.use_pallas:
+        obs_x = (observables.conversions(spec, state.type_id,
+                                         state.chem_state, state.active)
+                 if cfg.cheb_mix else None)
+        _, _, _, w_all = _pair_sum(spec, cfg, state, want_virial=True,
+                                   obs_x=obs_x, kernel=pair_kernel)
+        _, _, _, w_ex = _excl_correction(spec, cfg, state, obs_x)
+        w = (w_all - w_ex) - bonded_forces.bonded_strain_derivative(
+            spec, cfg, state.pos, state.box, state.type_id, state.q,
+            state.bonds, state.angles, state.dihedrals, state.pairs14,
+            dense=_dense_of(cfg, state))
+    else:
+        w = -row_strain_derivative(spec, cfg, state)
     ekin = observables.kinetic_energy(state.mass, state.vel, state.active)
     return (2.0 * ekin + w) / (3.0 * torch.prod(state.box))
 
@@ -260,15 +311,28 @@ def _barostat_step(spec, cfg, state, noise=None, pair_kernel: str = "auto"):
                                baro_v=baro_v)
 
 
-def maybe_rebuild_neighbors(spec, cfg, state):
-    """Refresh the cell buckets when the skin criterion fires (read on the
-    host)."""
-    if not bool(neighbor.needs_rebuild(state.pos, state.nbr, state.box,
-                                       spec.skin)):
+def maybe_rebuild_neighbors(spec, cfg, state, force: bool = False):
+    """When the skin criterion fires (read on the host) or ``force``:
+    refresh the cell buckets on the lazy-row path, rebuild the rows on the
+    row path (a func-14 pair keeps its birth step across the rebuild; the
+    overflow flag stays sticky)."""
+    if not force and not bool(neighbor.needs_rebuild(
+            state.pos, state.nbr, state.box, spec.skin)):
         return state
-    nbr = neighbor.refresh_buckets(state.nbr, state.pos, state.box,
-                                   state.active, dims=cfg.cell_dims,
-                                   cell_cap=cfg.cell_cap)
+    if cfg.lazy_rows:
+        nbr = neighbor.refresh_buckets(state.nbr, state.pos, state.box,
+                                       state.active, dims=cfg.cell_dims,
+                                       cell_cap=cfg.cell_cap)
+        return dataclasses.replace(state, nbr=nbr)
+    rc_skin = torch.sqrt(torch.max(spec.pair_cutoff2)) + spec.skin
+    nbr = neighbor.build_neighbor_state(
+        state.pos, state.box, state.active, state.excl, rc_skin,
+        dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
+        max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap,
+        track_birth=cfg.has_pps, prev=state.nbr if cfg.has_pps else None,
+        step=state.step)
+    nbr = dataclasses.replace(nbr, n_rebuilds=state.nbr.n_rebuilds + 1,
+                              overflow=state.nbr.overflow | nbr.overflow)
     return dataclasses.replace(state, nbr=nbr)
 
 

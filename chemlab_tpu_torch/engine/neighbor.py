@@ -3,8 +3,9 @@
 Port of ``chemlab_tpu/engine/neighbor.py``: ``build_cell_buckets`` (the
 sort-based binning and its ``slot_of`` inverse), ``refresh_buckets``,
 ``needs_rebuild``, ``build_exclusion_rows`` and ``build_neighbor_state``
-(the K-nearest rows the build stores; the lazy-row force path itself reads
-only the buckets).  ``choose_cell_grid`` and ``neighbor_cell_offsets`` are
+(the K-nearest rows: the row path's persistent Verlet rows, with the
+func-14 birth step of each pair; the lazy-row force path reads only the
+buckets).  ``choose_cell_grid`` and ``neighbor_cell_offsets`` are
 numpy and are copied, because the reference module imports jax at its top.
 
 Every sort is ``stable=True``: ``jnp.argsort`` is stable and bucket order
@@ -104,12 +105,41 @@ def build_exclusion_rows(excl_pairs, n_pad: int, excl_cap: int):
     return out[:n_pad * excl_cap].reshape(n_pad, excl_cap), overflow
 
 
+# slot pairs of the (N, K, K_old) birth match made at once: a 64 MiB bool
+# plane and a 256 MiB int32 one
+BIRTH_CHUNK_SLOTS = 1 << 26
+
+
+def inherit_births(nbr, prev_idx, prev_birth, now):
+    """Each slot's birth step: the minimum of the previous rows' births of
+    the same pair where the pair was in the previous rows, else ``now``.
+    The (N, K, K_old) match is made a block of rows at a time."""
+    birth = torch.empty(nbr.shape, dtype=I32, device=nbr.device)
+    rows = max(1, BIRTH_CHUNK_SLOTS // max(1, nbr.shape[1]
+                                            * prev_idx.shape[1]))
+    big = torch.iinfo(torch.int32).max
+    for lo in range(0, nbr.shape[0], rows):
+        cur = nbr[lo:lo + rows]
+        match = cur[:, :, None] == prev_idx[lo:lo + rows, None, :]
+        had = torch.any(match, dim=-1)
+        old = torch.amin(torch.where(match, prev_birth[lo:lo + rows, None, :],
+                                     big), dim=-1)
+        birth[lo:lo + rows] = torch.where(had, old, now)
+    return birth
+
+
 def build_neighbor_state(pos, box, active, excl_pairs, rc_skin, *, dims,
-                         cell_cap: int, max_neighbors: int,
-                         excl_cap: int) -> NeighborState:
+                         cell_cap: int, max_neighbors: int, excl_cap: int,
+                         track_birth: bool = False, prev=None,
+                         step=None) -> NeighborState:
     """A fresh NeighborState: buckets plus the K nearest in-range (< rc_skin)
     active candidates of each particle (unused slots point at the particle
-    itself) and the per-slot exclusion mask."""
+    itself) and the per-slot exclusion mask.
+
+    With ``track_birth`` (ParticlePairScaling, nonbonded func 14) each slot
+    carries the step its pair entered the rows: a pair found in
+    ``prev.idx`` keeps its earliest birth there, a new pair starts at
+    ``step`` (0 when None)."""
     dev = pos.device
     n_pad = pos.shape[0]
     n_cells = int(np.prod(dims))
@@ -156,9 +186,18 @@ def build_neighbor_state(pos, box, active, excl_pairs, rc_skin, *, dims,
     excl_rows, excl_overflow = build_exclusion_rows(excl_pairs, n_pad,
                                                     excl_cap)
     excl_mask = torch.any(nbr[:, None, :] == excl_rows[:, :, None], dim=1)
+    if track_birth:
+        now = torch.as_tensor(0 if step is None else step, dtype=I32,
+                              device=dev)
+        if prev is None:
+            birth = now.expand(nbr.shape).clone()
+        else:
+            birth = inherit_births(nbr, prev.idx, prev.birth, now)
+    else:
+        birth = torch.zeros((1, 1), dtype=I32, device=dev)
     return NeighborState(
         idx=nbr, excl_mask=excl_mask, ref_pos=pos, buckets=buckets,
-        slot_of=slot_of, birth=torch.zeros((1, 1), dtype=I32, device=dev),
+        slot_of=slot_of, birth=birth,
         overflow=overflow | nbr_overflow | excl_overflow,
         n_rebuilds=torch.ones((), dtype=I32, device=dev))
 

@@ -9,8 +9,10 @@ time is kept.
 
 Phases (the reference's six):
   neighbor_rebuild  cell binning + the K-nearest rows + exclusion rows
+                    (with the func-14 births on a row-path build)
   pair_forces       the pair kernel's all-pairs sum minus the excluded
-                    pairs' correction (the port's only pair path)
+                    pairs' correction, or ``pair_forces`` over the rows on
+                    a row-path build
   bonded_forces     bonds, angles, dihedrals and 1-4 pairs
   integrate_step    one full md_step (kicks, drift, rebuild trigger,
                     thermostat)
@@ -57,13 +59,17 @@ def phase_timers(spec, cfg, state, repeats: int = 3) -> dict:
         lambda: neighbor.build_neighbor_state(
             state.pos, state.box, state.active, state.excl, rc_skin,
             dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
-            max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap),
+            max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap,
+            track_birth=cfg.has_pps,
+            prev=state.nbr if cfg.has_pps else None, step=state.step),
         dev, repeats)
 
     obs_x = torch.zeros(spec.obs_total.shape[0], dtype=torch.float32,
                         device=dev)
 
     def pair():
+        if not cfg.use_pallas:
+            return integrate.row_pair_forces(spec, cfg, state, obs_x)[0]
         f_all = integrate._pair_sum(spec, cfg, state, want_energy=True,
                                     obs_x=obs_x, kernel="auto")[0]
         return f_all - integrate._excl_correction(spec, cfg, state, obs_x)[0]

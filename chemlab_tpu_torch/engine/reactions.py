@@ -1,19 +1,26 @@
 """The reactive layer: matching, event application and the periodic
 extensions.
 
-Port of ``chemlab_tpu/engine/reactions.py`` for the lazy-row paths of
-``reaction_step``:
+Port of ``chemlab_tpu/engine/reactions.py``.  ``reaction_step`` matches
+in one of two ways, each on the lazy-row path or on the row path's
+persistent Verlet rows:
 
 - compact (``cfg.rx_compact``, the type_1 side is a minority): candidates
-  on the reaction cell grid for the particles that can be the type_1 side
-  of a channel (``side1_mask``, ``compact_candidates_from_cells``),
-  conflicts resolved by deterministic scatter-min
-  (``match_reactions_compact``);
+  for the particles that can be the type_1 side of a channel
+  (``side1_mask``) on the reaction cell grid
+  (``compact_candidates_from_cells``) or from their persistent rows
+  (``compact_candidates_from_rows``), conflicts resolved by deterministic
+  scatter-min (``match_reactions_compact``);
 - full-row (the type_1 side spans the bulk, as in step-growth chemistry):
   fresh neighbour rows on the reaction grid
-  (``neighbor.build_neighbor_state`` at ``cfg.rx_rc``), both directions of
-  every channel tested for every slot (``_channel_accept``) and conflicts
-  resolved by mutual argmin (``match_reactions``).
+  (``neighbor.build_neighbor_state`` at ``cfg.rx_rc``) or the persistent
+  rows, both directions of every channel tested for every slot
+  (``_channel_accept``) and conflicts resolved by mutual argmin
+  (``match_reactions``).
+
+On the row path the persistent rows stay geometrically valid through a
+reaction step; only their exclusion mask is refreshed, and only when an
+event fired (one host read).
 
 Both accept with the pair-symmetric integer hash (``pair_uniform``,
 bit-exact with the reference) and the RestrictReaction whitelist.  The
@@ -24,8 +31,7 @@ FixDistances (ReleaseMolecule, JoinMolecule), one at a time
 the events (``match_dissociations``, ``apply_dissociation_events``).  The
 periodic extensions ``atrp_step``, ``change_particle_type_step`` and
 ``freeze_region_step`` take their draws as arguments or from a
-``torch.Generator``.  The reference's persistent-row branch of
-``reaction_step`` waits for the row path (ROADMAP M10).
+``torch.Generator``.
 
 uint32 hashing runs in int64 with ``& 0xFFFFFFFF`` and a 16-bit split
 multiply (no signed overflow); every sort is ``stable=True``.
@@ -304,6 +310,15 @@ def match_reactions_compact(spec, cfg, state, seed, rowsel, row_ok, cand,
                     - state.pos[torch.clamp(ev_b, min=0).long()], state.box)
     ev_dist = torch.where(ev_valid, torch.sqrt(_norm2(dp)), -1.0)
     return ev_valid, ev_a, ev_b, ev_r, ev_dist
+
+
+def compact_candidates_from_rows(state, rowsel):
+    """Candidate tile for the compact match from the persistent rows: the
+    R rows (their self-padding slots as -1) and their exclusion mask."""
+    rs = rowsel.long()
+    cand = state.nbr.idx[rs]
+    return (torch.where(cand == rowsel[:, None], -1, cand),
+            state.nbr.excl_mask[rs])
 
 
 def compact_candidates_from_cells(spec, cfg, state, rowsel):
@@ -885,25 +900,26 @@ def apply_dissociation_events(spec, cfg, state, ev_valid, ev_row, ev_r):
 # ---------------------------------------------------------------------------
 
 def reaction_step(spec, cfg, state, rng_seed: int = 0):
-    """One ChemicalReaction invocation (every ``interval`` MD steps) on the
-    lazy-row path: compact matching when the build chose it, else full
-    rows built fresh on the reaction grid; then the dissociation channels
-    over the bond table."""
-    if not cfg.lazy_rows:
-        raise NotImplementedError("reaction_step on persistent Verlet rows "
-                                  "(ROADMAP M10)")
+    """One ChemicalReaction invocation (every ``interval`` MD steps):
+    compact matching when the build chose it, else full rows (built fresh
+    on the reaction grid on the lazy-row path, the persistent rows on the
+    row path); then the dissociation channels over the bond table.  On the
+    row path the rows' exclusion mask is refreshed when an event fired."""
     if cfg.rx_compact:
         s1 = side1_mask(spec, cfg, state)
         order = torch.argsort((~s1).to(torch.uint8), stable=True)
         rowsel = order[:cfg.rx_rows_cap].to(I32)
         row_ok = s1[rowsel.long()]
         rx_overflow = s1.sum() > cfg.rx_rows_cap
-        cand, excl_hit, c_ovf = compact_candidates_from_cells(
-            spec, cfg, state, rowsel)
-        rx_overflow = rx_overflow | c_ovf
+        if cfg.lazy_rows:
+            cand, excl_hit, c_ovf = compact_candidates_from_cells(
+                spec, cfg, state, rowsel)
+            rx_overflow = rx_overflow | c_ovf
+        else:
+            cand, excl_hit = compact_candidates_from_rows(state, rowsel)
         ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions_compact(
             spec, cfg, state, rng_seed, rowsel, row_ok, cand, excl_hit)
-    else:
+    elif cfg.lazy_rows:
         # rows exist only here, on the reaction-sized grid
         rx_nbr = neighbor.build_neighbor_state(
             state.pos, state.box, state.active, state.excl, cfg.rx_rc,
@@ -912,14 +928,32 @@ def reaction_step(spec, cfg, state, rng_seed: int = 0):
         rx_overflow = rx_nbr.overflow
         ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
             spec, cfg, state, rng_seed, rx_nbr.idx, rx_nbr.excl_mask)
+    else:
+        rx_overflow = torch.zeros((), dtype=torch.bool,
+                                  device=state.pos.device)
+        ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
+            spec, cfg, state, rng_seed, state.nbr.idx, state.nbr.excl_mask)
     state = dataclasses.replace(
         state, ev_log_step=state.step.clone(), ev_log_a=ev_a, ev_log_b=ev_b,
         ev_log_r=ev_r, ev_log_dist=ev_dist.to(state.ev_log_dist.dtype))
     state, topo_overflow = apply_reaction_events(spec, cfg, state, ev_valid,
                                                  ev_a, ev_b, ev_r)
+    any_event = torch.any(ev_valid)
     if cfg.has_dissociation:
         dv, drow, dr = match_dissociations(spec, cfg, state, rng_seed)
         state = apply_dissociation_events(spec, cfg, state, dv, drow, dr)
+        any_event = any_event | torch.any(dv)
+    if not cfg.lazy_rows and bool(any_event):
+        # positions did not move, so the rows stay valid: only the
+        # exclusions changed (new 1-2/1-3/1-4 pairs, removals from breaks)
+        excl_rows, e_ovf = neighbor.build_exclusion_rows(
+            state.excl, state.pos.shape[0], cfg.excl_cap)
+        idx = state.nbr.idx
+        excl_mask = torch.any(idx[:, None, :] == excl_rows[:, :, None],
+                              dim=1)
+        state = dataclasses.replace(state, nbr=dataclasses.replace(
+            state.nbr, excl_mask=excl_mask,
+            overflow=state.nbr.overflow | e_ovf))
     nbr = dataclasses.replace(
         state.nbr, overflow=state.nbr.overflow | topo_overflow
         | rx_overflow)

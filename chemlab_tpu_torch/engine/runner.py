@@ -217,8 +217,10 @@ def measure_cheap(spec, cfg, state):
 
 
 def measure(spec, cfg, state):
-    """One observable pass: energies, temperature, counters, and the
-    pressure and box edge under a barostat or ``store_pressure``."""
+    """One observable pass: energies, temperature, counters, the pressure
+    and box edge under a barostat or ``store_pressure``, and the count of
+    func-14 pairs in the rows (``pair_scale``) where the system has
+    them."""
     force, energies, _ = integrate.compute_forces(spec, cfg, state)
     out = dict(energies)
     out["T"] = observables.temperature(state.mass, state.vel, state.active,
@@ -234,6 +236,14 @@ def measure(spec, cfg, state):
     _counts(cfg, state, out)
     out["n_part"] = state.active.sum(dtype=torch.int32)
     out["max_force"] = observables.max_force(force, state.active)
+    if cfg.has_pps:
+        # the func-14 pairs in the rows (each is in both of its rows)
+        j = state.nbr.idx.long()
+        slot_ok = j != torch.arange(state.pos.shape[0],
+                                    device=j.device)[:, None]
+        pp = state.type_id.long()[:, None] * cfg.n_types + state.type_id[j]
+        out["pair_scale"] = torch.sum(
+            (slot_ok & (spec.pair_pps_incr[pp] > 0.0)).to(torch.int32)) // 2
     if cfg.has_reactions:
         chem_rows = state.bonds.valid & (state.bonds.group >= 0)
         nsel = torch.clamp(chem_rows.sum(), min=1)

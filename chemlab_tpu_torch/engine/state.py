@@ -89,7 +89,7 @@ class TermTable(TensorDataclass):
 
 @dataclasses.dataclass
 class NeighborState(TensorDataclass):
-    """Cell buckets and the Verlet rows made at build."""
+    """Cell buckets and the Verlet rows (persistent on the row path)."""
 
     idx: torch.Tensor        # (N, K) int32 neighbor rows, self padded
     excl_mask: torch.Tensor  # (N, K) bool: pair is excluded
@@ -97,7 +97,8 @@ class NeighborState(TensorDataclass):
     buckets: torch.Tensor    # (n_cells+1, cap) int32 cell-dense rows
     slot_of: torch.Tensor    # (N,) int32 inverse of buckets (n_cells*cap =
                              # dropped)
-    birth: torch.Tensor      # (1, 1) int32 (func-14 pair ages; unused here)
+    birth: torch.Tensor      # (N, K) int32 step each pair entered the rows
+                             # (func 14, ``cfg.has_pps``), else (1, 1)
     overflow: torch.Tensor   # () bool, sticky: a capacity overflowed
     n_rebuilds: torch.Tensor # () int32
 

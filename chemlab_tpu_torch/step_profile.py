@@ -2,14 +2,15 @@
 
 Usage (on a machine with an NVIDIA GPU):
 
-    python -m chemlab_tpu_torch.step_profile [--melt lj|tab|npt|chain]
+    python -m chemlab_tpu_torch.step_profile [--melt lj|tab|npt|chain|row]
 
 Builds the 10k melt (``lj``: ``build_melt``; ``tab``:
 ``build_tabulated_melt``; ``npt``: ``build_melt`` under the Berendsen
 barostat at pressure 0.15, tau 2.0; ``chain``: ``build_chain_melt``, the
 step-growth tetramers with dihedrals, 1-4 pairs, func-8 bonded terms and
-full-row reaction matching), warms it up, runs one 200-step reactive
-block,
+full-row reaction matching; ``row``: ``build_row_melt``, every nonbonded
+variant and Coulomb on the Verlet row path), warms it up, runs one
+200-step reactive block,
 then times each layer of the step ``CALLS`` times (the reaction step 5
 times) with the host clock and with
 CUDA events, each series ending in a synchronize, and records 40 steps
@@ -52,8 +53,37 @@ def _timed(fn, calls: int):
     return host, e0.elapsed_time(e1) / calls
 
 
+def row_layers(spec, cfg, st):
+    """The row path's layers as (name, zero-argument callable, calls
+    scale)."""
+    obs_x = torch.zeros(spec.obs_total.shape[0], device=st.pos.device)
+    gen = runner.make_generator(7, st.device)
+    return [
+        ("md_step", lambda: integrate.md_step(spec, cfg, st, gen=gen), 1),
+        ("compute_forces", lambda: integrate.compute_forces(
+            spec, cfg, st, want_energy=False), 1),
+        ("bonded_forces (autograd)", lambda: bonded_forces.bonded_forces(
+            spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds,
+            st.angles, st.dihedrals, st.pairs14,
+            dense=integrate._dense_of(cfg, st)), 1),
+        ("pair_forces over the rows", lambda: integrate.row_pair_forces(
+            spec, cfg, st, obs_x), 1),
+        ("row rebuild (with births)", lambda: integrate.
+         maybe_rebuild_neighbors(spec, cfg, st, force=True), 0.2),
+        ("needs_rebuild + host read", lambda: bool(neighbor.needs_rebuild(
+            st.pos, st.nbr, st.box, spec.skin)), 1),
+        ("virial_pressure (row path: autograd in s)",
+         lambda: integrate.virial_pressure(spec, cfg, st), 0.2),
+        ("reaction_step + re-derivation (1 per interval)",
+         lambda: excl_dense.rederive(cfg, bonded_dense.rederive(
+             cfg, reactions.reaction_step(spec, cfg, st, 0))), 0.1),
+    ]
+
+
 def layers(spec, cfg, st):
     """The step's layers as (name, zero-argument callable, calls scale)."""
+    if not cfg.use_pallas:
+        return row_layers(spec, cfg, st)
     obs_x = torch.zeros(spec.obs_total.shape[0], device=st.pos.device)
     cheb = dict(cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0,
                 cheb_ko=cfg.cheb_ko, cheb_ntab=cfg.cheb_ntab,
@@ -100,7 +130,7 @@ def layers(spec, cfg, st):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="step_profile")
-    p.add_argument("--melt", choices=("lj", "tab", "npt", "chain"),
+    p.add_argument("--melt", choices=("lj", "tab", "npt", "chain", "row"),
                    default="tab")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -115,6 +145,8 @@ def main(argv=None) -> int:
             n_mols=N_MOLS, barostat="br", pressure=0.15, barostat_tau=2.0)
     elif a.melt == "chain":
         built, systop, _ = testsystems.build_chain_melt(n_mols=CHAIN_MOLS)
+    elif a.melt == "row":
+        built, systop, _ = testsystems.build_row_melt(n_mols=N_MOLS)
     else:
         built, systop, _ = testsystems.build_tabulated_melt(n_mols=N_MOLS,
                                                             reactive=True)

@@ -12,7 +12,9 @@ its velocities differ from the reference's ``jax.random`` draw.
 ``build_chain_melt`` (E-B-B-E tetramers linking end to end) is the port's
 own input for the dihedral, 1-4, tabulated bonded and full-row reaction
 paths; its text, coordinates and tables are plain functions, so the
-reference can build the same system.
+reference can build the same system.  ``build_row_melt`` puts one
+nonbonded variant of the Verlet row path on each type pair of the
+charged ATRP melt (``row_topology_text``, ``write_row_tables``).
 """
 
 from __future__ import annotations
@@ -742,3 +744,105 @@ def build_release_melt(n_mols: int = 3334, density: float = 0.27,
     overrides.update(opt_overrides)
     return _build_trimer_melt(text, n_mols, density, kT, seed, device,
                               overrides)
+
+
+# ---- the Verlet row path: one nonbonded variant per type pair ---------------
+
+ROW_PPS_INCR = 0.01
+ROW_CAPRAD = 0.8
+ROW_MAX_FORCE = 60.0
+ROW_CHARGES = {"A": -0.05, "L": 0.1}
+
+
+def row_topology_text(n_mols: int, x_switch: float) -> str:
+    """The ATRP melt with charges (every A type -0.05, every L type +0.1:
+    neutral trimers, and a product keeps its atom's charge through its
+    type's) and a ``[ nonbond_params ]`` line for each row-path family:
+    MA-MA func 8, MA-PA func 17 (two ranges of the MA conversion,
+    switching at ``x_switch``), PA-PA func 15 (λ-scaled LJ with a force
+    cap), ML-ML func 14 (ParticlePairScaling, ``ROW_PPS_INCR`` a step,
+    with the same force cap: the descent holds every pair at its birth,
+    and a pair it left close must not explode when its ramp starts),
+    ML-PL func 13 (table capped at ``ROW_CAPRAD``) and PL-PL func 16
+    (energy-capped LJ); every other pair is LJ by combination.  The three
+    families without a repulsive core (below the cap, or at a pair's
+    birth step) sit on like-charged pairs, where Coulomb keeps the pair
+    apart: an A-L pair among them would collapse under its attraction
+    (the warmup's descent holds the step, so every func-14 pair there
+    stays at its birth)."""
+    text = _melt_topology_text(n_mols)
+    for sym in MELT_TYPES:
+        q = ROW_CHARGES[sym[1]]
+        text = text.replace("  %s    1.0      0.000 " % sym,
+                            "  %s    1.0      %.3f " % (sym, q))
+    text = text.replace("1 MA 1 MON AI 1 0.000000 1",
+                        "1 MA 1 MON AI 1 -0.050000 1")
+    text = text.replace("2 ML 1 MON LM 2 0.000000 1",
+                        "2 ML 1 MON LM 2 0.100000 1")
+    text = text.replace("3 MA 1 MON AJ 3 0.000000 1",
+                        "3 MA 1 MON AJ 3 -0.050000 1")
+    nb = """
+[ nonbond_params ]
+MA MA 8
+MA PA 17 MA %d 0.0:%r:table_rowA.pot:table_rowB.pot %r:1.01:table_rowC.pot:table_rowD.pot
+PA PA 15 1.0 1.0 %g
+ML ML 14 table_ML_ML.pot %g %g
+ML PL 13 table_ML_PL.pot %g
+PL PL 16 1.0 1.0 %g
+""" % (2 * n_mols, x_switch, x_switch, ROW_MAX_FORCE, ROW_PPS_INCR,
+       ROW_MAX_FORCE, ROW_CAPRAD, ROW_CAPRAD)
+    return text.replace("[ atomstate ]", nb + "\n[ atomstate ]")
+
+
+def write_row_tables(out_dir: str) -> None:
+    """The row melt's tables: the melt's LJ pair tables
+    (``write_lj_pair_tables``) and the four func-17 tables, LJ of depth
+    0.25, 0.12, 0.4 and 0.2."""
+    write_lj_pair_tables(out_dir)
+    r = np.arange(0.002, 3.0 + 0.001, 0.002)
+    for name, eps in (("rowA", 0.25), ("rowB", 0.12), ("rowC", 0.4),
+                      ("rowD", 0.2)):
+        _write_table(os.path.join(out_dir, "table_%s.pot" % name), r,
+                     *_lj_table(r, eps, 1.0))
+
+
+def row_switch(n_mols: int, n_initiators: int = 20, n_events: int = 4):
+    """The MA conversion at which the MA-PA blend changes its tables: that
+    of the melt after ``n_initiators`` initiators and ``n_events`` MA
+    conversions, so a reactive run crosses it."""
+    return 1.0 - (n_initiators + n_events) / (2.0 * n_mols)
+
+
+def build_row_melt(n_mols: int = 3334, density: float = 0.27,
+                   kT: float = 1.0, seed: int = 42, x_switch=None,
+                   table_dir: str | None = None, device="cuda",
+                   **opt_overrides):
+    """The ATRP trimer melt on the Verlet row path (3334 trimers are 10 002
+    particles): Langevin (gamma 1), cutoffs 2.5 (LJ, tables and Coulomb),
+    skin 0.4, compact matching, and one row-path family per type pair
+    (``row_topology_text``), so a single step runs every branch of
+    ``pair_forces.pair_forces``: LJ beside tables, the func-14 ramp, the
+    func-17 multi-range blend, the caps of funcs 13 and 16, the force cap
+    of func 15 and Coulomb between the charges.  The MA-PA blend switches
+    its tables when the MA conversion crosses ``x_switch``.  Particle λ stays 1 here
+    (the melt has no dynamic resolution), so the λ weight of func 15 is
+    1; the CPU tests cover λ != 1.  ``x_switch`` defaults to
+    ``row_switch(n_mols)``; the tables go to a fresh temporary directory
+    unless ``table_dir`` holds them.  Returns (BuiltSystem,
+    SystemTopology, Coordinates)."""
+    if table_dir is None:
+        table_dir = tempfile.mkdtemp(prefix="chemlab_row_")
+        write_row_tables(table_dir)
+    if x_switch is None:
+        x_switch = row_switch(n_mols)
+    systop = compile_system_topology(topfile.parse_lines(
+        row_topology_text(n_mols, x_switch).splitlines(), "<generated-row>"))
+    coords = melt_coordinates(n_mols, density, seed=seed)
+    rcfg = reaction_parser.parse_config_lines(ATRP_CFG_TEXT.splitlines())
+    overrides = dict(coulomb_cutoff=2.5, table_dirs=(table_dir,))
+    overrides.update(opt_overrides)
+    built = build.build_system(
+        systop, coords, build.SimOptions(**melt_options(kT, seed,
+                                                        **overrides)),
+        reaction_config=rcfg, device=device)
+    return built, systop, coords

@@ -125,7 +125,20 @@ once) and drives the port's paths at 10k particles:
      away from unrelabelled removals, bond balance, FixDistances pairs at
      eq, lambda in [0, 1], removed particles in no table and at rest, T,
      no overflow), then the launches a step and a reaction step and the
-     ms of a reaction step; the total wall time is printed last.
+     ms of a reaction step;
+  10. the Verlet row path (``rows``) on the 10k row melt
+     (``testsystems.build_row_melt``: the charged ATRP melt with funcs 8,
+     13-17 and LJ on its type pairs and Coulomb between the charges, which
+     sends it to the row path): (a) the build took the row path and no
+     cell kernel launches in the phase, (c) after a 600-step descent one
+     untimed and four timed 200-step blocks (T, events, bonds gained =
+     events, no overflow, rebuilds, func-14 pairs in the rows, the MA-PA
+     blend's switch crossed, every energy finite), (b) at the run's end
+     the rows with their func-14 births, ``pair_forces``, the row-path
+     virial and one reaction step on the card against the CPU, then the
+     ms of a rebuild, a ``pair_forces`` and a ``virial_pressure`` and the
+     launches a step, (d) a 400-step Berendsen side run (P finite, the box
+     moved); the total wall time is printed last.
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -3029,6 +3042,262 @@ def extensions_path(card: str):
     return brk, rel
 
 
+# ---- the Verlet row path (rows) ---------------------------------------------
+
+ROW_MOLS = 3334         # trimers: 10 002 particles
+ROW_WARMUP = 600        # descent steps
+ROW_TIMED = 4           # timed 200-step blocks after one untimed
+ROW_INITIATORS = 20     # testsystems.row_switch's default
+ROW_NPT_STEPS = 400
+
+
+def _row_pairs(idx, vals, n):
+    """{(i, j): value} over the real slots of the first ``n`` rows."""
+    out = {}
+    for i, (js, vs) in enumerate(zip(idx[:n].tolist(), vals[:n].tolist())):
+        for j, v in zip(js, vs):
+            if j != i:
+                out[(i, j)] = v
+    return out
+
+
+def check_rows_against_cpu(spec, cfg, state):
+    """(b) the card against the CPU on one state: the rows rebuilt from
+    the state's rows (per-row sets, each pair's birth step and exclusion
+    flag, exactly), ``pair_forces`` over the same rows (forces within
+    2e-5 (1 + max|ref|), each energy kind likewise), the row-path
+    pressure's W within 2e-5 (1 + |W|) and one reaction step's event list
+    exactly."""
+    import torch
+
+    from chemlab_tpu_torch.engine import integrate, observables, reactions
+
+    spec_c, st_c = spec.to("cpu"), state.to("cpu")
+    n = cfg.n_particles
+    g = integrate.maybe_rebuild_neighbors(spec, cfg, state, force=True)
+    c = integrate.maybe_rebuild_neighbors(spec_c, cfg, st_c, force=True)
+    rows_g = _row_pairs(g.nbr.idx.cpu(), g.nbr.birth.cpu(), n)
+    rows_c = _row_pairs(c.nbr.idx, c.nbr.birth, n)
+    excl_same = (_row_pairs(g.nbr.idx.cpu(), g.nbr.excl_mask.cpu(), n)
+                 == _row_pairs(c.nbr.idx, c.nbr.excl_mask, n))
+    births = sorted(set(rows_c.values()))
+    print("rows card vs CPU: %d pairs, births %d..%d (%d distinct), equal "
+          "%s, exclusion flags equal %s" % (len(rows_c), births[0],
+                                            births[-1], len(births),
+                                            rows_g == rows_c, excl_same))
+    # the same rows on both from here on
+    st_c = dataclasses.replace(c, nbr=g.nbr.to("cpu"))
+    obs_g = observables.conversions(spec, g.type_id, g.chem_state, g.active)
+    obs_c = observables.conversions(spec_c, st_c.type_id, st_c.chem_state,
+                                    st_c.active)
+    f_g, e_g = integrate.row_pair_forces(spec, cfg, g, obs_g)
+    f_c, e_c = integrate.row_pair_forces(spec_c, cfg, st_c, obs_c)
+    err = (f_g.cpu() - f_c).abs().max().item()
+    tol = _tol(f_c)
+    e_ok = all(abs(float(e_g[k]) - float(e_c[k]))
+               <= 2e-5 * (1.0 + abs(float(e_c[k]))) for k in e_c)
+    print("pair_forces card vs CPU: max|dF| %.3e (tol %.3e); %s"
+          % (err, tol, ", ".join("%s %.6f vs %.6f" % (k, float(e_g[k]),
+                                                        float(e_c[k]))
+                                 for k in sorted(e_c))))
+    w_g = float(integrate.row_strain_derivative(spec, cfg, g))
+    w_c = float(integrate.row_strain_derivative(spec_c, cfg, st_c))
+    print("row-path dU/ds card %.6f CPU %.6f" % (w_g, w_c))
+    on = dict(step=torch.full_like(g.step, 200 * (int(g.step) // 200 + 1)),
+              reactions_on=torch.ones_like(g.reactions_on))
+    r_g = reactions.reaction_step(spec, cfg, dataclasses.replace(g, **on), 0)
+    r_c = reactions.reaction_step(spec_c, cfg, dataclasses.replace(
+        st_c, **{k: v.cpu() for k, v in on.items()}), 0)
+    ev_same = all(torch.equal(getattr(r_g, k).cpu(), getattr(r_c, k))
+                  for k in ("ev_log_a", "ev_log_b", "ev_log_r", "q",
+                            "type_id"))
+    ev_same = ev_same and torch.equal(r_g.nbr.excl_mask.cpu(),
+                                      r_c.nbr.excl_mask)
+    n_ev = int((r_c.ev_log_a >= 0).sum())
+    print("reaction step on the rows card vs CPU: %d events, equal lists, "
+          "charges and exclusion mask %s" % (n_ev, ev_same))
+    _require({"(b) rows and births card = CPU": rows_g == rows_c,
+              "(b) exclusion flags card = CPU": excl_same,
+              "(b) births spread over the run": len(births) > 1,
+              "(b) pair_forces forces card = CPU": err <= tol,
+              "(b) pair_forces energies card = CPU": e_ok,
+              "(b) virial card = CPU": abs(w_g - w_c)
+              <= 2e-5 * (1.0 + abs(w_c)),
+              "(b) reaction step card = CPU": ev_same and n_ev > 0},
+             "rows card vs CPU")
+
+
+def _row_ms(spec, cfg, state):
+    """ms of a row rebuild, a ``pair_forces`` and a row-path
+    ``virial_pressure`` (CUDA events, the kernel matrix's timer), and the
+    kernels launched a step (10 steps without a reaction step under
+    ``torch.profiler``)."""
+    import torch
+
+    from chemlab_tpu_torch.engine import integrate, observables, runner
+
+    obs = observables.conversions(spec, state.type_id, state.chem_state,
+                                  state.active)
+    out = {"rebuild_ms": _time_ms(lambda: integrate.maybe_rebuild_neighbors(
+               spec, cfg, state, force=True), 20),
+           "pair_ms": _time_ms(lambda: integrate.row_pair_forces(
+               spec, cfg, state, obs), 50),
+           "virial_ms": _time_ms(lambda: integrate.virial_pressure(
+               spec, cfg, state), 20)}
+    gen = runner.make_generator(77, DEVICE)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        s = state
+        for _ in range(10):
+            s = runner.step_with_extensions(
+                spec, cfg, s, gen=gen,
+                gates={"reaction": False, "atrp": False, "cpt": False})
+        _sync()
+    out["launches_step"] = len(
+        [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA]) / 10.0
+    return out
+
+
+def rows_path(card: str):
+    """The Verlet row path (``rows``) on the 10k row melt: (a) the build
+    took the row path and no cell kernel runs in the phase, (b) the card
+    against the CPU on one state, (c) one untimed and ROW_TIMED timed
+    blocks, (d) a Berendsen NPT side run of the same melt."""
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import cell_pair, integrate, runner
+
+    t0 = time.perf_counter()
+    for k in cell_pair.KERNELS:
+        k.launches = 0
+    built, systop, _ = testsystems.build_row_melt(n_mols=ROW_MOLS,
+                                                  device=DEVICE)
+    cfg, spec = built.cfg, built.spec
+    x_switch = testsystems.row_switch(ROW_MOLS, ROW_INITIATORS)
+    print("row melt: %d particles, grid %s, cell_cap %d, max_neighbors %d, "
+          "excl_cap %d, use_pallas %s, lazy_rows %s, has_coulomb %s, "
+          "has_caps %s, has_pps %s, has_lambda_pairs %s, n_mix_entries %d, "
+          "rx_compact %s, x_switch %.6f"
+          % (cfg.n_particles, cfg.cell_dims, cfg.cell_cap,
+             cfg.max_neighbors, cfg.excl_cap, cfg.use_pallas, cfg.lazy_rows,
+             cfg.has_coulomb, cfg.has_caps, cfg.has_pps,
+             cfg.has_lambda_pairs, cfg.n_mix_entries, cfg.rx_compact,
+             x_switch))
+    _require({"(a) the row path (use_pallas, lazy_rows False)":
+              not cfg.use_pallas and not cfg.lazy_rows,
+              "(a) every row-path family": cfg.has_coulomb and cfg.has_caps
+              and cfg.has_pps and cfg.has_lambda_pairs and cfg.has_lj
+              and cfg.has_tabulated and cfg.n_mix_entries > 0,
+              "(a) func-14 births kept": built.state.nbr.birth.shape
+              == built.state.nbr.idx.shape},
+             "row build")
+    state = runner.initial_forces(spec, cfg, built.state)
+    state = testsystems.warmup(built, state, steps=ROW_WARMUP)
+    state = testsystems.activate_initiators(built, systop, state,
+                                            n=ROW_INITIATORS)
+    _sync()
+    print("row melt build + warmup %.1f s" % (time.perf_counter() - t0))
+
+    # (c) the main path: one untimed and ROW_TIMED timed blocks; the cell
+    # kernels' counts (0 since the phase began) are set to 0 before it and
+    # read after
+    before_main = sum(k.launches for k in cell_pair.KERNELS)
+    for k in cell_pair.KERNELS:
+        k.launches = 0
+    gen = runner.make_generator(1234, DEVICE)
+    m0 = runner.measure(spec, cfg, state)
+    bonds0, events0 = int(m0["n_bonds"]), int(m0["reaction_counts"].sum())
+    rebuilds0 = int(state.nbr.n_rebuilds)
+    wall = 0.0
+    for b in range(1 + ROW_TIMED):
+        _sync()
+        t1 = time.perf_counter()
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+        _sync()
+        if b:
+            wall += time.perf_counter() - t1
+        print("rows main path block %d%s: events so far %s, rebuilds %d, "
+              "overflow %s" % (b, " (timed)" if b else " (untimed)",
+                               state.reaction_counts.tolist(),
+                               int(state.nbr.n_rebuilds) - rebuilds0,
+                               bool(state.nbr.overflow)))
+    cell_launches = sum(k.launches for k in cell_pair.KERNELS)
+    pps = cfg.n_particles * ROW_TIMED * BLOCK_STEPS / wall
+    m = runner.measure(spec, cfg, state)
+    kT = float(spec.kT)
+    events = int(m["reaction_counts"].sum()) - events0
+    bonds = int(m["n_bonds"]) - bonds0
+    x0, x1 = float(m0["conversions"][0]), float(m["conversions"][0])
+    energies = {k: float(m[k]) for k in ("lj", "lj-tab", "coulomb",
+                                         "bond_f1", "angle_f1")}
+    print("rows main path: %d particles, %d timed steps in %.3f s: %.1f "
+          "particle-steps/s on %s; T %.4f kT, events %d, bonds +%d, "
+          "rebuilds %d, pair_scale %d, MA conversion %.6f -> %.6f (switch "
+          "%.6f), energies %s, overflow %s, cell-kernel launches %d"
+          % (cfg.n_particles, ROW_TIMED * BLOCK_STEPS, wall, pps, card,
+             float(m["T"]), events, bonds,
+             int(state.nbr.n_rebuilds) - rebuilds0, int(m["pair_scale"]),
+             x0, x1, x_switch, energies, bool(m["overflow"]), cell_launches))
+    _require({"(a) no cell kernel launched": before_main == 0
+              and cell_launches == 0,
+              "(c) T within 0.5-1.5 kT": 0.5 * kT <= float(m["T"])
+              <= 1.5 * kT,
+              "(c) events fired": events > 0,
+              "(c) bonds gained = events": bonds == events,
+              "(c) no capacity overflow": not bool(m["overflow"]),
+              "(c) rows rebuilt": int(state.nbr.n_rebuilds) > rebuilds0,
+              "(c) func-14 pairs in the rows": int(m["pair_scale"]) > 0,
+              "(c) the MA-PA blend crossed its switch": x0 >= x_switch > x1,
+              "(c) every energy finite": all(
+                  map(lambda v: v == v and abs(v) < float("inf"),
+                      energies.values())),
+              "(c) no jax, no JAX package": _no_reference_modules()},
+             "rows main path")
+
+    # (b) the card against the CPU at the run's end
+    check_rows_against_cpu(spec, cfg, state)
+    times = _row_ms(spec, cfg, state)
+
+    # (d) a Berendsen NPT side run of the same melt, from the run's end
+    # (its grid has the barostat's margin: the rows are rebuilt on it)
+    npt, _, _ = testsystems.build_row_melt(n_mols=ROW_MOLS, device=DEVICE,
+                                           **NPT)
+    st = integrate.maybe_rebuild_neighbors(npt.spec, npt.cfg, state,
+                                           force=True)
+    st = runner.initial_forces(npt.spec, npt.cfg, st)
+    box0 = st.box.clone()
+    _sync()
+    t1 = time.perf_counter()
+    st = runner.run_block(npt.spec, npt.cfg, st, ROW_NPT_STEPS,
+                          gen=runner.make_generator(4321, DEVICE))
+    _sync()
+    npt_s = time.perf_counter() - t1
+    p = float(integrate.virial_pressure(npt.spec, npt.cfg, st))
+    moved = float((st.box - box0).abs().max())
+    print("rows NPT side run (br, pressure %.2f): %d steps in %.3f s, P "
+          "%.6f, box %.6f -> %.6f, overflow %s"
+          % (float(npt.spec.pressure), ROW_NPT_STEPS, npt_s, p,
+             float(box0[0]), float(st.box[0]), bool(st.nbr.overflow)))
+    _require({"(d) the row path under br": npt.cfg.barostat == "br"
+              and not npt.cfg.use_pallas,
+              "(d) P finite": p == p and abs(p) < float("inf"),
+              "(d) the box moved": moved > 0.0,
+              "(d) no cell kernel launched": sum(
+                  k.launches for k in cell_pair.KERNELS) == 0},
+             "rows NPT")
+    print("rows: %.1f particle-steps/s, %.1f launches a step, %.4f ms a "
+          "rebuild, %.4f ms a pair_forces, %.4f ms a virial_pressure, "
+          "max_neighbors %d on %s"
+          % (pps, times["launches_step"], times["rebuild_ms"],
+             times["pair_ms"], times["virial_ms"], cfg.max_neighbors, card))
+    print("rows phase wall time %.1f s" % (time.perf_counter() - t0))
+    return dict(times, pps=pps, events=events,
+                max_neighbors=cfg.max_neighbors)
+
+
 def main() -> int:
     import torch
 
@@ -3069,6 +3338,7 @@ def main() -> int:
     brk, rel = extensions_path(card)
     lj_row["break_launches"] = brk["launches"]
     lj_row["release_launches"] = rel["launches"]
+    rows_run = rows_path(card)
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
@@ -3085,6 +3355,13 @@ def main() -> int:
                                  ext["rx_ms"], ext["reaction_ms"],
                                  ext["reaction"], ext["step"],
                                  ext["atrp_ms"], card))
+    print("row melt (10k, the Verlet row path: funcs 8, 13-17, LJ, "
+          "Coulomb): %.1f particle-steps/s, %.1f launches a step, %.4f ms a "
+          "rebuild, %.4f ms a pair_forces, %.4f ms a virial_pressure, "
+          "max_neighbors %d on %s"
+          % (rows_run["pps"], rows_run["launches_step"],
+             rows_run["rebuild_ms"], rows_run["pair_ms"],
+             rows_run["virial_ms"], rows_run["max_neighbors"], card))
     print("kernel matrix (ms): %s" % json.dumps(km))
     print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
           "K1 launches %d (%d within the loop's %d steps), cell_cap 40 -> "

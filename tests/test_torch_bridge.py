@@ -110,18 +110,28 @@ def test_port_state_dtypes(builds):
     (dict(coulomb_cutoff=0.9),
      ("  PA    1.0      0.000 ", "  PA    1.0      0.500 ")),
 ], ids=["row_path", "coulomb", "coulomb_charged_product"])
-def test_out_of_slice_configs_raise(override, charge, monkeypatch):
+def test_row_path_configs_build_leaf_for_leaf(override, charge,
+                                              monkeypatch):
+    """``use_pallas=False``, and Coulomb where a charge can be nonzero (a
+    charged atom, or a charged atomtype that only a reaction product
+    takes: PA; an event sets the atom's charge to its new type's), build
+    on the row path with the reference's leaves; Coulomb over zero
+    charges stays on the kernel (``test_coulomb_over_zero_charges_builds``)."""
+    from test_torch_ext_builds import assert_builds_equal
     if charge is not None:
-        # Coulomb over zero charges is zero pair by pair and builds (the
-        # CLI's default cutoff is 0.9); a charged atom needs M10, and so
-        # does a charged atomtype that only a reaction product takes (PA:
-        # an event sets the atom's charge to its new type's)
-        text = pts._melt_topology_text
-        assert charge[0] in text(70)
-        monkeypatch.setattr(pts, "_melt_topology_text",
-                            lambda n: text(n).replace(*charge))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.build_melt(n_mols=70, reactive=True, device="cpu", **override)
+        for mod in (pts, rts):
+            text = mod._melt_topology_text
+            assert charge[0] in text(70)
+            monkeypatch.setattr(mod, "_melt_topology_text",
+                                lambda n, text=text: text(n).replace(*charge))
+    pb, _, _ = pts.build_melt(n_mols=70, reactive=True, device="cpu",
+                              **override)
+    rb, _, _ = rts.build_melt(n_mols=70, reactive=True,
+                              **dict(dict(use_pallas=True), **override))
+    assert not pb.cfg.use_pallas and not pb.cfg.lazy_rows
+    assert pb.cfg.has_coulomb == (charge is not None)
+    for part in ("config", "spec", "state"):
+        assert_builds_equal(rb, pb, part)
 
 
 @pytest.mark.parametrize("builder", ["break", "release"])
@@ -221,9 +231,15 @@ def test_npt_and_k2_builds_are_leaf_for_leaf_equal(name):
     dict(n_mols=40, density=0.3, seed=3),
     dict(n_mols=70, cell_cap=36),
 ], ids=["grid222", "cap36"])
-def test_tabulated_melt_on_a_k2_grid_raises(override):
-    """The Chebyshev modes exist only in colt2 (K1); on another grid the
-    reference sends a tabulated system to its row path, which waits for
-    M10."""
-    with pytest.raises(NotImplementedError, match="M10"):
-        pts.build_tabulated_melt(reactive=False, device="cpu", **override)
+def test_tabulated_melt_on_a_k2_grid_builds_on_the_row_path(override,
+                                                           tmp_path):
+    """The Chebyshev modes exist only in colt2 (K1); on another grid a
+    tabulated system takes the row path, with the reference's leaves."""
+    from test_torch_ext_builds import assert_builds_equal
+    pts.write_lj_pair_tables(str(tmp_path))
+    kw = dict(reactive=False, table_dir=str(tmp_path), **override)
+    pb, _, _ = pts.build_tabulated_melt(device="cpu", **kw)
+    rb, _, _ = rts.build_tabulated_melt(use_pallas=True, **kw)
+    assert not pb.cfg.use_pallas and not pb.cfg.lazy_rows
+    for part in ("config", "spec", "state"):
+        assert_builds_equal(rb, pb, part)

@@ -8,7 +8,9 @@ grid; the bonded layer of the step-growth chain melt (dihedrals, 1-4 pairs,
 func-8 bonds and angles) and its full-row reaction step against the CPU;
 one reaction step of the break and release melts (the sequential event
 scan, dissociation, restrict, releases, joins) and the ATRP,
-ChangeParticleType and FreezeRegion steps against the CPU.
+ChangeParticleType and FreezeRegion steps against the CPU; the Verlet
+row path (every nonbonded variant, Coulomb, the virial, reactions on the
+persistent rows) against the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -1710,3 +1712,46 @@ def test_cuda_release_reaction_step_equals_cpu():
     assert int((outs[0].ev_log_a >= 0).sum()) > 0
     assert int(outs[0].atrp_stats.sum()) > 0 and int(outs[0].freeze_count)
     _assert_ext_equal(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+def test_cuda_row_path_matches_cpu():
+    """The row melt at 70 trimers (funcs 8 and 13-17, LJ, Coulomb between
+    charges, all on the Verlet row path): pair forces, energies and the
+    virial on the card against the CPU on one state, then 20 NVE steps
+    with a reaction step every 10 from one state: rows, births and events
+    identical, positions to f32 rounding; no cell kernel is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    built, systop, _ = testsystems.build_row_melt(n_mols=70, thermostat="no",
+                                                  device="cpu")
+    cfg = dataclasses.replace(built.cfg, reaction_interval=10)
+    assert not cfg.use_pallas and not cfg.lazy_rows
+    st = runner.initial_forces(built.spec, cfg, built.state)
+    st = testsystems.warmup(built, st, steps=30)
+    st = testsystems.activate_initiators(built, systop, st, n=10)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 40.0,
+                             step=torch.full_like(st.step, 50))
+    spec_g, st_g = built.spec.to("cuda"), st.to("cuda")
+    before = {k: c.launches for k, c in cell_pair.BY_NAME.items()}
+    f_c, e_c, _ = integrate.compute_forces(built.spec, cfg, st)
+    f_g, e_g, _ = integrate.compute_forces(spec_g, cfg, st_g)
+    torch.testing.assert_close(f_g.cpu(), f_c, rtol=0, atol=_tol(f_c))
+    for k in ("lj", "lj-tab", "coulomb"):
+        torch.testing.assert_close(e_g[k].cpu(), e_c[k], rtol=0,
+                                   atol=2e-5 * (1.0 + abs(float(e_c[k]))))
+    w_c = integrate.row_strain_derivative(built.spec, cfg, st)
+    w_g = integrate.row_strain_derivative(spec_g, cfg, st_g)
+    assert abs(float(w_g) - float(w_c)) <= 2e-5 * (1.0 + abs(float(w_c)))
+    c = runner.run_block(built.spec, cfg, st, 20)
+    g = runner.run_block(spec_g, cfg, st_g, 20)
+    assert int(c.reaction_counts.sum()) > 0
+    torch.testing.assert_close(g.pos.cpu(), c.pos, rtol=0, atol=1e-5)
+    for name in ("ev_log_a", "ev_log_b", "ev_log_r", "type_id", "q",
+                 "n_excl"):
+        torch.testing.assert_close(getattr(g, name).cpu(), getattr(c, name),
+                                   rtol=0, atol=0)
+    for name in ("idx", "birth", "excl_mask", "n_rebuilds"):
+        torch.testing.assert_close(getattr(g.nbr, name).cpu(),
+                                   getattr(c.nbr, name), rtol=0, atol=0)
+    assert before == {k: c_.launches for k, c_ in cell_pair.BY_NAME.items()}

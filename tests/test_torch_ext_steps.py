@@ -193,7 +193,7 @@ def test_twenty_langevin_steps_equal(release_builds, warm):
 
 def test_k1_forces_do_not_read_lambda(release_builds, warm):
     """Particle lambda scales pair forces only for nonbonded funcs 11 and
-    15, which the port refuses (M10): on K1 it is only the dynamic
+    15, which run on the row path: on K1 it is only the dynamic
     resolution's clock, and the forces are the same bits for any lambda."""
     pb, _ = release_builds
     cfg, spec = pb.cfg, pb.spec

@@ -150,8 +150,8 @@ def test_host_view_and_modify_particle(ctxs):
 @pytest.mark.parametrize("how", ["modify_particle", "modifyParticle"])
 def test_charge_write_over_skipped_coulomb_raises(melt, how):
     """A build with a Coulomb cutoff over zero charges leaves the Coulomb
-    term out, so a hook that charges an atom must raise (M10), and one
-    that writes a zero charge must not."""
+    term out (the kernel path), so a hook that charges an atom must raise,
+    naming the row path, and one that writes a zero charge must not."""
     built, systop, st = melt
     _, spec, _ = bridge.from_trees(built.cfg, built.spec, built.state, "cpu")
     spec = dataclasses.replace(spec, qq_cutoff2=torch.tensor(0.81))
@@ -168,7 +168,8 @@ def test_charge_write_over_skipped_coulomb_raises(melt, how):
 
     write(0.0)
     assert float(ctx.device_state.q[2]) == 0.0
-    with pytest.raises(NotImplementedError, match="M10"):
+    with pytest.raises(NotImplementedError, match="left Coulomb out.*"
+                       "use_pallas=False"):
         write(0.5)
     assert not bool(ctx.device_state.q.any())
 

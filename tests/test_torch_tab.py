@@ -245,22 +245,37 @@ def test_build_is_leaf_for_leaf_equal(kind):
                       bridge.to_numpy(cfg, spec, state)[1])
 
 
-def test_rough_tables_raise_naming_the_row_path():
-    """A table whose fit fails sends the reference to its row path; the
-    port has no row path yet and refuses the system."""
-    with pytest.raises(NotImplementedError, match="M10"):
-        pts.build_tabulated_melt(n_mols=N_MOLS, reactive=False, seed=3,
-                                 rough=0.05, device="cpu")
+def _assert_row_builds_equal(rb, pb):
+    """Both builds on the row path, config, spec and state leaf for leaf
+    (the K-nearest rows as per-row sets)."""
+    from test_torch_ext_builds import assert_builds_equal
+    assert not pb.cfg.use_pallas and not pb.cfg.lazy_rows
+    for part in ("config", "spec", "state"):
+        assert_builds_equal(rb, pb, part)
 
 
-def test_tabulated_beside_lj_raises():
-    """Tabulated pairs beside LJ pairs are outside the Chebyshev modes."""
-    import tempfile
-    d = tempfile.mkdtemp(prefix="chemlab_tab_")
-    pts.write_lj_pair_tables(d)
-    with pytest.raises(NotImplementedError, match="M10"):
-        pts.build_melt(n_mols=N_MOLS, reactive=False, device="cpu",
-                       table_groups=("MA", "ML"), table_dirs=(d,))
+def test_rough_tables_build_on_the_row_path(tmp_path):
+    """A table whose fit fails sends the build to the row path, as the
+    reference's does."""
+    pts.write_lj_pair_tables(str(tmp_path), rough=0.05)
+    kw = dict(n_mols=N_MOLS, reactive=False, seed=3,
+              table_dir=str(tmp_path))
+    pb, _, _ = pts.build_tabulated_melt(device="cpu", **kw)
+    rb, _, _ = rts.build_tabulated_melt(use_pallas=True, **kw)
+    assert not pb.cfg.tab_cheb
+    _assert_row_builds_equal(rb, pb)
+
+
+def test_tabulated_beside_lj_builds_on_the_row_path(tmp_path):
+    """Tabulated pairs beside LJ pairs are outside the Chebyshev modes: the
+    build takes the row path, as the reference's does."""
+    pts.write_lj_pair_tables(str(tmp_path))
+    kw = dict(n_mols=N_MOLS, reactive=False, table_groups=("MA", "ML"),
+              table_dirs=(str(tmp_path),))
+    pb, _, _ = pts.build_melt(device="cpu", **kw)
+    rb, _, _ = rts.build_melt(use_pallas=True, **kw)
+    assert pb.cfg.has_lj and pb.cfg.has_tabulated
+    _assert_row_builds_equal(rb, pb)
 
 
 # ---- plain K1 in the Chebyshev modes -------------------------------------------

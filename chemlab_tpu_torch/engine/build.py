@@ -50,6 +50,7 @@ import dataclasses
 import logging
 import math
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -933,7 +934,11 @@ def refuse_charges(spec: SimSpec, q):
 def _check_slice(opts: SimOptions, compiled):
     """Refuse every configuration the port does not run yet."""
     if opts.dtype != "float32":
-        _not_in_slice("dtype %s" % opts.dtype, "M13")
+        # the reference never enables JAX's 64-bit mode: its host arrays
+        # of this dtype become float32 on the device, with one warning
+        warnings.warn("dtype %s is not available: the state is float32, as "
+                      "in the reference" % opts.dtype, UserWarning,
+                      stacklevel=3)
     if compiled is None or opts.slab_devices <= 1:
         return
     if ((compiled.n_reactions and compiled.channels["r_is_diss"].any())
@@ -1323,28 +1328,32 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
     mol_id[:n] = _host_components(n, bonds0)
 
     # ---- per-particle arrays ----
-    pos = np.zeros((n_pad, 3), F32)
+    # (in the options' dtype on the host, as in the reference; float32 on
+    # the device)
+    dtype = F32 if opts.dtype == "float32" else np.float64
+    pos = np.zeros((n_pad, 3), dtype)
     pos[:n_real] = np.mod(coords.pos, coords.box)
-    vel = np.zeros((n_pad, 3), F32)
+    vel = np.zeros((n_pad, 3), dtype)
     if coords.vel is not None:
         vel[:n_real] = coords.vel
     type_id = np.full(n_pad, 0, I32)
     type_id[:n_real] = systop.type_ids
-    mass = np.ones(n_pad, F32)
+    mass = np.ones(n_pad, dtype)
     mass[:n_real] = systop.masses
-    q = np.zeros(n_pad, F32)
+    q = np.zeros(n_pad, dtype)
     q[:n_real] = systop.charges
     chem_state = np.zeros(n_pad, I32)
     chem_state[:n_real] = systop.states
     res_id = np.zeros(n_pad, I32)
     res_id[:n_real] = coords.res_idx
-    lam = np.ones(n_pad, F32)
+    lam = np.ones(n_pad, dtype)
     active = np.zeros(n_pad, bool)
     active[:n] = True
     for dummy in dummies:
         rows = dummy["rows"]
         pos[rows] = np.mod(pos[dummy["host_of"]]
-                           + np.asarray([dummy["eq"], 0.0, 0.0], F32), box)
+                           + np.asarray([dummy["eq"], 0.0, 0.0], dtype),
+                           box)
         type_id[rows] = dummy["type"]
         mass[rows] = dummy["mass"]
         chem_state[rows] = dummy["state"]
@@ -1357,6 +1366,8 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         v = rng.normal(size=(n_real, 3)) * np.sqrt(opts.kT / m_eff)[:, None]
         v -= np.average(v, axis=0, weights=m_eff)
         vel[:n_real] = v
+    pos, vel, mass, q, lam = (a.astype(F32) for a in (pos, vel, mass, q,
+                                                        lam))
 
     nb_stack = nb_tb.build()
     cheb_fit = None

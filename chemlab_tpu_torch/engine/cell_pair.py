@@ -606,23 +606,30 @@ def cell_pair_forces_cheb_ref(cells, counts, box, cut2, tmap, tmap_b, xmat,
     ``x*g_a + (1-x)*g_b`` when ``tmap_b`` is given, and the cut
     ``valid & (r2s < cut2)``.  ch3 carries half the tabulated energy
     (mode 1) or half the pair virial (mode 2).  ``x_halo`` as in the LJ
-    version (plain K1f)."""
+    version (plain K1f).  The series run on the pairs inside the cut only
+    (elementwise, so each pair's value is the same bits as over the whole
+    plane); every other pair contributes an exact zero."""
     dr, r2, valid, xi, xj = stencil_pairs(cells, box, dims, x_halo)
     r2s = torch.where(valid, r2, 1.0)
     pid = type_pairs(xi, xj, cut2.shape[0])
     in_cut = valid & (r2s < cut2.reshape(-1)[pid])
     want_e = ch3_mode == CH3_ENERGY
-    g, e = _cheb_rows_eval(coef, tmap.reshape(-1), pid, r2s, kw, ko, want_e)
+    pid_in, r2_in = pid[in_cut], r2s[in_cut]
+    g_in, e_in = _cheb_rows_eval(coef, tmap.reshape(-1), pid_in, r2_in, kw,
+                                 ko, want_e)
     if tmap_b is not None:
-        g_b, e_b = _cheb_rows_eval(coef, tmap_b.reshape(-1), pid, r2s, kw,
-                                   ko, want_e)
-        x = xmat.reshape(-1)[pid]
-        g = x * g + (1.0 - x) * g_b
-        e = x * e + (1.0 - x) * e_b
-    f = torch.where(in_cut, g, 0.0)
+        g_b, e_b = _cheb_rows_eval(coef, tmap_b.reshape(-1), pid_in, r2_in,
+                                   kw, ko, want_e)
+        x = xmat.reshape(-1)[pid_in]
+        g_in = x * g_in + (1.0 - x) * g_b
+        e_in = x * e_in + (1.0 - x) * e_b
+    f = torch.zeros_like(r2s)
+    f[in_cut] = g_in
     fxyz = [torch.sum(f * d, dim=2) for d in dr]
     if ch3_mode == CH3_ENERGY:
-        ch3 = 0.5 * torch.sum(torch.where(in_cut, e, 0.0), dim=2)
+        e = torch.zeros_like(r2s)
+        e[in_cut] = e_in
+        ch3 = 0.5 * torch.sum(e, dim=2)
     elif ch3_mode == CH3_VIRIAL:
         ch3 = 0.5 * torch.sum(f * r2s, dim=2)
     else:

@@ -41,6 +41,12 @@ def make_generator(seed: int, device) -> torch.Generator:
     return gen
 
 
+def synchronize(device):
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _hybrid_lambda_ramp(spec, state, cfg=None):
     """Per-step lambda ramp for reaction-created terms (hybrid bonds; the
     angle and dihedral variants); the dense/irregular copies ramp in

@@ -1,9 +1,10 @@
 """Coordinate-file and potential-table I/O.
 
 The port's own copy of ``chemlab_tpu/files_io.py``, unchanged, so that the
-port imports nothing of the JAX package.  Only ``read_gro_native`` is not
-here: it waits for the port of ``native.py``, and ``read_coordinates``
-reads a .gro with ``read_gro``.
+port imports nothing of the JAX package.  ``read_gro_native`` reads a .gro
+through the port's host library (``native.py``), and ``read_coordinates``
+tries it first for a .gro, falling back to ``read_gro``, as the reference
+does.
 
 Coordinate formats (ref: src/chemlab/files_io.py:158-398):
   - .gro  fixed-column GROMACS coordinates, optional velocities, box on the
@@ -113,6 +114,33 @@ def read_gro(file_name: str) -> Coordinates:
     )
 
 
+def read_gro_native(file_name: str):
+    """Native-accelerated .gro read; returns None when the library is absent
+    or declines the file (falls back to :func:`read_gro`)."""
+    from . import native
+
+    if not native.available():
+        return None
+    with open(file_name, "rb") as f:
+        r = native.parse_gro(f.read())
+    if r is None:
+        return None
+    ids = r["atom_ids"]
+    n = r["n_atoms"]
+    order = np.argsort(ids, kind="stable") if len(np.unique(ids)) == n \
+        else np.arange(n)
+    return Coordinates(
+        title="",
+        atom_ids=ids[order],
+        res_idx=r["res_idx"][order],
+        res_names=[r["res_names"][i] for i in order],
+        atom_names=[r["atom_names"][i] for i in order],
+        pos=r["pos"][order],
+        vel=r["vel"][order] if r["vel"] is not None else None,
+        box=r["box"],
+    )
+
+
 def write_gro(file_name: str, coords: Coordinates, backup: bool = True,
               append: bool = False) -> None:
     """Write a .gro file in the reference's fixed format (ref: files_io.py:216-259).
@@ -217,7 +245,8 @@ def read_coordinates(file_name: str) -> Coordinates:
     """Dispatch on file suffix (ref: files_io.py:1239-1245)."""
     suffix = file_name.rsplit(".", 1)[-1]
     if suffix == "gro":
-        return read_gro(file_name)
+        coords = read_gro_native(file_name)
+        return coords if coords is not None else read_gro(file_name)
     if suffix == "pdb":
         return read_pdb(file_name)
     raise ValueError("unsupported coordinate format: %s" % file_name)

@@ -15,6 +15,9 @@ paths; its text, coordinates and tables are plain functions, so the
 reference can build the same system.  ``build_row_melt`` puts one
 nonbonded variant of the Verlet row path on each type pair of the
 charged ATRP melt (``row_topology_text``, ``write_row_tables``).
+``generate_example`` writes an equilibrated melt example directory
+(``python -m chemlab_tpu_torch.testsystems out_dir``, the reference's
+``chemlab-genmelt``).
 """
 
 from __future__ import annotations
@@ -523,6 +526,50 @@ def warmup(built, state, steps: int = 400, max_disp: float = 0.05, kT=None,
     return runner.initial_forces(spec, cfg, state)
 
 
+def generate_example(out_dir: str, n_mols: int = 2000, density: float = 0.27,
+                     kT: float = 1.0, seed: int = 11, equilibrate: int = 500,
+                     device="cuda"):
+    """Write a complete runnable example (the reference's polymer_melt.py
+    workflow: generate chains, warm up, write conf.gro + topol.top + cfg).
+    The melt runs on ``device``; its Langevin block draws from a
+    ``torch.Generator`` seeded with ``seed``."""
+    from . import writers
+
+    os.makedirs(out_dir, exist_ok=True)
+    built, systop, coords = build_melt(n_mols, density, kT=kT, seed=seed,
+                                       reactive=False, device=device)
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = warmup(built, st, steps=max(equilibrate, 100), kT=kT)
+    st = runner.run_block(built.spec, built.cfg, st, equilibrate,
+                          gen=runner.make_generator(seed, st.device))
+    runner.synchronize(st.device)
+    out = writers.state_to_coordinates(st, systop, coords)
+    files_io.write_gro(os.path.join(out_dir, "conf.gro"), out, backup=False)
+    with open(os.path.join(out_dir, "topol.top"), "w") as f:
+        f.write(_melt_topology_text(n_mols))
+    with open(os.path.join(out_dir, "atrp.cfg"), "w") as f:
+        f.write(ATRP_CFG_TEXT)
+    return out_dir
+
+
+def _main(argv=None, device="cuda"):
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chemlab-genmelt",
+                                description="generate an equilibrated ATRP "
+                                            "melt example directory")
+    p.add_argument("out_dir")
+    p.add_argument("--n_mols", type=int, default=2000)
+    p.add_argument("--density", type=float, default=0.27)
+    p.add_argument("--kT", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=11)
+    a = p.parse_args(argv)
+    generate_example(a.out_dir, a.n_mols, a.density, a.kT, a.seed,
+                     device=device)
+    print("wrote %s" % a.out_dir)
+    return 0
+
+
 def activate_initiators(built, systop, state, n: int = 20, seed: int = 1):
     """Flip n MA monomers to FA radicals in state 3 and switch reactions on
     (the same numpy draw as the reference)."""
@@ -846,3 +893,9 @@ def build_row_melt(n_mols: int = 3334, density: float = 0.27,
                                                         **overrides)),
         reaction_config=rcfg, device=device)
     return built, systop, coords
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_main())

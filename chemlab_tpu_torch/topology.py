@@ -1,9 +1,9 @@
 """System topology compiler.
 
 The port's own copy of ``chemlab_tpu/topology.py``, so that the port
-imports nothing of the JAX package.  One change: the optional native
-accelerator of ``generate_exclusions`` is dropped; the numpy path gives
-the same set.
+imports nothing of the JAX package.  ``generate_exclusions`` takes the
+port's host library (``native.py``) where it is available, as the
+reference does; the Python path gives the same set.
 
 Turns a parsed GROMACS topology (``topfile.TopologyFile``) into flat,
 replication-expanded arrays ready for the device engine:
@@ -65,6 +65,13 @@ def generate_exclusions(bonds, nrexcl: int):
     The bonded pairs themselves are always included
     (ref: gromacs_topology.py:316-377).
     """
+    from . import native
+
+    if native.available():
+        out = native.generate_exclusions(bonds, nrexcl)
+        if out is not None:
+            return out
+
     adj = collections.defaultdict(set)
     for i, j in bonds:
         adj[i].add(j)

@@ -138,7 +138,19 @@ once) and drives the port's paths at 10k particles:
      virial and one reaction step on the card against the CPU, then the
      ms of a rebuild, a ``pair_forces`` and a ``virial_pressure`` and the
      launches a step, (d) a 400-step Berendsen side run (P finite, the box
-     moved); the total wall time is printed last.
+     moved);
+  11. the engine's tools (``tools``): (a) the native host library builds
+     and its .gro read equals ``read_gro`` field for field on
+     ``examples/atrp_melt``, (b) ``testsystems.generate_example`` writes a
+     10k example (K1 once a step of its descent and Langevin block and at
+     each force initialisation) and the port's CLI runs it 400 steps
+     (exit 0, energies finite, T in 0.5-1.5), (c) ``tune_skin`` on it over
+     three skins (particle-steps/s a skin, the winner, K1 for every step),
+     (d) ``nve_drift``'s NVE pair on the 10k tabulated melt, 2000 steps a
+     leg from one state: K1c once a step in the kernel leg, no cell kernel
+     in the row leg, the step-0 pair energies within 5e-3, every Etot
+     finite, each leg's drift, fluctuation and wall time; the total wall
+     time is printed last.
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -3298,6 +3310,283 @@ def rows_path(card: str):
                 max_neighbors=cfg.max_neighbors)
 
 
+TOOLS_EQUILIBRATE = 100  # genmelt: 100 descent steps, then 100 Langevin
+TOOLS_CLI_STEPS = 400
+TUNE_SKINS = (0.3, 0.4, 0.5)
+TUNE_BLOCK = 100
+NVE_STEPS = 2000
+NVE_BLOCK = 200
+NVE_WARMUP = 200        # descent steps on the row build (the module: 600)
+NVE_SETTLE = 200        # NVE steps after it (the module: 400)
+# the pair energies of the Chebyshev and the exact tables at one state: the
+# reference's K1c-vs-row tolerance (tests/test_tab_cheb.py, lj-tab); the
+# gap is systematic, ~5e-4 of the pair energy on the CPU at 70 and 200
+# trimers, the per-table fit tolerance (tab_cheb.DEFAULT_TOL)
+CHEB_EPAIR_RTOL = 5e-3
+
+
+def _launches():
+    from chemlab_tpu_torch.engine import cell_pair
+
+    return {name: k.launches for name, k in cell_pair.BY_NAME.items()
+            if k.launches}
+
+
+def _zero_launches():
+    from chemlab_tpu_torch.engine import cell_pair
+
+    for k in cell_pair.KERNELS:
+        k.launches = 0
+
+
+def tools_native():
+    """(a) the host library builds; its .gro read equals the Python
+    reader's field for field (the title aside: the native reader keeps
+    none, as in the reference)."""
+    import os
+
+    import numpy as np
+
+    from chemlab_tpu_torch import files_io, native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)), EXAMPLE,
+                        "conf.gro")
+    t0 = time.perf_counter()
+    fast = files_io.read_gro_native(conf) if ok else None
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = files_io.read_gro(conf)
+    slow_s = time.perf_counter() - t0
+    same = fast is not None and fast.title == "" and all(
+        np.array_equal(getattr(fast, f), getattr(slow, f))
+        if isinstance(getattr(slow, f), np.ndarray)
+        else getattr(fast, f) == getattr(slow, f)
+        for f in ("atom_ids", "res_idx", "res_names", "atom_names", "pos",
+                  "vel", "box"))
+    print("tools (a): native library %s (build and load %.2f s), %s: %d "
+          "atoms, read_gro_native %.4f s, read_gro %.4f s"
+          % (native.library_path().name, build_s, EXAMPLE, slow.n_atoms,
+             fast_s, slow_s))
+    _require({"(a) native.available()": ok,
+              "(a) read_gro_native = read_gro": same}, "tools native")
+
+
+def tools_genmelt(card: str):
+    """(b) ``generate_example`` writes a 10k example (K1 once a step of the
+    descent and of the Langevin block, and at each of the two force
+    initialisations), then the port's CLI runs it."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chemlab_tpu_torch import files_io, start_simulation, testsystems
+    from chemlab_tpu_torch import writers
+
+    out_dir = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_genmelt_"),
+                           "melt")
+    _zero_launches()
+    t0 = time.perf_counter()
+    testsystems.generate_example(out_dir, n_mols=N_MOLS,
+                                 equilibrate=TOOLS_EQUILIBRATE, device=DEVICE)
+    _sync()
+    gen_s = time.perf_counter() - t0
+    gen_launches = _launches()
+    steps = max(TOOLS_EQUILIBRATE, 100) + TOOLS_EQUILIBRATE
+    conf = files_io.read_coordinates(os.path.join(out_dir, "conf.gro"))
+    print("tools (b): generate_example(n_mols=%d, equilibrate=%d) in %.1f s "
+          "on %s: %s, %d atoms, box %s; launches %s (%d steps + 2 force "
+          "initialisations)" % (N_MOLS, TOOLS_EQUILIBRATE, gen_s, card,
+                                sorted(os.listdir(out_dir)), conf.n_atoms,
+                                np.round(conf.box, 4).tolist(), gen_launches,
+                                steps))
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             EXAMPLE, "params"), out_dir)
+    try:
+        import h5py  # noqa: F401
+        writer = writers.H5MDWriter
+    except ImportError:
+        writer = RecordingWriter
+    b = str(BLOCK_STEPS)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    h5_writer = writers.H5MDWriter
+    writers.H5MDWriter = writer
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        rc = start_simulation.main(
+            ["@params", "--run", str(TOOLS_CLI_STEPS), "--int_step", b,
+             "--trj_collect", b, "--energy_collect", b, "--topol_collect", b,
+             "--rng_seed", "11"], device=DEVICE)
+        _sync()
+        cli_s = time.perf_counter() - t0
+        head, *rows = open("atrp_energy.csv").read().splitlines()
+        energy = np.array([[float(x) for x in r.split(",")] for r in rows])
+        T = energy[:, head.split(",").index("T")]
+    finally:
+        writers.H5MDWriter = h5_writer
+        os.chdir(cwd)
+    cli_launches = _launches()
+    print("tools (b): the CLI on the generated example: main() returned %d "
+          "in %.1f s, %d energy rows, T %s, launches %s"
+          % (rc, cli_s, len(rows), np.round(T, 4).tolist(), cli_launches))
+    _require({"(b) conf.gro, topol.top, atrp.cfg written":
+              {"conf.gro", "topol.top", "atrp.cfg"} <= set(os.listdir(
+                  out_dir)) and conf.n_atoms == 3 * N_MOLS,
+              "(b) genmelt: K1 once a step and per initialisation":
+              gen_launches == {"K1": steps + 2},
+              "(b) CLI returned 0": rc == 0,
+              "(b) CLI: K1 at least once a step, no other kernel":
+              set(cli_launches) == {"K1"}
+              and cli_launches["K1"] >= TOOLS_CLI_STEPS,
+              "(b) CLI: every energy row finite":
+              bool(np.isfinite(energy).all())
+              and len(rows) == TOOLS_CLI_STEPS // BLOCK_STEPS,
+              "(b) CLI: T within 0.5-1.5": bool(((T >= 0.5)
+                                                  & (T <= 1.5)).all())},
+             "tools genmelt")
+    return out_dir, gen_launches["K1"] + cli_launches["K1"]
+
+
+def tools_tune(card: str, out_dir: str):
+    """(c) ``tune_skin`` on the generated 10k LJ melt over three skins."""
+    import os
+
+    from chemlab_tpu_torch import files_io, testsystems
+    from chemlab_tpu_torch.engine import build, tuning
+    from chemlab_tpu_torch.topology import build_system_topology
+
+    systop = build_system_topology(os.path.join(out_dir, "topol.top"))
+    coords = files_io.read_coordinates(os.path.join(out_dir, "conf.gro"))
+    opts = build.SimOptions(**testsystems.melt_options())
+    _zero_launches()
+    t0 = time.perf_counter()
+    best, res = tuning.tune_skin(systop, coords, opts, candidates=TUNE_SKINS,
+                                 block_steps=TUNE_BLOCK, verbose=False,
+                                 device=DEVICE)
+    tune_s = time.perf_counter() - t0
+    launches = _launches()
+    per = 2 * TUNE_BLOCK + 1
+    for skin in TUNE_SKINS:
+        print("tools (c): tune_skin skin %.2f: %.1f particle-steps/s on %s"
+              % (skin, res[skin], card))
+    print("tools (c): tune_skin picked skin %.2f in %.1f s; launches %s (%d "
+          "a candidate: %d steps and the initial forces)"
+          % (best, tune_s, launches, per, 2 * TUNE_BLOCK))
+    _require({"(c) every candidate timed": sorted(res) == list(TUNE_SKINS)
+              and all(v > 0 for v in res.values()),
+              "(c) the winner is the fastest": res[best]
+              == max(res.values()),
+              "(c) K1 for every step of each candidate":
+              launches == {"K1": per * len(TUNE_SKINS)}},
+             "tools tune_skin")
+    return launches["K1"], res, best
+
+
+def tools_nve(card: str):
+    """(d) ``nve_drift``'s phase 1 on the 10k tabulated melt: the kernel
+    leg (K1c once a step, and once in each block's measure) and the row
+    leg (no cell kernel) from one warmed state."""
+    import numpy as np
+    import torch
+
+    from chemlab_tpu_torch import nve_drift
+    from chemlab_tpu_torch.engine import runner, tab_cheb
+
+    t0 = time.perf_counter()
+    built_k, built_x = nve_drift.nve_builds(N_MOLS, DEVICE)
+    st0 = nve_drift.nve_start(built_x, NVE_WARMUP, NVE_SETTLE)
+    _sync()
+    print("tools (d): the NVE pair built and warmed in %.1f s (kernel build "
+          "grid %s cap %d, cheb kw %d ko %d ntab %d; row build K %d)"
+          % (time.perf_counter() - t0, built_k.cfg.cell_dims,
+             built_k.cfg.cell_cap, built_k.cfg.cheb_kw, built_k.cfg.cheb_ko,
+             built_k.cfg.cheb_ntab, built_x.cfg.max_neighbors))
+    n_blocks = NVE_STEPS // NVE_BLOCK
+    legs, checks = {}, {}
+    for label, built in (("cheb", built_k), ("row", built_x)):
+        spec, cfg = built.spec, built.cfg
+        st = nve_drift.leg_start(built, st0)
+        _zero_launches()
+        m0 = runner.measure(spec, cfg, st)
+        epot0, epair0 = float(m0["epot"]), float(m0["lj-tab"])
+        per_measure = _launches()
+        _zero_launches()
+        _sync()
+        t1 = time.perf_counter()
+        recs = nve_drift.run_leg(built, st, NVE_STEPS, NVE_BLOCK,
+                                 "nve_" + label)
+        _sync()
+        wall = time.perf_counter() - t1
+        launches = _launches()
+        fit = nve_drift.drift_fit(recs, cfg.n_particles)
+        etot = np.array([r["etot"] for r in recs])
+        legs[label] = dict(fit, epot0=epot0, epair0=epair0, wall=wall,
+                           launches=launches,
+                           per_measure=per_measure)
+        print("tools (d): nve %s leg: %d steps in %.3f s on %s (%.1f "
+              "particle-steps/s with a measure a block); drift %.6e kT per "
+              "particle per step, RMS fluctuation %.6e kT per particle, "
+              "Etot %.6f -> %.6f, step-0 Epot %.6f; launches %s (%s a "
+              "measure)" % (label, NVE_STEPS, wall, card,
+                            cfg.n_particles * NVE_STEPS / wall,
+                            fit["drift_kT_per_particle_per_step"],
+                            fit["rms_fluct_kT_per_particle"],
+                            fit["etot_first"], fit["etot_last"], epot0,
+                            launches, per_measure))
+        checks["(d) %s: every Etot finite, no overflow" % label] = bool(
+            np.isfinite(etot).all()) and not any(r["overflow"] for r in recs)
+        checks["(d) %s: same particles at step 0" % label] = all(
+            torch.equal(getattr(st, f), getattr(st0, f))
+            for f in ("pos", "vel", "box"))
+    k = legs["cheb"]
+    kern = "K1c" if built_k.cfg.cheb_ntab > 0 else "K1e"
+    checks["(d) kernel leg on %s (tab_cheb)" % kern] = \
+        built_k.cfg.tab_cheb and built_k.cfg.use_pallas and kern == "K1c"
+    m_k1c = k["per_measure"].get("K1c", 0)
+    checks["(d) K1c once a step (and per measure), nothing else"] = (
+        set(k["per_measure"]) == {"K1c"} and set(k["launches"]) == {"K1c"}
+        and k["launches"]["K1c"] - n_blocks * m_k1c == NVE_STEPS)
+    checks["(d) row leg: no cell kernel"] = not built_x.cfg.use_pallas \
+        and legs["row"]["launches"] == {} and legs["row"]["per_measure"] == {}
+    row = legs["row"]
+    d_epot = abs(k["epot0"] - row["epot0"])
+    checks["(d) step-0 pair energies agree"] = \
+        d_epot <= CHEB_EPAIR_RTOL * abs(row["epair0"])
+    checks["(d) step-0 Epot differs only in the pair energy"] = abs(
+        (k["epot0"] - k["epair0"]) - (row["epot0"] - row["epair0"])) \
+        <= 1e-5 * (1.0 + abs(row["epot0"] - row["epair0"]))
+    print("tools (d): step-0 Epot cheb %.6f, row %.6f, |difference| %.6e, "
+          "%.3e of the row leg's pair energy %.6f (tolerance %.1e; the "
+          "tables' fit tolerance %.1e)"
+          % (k["epot0"], row["epot0"], d_epot, d_epot / abs(row["epair0"]),
+             row["epair0"], CHEB_EPAIR_RTOL, tab_cheb.DEFAULT_TOL))
+    _require(checks, "tools nve_drift")
+    return legs
+
+
+def tools_path(card: str):
+    """The engine's tools (``tools``): (a) the native host library, (b)
+    ``generate_example`` and the CLI on its output, (c) ``tune_skin``, (d)
+    ``nve_drift``'s NVE pair."""
+    t0 = time.perf_counter()
+    tools_native()
+    out_dir, genmelt_k1 = tools_genmelt(card)
+    tune_k1, res, best = tools_tune(card, out_dir)
+    legs = tools_nve(card)
+    _require({"(tools) no jax, no JAX package": _no_reference_modules()},
+             "tools")
+    print("tools phase wall time %.1f s" % (time.perf_counter() - t0))
+    return {"k1_launches": genmelt_k1 + tune_k1,
+            "k1c_launches": legs["cheb"]["launches"]["K1c"],
+            "tune": res, "best": best, "nve": legs}
+
+
 def main() -> int:
     import torch
 
@@ -3339,6 +3628,10 @@ def main() -> int:
     lj_row["break_launches"] = brk["launches"]
     lj_row["release_launches"] = rel["launches"]
     rows_run = rows_path(card)
+    tools = tools_path(card)
+    lj_row["tools_launches"] = tools["k1_launches"]
+    next(r for r in rows if r["name"].startswith("K1c "))[
+        "nve_launches"] = tools["k1c_launches"]
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
     print("tabulated 10k melt: %.1f particle-steps/s on %s" % (pps, card))
     print("slab path, %d ranks on one card: %.1f particle-steps/s on %s"
@@ -3362,6 +3655,12 @@ def main() -> int:
           % (rows_run["pps"], rows_run["launches_step"],
              rows_run["rebuild_ms"], rows_run["pair_ms"],
              rows_run["virial_ms"], rows_run["max_neighbors"], card))
+    print("tools: tune_skin %s particle-steps/s, winner %.2f; NVE drift "
+          "(kT per particle per step) K1c %.6e, row %.6e on %s"
+          % ({k: round(v, 1) for k, v in tools["tune"].items()},
+             tools["best"],
+             tools["nve"]["cheb"]["drift_kT_per_particle_per_step"],
+             tools["nve"]["row"]["drift_kT_per_particle_per_step"], card))
     print("kernel matrix (ms): %s" % json.dumps(km))
     print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
           "K1 launches %d (%d within the loop's %d steps), cell_cap 40 -> "

@@ -270,6 +270,16 @@ def compile_for_host(source, d):
     return ctypes.CDLL(str(lib))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The melts' warmups on one thread: under the suite's parallel workers
+    torch's own threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
     so = compile_for_host(cell_pair.K1C.source,

@@ -30,7 +30,9 @@ import ctypes
 import numpy as np
 import pytest
 import torch
-from test_torch_cheb_emulation import compile_for_host
+# the melts' warmups on one torch thread (an autouse fixture)
+from test_torch_cheb_emulation import (_one_torch_thread,  # noqa: F401
+                                       compile_for_host)
 from test_torch_resident_emulation import (RAGGED_PARAMS, _mixed_params,
                                            _random_cells)
 

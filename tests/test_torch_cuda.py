@@ -1755,3 +1755,33 @@ def test_cuda_row_path_matches_cpu():
         torch.testing.assert_close(getattr(g.nbr, name).cpu(),
                                    getattr(c.nbr, name), rtol=0, atol=0)
     assert before == {k: c_.launches for k, c_ in cell_pair.BY_NAME.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_native_builds_and_tune_skin_counts_k1():
+    """The host library builds and reads the example's .gro as the Python
+    reader does; ``tune_skin`` on the card runs K1 for every step of its
+    two blocks and the initial forces of each candidate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathlib import Path
+
+    from chemlab_tpu_torch import files_io, native
+    from chemlab_tpu_torch.engine import build, tuning
+
+    assert native.available()
+    conf = str(Path(__file__).resolve().parent.parent
+               / "examples" / "atrp_melt" / "conf.gro")
+    fast, slow = files_io.read_gro_native(conf), files_io.read_gro(conf)
+    assert fast.atom_names == slow.atom_names
+    np.testing.assert_array_equal(fast.pos, slow.pos)
+    _, systop, coords = testsystems.build_melt(n_mols=70, reactive=False,
+                                               device="cpu")
+    opts = build.SimOptions(**testsystems.melt_options())
+    k1 = cell_pair.BY_NAME["K1"]
+    before = k1.launches
+    best, res = tuning.tune_skin(systop, coords, opts,
+                                 candidates=(0.3, 0.4), block_steps=10,
+                                 verbose=False)
+    assert sorted(res) == [0.3, 0.4] and best in res
+    assert k1.launches - before == 2 * (2 * 10 + 1)

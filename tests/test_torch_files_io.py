@@ -52,7 +52,10 @@ def test_example_gro_read_matches():
     path = os.path.join(os.path.dirname(__file__), "..", "examples",
                         "atrp_melt", "conf.gro")
     c = files_io.read_coordinates(path)
-    _same_coords(c, rfio.read_gro(path))
+    # both read a .gro through their host library first (no title), and
+    # through the Python reader where it is absent
+    _same_coords(c, rfio.read_coordinates(path))
+    _same_coords(files_io.read_gro(path), rfio.read_gro(path))
     assert c.n_atoms == 6000 and c.vel is not None
 
 

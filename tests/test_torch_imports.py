@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax():
               "parallel.sharding", "parallel.launch", "parallel.jobs",
               "engine.cell_pair_variants", "kernel_matrix", "__main__",
               "start_simulation", "app_args", "tools", "units", "writers",
-              "checkpoint", "hooks_compat", "engine.perf"):
+              "checkpoint", "hooks_compat", "engine.perf", "native",
+              "table_tools", "lammps_io", "analysis", "nve_drift",
+              "engine.tuning"):
         assert "chemlab_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             "for m in %r: importlib.import_module(m)\n"

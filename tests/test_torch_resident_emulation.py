@@ -24,7 +24,9 @@ import ctypes
 import numpy as np
 import pytest
 import torch
-from test_torch_cheb_emulation import compile_for_host
+# the melts' warmups on one torch thread (an autouse fixture)
+from test_torch_cheb_emulation import (_one_torch_thread,  # noqa: F401
+                                       compile_for_host)
 
 from chemlab_tpu_torch import testsystems
 from chemlab_tpu_torch.engine import cell_pair, neighbor, runner

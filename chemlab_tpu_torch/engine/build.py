@@ -30,8 +30,7 @@ by the port's ``neighbor.build_neighbor_state``.
 One divergence is kept on purpose: Coulomb over all-zero charges (no
 charged atom and no charged atomtype) builds on the kernel path with the
 Coulomb term left out, where the reference takes its row path
-(``refuse_charges`` guards it).  A configuration outside the port raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+(``refuse_charges`` guards it).
 
 Capacity management (reference ``build.py:456-932``): the neighbor caps
 regrow off the sticky overflow flag and shrink to the observed occupancy
@@ -168,11 +167,6 @@ class ObsRegistry:
                 np.asarray([e[1] for e in self.entries], I32),
                 np.asarray([e[2] for e in self.entries], I32),
                 np.asarray(self.totals, F32))
-
-
-def _not_in_slice(what: str, item: str):
-    raise NotImplementedError(
-        "%s is outside the ported slice (ROADMAP %s)" % (what, item))
 
 
 def _asarray(a, dtype=None):
@@ -931,26 +925,13 @@ def refuse_charges(spec: SimSpec, q):
             "charged system runs with use_pallas=False (the row path)")
 
 
-def _check_slice(opts: SimOptions, compiled):
-    """Refuse every configuration the port does not run yet."""
+def _warn_dtype(opts: SimOptions):
+    """The reference never enables JAX's 64-bit mode: its host arrays of
+    another dtype become float32 on the device, with one warning."""
     if opts.dtype != "float32":
-        # the reference never enables JAX's 64-bit mode: its host arrays
-        # of this dtype become float32 on the device, with one warning
         warnings.warn("dtype %s is not available: the state is float32, as "
                       "in the reference" % opts.dtype, UserWarning,
                       stacklevel=3)
-    if compiled is None or opts.slab_devices <= 1:
-        return
-    if ((compiled.n_reactions and compiled.channels["r_is_diss"].any())
-            or compiled.releases or compiled.joins or compiled.freeze
-            or compiled.cpt or compiled.dyn_resolution or compiled.rb_rows
-            or compiled.restrict_file
-            or (compiled.atrp and compiled.atrp["entries"])):
-        # the slab path's replicas need these extensions' host reads and
-        # draws to agree rank by rank; not checked yet
-        _not_in_slice("dissociation and the reaction extensions other than "
-                      "ChangeNeighboursProperty under slab_devices > 1",
-                      "M14")
 
 
 def build_system(systop: SystemTopology, coords, opts: SimOptions,
@@ -981,7 +962,7 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
             reaction_config, systop, bond_tb, opts.table_dirs,
             opts.output_prefix)
         T = systop.next_type_id
-    _check_slice(opts, compiled)
+    _warn_dtype(opts)
     dynamic_types = compiled.dynamic_types if compiled else set()
     change_bond_types = compiled.observed_bondtypes if compiled else set()
 
@@ -1217,9 +1198,6 @@ def build_system(systop: SystemTopology, coords, opts: SimOptions,
         # Coulomb over all-zero charges is zero pair by pair: the kernel
         # path leaves the term out
         qq_pref = 0.0
-    elif opts.slab_devices > 1:
-        _not_in_slice("the row path under slab_devices > 1 (the slab path "
-                      "runs the cell kernels only)", "M14")
 
     # ---- dense-static bonded operands (bonded_dense.py) ----
     bd_enable = opts.bonded_dense if opts.bonded_dense is not None else True

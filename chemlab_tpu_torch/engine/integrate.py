@@ -6,7 +6,9 @@ Chebyshev-tabulated pairs, with the conversion observables computed on the
 device when a func-10 blend reads them; the kernel sum split by x-slab
 over the ranks of a mesh when ``cell_pair_halo.supports`` the config) or
 on the Verlet row path (``pair_forces`` over the persistent rows, every
-nonbonded variant), plus bonded forces, plus the global CapForce;
+nonbonded variant; under a mesh each rank evaluates its block of rows
+and one ``all_reduce`` sums them), plus bonded forces, plus the global
+CapForce;
 ``_langevin_adjust``, the rescaling thermostats (``_rescale_thermostat``:
 CSVR, Berendsen, isokinetic), ``_fix_distances`` and
 ``_dynamic_resolution``, ``virial_pressure`` (kernel path: the kernel's
@@ -29,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from . import (bonded_forces, cell_pair, cell_pair_halo, excl_dense,
                neighbor, observables, pair_forces, reactions, topo)
@@ -117,18 +120,51 @@ def compute_forces(spec, cfg, state, want_energy: bool = True,
     return force, {**e_pair, **e_bond}, obs_x
 
 
+def _row_split(cfg, n: int):
+    """This rank's block of rows under a mesh of two or more ranks, else
+    None (every row here)."""
+    mesh = cfg.mesh
+    if mesh is None or mesh.world_size < 2:
+        return None
+    return pair_forces.row_block(n, mesh.world_size, mesh.rank)
+
+
+def _sum_over_ranks(cfg, parts):
+    """``parts`` (tensors of one dtype) summed over the mesh's ranks by one
+    ``all_reduce``: every rank gets the same bits."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, group=cfg.mesh.group)
+    out, k = [], 0
+    for p in parts:
+        out.append(flat[k:k + p.numel()].reshape(p.shape))
+        k += p.numel()
+    return out
+
+
 def row_pair_forces(spec, cfg, state, obs_x):
     """The row path's pair forces and energies (reference
     ``integrate.py:106-113``): the step's tables resolved from the
     conversions, then ``pair_forces.pair_forces`` over the persistent rows
-    with the func-14 ramp where the system has one."""
+    with the func-14 ramp where the system has one.  Under a mesh each
+    rank evaluates its block of rows (``pair_forces.row_block``), the
+    other rows' forces zero, and one ``all_reduce`` sums the (N, 3) forces
+    and the energies: a row's force is nonzero on one rank only."""
     tab_a, tab_b, mix_x = pair_forces.resolve_pair_tables(
         spec, obs_x, cfg.n_mix_entries)
-    return pair_forces.pair_forces(
+    rows = _row_split(cfg, state.pos.shape[0])
+    force, e = pair_forces.pair_forces(
         spec, cfg.n_types, state.pos, state.box, state.type_id, state.q,
         state.lam, state.nbr.idx, state.nbr.excl_mask, tab_a, tab_b, mix_x,
         cfg=cfg, pps_step=state.step if cfg.has_pps else None,
-        pps_birth=state.nbr.birth if cfg.has_pps else None)
+        pps_birth=state.nbr.birth if cfg.has_pps else None, rows=rows)
+    if rows is None:
+        return force, e
+    lo, hi = rows
+    full = torch.zeros_like(state.pos)
+    full[lo:hi] = force
+    keys = sorted(e)
+    full, *vals = _sum_over_ranks(cfg, [full] + [e[k] for k in keys])
+    return full, dict(zip(keys, vals))
 
 
 def _langevin_adjust(spec, state, force, noise):
@@ -234,21 +270,26 @@ def _dynamic_resolution(spec, state):
 def row_strain_derivative(spec, cfg, state):
     """dU/ds at s = 1 on the row path, positions and box scaled by s: every
     pair of the rows plus the bonded terms (reference
-    ``integrate.py:224-241``).  The pair energies come from ``pair_forces``
-    without ``cfg``, as the reference calls it there: every branch runs
-    and no func-14 ramp applies."""
+    ``integrate.py:224-241``); under a mesh each rank differentiates its
+    block of rows and one ``all_reduce`` sums the D derivatives.  The pair
+    energies come from ``pair_forces`` without ``cfg``, as the reference
+    calls it there: every branch runs and no func-14 ramp applies."""
     obs_x = observables.conversions(spec, state.type_id, state.chem_state,
                                     state.active)
     tab_a, tab_b, mix_x = pair_forces.resolve_pair_tables(
         spec, obs_x, cfg.n_mix_entries)
+    rows = _row_split(cfg, state.pos.shape[0])
     with torch.enable_grad():
         s = torch.ones((), dtype=state.pos.dtype, device=state.pos.device,
                        requires_grad=True)
         _, e_pair = pair_forces.pair_forces(
             spec, cfg.n_types, state.pos.detach() * s,
             state.box.detach() * s, state.type_id, state.q, state.lam,
-            state.nbr.idx, state.nbr.excl_mask, tab_a, tab_b, mix_x)
+            state.nbr.idx, state.nbr.excl_mask, tab_a, tab_b, mix_x,
+            rows=rows)
         (grad,) = torch.autograd.grad(sum(e_pair.values()), s)
+    if rows is not None:
+        (grad,) = _sum_over_ranks(cfg, [grad])
     return grad + bonded_forces.bonded_strain_derivative(
         spec, cfg, state.pos, state.box, state.type_id, state.q,
         state.bonds, state.angles, state.dihedrals, state.pairs14,

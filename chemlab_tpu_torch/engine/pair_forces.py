@@ -61,40 +61,51 @@ def resolve_pair_tables(spec, obs_x, n_mix_entries: int):
     return tab_a, tab_b, x
 
 
+def row_block(n: int, n_ranks: int, rank: int):
+    """``rank``'s contiguous block of rows (lo, hi) when ``n_ranks`` ranks
+    split ``n`` rows: the first ``n % n_ranks`` blocks one row longer."""
+    base, extra = divmod(n, n_ranks)
+    lo = rank * base + min(rank, extra)
+    return lo, lo + base + (rank < extra)
+
+
 def pair_forces(spec, n_types: int, pos, box, type_id, q, lam, nbr_idx,
                 excl_mask, tab_a, tab_b, mix_x, cfg=None, pps_step=None,
-                pps_birth=None):
+                pps_birth=None, rows=None):
     """Nonbonded forces and energies over the neighbour rows.
 
     Returns (force (N, 3), energies): the per-kind sums 'lj', 'lj-tab' and
     'coulomb', halved for double counting.  With ``cfg`` its static flags
     leave out absent physics (tables, LJ, Coulomb, caps, λ scaling,
     blends) and the func-14 ramp runs from ``pps_step`` and the rows'
-    ``pps_birth``; without it every branch runs and no ramp applies."""
+    ``pps_birth``; without it every branch runs and no ramp applies.
+    ``rows`` = (lo, hi) evaluates those rows only (``row_block``): the
+    force is then (hi - lo, 3) and the energies are those rows' share.
+    Each row's sum is its own, so a block's rows are the whole call's."""
     has_tab = cfg is None or cfg.has_tabulated
     has_lj = cfg is None or cfg.has_lj
     has_qq = cfg is None or cfg.has_coulomb
     has_cap = cfg is None or cfg.has_caps
     has_lam = cfg is None or cfg.has_lambda_pairs
     has_mix = cfg is None or cfg.has_mixed_tables
-    n = pos.shape[0]
-    j = nbr_idx.long()
+    lo, hi = (0, pos.shape[0]) if rows is None else rows
+    j = nbr_idx[lo:hi].long()
     # one packed (N, K, 4) [x, y, z, type] gather; the math on (N, K) planes
     packed = torch.cat([pos, type_id.to(pos.dtype)[:, None]], dim=-1)
     pj = packed[j]
     drs = []
     r2 = torch.zeros(j.shape, dtype=pos.dtype, device=pos.device)
     for ax in range(3):
-        d = pos[:, ax][:, None] - pj[..., ax]
+        d = pos[lo:hi, ax][:, None] - pj[..., ax]
         d = d - box[ax] * torch.round(d / box[ax])
         drs.append(d)
         r2 = r2 + d * d
-    self_idx = torch.arange(n, dtype=j.dtype, device=pos.device)[:, None]
-    mask = (j != self_idx) & ~excl_mask
+    self_idx = torch.arange(lo, hi, dtype=j.dtype, device=pos.device)[:, None]
+    mask = (j != self_idx) & ~excl_mask[lo:hi]
     r2 = torch.where(mask, r2, 1.0)     # keep the math finite on dead slots
     r = torch.sqrt(r2)
 
-    ti = type_id[:, None].long()
+    ti = type_id[lo:hi, None].long()
     tj = pj[..., 3].to(torch.int64)     # exact: type ids << 2^24
     p = ti * n_types + tj
 
@@ -174,7 +185,7 @@ def pair_forces(spec, n_types: int, pos, box, type_id, q, lam, nbr_idx,
 
     # ---- λ scaling (funcs 11 and 15) ----
     if has_lam:
-        w = torch.where((c_int & 4) > 0, lam[:, None] * lam[j], 1.0)
+        w = torch.where((c_int & 4) > 0, lam[lo:hi, None] * lam[j], 1.0)
         e_lj, f_lj = e_lj * w, f_lj * w
         e_tab, f_tab = e_tab * w, f_tab * w
 
@@ -182,7 +193,7 @@ def pair_forces(spec, n_types: int, pos, box, type_id, q, lam, nbr_idx,
     #      pps_incr a step from the step it entered the rows ----
     if cfg is not None and cfg.has_pps and pps_step is not None:
         incr = spec.pair_pps_incr[p]
-        age = (pps_step - pps_birth).to(torch.float32)
+        age = (pps_step - pps_birth[lo:hi]).to(torch.float32)
         ramp = torch.clamp(age * incr, 0.0, 1.0)
         w14 = torch.where(incr > 0.0, ramp, 1.0)
         e_tab, f_tab = e_tab * w14, f_tab * w14
@@ -200,7 +211,7 @@ def pair_forces(spec, n_types: int, pos, box, type_id, q, lam, nbr_idx,
     # ---- truncated Coulomb ----
     if has_qq:
         qq_mask = mask & (r2 < spec.qq_cutoff2) & (spec.qq_prefactor > 0.0)
-        qq = spec.qq_prefactor * q[:, None] * q[j]
+        qq = spec.qq_prefactor * q[lo:hi, None] * q[j]
         e_qq = torch.where(qq_mask, qq / r, 0.0)
         f_qq = torch.where(qq_mask, qq / (r2 * r), 0.0)
     else:

@@ -357,7 +357,8 @@ def _add(arr, dest, values):
 def _ppnb_batched(spec, cfg, st, ev_valid, rr, ac, bc):
     """ChangeNeighboursProperty over all events at once: exact BFS level
     sets per event as frontier expansions; overlaps between events resolve
-    by scatter order (the reference's own event order is arbitrary)."""
+    in event order, the later event's write kept (``topo.set_last``; the
+    reference's own event order is arbitrary)."""
     E = ev_valid.shape[0]
     n = st.pos.shape[0]
     deg = st.adj.shape[1]
@@ -393,10 +394,12 @@ def _ppnb_batched(spec, cfg, st, ev_valid, rr, ac, bc):
                 ns = spec.ppnb_new_state[p]
                 newc = torch.where(ns >= 0, ns,
                                    chem[cl] + spec.ppnb_incr_state[p])
-                tid = topo.set_drop(tid, sel, nt)
-                mass = topo.set_drop(mass, sel, spec.type_mass[nt.long()])
-                q = topo.set_drop(q, sel, spec.type_q[nt.long()])
-                chem = topo.set_drop(chem, sel, newc)
+                # two events' level sets may share a particle: the later
+                # event's write wins on every device
+                tid = topo.set_last(tid, sel, nt)
+                mass = topo.set_last(mass, sel, spec.type_mass[nt.long()])
+                q = topo.set_last(q, sel, spec.type_q[nt.long()])
+                chem = topo.set_last(chem, sel, newc)
     return dataclasses.replace(st, type_id=tid, chem_state=chem, mass=mass,
                                q=q)
 

@@ -16,7 +16,8 @@ and ChangeParticleType draws) comes from a ``torch.Generator`` that the
 caller owns and passes to ``run_block`` (``make_generator``).
 
 Under a mesh (``parallel.sharding``) every rank holds the whole state and
-runs the same step; only the pair sum is split by slab.  The host reads
+runs the same step; only the pair sum is split (by x-slab on the kernel
+path, by blocks of rows on the row path).  The host reads
 (the rebuild trigger, the reaction gate) then agree on every rank as long
 as the replicas do, which takes the same seed for every rank's generator
 and float sums that give the same bits on every call.  ``run_block``
@@ -147,14 +148,28 @@ def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None,
 
 def _replica_fields(state):
     """(name, tensor) of the state the replicas must agree on, in the
-    order ``check_replicas`` names the first that differs."""
-    return [("pos", state.pos), ("vel", state.vel), ("force", state.force),
-            ("box", state.box), ("bonds.idx", state.bonds.idx),
-            ("bonds.valid", state.bonds.valid),
-            ("bonds.lam", state.bonds.lam), ("type_id", state.type_id),
-            ("chem_state", state.chem_state),
-            ("reaction_counts", state.reaction_counts),
-            ("n_excl", state.n_excl)]
+    order ``check_replicas`` names the first that differs: the particle
+    store, the box, the term tables, the exclusions and adjacency, the
+    FixDistances table, the ATRP and FreezeRegion counters and the
+    neighbour rows with their func-14 births."""
+    fields = [("pos", state.pos), ("vel", state.vel),
+              ("force", state.force), ("box", state.box),
+              ("type_id", state.type_id), ("chem_state", state.chem_state),
+              ("active", state.active), ("mol_id", state.mol_id),
+              ("mass", state.mass), ("q", state.q), ("lam", state.lam)]
+    for name in ("bonds", "angles", "dihedrals"):
+        t = getattr(state, name)
+        fields += [(name + ".idx", t.idx), (name + ".func", t.func),
+                   (name + ".params", t.params), (name + ".lam", t.lam),
+                   (name + ".group", t.group)]
+    fields += [("reaction_counts", state.reaction_counts),
+               ("n_excl", state.n_excl), ("excl", state.excl),
+               ("adj", state.adj), ("fixd_host", state.fixd_host),
+               ("fixd_dummy", state.fixd_dummy),
+               ("atrp_stats", state.atrp_stats),
+               ("freeze_count", state.freeze_count),
+               ("nbr.idx", state.nbr.idx), ("nbr.birth", state.nbr.birth)]
+    return fields
 
 
 def _bits_hash(t):

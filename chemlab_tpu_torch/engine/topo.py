@@ -23,10 +23,30 @@ from .state import I32, TermTable
 def set_drop(arr, dest, values):
     """``arr.at[dest].set(values, mode="drop")``: ``dest == len(arr)`` writes
     into one extra row that is sliced off.  ``dest`` may have any shape;
-    ``values`` broadcasts against it."""
+    ``values`` broadcasts against it.  The kept rows of ``dest`` must be
+    distinct: on the card an indexed assignment that repeats a row keeps
+    an unspecified one of its writes (``set_last`` takes repeats)."""
     out = torch.cat([arr, arr[:1]])
     out[dest.long()] = torch.as_tensor(values, device=arr.device).to(arr.dtype)
     return out[:arr.shape[0]]
+
+
+def set_last(arr, dest, values):
+    """``set_drop`` where ``dest`` may repeat a row: the last write in
+    ``dest``'s flat order wins, as in a sequential scatter, and the
+    earlier ones go to the sentinel row, so no two writes race for a kept
+    row and every device (and every replica of a mesh) keeps the same
+    one."""
+    n = arr.shape[0]
+    d = dest.reshape(-1).long()
+    vals = torch.as_tensor(values, device=arr.device).to(arr.dtype)
+    vals = vals.broadcast_to(tuple(dest.shape) + tuple(arr.shape[1:]))
+    order = torch.argsort(d, stable=True)
+    later = torch.zeros_like(d, dtype=torch.bool)
+    later[order[:-1]] = d[order[1:]] == d[order[:-1]]
+    out = torch.cat([arr, arr[:1]])
+    out[torch.where(later, n, d)] = vals.reshape((-1,) + tuple(arr.shape[1:]))
+    return out[:n]
 
 
 def adj_add_edge(adj, i, j, enable=True):

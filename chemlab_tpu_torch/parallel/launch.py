@@ -38,9 +38,10 @@ PKG_PARENT = Path(__file__).resolve().parent.parent.parent
 
 
 def run_jobs(jobs, n_ranks: int, store_dir, *, backend: str, device=None,
-             timeout: float = 600.0) -> list:
+             timeout: float | None = 600.0) -> list:
     """Run ``jobs`` ([(name, kwargs), ...], in order) on ``n_ranks`` ranks;
-    returns, per job, the list of the ranks' results."""
+    returns, per job, the list of the ranks' results.  ``timeout`` (s)
+    bounds the whole run; None sets no bound."""
     store = Path(store_dir).resolve()
     store.mkdir(parents=True, exist_ok=True)
     for stale in [store / "group", *store.glob("result.*.pkl")]:
@@ -61,12 +62,13 @@ def run_jobs(jobs, n_ranks: int, store_dir, *, backend: str, device=None,
                 [sys.executable, "-m", __spec__.name, str(store), str(r)],
                 env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
                 stderr=subprocess.STDOUT, cwd=str(PKG_PARENT)))
-        deadline = time.monotonic() + timeout
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
         # a rank that fails would leave the others waiting in a collective
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
                 break
-            if time.monotonic() > deadline:
+            if deadline is not None and time.monotonic() > deadline:
                 raise TimeoutError("the %d ranks did not finish in %.0f s"
                                    % (n_ranks, timeout))
             time.sleep(0.05)

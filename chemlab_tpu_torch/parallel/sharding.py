@@ -6,7 +6,9 @@ the step to XLA's partitioner; PyTorch has none, and a row-sharded torch
 step would need collectives in every module.  So here every rank of a
 ``torch.distributed`` process group holds the whole state, replicated, and
 runs the same step; only the pair sum is split, by x-slab
-(``engine.cell_pair_halo``), and combined with one ``all_reduce``.  A
+(``engine.cell_pair_halo``) or, on the row path, by blocks of rows
+(``engine.integrate.row_pair_forces``), and combined with one
+``all_reduce``.  A
 ``SlabMesh`` names the group, the rank and the device its tensors live on;
 ``meshed_cfg`` puts it on the config, which turns the slab path on.
 """

@@ -15,6 +15,18 @@ one; tests pass ``device="cpu"``.  One ``torch.Generator`` carries the
 run's noise (``runner.make_generator(rng_seed)``) and is checkpointed with
 the state.  Hooks see a host view of the state (``SimulationContext``);
 their edits are written back to the state on its device.
+
+``--node_grid x,y,z`` with a product D > 1 runs the CLI on D ranks of a
+``torch.distributed`` group (``parallel.launch``, the ``cli`` job): every
+rank builds the same system with ``slab_devices = D``, draws from the same
+seed, runs the hooks and changes its caps at the same steps, so the
+replicas stay equal, and only the pair sum is split by x-slab.  Rank 0
+alone writes the output files; its standard output is printed by the
+calling process when the ranks are done.  ``device="cuda"`` puts rank r on
+``cuda:r`` over NCCL, ``device="cuda:k"`` every rank on that card and
+``device="cpu"`` every rank on the CPU, both over gloo.  Without the flag,
+or with a product of 1, the CLI runs in the calling process (the
+reference instead spreads over every local device).
 """
 
 from __future__ import annotations
@@ -244,18 +256,100 @@ def _host_dict(m: dict) -> dict:
     return {k: v.detach().cpu() for k, v in m.items()}
 
 
-def _check_node_grid(node_grid):
-    if node_grid and int(np.prod([int(x) for x in
-                                  str(node_grid).split(",")])) > 1:
-        from .engine.build import _not_in_slice
+def node_grid_ranks(node_grid) -> int:
+    """The rank count of ``--node_grid x,y,z``: the product (1 without the
+    flag)."""
+    if not node_grid:
+        return 1
+    return int(np.prod([int(x) for x in str(node_grid).split(",")]))
 
-        _not_in_slice("--node_grid %s (the slab path in the CLI)"
-                      % node_grid, "M14")
+
+def run_ranks(argv, device, n_ranks: int, h5md_writer=None) -> int:
+    """The CLI on ``n_ranks`` ranks placed by ``device`` (module
+    docstring); prints rank 0's standard output and returns its exit
+    code.  The group meets in a ``file://`` store in a new temporary
+    directory, removed afterwards."""
+    import shutil
+    import tempfile
+
+    from .parallel import launch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        if n_ranks > torch.cuda.device_count():
+            raise ValueError("requested %d devices, only %d available"
+                             % (n_ranks, torch.cuda.device_count()))
+        backend, rank_device = "nccl", None
+    else:
+        backend, rank_device = "gloo", str(device)
+    store = tempfile.mkdtemp(prefix="chemlab_ranks_")
+    try:
+        (res,) = launch.run_jobs(
+            [("cli", dict(argv=list(argv or []), cwd=os.getcwd(),
+                          h5md_writer=h5md_writer))], n_ranks, store,
+            backend=backend, device=rank_device, timeout=None)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    sys.stdout.write(res[0]["stdout"])
+    return res[0]["rc"]
 
 
-def main(argv=None, device="cuda"):
+class _NoOutput:
+    """The H5MD and energy writers of a rank other than 0: every call
+    writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **kw: None
+
+
+def _writer_class(h5md_writer):
+    """``writers.H5MDWriter``, or the class that ``h5md_writer``
+    ("module:attr") names."""
+    if h5md_writer is None:
+        return writers.H5MDWriter
+    import importlib
+
+    module, attr = h5md_writer.split(":")
+    return getattr(importlib.import_module(module), attr)
+
+
+def _write_final_files(out_prefix, state, systop, coords, cfg, built):
+    """The output phase's files: the final and unfolded .gro, the
+    regenerated .top, the ATRPActivator stats and the reaction counters."""
+    files_io.write_gro("%s_confout.gro" % out_prefix,
+                       writers.state_to_coordinates(state, systop, coords))
+    files_io.write_gro("%s_confout_unfolded.gro" % out_prefix,
+                       writers.state_to_coordinates(state, systop, coords,
+                                                    unfolded=True))
+    writers.write_topology("%s_topol.top" % out_prefix, systop, state)
+
+    if cfg.has_atrp:
+        # ATRPActivator stats file (ref: reaction_post_process.py:390-396)
+        stats = state.atrp_stats.cpu().numpy()
+        ratios = state.atrp_ratios.cpu().numpy()
+        with open("%s_atrp_stats.dat" % out_prefix, "w") as f:
+            f.write("activated %d\ndeactivated %d\n"
+                    "ratio_activator %g\nratio_deactivator %g\n"
+                    % (stats[0], stats[1], ratios[0], ratios[1]))
+
+    if cfg.has_reactions:
+        with open("%s_reaction_counters.csv" % out_prefix, "w") as f:
+            counts = state.reaction_counts.cpu().numpy()
+            for ridx, eq in (built.reactions.reaction_index.items()
+                             if built.reactions else []):
+                f.write("%d,%s,%d\n" % (ridx, eq, counts[ridx]))
+            intra = state.intra_counts.cpu().numpy()
+            f.write("intramolecular,,%d\ninter_molecular,,%d\n" %
+                    (intra[0], intra[1]))
+
+
+def main(argv=None, device="cuda", mesh=None, h5md_writer=None):
     """Run the CLI on ``device`` (the card unless the caller asks for
-    another)."""
+    another); with ``--node_grid`` of product D > 1, on D ranks
+    (``run_ranks``).  ``mesh`` is the rank's ``parallel.SlabMesh`` when
+    this call is one of those ranks.  ``h5md_writer`` ("module:attr")
+    names a class to write the H5MD trajectory in ``writers.H5MDWriter``'s
+    place."""
     from .engine import runner
 
     device = torch.device(device)
@@ -264,14 +358,19 @@ def main(argv=None, device="cuda"):
                            "no CUDA device; pass device='cpu' to run on the "
                            "CPU")
     parser, args = app_args.parse_args(argv)
-    _check_node_grid(args.node_grid)
+    n_ranks = node_grid_ranks(args.node_grid)
+    if mesh is None and n_ranks > 1:
+        return run_ranks(argv, device, n_ranks, h5md_writer)
+    # only rank 0 of a mesh writes files
+    writes = mesh is None or mesh.rank == 0
     t_wall = time.time()
 
     out_prefix = args.output_prefix
     out_dir = os.path.dirname(out_prefix)
-    if out_dir and not os.path.isdir(out_dir):
+    if writes and out_dir and not os.path.isdir(out_dir):
         os.makedirs(out_dir)
-    parser.save_to_file("%s_params.out" % out_prefix, args)
+    if writes:
+        parser.save_to_file("%s_params.out" % out_prefix, args)
 
     if args.debug:
         # "logger1:regex,logger2": raise each named logger to DEBUG and,
@@ -338,10 +437,18 @@ def main(argv=None, device="cuda"):
             collector.register([(tid, stt)], 1)
 
     opts = build_sim_options(args, table_dirs)
+    if mesh is not None:
+        opts = dataclasses.replace(opts, slab_devices=mesh.world_size)
     built = build.build_system(systop, coords, opts, reaction_config=rcfg,
                                extra_conversions=collector.items,
                                device=device)
     cfg, spec = built.cfg, built.spec
+    if mesh is not None:
+        from .parallel import sharding
+
+        cfg = sharding.meshed_cfg(cfg, mesh)
+        print("Device mesh: %d x %s (the pair sum split by x-slab; every "
+              "rank holds the whole state)" % (mesh.world_size, device.type))
     state = runner.initial_forces(spec, cfg, built.state)
     print("Particles: %d (padded %d), types: %d, reactions: %d" % (
         cfg.n_particles, cfg.n_pad, cfg.n_types, cfg.n_reactions))
@@ -407,12 +514,15 @@ def main(argv=None, device="cuda"):
         ("res_id", args.store_res_id), ("charge", args.store_charge),
         ("velocity", args.store_velocity), ("force", args.store_force),
         ("lambda_adr", args.store_lambda)] if on}
-    h5 = writers.H5MDWriter(
-        args.output_file, cfg.n_particles, state.box, store=store,
-        single_precision=args.store_single_precision,
-        chunk_size=256)  # ref: start_simulation.py:591
+    if writes:
+        h5 = _writer_class(h5md_writer)(
+            args.output_file, cfg.n_particles, state.box, store=store,
+            single_precision=args.store_single_precision,
+            chunk_size=256)  # ref: start_simulation.py:591
+        emon = writers.SystemMonitorCSV("%s_energy.csv" % out_prefix)
+    else:
+        h5 = emon = _NoOutput()
     h5.write_parameters(args, force_field=systop.top.atomtypes)
-    emon = writers.SystemMonitorCSV("%s_energy.csv" % out_prefix)
 
     def dump_frame(st, step):
         kw = {}
@@ -459,20 +569,20 @@ def main(argv=None, device="cuda"):
     freeze_stats_file = None
     counters_file = None
     last_ev_logged = -1
-    if rcfg and rcfg.get("general") and \
+    if writes and rcfg and rcfg.get("general") and \
             rcfg["general"].get("pair_distances_filename"):
         pair_dist_file = rcfg["general"]["pair_distances_filename"]
         files_io.prepare_path(pair_dist_file)
         with open(pair_dist_file, "w") as f:
             f.write("# step reaction pid1 pid2 distance\n")
-    if cfg.has_freeze:
+    if writes and cfg.has_freeze:
         freeze_stats_file = (built.reactions.freeze.get("stats_file")
                              or "%s_%d_freeze_stats.dat"
                              % (out_prefix, args.rng_seed))
         files_io.prepare_path(freeze_stats_file)
         with open(freeze_stats_file, "w") as f:
             f.write("# step frozen_total\n")
-    if cfg.has_reactions and built.reactions:
+    if writes and cfg.has_reactions and built.reactions:
         # running per-interval series; the final-total file written in the
         # output phase keeps the reference's name
         counters_file = "%s_reaction_counters_series.csv" % out_prefix
@@ -547,7 +657,7 @@ def main(argv=None, device="cuda"):
     eq_blocks_left = None
     need_bond_counts = any(c.kind == "bond_count" for c in criteria)
     rate_file = None
-    if args.rate_arrhenius:
+    if writes and args.rate_arrhenius:
         # "step new_rate" rows, one per block with new bonds (ref:
         # start_simulation.py:712-714,794)
         rate_file = open("%s_%d_new_rates.csv" % (out_prefix, args.rng_seed),
@@ -685,7 +795,8 @@ def main(argv=None, device="cuda"):
             dump_topology(state, global_step)
         if args.trj_flush and global_step % args.trj_flush == 0:
             h5.flush()
-        if args.gro_trj_collect and global_step % args.gro_trj_collect == 0:
+        if (writes and args.gro_trj_collect
+                and global_step % args.gro_trj_collect == 0):
             files_io.write_gro("%s_traj.gro" % out_prefix,
                                writers.state_to_coordinates(state, systop,
                                                             coords),
@@ -712,7 +823,7 @@ def main(argv=None, device="cuda"):
         # enable reactions at start_ar, exactly once (ref: :735-757)
         if (cfg.has_reactions and not reactions_started
                 and global_step >= args.start_ar):
-            if args.save_before_reaction:
+            if writes and args.save_before_reaction:
                 files_io.write_gro("%s_before_reaction.gro" % out_prefix,
                                    writers.state_to_coordinates(state, systop,
                                                                 coords))
@@ -752,7 +863,8 @@ def main(argv=None, device="cuda"):
         if reactions_enabled or cfg.has_freeze:
             dump_reaction_observables(state, global_step)
 
-        if args.checkpoint_interval and k % args.checkpoint_interval == 0:
+        if (writes and args.checkpoint_interval
+                and k % args.checkpoint_interval == 0):
             from . import checkpoint
             checkpoint.save_state("%s_checkpoint.npz" % out_prefix, state,
                                   cfg=cfg, gen=gen, rng_seed=args.rng_seed)
@@ -780,8 +892,9 @@ def main(argv=None, device="cuda"):
                 state = dataclasses.replace(
                     state, reaction_rates=torch.full_like(
                         state.reaction_rates, new_rate))
-                rate_file.write("%d %e\n" % (global_step, new_rate))
-                rate_file.flush()
+                if rate_file is not None:
+                    rate_file.write("%d %e\n" % (global_step, new_rate))
+                    rate_file.flush()
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -790,6 +903,7 @@ def main(argv=None, device="cuda"):
         rate_file.close()
     if prof is not None:
         prof.stop()
+    if prof is not None and writes:
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir,
                                               "trace.json"))
@@ -805,37 +919,18 @@ def main(argv=None, device="cuda"):
     h5.close()
     emon.close()
 
-    files_io.write_gro("%s_confout.gro" % out_prefix,
-                       writers.state_to_coordinates(state, systop, coords))
-    files_io.write_gro("%s_confout_unfolded.gro" % out_prefix,
-                       writers.state_to_coordinates(state, systop, coords,
-                                                    unfolded=True))
-    writers.write_topology("%s_topol.top" % out_prefix, systop, state)
+    if writes:
+        _write_final_files(out_prefix, state, systop, coords, cfg, built)
 
-    if cfg.has_atrp:
-        # ATRPActivator stats file (ref: reaction_post_process.py:390-396)
-        stats = state.atrp_stats.cpu().numpy()
-        ratios = state.atrp_ratios.cpu().numpy()
-        with open("%s_atrp_stats.dat" % out_prefix, "w") as f:
-            f.write("activated %d\ndeactivated %d\n"
-                    "ratio_activator %g\nratio_deactivator %g\n"
-                    % (stats[0], stats[1], ratios[0], ratios[1]))
-
-    if cfg.has_reactions:
-        with open("%s_reaction_counters.csv" % out_prefix, "w") as f:
-            counts = state.reaction_counts.cpu().numpy()
-            for ridx, eq in (built.reactions.reaction_index.items()
-                             if built.reactions else []):
-                f.write("%d,%s,%d\n" % (ridx, eq, counts[ridx]))
-            intra = state.intra_counts.cpu().numpy()
-            f.write("intramolecular,,%d\ninter_molecular,,%d\n" %
-                    (intra[0], intra[1]))
-
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    if mesh is not None:
+        n_devices = mesh.world_size
+    else:
+        n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     bench_path = args.benchmark_data or "%s_benchmark.csv" % out_prefix
-    with open(bench_path, "a") as f:
-        f.write("%d %d %.2f %.2f\n" % (n_devices, cfg.n_particles,
-                                       time.time() - t_wall, t_loop))
+    if writes:
+        with open(bench_path, "a") as f:
+            f.write("%d %d %.2f %.2f\n" % (n_devices, cfg.n_particles,
+                                           time.time() - t_wall, t_loop))
     # timer breakdown pickle (ref: start_simulation.py:1040-1076)
     import pickle
 
@@ -855,8 +950,9 @@ def main(argv=None, device="cuda"):
         phases = perf.phase_timers(spec, cfg, state)
         timers.update(phases)
         print(perf.format_timers(phases))
-    with open("%s_benchmark.pck" % out_prefix, "wb") as f:
-        pickle.dump(timers, f)
+    if writes:
+        with open("%s_benchmark.pck" % out_prefix, "wb") as f:
+            pickle.dump(timers, f)
     pps = cfg.n_particles * global_step / max(t_loop, 1e-9)
     print("Total time: %.1fs, loop: %.1fs, particle-steps/s: %.3g" % (
         time.time() - t_wall, t_loop, pps))

@@ -793,6 +793,49 @@ def build_release_melt(n_mols: int = 3334, density: float = 0.27,
                               overrides)
 
 
+# ---- an exchange reaction: a virtual channel with a neighbour transfer -------
+
+EXCHANGE_CFG_TEXT = """
+[general]
+interval: 10
+
+[group_g1]
+potential=Harmonic
+potential_options=K=30.0,r0=0.97
+
+[reaction_x]
+reaction: MA(1,2):ML(%(mlmin)d,%(mlmax)d) + MA(1,2) -> FA(1):DA(1) + PL(1)
+cutoff: 1.5
+rate: 400.0
+intramolecular: 1
+intraresidual: 1
+active: True
+group: g1
+"""
+
+
+def build_exchange_melt(n_mols: int = 60, density: float = 0.4,
+                        seed: int = 5, ml_window=(0, 9), device="cuda",
+                        **opt_overrides):
+    """The trimer melt under ``EXCHANGE_CFG_TEXT`` (the reference's
+    ``tests/test_exchange.py`` system): an MA bonded to an ML whose state
+    lies in ``ml_window`` reacts with an MA partner within 1.5; the pair
+    becomes FA:DA without a bond (a virtual channel), and the bonded ML
+    becomes PL by a level-1 neighbour transfer.  Returns (BuiltSystem,
+    SystemTopology, Coordinates)."""
+    systop = compile_system_topology(topfile.parse_lines(
+        _melt_topology_text(n_mols).splitlines(), "<generated>"))
+    coords = melt_coordinates(n_mols, density, seed=seed)
+    rcfg = reaction_parser.parse_config_lines((EXCHANGE_CFG_TEXT % {
+        "mlmin": ml_window[0], "mlmax": ml_window[1]}).splitlines())
+    opts = dict(lj_cutoff=2.5, cg_cutoff=2.5, skin=0.4, dt=0.0025, kT=1.0,
+                gen_velocity=True, rng_seed=seed, max_events=16)
+    opts.update(opt_overrides)
+    built = build.build_system(systop, coords, build.SimOptions(**opts),
+                               reaction_config=rcfg, device=device)
+    return built, systop, coords
+
+
 # ---- the Verlet row path: one nonbonded variant per type pair ---------------
 
 ROW_PPS_INCR = 0.01

@@ -17,7 +17,7 @@ once) and drives the port's paths at 10k particles:
      K1 on the same operands (difference, bitwise or not, both times), the
      cancellation check at an excluded pair 0.05 sigma apart, a small melt
      stepped on the GPU and on the CPU from one state, and the main path:
-     one untimed and three timed 200-step Langevin blocks with reaction
+     one untimed and one timed 200-step Langevin block with reaction
      steps;
   3. K2, the LJ kernel for grids colt2 cannot take (K1's column-segment
      kernel over the deduplicated stencil): on the 10k melt built with
@@ -48,7 +48,7 @@ once) and drives the port's paths at 10k particles:
      kernel exactly once a step and K1 never; then the kernel matrix
      (``chemlab_tpu_torch.kernel_matrix.time_kernels``);
   4. NPT: the 10k reactive melt under the Berendsen barostat (pressure
-     0.15, tau 2.0) with Langevin, one untimed and three timed blocks, K1
+     0.15, tau 2.0) with Langevin, one untimed and one timed block, K1
      for the forces and K1b (the virial channel) for the pressure on every
      step; after a first block (the box has moved) K1b against its plain
      version and K1/K1b against the cellwise kernel bit for bit and in
@@ -64,7 +64,7 @@ once) and drives the port's paths at 10k particles:
      (22^3 cells at cap 32 and at cap 40), the whole pair call of both
      (the kernel matrix's), the cancellation check in the wall, a small
      tabulated melt stepped on the GPU and on the CPU, and the main path:
-     one untimed and three timed reactive blocks of the tabulated melt;
+     one untimed and one timed reactive block of the tabulated melt;
      then one untimed and one timed block of the blended melt (K1d) and of
      the tabulated melt in plane mode (K1e);
   6. the slab decomposition (K1f): on the 10k LJ melts built with
@@ -81,8 +81,8 @@ once) and drives the port's paths at 10k particles:
      pressure);
   7. the CLI (``cli``): ``start_simulation.main`` in-process on a copy of
      ``examples/atrp_melt`` (6000 particles, 9^3 cells, cap 40) with
-     ``@params --run 2400 --int_step 200 --start_ar 1200 --retune_caps
-     600 ...``: exit 0, K1 at least once a step and no other kernel, the
+     ``@params --run 1200 --int_step 200 --start_ar 600 --retune_caps
+     0 ...``: exit 0, K1 at least once a step and no other kernel, the
      retune equal to ``shrink_neighbor_caps`` on the frame of its step, no
      overflow, events fired and in ``_topol.top``, every energy row finite
      with T in 0.5-1.5, 6000 atoms in ``_confout.gro``, the CLI's own
@@ -103,7 +103,7 @@ once) and drives the port's paths at 10k particles:
      card against the CPU on the warmed state, one full-row reaction step
      on both with equal event lists and tables, the 40-tetramer melt
      (3x3x3 cells) stepped 20 NVE steps on both, and the main path: one
-     untimed and three timed reactive blocks, K1 exactly once a step in
+     untimed and one timed reactive block, K1 exactly once a step in
      each;
   9. the reaction extensions (``extensions``) on two 10k trimer melts:
      the break melt (``testsystems.build_break_melt``: CSVR, the ATRP
@@ -117,7 +117,7 @@ once) and drives the port's paths at 10k particles:
      and the ATRP, FreezeRegion and ChangeParticleType steps on the card
      and on the CPU from one state under the same draws, event lists and
      integer tables equal, (c) the 70-trimer melt stepped 20 NVE steps on
-     both, (d) the main path: one untimed and four timed blocks, K1
+     both, (d) the main path: one untimed and two timed blocks, K1
      exactly once a step in each, then the same run from the same start,
      not timed, with every mechanism counted (each must fire), (e) the
      invariants of the counted run's end (adjacency =
@@ -131,13 +131,13 @@ once) and drives the port's paths at 10k particles:
      13-17 and LJ on its type pairs and Coulomb between the charges, which
      sends it to the row path): (a) the build took the row path and no
      cell kernel launches in the phase, (c) after a 600-step descent one
-     untimed and four timed 200-step blocks (T, events, bonds gained =
+     untimed and two timed 200-step blocks (T, events, bonds gained =
      events, no overflow, rebuilds, func-14 pairs in the rows, the MA-PA
      blend's switch crossed, every energy finite), (b) at the run's end
      the rows with their func-14 births, ``pair_forces``, the row-path
      virial and one reaction step on the card against the CPU, then the
      ms of a rebuild, a ``pair_forces`` and a ``virial_pressure`` and the
-     launches a step, (d) a 400-step Berendsen side run (P finite, the box
+     launches a step, (d) a 200-step Berendsen side run (P finite, the box
      moved);
   11. the engine's tools (``tools``): (a) the native host library builds
      and its .gro read equals ``read_gro`` field for field on
@@ -146,11 +146,27 @@ once) and drives the port's paths at 10k particles:
      each force initialisation) and the port's CLI runs it 400 steps
      (exit 0, energies finite, T in 0.5-1.5), (c) ``tune_skin`` on it over
      three skins (particle-steps/s a skin, the winner, K1 for every step),
-     (d) ``nve_drift``'s NVE pair on the 10k tabulated melt, 2000 steps a
+     (d) ``nve_drift``'s NVE pair on the 10k tabulated melt, 600 steps a
      leg from one state: K1c once a step in the kernel leg, no cell kernel
      in the row leg, the step-0 pair energies within 5e-3, every Etot
-     finite, each leg's drift, fluctuation and wall time; the total wall
-     time is printed last.
+     finite, each leg's drift, fluctuation and wall time;
+  12. M14 (``m14``): (a) ``start_simulation.main`` on a copy of
+     ``examples/atrp_melt`` with ``--node_grid 1,1,3`` and
+     ``device="cuda:0"`` (3 gloo ranks on the card, reactions from step 0,
+     2 blocks of 200 steps) against the same flags on one rank: counters,
+     bonds and ``_confout.gro`` equal, each rank's K1f count (K1 none),
+     rank 0 alone writing files; (b)-(d) in one ``run_jobs`` call on 2
+     gloo ranks of cuda:0: the 10k break and release melts
+     (``slab_devices=2``, reaction interval 50, 200 steps), a
+     ``grow_neighbor_caps`` between two 100-step blocks of the 10k LJ melt
+     and the 10k row melt (each rank its block of rows), each against one
+     rank from the same state and seed: the integer state equal, positions
+     bitwise on the K1f paths, every mechanism fired, the row path's
+     max|dF|, energies and virial pressure, the replicas, the launches a
+     step and the particle-steps/s; then the phase's wall time.  The total
+     wall time is printed last.  ``python3 chip_smoke.py --only m14``
+     builds the kernels and runs this phase alone (no kernels line and no
+     result line).
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -172,7 +188,7 @@ import time
 
 N_MOLS = 3334           # 10 002 particles
 BLOCK_STEPS = 200
-TIMED_BLOCKS = 3
+TIMED_BLOCKS = 1
 # the reference NPT test's settings and its 2x2x2 melt
 NPT = dict(barostat="br", pressure=0.15, barostat_tau=2.0)
 SMALL_GRID = dict(n_mols=40, density=0.3, seed=3, reactive=False)
@@ -1931,7 +1947,7 @@ def slab_path(card: str):
 # ---- the CLI (start_simulation.main on examples/atrp_melt) ---------------------
 
 EXAMPLE = "examples/atrp_melt"
-CLI_STEPS = 2400
+CLI_STEPS = 1200
 CLI_BLOCK = 200
 # the caps are retuned on the input coordinates: conf.gro's fullest cell
 # holds 24 particles, so the reference's rule shrinks cell_cap 40 -> 32
@@ -1941,7 +1957,7 @@ CLI_RETUNE = 0
 
 
 def cli_flags():
-    """``@params --run 2400 --int_step 200 --start_ar 1200 --retune_caps
+    """``@params --run 1200 --int_step 200 --start_ar 600 --retune_caps
     0 --trj_collect 200 --energy_collect 200 --topol_collect 200
     --rng_seed 11``."""
     b = str(CLI_BLOCK)
@@ -2036,9 +2052,9 @@ def example_build(example: str, **overrides):
 
 
 def cli_path(card: str, example: str):
-    """``start_simulation.main`` on the example in its copy: 12 blocks of
+    """``start_simulation.main`` on the example in its copy: 6 blocks of
     200 steps at 6000 particles, the caps retuned on the input, reactions
-    from step 1200; the launches of every kernel counted over the run, and
+    from step 600; the launches of every kernel counted over the run, and
     K1's counted within each block of the loop."""
     import contextlib
     import os
@@ -2502,7 +2518,7 @@ def bonded_path(card: str):
 
 EXT_MOLS = 3334         # trimers: 10 002 particles (+ 6 668 dummies)
 EXT_WARMUP = 300        # descent steps (the LJ path takes 600)
-EXT_TIMED = 4           # timed 200-step blocks after one untimed
+EXT_TIMED = 2           # timed 200-step blocks after one untimed
 EXT_SMALL = 70          # the small melt stepped on both (3x3x3 cells: K1)
 
 
@@ -3058,9 +3074,9 @@ def extensions_path(card: str):
 
 ROW_MOLS = 3334         # trimers: 10 002 particles
 ROW_WARMUP = 600        # descent steps
-ROW_TIMED = 4           # timed 200-step blocks after one untimed
+ROW_TIMED = 2           # timed 200-step blocks after one untimed
 ROW_INITIATORS = 20     # testsystems.row_switch's default
-ROW_NPT_STEPS = 400
+ROW_NPT_STEPS = 200
 
 
 def _row_pairs(idx, vals, n):
@@ -3314,7 +3330,7 @@ TOOLS_EQUILIBRATE = 100  # genmelt: 100 descent steps, then 100 Langevin
 TOOLS_CLI_STEPS = 400
 TUNE_SKINS = (0.3, 0.4, 0.5)
 TUNE_BLOCK = 100
-NVE_STEPS = 2000
+NVE_STEPS = 600
 NVE_BLOCK = 200
 NVE_WARMUP = 200        # descent steps on the row build (the module: 600)
 NVE_SETTLE = 200        # NVE steps after it (the module: 400)
@@ -3587,9 +3603,327 @@ def tools_path(card: str):
             "tune": res, "best": best, "nve": legs}
 
 
-def main() -> int:
+# ---- M14: the CLI, the extensions, cap changes and the rows on ranks -------
+
+M14_CLI_RANKS = 3       # --node_grid 1,1,3: atrp_melt's 9 x-layers, 3 a slab
+M14_RANKS = 2           # (b)-(d): the 10k melts' even x-layer counts
+M14_CLI_STEPS = 400     # 2 blocks of M14_CLI_BLOCK
+M14_CLI_BLOCK = 200
+M14_DEVICE = "cuda:0"   # every rank's card: gloo ranks time-sharing it
+M14_STEPS = 200         # (b): the extension melts' block
+M14_INTERVAL = 50       # (b): their reaction interval, 4 in the block
+M14_CAP_STEPS = 100     # (c): a block each side of the regrowth
+M14_ROW_STEPS = 100     # (d): the row melt's timed block
+
+
+def m14_cli_flags(node_grid: str):
+    b = str(M14_CLI_BLOCK)
+    return ["@params", "--run", str(M14_CLI_STEPS), "--int_step", b,
+            "--start_ar", "0", "--retune_caps", "0", "--trj_collect", b,
+            "--energy_collect", b, "--topol_collect", b, "--rng_seed", "11",
+            "--timers", "False", "--node_grid", node_grid]
+
+
+def _cli_outputs(d: str) -> dict:
+    """What a CLI run in ``d`` wrote that the ranks must agree on."""
+    import os
+
+    from chemlab_tpu_torch import files_io
+
+    def at(name):
+        return os.path.join(d, name)
+
+    return {"counters": open(at("atrp_reaction_counters.csv")).read(),
+            "bonds": list(_section(open(at("atrp_topol.top")), "bonds")),
+            "energy": open(at("atrp_energy.csv")).read().splitlines(),
+            "pos": files_io.read_gro(at("atrp_confout.gro")).pos}
+
+
+def m14_cli(card: str):
+    """(a) ``start_simulation.main`` on a copy of ``examples/atrp_melt``
+    with ``--node_grid 1,1,3`` and ``device="cuda:0"``: 3 gloo ranks on
+    the card, reactions from step 0, 2 blocks of 200 steps, then the same
+    flags on one rank in this process (``--node_grid 1,1,1``)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from chemlab_tpu_torch import start_simulation
+    from chemlab_tpu_torch.engine import cell_pair
+    from chemlab_tpu_torch.parallel import launch
+
+    try:
+        import h5py  # noqa: F401
+        h5md = None
+    except ImportError:
+        # rank 0 imports this script's stand-in by name
+        h5md = "chip_smoke:RecordingWriter"
+    calls = []
+    run_jobs = launch.run_jobs
+
+    def recorded(*a, **kw):
+        calls.append(run_jobs(*a, **kw))
+        return calls[-1]
+
+    dirs, outs, walls = {}, {}, {}
+    launch.run_jobs = recorded
+    cwd = os.getcwd()
+    try:
+        for grid in ("1,1,3", "1,1,1"):
+            dirs[grid] = example_copy()
+            os.chdir(dirs[grid])
+            for k in cell_pair.KERNELS:
+                k.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = start_simulation.main(m14_cli_flags(grid),
+                                           device=M14_DEVICE,
+                                           h5md_writer=h5md)
+            walls[grid] = time.perf_counter() - t0
+            outs[grid] = dict(_cli_outputs(dirs[grid]), rc=rc,
+                              stdout=buf.getvalue(),
+                              launches={n: k.launches for n, k in
+                                        cell_pair.BY_NAME.items()
+                                        if k.launches})
+    finally:
+        launch.run_jobs = run_jobs
+        os.chdir(cwd)
+    ((res,),) = calls
+    many, one = outs["1,1,3"], outs["1,1,1"]
+    mesh_line = [ln for ln in many["stdout"].splitlines()
+                 if ln.startswith("Device mesh:")]
+    dpos = float(np.abs(many["pos"] - one["pos"]).max())
+    written = [len(r["writes"]) for r in res]
+    events = sum(int(ln.rsplit(",", 1)[1]) for ln in
+                 one["counters"].splitlines()
+                 if not ln.startswith(("intra", "inter")))
+    print("m14 (a) cli: %s; %d ranks in %.1f s, one rank in %.1f s "
+          "(start-up and build included)" % (
+              mesh_line, M14_CLI_RANKS, walls["1,1,3"], walls["1,1,1"]))
+    for r, out in enumerate(res):
+        print("m14 (a) cli rank %d: rc %d, K1f launches %d, K1 %d, files "
+              "written %d %s" % (r, out["rc"], out["launches"]["K1f"],
+                                 out["launches"]["K1"], len(out["writes"]),
+                                 out["writes"][:8]))
+    print("m14 (a) cli vs one rank: events %d, counters equal %s, bonds "
+          "equal %s (%d), confout max|dpos| %.3e, bitwise %s; one rank's "
+          "launches %s" % (events, many["counters"] == one["counters"],
+                           many["bonds"] == one["bonds"], len(one["bonds"]),
+                           dpos, np.array_equal(many["pos"], one["pos"]),
+                           one["launches"]))
+    _require({
+        "(a) exit 0 on every rank and on one": all(
+            r["rc"] == 0 for r in res) and one["rc"] == 0 and many["rc"] == 0,
+        "(a) the mesh line": mesh_line == [
+            "Device mesh: %d x cuda (the pair sum split by x-slab; every "
+            "rank holds the whole state)" % M14_CLI_RANKS],
+        "(a) K1f on every step of every rank, K1 never": all(
+            r["launches"]["K1f"] >= M14_CLI_STEPS
+            and r["launches"]["K1"] == 0 for r in res),
+        "(a) events fired": events > 0,
+        "(a) counters and bonds equal to one rank":
+            many["counters"] == one["counters"]
+            and many["bonds"] == one["bonds"],
+        "(a) confout positions equal to one rank": dpos == 0.0,
+        "(a) only rank 0 wrote files": written[0] > 0
+            and written[1:] == [0] * (M14_CLI_RANKS - 1),
+    }, "m14 cli")
+    return {"launches": min(r["launches"]["K1f"] for r in res)}
+
+
+def _m14_start(label, builder, n_init, **kw):
+    """A 10k melt built with ``slab_devices=2`` on the card, warmed,
+    ``n_init`` initiators on, at step 0."""
     import torch
 
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import runner
+
+    t0 = time.perf_counter()
+    built, systop, _ = builder(device=DEVICE, slab_devices=M14_RANKS, **kw)
+    state = runner.initial_forces(built.spec, built.cfg, built.state)
+    state = testsystems.warmup(built, state, steps=EXT_WARMUP)
+    state = testsystems.activate_initiators(built, systop, state, n=n_init)
+    state = dataclasses.replace(state, step=torch.zeros_like(state.step))
+    _sync()
+    print("m14 %s: %d particles, grid %s, cell_cap %d, use_pallas %s; "
+          "build + warmup %.1f s" % (label, built.cfg.n_particles,
+                                     built.cfg.cell_dims, built.cfg.cell_cap,
+                                     built.cfg.use_pallas,
+                                     time.perf_counter() - t0))
+    return built, state
+
+
+M14_INTEGER = ("type_id", "active", "chem_state", "reaction_counts",
+               "fixd_host", "fixd_dummy")
+
+
+def m14_ranks(card: str):
+    """(b) the 10k break and release melts, (c) a regrowth mid-run on the
+    10k LJ melt, (d) the 10k row melt: 2 gloo ranks on cuda:0, all in one
+    ``run_jobs`` call, each against one rank from the same state and
+    seed."""
+    import numpy as np
+
+    from chemlab_tpu_torch import bridge, testsystems
+    from chemlab_tpu_torch.engine import _kernels, integrate, runner
+    from chemlab_tpu_torch.parallel import jobs, launch
+
+    fast = {"reaction_interval": M14_INTERVAL}
+    brk, brk_st = _m14_start("break melt", testsystems.build_break_melt,
+                             max(3 * EXT_MOLS // 300, 4), n_mols=EXT_MOLS)
+    rel, rel_st = _m14_start("release melt", testsystems.build_release_melt,
+                             max(3 * EXT_MOLS // 300, 4), n_mols=EXT_MOLS)
+    lj, lj_st = _m14_start("LJ melt", testsystems.build_melt,
+                           max(3 * N_MOLS // 300, 4), n_mols=N_MOLS)
+    row, row_st = _m14_start("row melt", testsystems.build_row_melt,
+                             ROW_INITIATORS, n_mols=ROW_MOLS)
+    brk_cfg = dataclasses.replace(brk.cfg, **fast)
+    rel_cfg = dataclasses.replace(rel.cfg, **fast)
+    # name: (cfg, spec, state, run_blocks' n_blocks, block_steps and
+    # cap_changes)
+    systems = {"break": (brk_cfg, brk.spec, brk_st,
+                         dict(n_blocks=1, block_steps=M14_STEPS)),
+               "release": (rel_cfg, rel.spec, rel_st,
+                           dict(n_blocks=1, block_steps=M14_STEPS)),
+               "regrowth": (lj.cfg, lj.spec, lj_st,
+                            dict(n_blocks=2, block_steps=M14_CAP_STEPS,
+                                 cap_changes=((0, "grow"),))),
+               "rows": (row.cfg, row.spec, row_st,
+                        dict(n_blocks=1, block_steps=M14_ROW_STEPS))}
+    todo = [("run_blocks", dict(system=bridge.to_numpy(c, sp, st), seed=77,
+                                **kw))
+            for c, sp, st, kw in systems.values()]
+    todo.append(("forces", dict(system=bridge.to_numpy(row.cfg, row.spec,
+                                                       row_st))))
+    t0 = time.perf_counter()
+    res = launch.run_jobs(todo, M14_RANKS, _kernels.BUILD_DIR / "m14",
+                          backend="gloo", device=M14_DEVICE, timeout=900)
+    print("m14 (b)-(d): %d gloo ranks on %s, %.1f s for the jobs, "
+          "start-up included" % (M14_RANKS, M14_DEVICE,
+                                 time.perf_counter() - t0))
+    runs = dict(zip(systems, res))
+    checks, out = {}, {}
+    for name, (cfg, spec, st, kw) in systems.items():
+        cfg1, one, _ = jobs.blocks(spec, cfg, st, gen=runner.make_generator(
+            77, DEVICE), **kw)
+        _sync()
+        ref = bridge.tree_to_numpy(one)
+        got = [r["state"] for r in runs[name]]
+        ints = all(np.array_equal(g[k], ref[k]) for g in got
+                   for k in M14_INTEGER) and all(
+            np.array_equal(g["bonds"]["idx"], ref["bonds"]["idx"])
+            and np.array_equal(g["lam"] == 0.0, ref["lam"] == 0.0)
+            for g in got)
+        bitwise = all(g["pos"].tobytes() == ref["pos"].tobytes()
+                      for g in got)
+        dpos = max(float(np.abs(g["pos"] - ref["pos"]).max()) for g in got)
+        k1f = [r["launches"]["K1f"] for r in runs[name]]
+        steps = kw["n_blocks"] * kw["block_steps"]
+        print("m14 (%s) %s vs one rank, %d steps: integer state equal %s, "
+              "positions max|dpos| %.3e, bitwise %s; replicas checked after "
+              "every block (run_block); K1f launches by rank %s; caps %s "
+              "(one rank %s)" % ("c" if name == "regrowth" else "d"
+                                 if name == "rows" else "b", name, steps,
+                                 ints, dpos, bitwise, k1f,
+                                 runs[name][0]["caps"],
+                                 {f: getattr(cfg1, f) for f in
+                                  runs[name][0]["caps"]}))
+        checks["(%s) integer state equal" % name] = ints
+        out[name] = dict(one=one, start=st, spec=spec, got=got, k1f=k1f,
+                         bitwise=bitwise, dpos=dpos)
+        if name != "rows":
+            checks["(%s) K1f on every step" % name] = all(
+                k >= steps for k in k1f)
+    # the mechanisms, from the one-rank run (= every rank's integers)
+    b0, b1 = out["break"]["start"], out["break"]["one"]
+    diss = brk.spec.r_is_diss
+    ev = (b1.reaction_counts - b0.reaction_counts).cpu()
+    brk_mech = {"formed": int(ev[~diss.cpu()].sum()),
+                "restricted": int(ev[brk.spec.r_restricted.cpu()].sum()),
+                "broken": int(ev[diss.cpu()].sum()),
+                "fading": int(((b1.lam < 1.0) & b1.active).sum())}
+    r0, r1 = out["release"]["start"], out["release"]["one"]
+    rel_mech = {"events": int((r1.reaction_counts
+                               - r0.reaction_counts).sum()),
+                "release+join rows": int((r1.fixd_dummy
+                                          != r0.fixd_dummy).sum()),
+                "atrp": int((r1.atrp_stats - r0.atrp_stats).sum()),
+                "frozen": int(r1.freeze_count - r0.freeze_count),
+                "removed": int((r0.active & ~r1.active).sum()),
+                "cpt+events types": int((r1.type_id != r0.type_id).sum())}
+    print("m14 (b) mechanisms: break %s, release %s" % (brk_mech, rel_mech))
+    checks["(b) every mechanism fired"] = all(
+        v > 0 for v in list(brk_mech.values()) + list(rel_mech.values()))
+    checks["(b) positions bitwise"] = (out["break"]["bitwise"]
+                                       and out["release"]["bitwise"])
+    g = runs["regrowth"][0]["caps"]
+    checks["(c) regrown caps, bit for bit"] = (
+        out["regrowth"]["bitwise"]
+        and g["max_neighbors"] > lj.cfg.max_neighbors
+        and g["cell_cap"] % 8 == 0)
+    # (d) the rows: forces, energies, virial, replicas, launches, speed
+    f1, e1, _ = integrate.compute_forces(row.spec, row.cfg, row_st)
+    p1 = float(integrate.virial_pressure(row.spec, row.cfg, row_st))
+    f1 = f1.cpu().numpy()
+    fr = runs["rows"]
+    frc = res[-1]
+    dF = max(float(np.abs(r["force"] - f1).max()) for r in frc)
+    tol = 2e-5 * (1.0 + float(np.abs(f1).max()))
+    dP = max(abs(float(r["P"]) - p1) / abs(p1) for r in frc)
+    dE = max(abs(float(r["energies"][k]) - float(e1[k]))
+             / (1.0 + abs(float(e1[k]))) for r in frc for k in e1
+             if k in ("lj", "lj-tab", "coulomb"))
+    agree = all(r["force"].tobytes() == frc[0]["force"].tobytes()
+                and r["P"].tobytes() == frc[0]["P"].tobytes() for r in frc) \
+        and all(x["state"]["pos"].tobytes() == fr[0]["state"]["pos"]
+                .tobytes() for x in fr)
+    cell_launches = sum(sum(r["launches"].values()) for r in fr)
+    wall = max(float(r["walls"][0]) for r in fr)
+    pps = row.cfg.n_particles * M14_ROW_STEPS / wall
+    print("m14 (d) rows on %d ranks vs one rank: max|dF| %.3e (tol %.3e), "
+          "forces bitwise %s, energies max rel %.3e, virial pressure rel "
+          "diff %.3e (%.9g vs %.9g), replicas agree %s, cell-kernel "
+          "launches a step %.1f, block positions max|dpos| %.3e bitwise %s"
+          % (M14_RANKS, dF, tol, all(r["force"].tobytes() == f1.tobytes()
+                                     for r in frc), dE, dP,
+             float(frc[0]["P"]), p1, agree,
+             cell_launches / (M14_RANKS * M14_ROW_STEPS),
+             out["rows"]["dpos"], out["rows"]["bitwise"]))
+    print("m14 (d) rows: %d particles, %d steps in %.3f s on the slowest "
+          "rank: %.1f particle-steps/s; %d ranks time-sharing one card "
+          "over host-staged gloo (a functional number, not a scaling "
+          "result) on %s" % (row.cfg.n_particles, M14_ROW_STEPS, wall, pps,
+                             M14_RANKS, card))
+    checks["(d) forces within tol of one rank"] = dF <= tol
+    checks["(d) virial pressure within rel 1e-5"] = dP <= 1e-5
+    checks["(d) energies within 1e-5 (1 + |E|)"] = dE <= 1e-5
+    checks["(d) replicas agree"] = agree
+    checks["(d) no cell kernel on the row path"] = cell_launches == 0
+    _require(checks, "m14 ranks")
+    return {"launches": {k: min(out[k]["k1f"]) for k in
+                         ("break", "release", "regrowth")}, "row_pps": pps,
+            "row_dF": dF, "row_dP": dP}
+
+
+def m14_path(card: str):
+    """M14 on the one card: (a) the CLI on 3 ranks, (b)-(d) the extension
+    melts, a regrowth and the row melt on 2 ranks, each against one
+    rank."""
+    t0 = time.perf_counter()
+    cli = m14_cli(card)
+    ranks = m14_ranks(card)
+    print("m14 phase wall time: %.1f s" % (time.perf_counter() - t0))
+    return dict(ranks, cli_launches=cli["launches"])
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3605,31 +3939,56 @@ def main() -> int:
     build_s = _kernels.build_all(cell_pair.KERNELS)
     print("kernel build (%d sources in parallel): %.2f s"
           % (len({k.source for k in cell_pair.KERNELS}), build_s))
+    if argv == ["--only", "m14"]:
+        m14_path(card)
+        print("chip_smoke: the m14 phase alone (no kernels line, no result)")
+        return 0
+
+    def done(phase):
+        print("chip_smoke: %s done at %.1f s" % (phase,
+                                                 time.perf_counter()
+                                                 - t_start))
 
     lj_row, lj = lj_path(card)
+    done("lj")
     k2_row, cap36, small = k2_path(card)
+    done("k2")
     rows = [lj_row, k2_row]
     ladder_rows, km = ladder_path(card, lj, cap36, small)
     rows += ladder_rows
+    done("ladder")
     npt_row, npt_pps = npt_path(card)
     rows.append(npt_row)
+    done("npt")
     tab_rows, pps = tab_paths(card)
     rows += tab_rows
+    done("tabulated")
     slab_rows, slab_pps = slab_path(card)
     rows += slab_rows
+    done("slab")
     example = example_copy()
     cli = cli_path(card, example)
     lj_row["cli_launches"] = cli["launches"]
     cap_change_path(example)
     checkpoint_path(example)
+    done("cli")
     chain = bonded_path(card)
     lj_row["chain_launches"] = chain["launches"]
+    done("bonded")
     brk, rel = extensions_path(card)
     lj_row["break_launches"] = brk["launches"]
     lj_row["release_launches"] = rel["launches"]
+    done("extensions")
     rows_run = rows_path(card)
+    done("rows")
     tools = tools_path(card)
     lj_row["tools_launches"] = tools["k1_launches"]
+    done("tools")
+    m14 = m14_path(card)
+    done("m14")
+    k1f_row = next(r for r in rows if r["name"] == K1F_ROWS["K1f"][0])
+    k1f_row["m14_cli_launches"] = m14["cli_launches"]
+    k1f_row["m14_launches"] = m14["launches"]
     next(r for r in rows if r["name"].startswith("K1c "))[
         "nve_launches"] = tools["k1c_launches"]
     print("NPT 10k melt: %.1f particle-steps/s on %s" % (npt_pps, card))
@@ -3661,6 +4020,11 @@ def main() -> int:
              tools["best"],
              tools["nve"]["cheb"]["drift_kT_per_particle_per_step"],
              tools["nve"]["row"]["drift_kT_per_particle_per_step"], card))
+    print("m14: K1f launches, the CLI on %d ranks %d a rank, the 2-rank "
+          "melts %s; the row melt on %d ranks %.1f particle-steps/s, "
+          "max|dF| %.3e, virial rel %.3e on %s"
+          % (M14_CLI_RANKS, m14["cli_launches"], m14["launches"],
+             M14_RANKS, m14["row_pps"], m14["row_dF"], m14["row_dP"], card))
     print("kernel matrix (ms): %s" % json.dumps(km))
     print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
           "K1 launches %d (%d within the loop's %d steps), cell_cap 40 -> "

@@ -136,15 +136,31 @@ def test_row_path_configs_build_leaf_for_leaf(override, charge,
 
 @pytest.mark.parametrize("builder", ["break", "release"])
 def test_extensions_under_slabs_raise_naming_m14(builder, tmp_path):
-    """Dissociation and the reaction extensions build on one rank; under
-    ``slab_devices > 1`` they raise, naming M14."""
-    fn = {"break": lambda **kw: pts.build_break_melt(table_dir=str(tmp_path),
-                                                     **kw),
-          "release": pts.build_release_melt}[builder]
-    with pytest.raises(NotImplementedError, match="M14"):
-        fn(n_mols=70, device="cpu", slab_devices=2)
-    built, _, _ = fn(n_mols=70, device="cpu")
-    assert built.cfg.has_dissociation or built.cfg.has_fixd
+    """(Named for the refusal it replaced.)  Dissociation and the reaction
+    extensions build under ``slab_devices=2``, leaf for leaf the
+    reference's ``build_system(..., slab_devices=2)``: the 160-trimer
+    melts, whose 4 x-layers the 2 ranks cut."""
+    from test_torch_ext_builds import assert_builds_equal, reference_build
+    d = str(tmp_path)
+    if builder == "break":
+        pb, _, _ = pts.build_break_melt(n_mols=160, table_dir=d,
+                                        device="cpu", slab_devices=2)
+        text = pts.BREAK_CFG_TEXT % {"cmap": pts.RESTRICT_MAP,
+                                     "diss_rate": "0.01"}
+        rb = reference_build(text, 160, 0.27, 42, thermostat="vr",
+                             table_dirs=(d,), slab_devices=2)
+        assert pb.cfg.has_dissociation and pb.cfg.n_rb > 0
+    else:
+        pb, _, _ = pts.build_release_melt(n_mols=160, device="cpu",
+                                          slab_devices=2)
+        text = pts.RELEASE_CFG_TEXT % {"freeze_width": "0.2",
+                                       "freeze_prob": "0.002"}
+        rb = reference_build(text, 160, 0.27, 42, cell_cap=48,
+                             slab_devices=2)
+        assert pb.cfg.has_fixd and pb.cfg.has_atrp and pb.cfg.has_freeze
+    assert pb.cfg.cell_dims[0] == 4
+    for part in ("config", "spec", "state"):
+        assert_builds_equal(rb, pb, part)
 
 
 @pytest.mark.parametrize("thermostat", ["vr", "br", "iso"])

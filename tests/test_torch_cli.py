@@ -221,15 +221,76 @@ def test_main_defaults_to_the_card():
         start_simulation.main(["--conf", "x.gro", "--top", "x.top"])
 
 
-def test_node_grid_raises_naming_m14(runs):
-    cwd = os.getcwd()
-    os.chdir(runs["port"])
-    try:
-        with pytest.raises(NotImplementedError, match="M14"):
-            start_simulation.main(["@params", "--node_grid", "2,1,1"],
-                                  device="cpu")
-    finally:
-        os.chdir(cwd)
+INPUTS = ("conf.gro", "topol.top", "atrp.cfg", "hooks.py", "params")
+
+
+def test_node_grid_raises_naming_m14(runs, tmp_path, capsys, monkeypatch):
+    """(Named for the refusal it replaced.)  ``--node_grid 1,1,3`` runs the
+    port's CLI on 3 gloo ranks of the CPU, each holding the whole state
+    and summing one x-slab of the 3x3x3 grid: the mesh line, then the
+    files of rank 0 alone, against the one-rank run of ``runs``: the
+    reaction counters and the topology's bonds exactly, ``_confout.gro``
+    byte for byte (the positions are equal bit for bit), the energy rows
+    to the file's tolerance above (the pair energy is a sum of 3 partial
+    sums)."""
+    from chemlab_tpu_torch.parallel import launch
+
+    for name in INPUTS:
+        (tmp_path / name).write_bytes((runs["port"] / name).read_bytes())
+    calls = []
+    run_jobs = launch.run_jobs
+
+    def recorded(*a, **kw):
+        calls.append((a, kw, run_jobs(*a, **kw)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(launch, "run_jobs", recorded)
+    monkeypatch.chdir(tmp_path)
+    assert start_simulation.main(FLAGS[:-1] + ["1,1,3"], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "Device mesh: 3 x cpu" in out and "finished" in out
+    ((args, kw, (res,)),) = calls
+    assert args[1] == 3 and kw["backend"] == "gloo" and kw["device"] == "cpu"
+    assert [r["rc"] for r in res] == [0, 0, 0]
+    assert {"melt_energy.csv", "melt_confout.gro", "melt_topol.top",
+            "melt_reaction_counters.csv", "melt_params.out",
+            "melt_benchmark.pck"} <= set(res[0]["writes"])
+    assert res[1]["writes"] == res[2]["writes"] == []
+    one, many = runs["port"], tmp_path
+    for name in ("melt_reaction_counters.csv",
+                 "melt_reaction_counters_series.csv", "melt_confout.gro",
+                 "melt_confout_unfolded.gro"):
+        assert (many / name).read_text() == (one / name).read_text(), name
+    assert _bonds(many / "melt_topol.top") == _bonds(one / "melt_topol.top")
+    h_1, v_1 = _csv(one / "melt_energy.csv")
+    h_3, v_3 = _csv(many / "melt_energy.csv")
+    assert h_3 == h_1
+    np.testing.assert_allclose(v_3, v_1, rtol=1e-4, atol=1e-6)
+
+
+def test_no_node_grid_starts_no_ranks(runs, tmp_path, monkeypatch):
+    """Without ``--node_grid`` (or with a product of 1) the CLI runs in the
+    calling process: no ranks are started (the reference instead spreads
+    over every local device); ``device="cuda"`` asks for one card a rank
+    and refuses more ranks than cards."""
+    from chemlab_tpu_torch.parallel import launch
+
+    def refuse(*a, **kw):
+        raise AssertionError("ranks started")
+
+    for name in INPUTS:
+        (tmp_path / name).write_bytes((runs["port"] / name).read_bytes())
+    monkeypatch.setattr(launch, "run_jobs", refuse)
+    monkeypatch.chdir(tmp_path)
+    flags = FLAGS[:4] + ["10"] + FLAGS[5:-2]
+    assert "--node_grid" not in flags
+    assert start_simulation.main(flags, device="cpu") == 0
+    assert [start_simulation.node_grid_ranks(g)
+            for g in (None, "1,1,1", "1,1,3", "2,2,2")] == [1, 1, 3, 8]
+    with pytest.raises(ValueError, match="requested %d devices"
+                       % (torch.cuda.device_count() + 1)):
+        start_simulation.run_ranks(flags, "cuda",
+                                   torch.cuda.device_count() + 1)
 
 
 def test_checkpoint_retune_and_restore(runs, tmp_path, capsys):

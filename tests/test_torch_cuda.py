@@ -10,7 +10,8 @@ one reaction step of the break and release melts (the sequential event
 scan, dissociation, restrict, releases, joins) and the ATRP,
 ChangeParticleType and FreezeRegion steps against the CPU; the Verlet
 row path (every nonbonded variant, Coulomb, the virial, reactions on the
-persistent rows) against the CPU.
+persistent rows) against the CPU; two gloo ranks on one card (the row
+split, an extension block on K1f) against one rank.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports no jax, so it also runs on a machine without it:
@@ -1785,3 +1786,86 @@ def test_cuda_native_builds_and_tune_skin_counts_k1():
                                  verbose=False)
     assert sorted(res) == [0.3, 0.4] and best in res
     assert k1.launches - before == 2 * (2 * 10 + 1)
+
+
+def _two_ranks_on_the_card(jobs, tmp_path):
+    from chemlab_tpu_torch.parallel import launch
+
+    return launch.run_jobs(jobs, 2, tmp_path, backend="gloo",
+                           device="cuda:0", timeout=600)
+
+
+@pytest.mark.cuda
+def test_cuda_row_split_on_two_ranks(tmp_path):
+    """The row melt (160 trimers, ``slab_devices=2``) on 2 gloo ranks of
+    cuda:0, each its block of rows, against one rank on the card: the
+    ranks agree bit for bit; forces to ``2e-5 (1 + max|F|)`` (a block's
+    row sums may reduce in another order than the whole plane's on the
+    card), energies and the virial pressure to 1e-5 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chemlab_tpu_torch import bridge
+
+    built, systop, _ = testsystems.build_row_melt(
+        n_mols=160, slab_devices=2, device="cpu")
+    st = runner.initial_forces(built.spec, built.cfg, built.state)
+    st = testsystems.warmup(built, st, steps=30)
+    (res,) = _two_ranks_on_the_card(
+        [("forces", dict(system=bridge.to_numpy(built.cfg, built.spec,
+                                                st)))], tmp_path / "store")
+    spec, sg = built.spec.to("cuda"), st.to("cuda")
+    f, e, _ = integrate.compute_forces(spec, built.cfg, sg)
+    p = float(integrate.virial_pressure(spec, built.cfg, sg))
+    f = f.cpu()
+    for r in res:
+        assert r["force"].tobytes() == res[0]["force"].tobytes()
+        assert r["P"].tobytes() == res[0]["P"].tobytes()
+        torch.testing.assert_close(torch.from_numpy(r["force"]), f, rtol=0,
+                                   atol=_tol(f))
+        for k in ("lj", "lj-tab", "coulomb"):
+            assert float(r["energies"][k]) == pytest.approx(
+                float(e[k]), rel=1e-5, abs=1e-6), k
+        assert float(r["P"]) == pytest.approx(p, rel=1e-5, abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_extension_block_on_two_ranks(tmp_path):
+    """The release melt (160 trimers and 320 dummies, ``slab_devices=2``:
+    4 x-layers) over a reaction interval with ATRP, ChangeParticleType
+    and a removing FreezeRegion, on 2 gloo ranks of cuda:0 (K1f) against
+    one rank on the card (K1): every leaf of the final state bit for bit
+    on both ranks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chemlab_tpu_torch import bridge
+
+    built, systop, _ = testsystems.build_release_melt(
+        n_mols=160, freeze_width=0.5, freeze_prob=0.05, max_events=16,
+        slab_devices=2, device="cpu")
+    cfg = dataclasses.replace(built.cfg, reaction_interval=10)
+    st = runner.initial_forces(built.spec, cfg, built.state)
+    st = testsystems.warmup(built, st, steps=30)
+    st = testsystems.activate_initiators(built, systop, st, n=16)
+    st = dataclasses.replace(st, reaction_rates=st.reaction_rates * 10.0)
+    (res,) = _two_ranks_on_the_card(
+        [("run_blocks", dict(system=bridge.to_numpy(cfg, built.spec, st),
+                             n_blocks=1, block_steps=25, seed=5))],
+        tmp_path / "store")
+    one = runner.run_block(built.spec.to("cuda"), cfg, st.to("cuda"), 25,
+                           gen=runner.make_generator(5, "cuda"))
+    ref = bridge.tree_to_numpy(one)
+    assert int(one.reaction_counts.sum()) > 0 and int(one.atrp_stats.sum())
+
+    def leaves(tree, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + k + ".")
+            else:
+                yield path + k, v
+
+    for r in res:
+        assert r["launches"]["K1f"] == 25
+        got = dict(leaves(r["state"]))
+        for p, v in leaves(ref):
+            assert (v is None and got[p] is None) or \
+                got[p].tobytes() == v.tobytes(), p

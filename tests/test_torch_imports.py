@@ -100,7 +100,8 @@ def test_builders_default_to_the_card():
                testsystems.build_tabulated_melt,
                testsystems.build_mixed_tab_melt,
                testsystems.build_chain_melt, testsystems.build_break_melt,
-               testsystems.build_release_melt):
+               testsystems.build_release_melt, testsystems.build_row_melt,
+               testsystems.build_exchange_melt):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU (the card test covers it)")

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from chemlab_tpu import reaction_parser as rrp
+from chemlab_tpu import testsystems as rts
 from chemlab_tpu import topfile as rtopfile
 from chemlab_tpu.engine import build as rbuild
 from chemlab_tpu.engine import neighbor as rnb
@@ -198,15 +199,16 @@ def test_lifted_builds_are_leaf_for_leaf_equal(name, tmp_path, caplog):
 
 
 def test_row_path_under_slabs_raises_naming_m14():
-    """The slab path runs the cell kernels only: a row-path build under
-    ``slab_devices > 1`` raises, naming M14; the same build on one rank
-    takes the row path."""
-    with pytest.raises(NotImplementedError, match="M14"):
-        pts.build_melt(n_mols=N_ROW, reactive=False, use_pallas=False,
-                       slab_devices=2, device="cpu")
-    pb, _, _ = pts.build_melt(n_mols=N_ROW, reactive=False,
-                              use_pallas=False, device="cpu")
-    assert not pb.cfg.use_pallas
+    """(Named for the refusal it replaced.)  A row-path build under
+    ``slab_devices=2`` (the 160-trimer melt, 4 x-layers) equals the
+    reference's ``build_system(..., slab_devices=2)`` leaf for leaf."""
+    pb, _, _ = pts.build_melt(n_mols=160, reactive=False, use_pallas=False,
+                              slab_devices=2, device="cpu")
+    rb, _, _ = rts.build_melt(n_mols=160, reactive=False, use_pallas=False,
+                              slab_devices=2)
+    assert not pb.cfg.use_pallas and pb.cfg.cell_dims[0] == 4
+    for part in ("config", "spec", "state"):
+        assert_builds_equal(rb, pb, part)
 
 
 def test_rebuild_radius_ignores_the_coulomb_cutoff_as_the_reference_does(

@@ -89,8 +89,8 @@ def build_parser() -> ParamsArgumentParser:
                    help="Path to hooks.py (defaults to ./hooks.py if present; "
                         "'none' disables the auto-pickup)")
     g.add_argument("--profile_dir", default=None,
-                   help="Write a torch.profiler trace of the main loop "
-                        "here")
+                   help="Write a torch.profiler chrome trace of the main "
+                        "loop, with the engine's chemlab:: spans, here")
     g.add_argument("--retune_caps", default=-1, type=int,
                    help="Step at which to shrink neighbor capacities to the "
                         "observed occupancy (engine extra; -1 disables); "

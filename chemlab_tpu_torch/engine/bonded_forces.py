@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from . import tables
+from . import perf, tables
 from .bonded_dense import roll_rows
 from .state import TermTable
 
@@ -272,7 +272,7 @@ def _total(terms, like):
 def bonded_forces(spec, cfg, pos, box, type_id, q, bonds, angles, dihedrals,
                   pairs14, dense=None):
     """Forces = -grad(total bonded energy); returns (force, energy dict)."""
-    with torch.enable_grad():
+    with perf.span(perf.BONDED), torch.enable_grad():
         p = pos.detach().requires_grad_(True)
         terms = bonded_energy_terms(spec, cfg, p, box, type_id, q, bonds,
                                     angles, dihedrals, pairs14, dense=dense)

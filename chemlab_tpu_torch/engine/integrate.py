@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from . import (bonded_forces, cell_pair, cell_pair_halo, excl_dense,
-               neighbor, observables, pair_forces, reactions, topo)
+               neighbor, observables, pair_forces, perf, reactions, topo)
 from .state import I32
 
 
@@ -49,32 +49,36 @@ def _dense_of(cfg, state):
 def _excl_correction(spec, cfg, state, obs_x):
     """Excluded-pair correction: the dense-static leg when derived operands
     exist, else the flat-list correction."""
-    kwargs = dict(active=state.active,
-                  cheb=(cfg.cheb_kw, cfg.cheb_ko) if cfg.tab_cheb else None,
-                  cheb_mix=cfg.cheb_mix, obs_x=obs_x)
-    if cfg.excl_offsets and state.excl_masks is not None:
-        return excl_dense.correction(spec, cfg, state.pos, state.box,
-                                     state.type_id, state.excl_masks,
-                                     state.excl_irr, **kwargs)
-    return cell_pair.excluded_pair_correction(
-        spec, cfg.n_types, state.pos, state.box, state.type_id, state.excl,
-        **kwargs)
+    with perf.span(perf.EXCL_CORRECTION):
+        kwargs = dict(active=state.active,
+                      cheb=((cfg.cheb_kw, cfg.cheb_ko) if cfg.tab_cheb
+                            else None),
+                      cheb_mix=cfg.cheb_mix, obs_x=obs_x)
+        if cfg.excl_offsets and state.excl_masks is not None:
+            return excl_dense.correction(spec, cfg, state.pos, state.box,
+                                         state.type_id, state.excl_masks,
+                                         state.excl_irr, **kwargs)
+        return cell_pair.excluded_pair_correction(
+            spec, cfg.n_types, state.pos, state.box, state.type_id,
+            state.excl, **kwargs)
 
 
 def _pair_sum(spec, cfg, state, **kw):
     """The unexcluded all-pairs sum: slab by slab over the mesh's ranks
     (K1f) where the slab path takes the config, else on the whole grid."""
-    args = (state.pos, state.type_id, state.active, state.box,
-            state.nbr.buckets, state.nbr.slot_of, cfg.cell_dims, spec,
-            cfg.n_types)
-    kw.update(uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj,
-              cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0, cheb_ko=cfg.cheb_ko,
-              cheb_ntab=cfg.cheb_ntab, cheb_mix=cfg.cheb_mix)
-    if cell_pair_halo.supports(cfg):
-        cell_pair.check_pair_kernel(kw.pop("kernel"), slab=True)
-        return cell_pair_halo.cell_pair_forces_halo(*args, mesh=cfg.mesh,
-                                                    **kw)
-    return cell_pair.cell_pair_forces(*args, **kw)
+    with perf.span(perf.PAIR_SUM):
+        args = (state.pos, state.type_id, state.active, state.box,
+                state.nbr.buckets, state.nbr.slot_of, cfg.cell_dims, spec,
+                cfg.n_types)
+        kw.update(uniform_lj=cfg.uniform_lj, all_lj=cfg.all_lj,
+                  cheb_kw=cfg.cheb_kw if cfg.tab_cheb else 0,
+                  cheb_ko=cfg.cheb_ko, cheb_ntab=cfg.cheb_ntab,
+                  cheb_mix=cfg.cheb_mix)
+        if cell_pair_halo.supports(cfg):
+            cell_pair.check_pair_kernel(kw.pop("kernel"), slab=True)
+            return cell_pair_halo.cell_pair_forces_halo(
+                *args, mesh=cfg.mesh, **kw)
+        return cell_pair.cell_pair_forces(*args, **kw)
 
 
 def compute_forces(spec, cfg, state, want_energy: bool = True,
@@ -149,22 +153,24 @@ def row_pair_forces(spec, cfg, state, obs_x):
     rank evaluates its block of rows (``pair_forces.row_block``), the
     other rows' forces zero, and one ``all_reduce`` sums the (N, 3) forces
     and the energies: a row's force is nonzero on one rank only."""
-    tab_a, tab_b, mix_x = pair_forces.resolve_pair_tables(
-        spec, obs_x, cfg.n_mix_entries)
-    rows = _row_split(cfg, state.pos.shape[0])
-    force, e = pair_forces.pair_forces(
-        spec, cfg.n_types, state.pos, state.box, state.type_id, state.q,
-        state.lam, state.nbr.idx, state.nbr.excl_mask, tab_a, tab_b, mix_x,
-        cfg=cfg, pps_step=state.step if cfg.has_pps else None,
-        pps_birth=state.nbr.birth if cfg.has_pps else None, rows=rows)
-    if rows is None:
-        return force, e
-    lo, hi = rows
-    full = torch.zeros_like(state.pos)
-    full[lo:hi] = force
-    keys = sorted(e)
-    full, *vals = _sum_over_ranks(cfg, [full] + [e[k] for k in keys])
-    return full, dict(zip(keys, vals))
+    with perf.span(perf.PAIR_SUM):
+        tab_a, tab_b, mix_x = pair_forces.resolve_pair_tables(
+            spec, obs_x, cfg.n_mix_entries)
+        rows = _row_split(cfg, state.pos.shape[0])
+        force, e = pair_forces.pair_forces(
+            spec, cfg.n_types, state.pos, state.box, state.type_id,
+            state.q, state.lam, state.nbr.idx, state.nbr.excl_mask, tab_a,
+            tab_b, mix_x, cfg=cfg,
+            pps_step=state.step if cfg.has_pps else None,
+            pps_birth=state.nbr.birth if cfg.has_pps else None, rows=rows)
+        if rows is None:
+            return force, e
+        lo, hi = rows
+        full = torch.zeros_like(state.pos)
+        full[lo:hi] = force
+        keys = sorted(e)
+        full, *vals = _sum_over_ranks(cfg, [full] + [e[k] for k in keys])
+        return full, dict(zip(keys, vals))
 
 
 def _langevin_adjust(spec, state, force, noise):
@@ -330,26 +336,27 @@ def _barostat_step(spec, cfg, state, noise=None, pair_kernel: str = "auto"):
     standard normal ``noise``, mu = exp(dt baro_v).  Either way mu is
     clipped to 0.98-1.02 per step; active positions and the box scale by
     it.  The pressure pass runs ``pair_kernel``."""
-    p_now = virial_pressure(spec, cfg, state, pair_kernel)
-    dt = spec.dt
-    if cfg.barostat == "br":
-        base = torch.clamp(1.0 - dt / spec.barostat_tau
-                           * (spec.pressure - p_now), 0.9, 1.1)
-        mu = base ** (1.0 / 3.0)
-        baro_v = state.baro_v
-    else:  # 'lv'
-        w = torch.clamp(spec.barostat_mass, min=1e-6)
-        vol = torch.prod(state.box)
-        dv = (dt * 3.0 * vol * (p_now - spec.pressure) / w
-              - dt * spec.barostat_gammaP * state.baro_v
-              + torch.sqrt(2.0 * spec.kT * spec.barostat_gammaP * dt / w)
-              * noise)
-        baro_v = state.baro_v + dv
-        mu = torch.exp(dt * baro_v)
-    mu = torch.clamp(mu, 0.98, 1.02)
-    pos = torch.where(state.active[:, None], state.pos * mu, state.pos)
-    return dataclasses.replace(state, pos=pos, box=state.box * mu,
-                               baro_v=baro_v)
+    with perf.span(perf.BAROSTAT):
+        p_now = virial_pressure(spec, cfg, state, pair_kernel)
+        dt = spec.dt
+        if cfg.barostat == "br":
+            base = torch.clamp(1.0 - dt / spec.barostat_tau
+                               * (spec.pressure - p_now), 0.9, 1.1)
+            mu = base ** (1.0 / 3.0)
+            baro_v = state.baro_v
+        else:  # 'lv'
+            w = torch.clamp(spec.barostat_mass, min=1e-6)
+            vol = torch.prod(state.box)
+            dv = (dt * 3.0 * vol * (p_now - spec.pressure) / w
+                  - dt * spec.barostat_gammaP * state.baro_v
+                  + torch.sqrt(2.0 * spec.kT * spec.barostat_gammaP * dt / w)
+                  * noise)
+            baro_v = state.baro_v + dv
+            mu = torch.exp(dt * baro_v)
+        mu = torch.clamp(mu, 0.98, 1.02)
+        pos = torch.where(state.active[:, None], state.pos * mu, state.pos)
+        return dataclasses.replace(state, pos=pos, box=state.box * mu,
+                                   baro_v=baro_v)
 
 
 def maybe_rebuild_neighbors(spec, cfg, state, force: bool = False):
@@ -357,24 +364,28 @@ def maybe_rebuild_neighbors(spec, cfg, state, force: bool = False):
     refresh the cell buckets on the lazy-row path, rebuild the rows on the
     row path (a func-14 pair keeps its birth step across the rebuild; the
     overflow flag stays sticky)."""
-    if not force and not bool(neighbor.needs_rebuild(
-            state.pos, state.nbr, state.box, spec.skin)):
-        return state
-    if cfg.lazy_rows:
-        nbr = neighbor.refresh_buckets(state.nbr, state.pos, state.box,
-                                       state.active, dims=cfg.cell_dims,
-                                       cell_cap=cfg.cell_cap)
+    if not force:
+        with perf.span(perf.REBUILD_CHECK):
+            due = bool(neighbor.needs_rebuild(state.pos, state.nbr,
+                                              state.box, spec.skin))
+        if not due:
+            return state
+    with perf.span(perf.REBUILD):
+        if cfg.lazy_rows:
+            nbr = neighbor.refresh_buckets(state.nbr, state.pos, state.box,
+                                           state.active, dims=cfg.cell_dims,
+                                           cell_cap=cfg.cell_cap)
+            return dataclasses.replace(state, nbr=nbr)
+        rc_skin = torch.sqrt(torch.max(spec.pair_cutoff2)) + spec.skin
+        nbr = neighbor.build_neighbor_state(
+            state.pos, state.box, state.active, state.excl, rc_skin,
+            dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
+            max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap,
+            track_birth=cfg.has_pps,
+            prev=state.nbr if cfg.has_pps else None, step=state.step)
+        nbr = dataclasses.replace(nbr, n_rebuilds=state.nbr.n_rebuilds + 1,
+                                  overflow=state.nbr.overflow | nbr.overflow)
         return dataclasses.replace(state, nbr=nbr)
-    rc_skin = torch.sqrt(torch.max(spec.pair_cutoff2)) + spec.skin
-    nbr = neighbor.build_neighbor_state(
-        state.pos, state.box, state.active, state.excl, rc_skin,
-        dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
-        max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap,
-        track_birth=cfg.has_pps, prev=state.nbr if cfg.has_pps else None,
-        step=state.step)
-    nbr = dataclasses.replace(nbr, n_rebuilds=state.nbr.n_rebuilds + 1,
-                              overflow=state.nbr.overflow | nbr.overflow)
-    return dataclasses.replace(state, nbr=nbr)
 
 
 def _draw(gen, shape, like, what: str):
@@ -392,41 +403,43 @@ def md_step(spec, cfg, state, noise=None, gen=None, baro_noise=None,
     (``rescale_noise``) and the Langevin barostat's (``baro_noise``); each
     one not given comes from ``gen``.  The force and the pressure passes
     run the pair kernel ``pair_kernel``."""
-    dt = spec.dt
-    inv_m = torch.where(state.active, 1.0 / state.mass, 0.0)[:, None]
+    with perf.span(perf.MD_STEP):
+        dt = spec.dt
+        inv_m = torch.where(state.active, 1.0 / state.mass, 0.0)[:, None]
 
-    # half kick + drift (state.force carries the previous full force,
-    # thermostat included)
-    vel = state.vel + 0.5 * dt * state.force * inv_m
-    pos = state.pos + dt * vel
-    shift = torch.floor(pos / state.box).to(torch.int32)
-    pos = pos - shift.to(pos.dtype) * state.box
-    state = dataclasses.replace(state, pos=pos, vel=vel,
-                                image=state.image + shift)
-    if cfg.has_fixd:
-        state = _fix_distances(spec, cfg, state)
-    if cfg.has_dyn_resolution:
-        state = _dynamic_resolution(spec, state)
+        # half kick + drift (state.force carries the previous full force,
+        # thermostat included)
+        vel = state.vel + 0.5 * dt * state.force * inv_m
+        pos = state.pos + dt * vel
+        shift = torch.floor(pos / state.box).to(torch.int32)
+        pos = pos - shift.to(pos.dtype) * state.box
+        state = dataclasses.replace(state, pos=pos, vel=vel,
+                                    image=state.image + shift)
+        if cfg.has_fixd:
+            state = _fix_distances(spec, cfg, state)
+        if cfg.has_dyn_resolution:
+            state = _dynamic_resolution(spec, state)
 
-    state = maybe_rebuild_neighbors(spec, cfg, state)
-    force, _, _ = compute_forces(spec, cfg, state, want_energy=False,
-                                 pair_kernel=pair_kernel)
-    if cfg.thermostat == "lv":
-        if noise is None:
-            noise = _draw(gen, state.vel.shape, state.vel,
-                          "the Langevin md_step")
-        force = _langevin_adjust(spec, state, force, noise)
+        state = maybe_rebuild_neighbors(spec, cfg, state)
+        force, _, _ = compute_forces(spec, cfg, state, want_energy=False,
+                                     pair_kernel=pair_kernel)
+        if cfg.thermostat == "lv":
+            if noise is None:
+                noise = _draw(gen, state.vel.shape, state.vel,
+                              "the Langevin md_step")
+            force = _langevin_adjust(spec, state, force, noise)
 
-    vel = state.vel + 0.5 * dt * force * inv_m
-    state = dataclasses.replace(state, vel=vel, force=force,
-                                step=state.step + 1)
-    if cfg.thermostat in ("vr", "br", "iso"):
-        if cfg.thermostat == "vr" and rescale_noise is None:
-            rescale_noise = _draw(gen, (), state.vel, "the CSVR thermostat")
-        state = _rescale_thermostat(spec, cfg, state, rescale_noise)
-    if cfg.barostat != "no":
-        if cfg.barostat != "br" and baro_noise is None:
-            baro_noise = _draw(gen, (), state.baro_v,
-                               "the Langevin barostat")
-        state = _barostat_step(spec, cfg, state, baro_noise, pair_kernel)
-    return state
+        vel = state.vel + 0.5 * dt * force * inv_m
+        state = dataclasses.replace(state, vel=vel, force=force,
+                                    step=state.step + 1)
+        if cfg.thermostat in ("vr", "br", "iso"):
+            if cfg.thermostat == "vr" and rescale_noise is None:
+                rescale_noise = _draw(gen, (), state.vel,
+                                      "the CSVR thermostat")
+            state = _rescale_thermostat(spec, cfg, state, rescale_noise)
+        if cfg.barostat != "no":
+            if cfg.barostat != "br" and baro_noise is None:
+                baro_noise = _draw(gen, (), state.baro_v,
+                                   "the Langevin barostat")
+            state = _barostat_step(spec, cfg, state, baro_noise, pair_kernel)
+        return state

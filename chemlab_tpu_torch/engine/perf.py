@@ -1,4 +1,5 @@
-"""Per-phase timing breakdown (the reference's engine-timer analog).
+"""Per-phase timing breakdown (the reference's engine-timer analog), and
+the engine's profiler spans.
 
 Port of ``chemlab_tpu/engine/perf.py``.  The CLI prints and pickles one
 time per phase after a run (``--timers``, on by default; ref:
@@ -8,8 +9,11 @@ between two ``torch.cuda.synchronize()`` on the card, and the median wall
 time is kept.
 
 Phases (the reference's six):
-  neighbor_rebuild  cell binning + the K-nearest rows + exclusion rows
-                    (with the func-14 births on a row-path build)
+  neighbor_rebuild  the rebuild the step makes when its trigger fires
+                    (``integrate.maybe_rebuild_neighbors(force=True)``):
+                    the cell-bucket refresh on the kernel path, cell
+                    binning + the K-nearest rows + exclusion rows (with
+                    the func-14 births) on the row path
   pair_forces       the pair kernel's all-pairs sum minus the excluded
                     pairs' correction, or ``pair_forces`` over the rows on
                     a row-path build
@@ -18,15 +22,70 @@ Phases (the reference's six):
                     thermostat)
   reaction_step     one reactive interval (matching + event application)
   observables       the measure() pass
+
+Spans: ``span(name)`` opens a profiler range named ``"chemlab::" + name``
+while a profiler records (the benchmark's traced runs, the CLI's
+``--profile_dir``, ``step_profile``, ``kernel_matrix``), and is one shared
+null context otherwise.  The range is an operator-scope record function
+(``torch._C._profiler._RecordFunctionFast``), not a user annotation
+(``torch.profiler.record_function``): the profiler copies a user
+annotation onto the device's timeline as an event that spans the kernels
+launched inside it, which readers of launches and busy time would count
+as device work.  The engine opens spans at its layer boundaries only,
+never inside a per-event, per-row or per-particle loop; their names are
+the constants below.  A span's count in a trace is its counter (the
+``rebuild`` ranges are the rebuilds).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
-from . import bonded_forces, integrate, neighbor, reactions, runner
+SPAN_PREFIX = "chemlab::"
+
+BLOCK = "block"                    # runner.run_block, check_replicas included
+MD_STEP = "md_step"                # integrate.md_step
+REBUILD_CHECK = "rebuild_check"    # the skin criterion and its host read
+REBUILD = "rebuild"                # the bucket refresh or the row rebuild
+PAIR_SUM = "pair_sum"              # integrate._pair_sum / row_pair_forces
+EXCL_CORRECTION = "excl_correction"    # integrate._excl_correction
+BONDED = "bonded"                  # bonded_forces, its backward included
+BAROSTAT = "barostat"              # integrate._barostat_step
+REACTION_STEP = "reaction_step"    # runner._fire_reactions
+RX_MATCH = "rx_match"              # candidates and matching
+RX_APPLY = "rx_apply"              # reactions.apply_reaction_events
+RX_MERGE = "rx_merge"              # the batched path's merge_molecules loop
+RX_DISSOCIATE = "rx_dissociate"    # matching and applying dissociations
+REDERIVE = "rederive"              # bonded_dense / excl_dense.rederive
+ATRP = "atrp"                      # reactions.atrp_step
+FREEZE = "freeze"                  # reactions.freeze_region_step
+CPT = "cpt"                        # reactions.change_particle_type_step
+MEASURE = "measure"                # runner.measure_cheap / runner.measure
+
+SPANS = (BLOCK, MD_STEP, REBUILD_CHECK, REBUILD, PAIR_SUM, EXCL_CORRECTION,
+         BONDED, BAROSTAT, REACTION_STEP, RX_MATCH, RX_APPLY, RX_MERGE,
+         RX_DISSOCIATE, REDERIVE, ATRP, FREEZE, CPT, MEASURE)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The profiler range ``chemlab::<name>`` while a profiler records,
+    else a shared null context: a range opened with no profiler running
+    costs 10-20 times the check."""
+    if torch.autograd._profiler_enabled():
+        return _RecordFunctionFast(SPAN_PREFIX + name)
+    return _OFF
+
+
+def is_span(name: str) -> bool:
+    """Whether a profiler event of this name is one of the engine's spans,
+    which readers of kernels, launches and busy time leave out."""
+    return name.startswith(SPAN_PREFIX)
 
 
 def _sync(device):
@@ -52,16 +111,14 @@ def _time_fn(fn, device, repeats: int = 3) -> float:
 def phase_timers(spec, cfg, state, repeats: int = 3) -> dict:
     """{phase: seconds per call} for the six engine phases, timed on the
     state's device; ``state`` should be a settled (post-warmup) state."""
+    # imported here: the engine's modules import this one for its spans
+    from . import bonded_forces, integrate, reactions, runner
+
     dev = state.device
-    rc_skin = torch.sqrt(torch.max(spec.pair_cutoff2)) + spec.skin
     timers = {}
     timers["neighbor_rebuild"] = _time_fn(
-        lambda: neighbor.build_neighbor_state(
-            state.pos, state.box, state.active, state.excl, rc_skin,
-            dims=cfg.cell_dims, cell_cap=cfg.cell_cap,
-            max_neighbors=cfg.max_neighbors, excl_cap=cfg.excl_cap,
-            track_birth=cfg.has_pps,
-            prev=state.nbr if cfg.has_pps else None, step=state.step),
+        lambda: integrate.maybe_rebuild_neighbors(spec, cfg, state,
+                                                  force=True),
         dev, repeats)
 
     obs_x = torch.zeros(spec.obs_total.shape[0], dtype=torch.float32,

@@ -44,7 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import neighbor, topo
+from . import neighbor, perf, topo
 from .state import I32
 
 F32 = torch.float32
@@ -442,8 +442,9 @@ def _apply_events_batched(spec, cfg, state, ev_valid, ev_a, ev_b, ev_r):
 
     # molecule union: sequential relabel, in event order
     mol = state.mol_id
-    for k in range(E):
-        mol = topo.merge_molecules(mol, ev_a[k], ev_b[k], make_bond[k])
+    with perf.span(perf.RX_MERGE):
+        for k in range(E):
+            mol = topo.merge_molecules(mol, ev_a[k], ev_b[k], make_bond[k])
     state = dataclasses.replace(state, bonds=bonds, adj=adj, mol_id=mol)
 
     # neighbour property transfers BEFORE term generation
@@ -908,43 +909,48 @@ def reaction_step(spec, cfg, state, rng_seed: int = 0):
     on the reaction grid on the lazy-row path, the persistent rows on the
     row path); then the dissociation channels over the bond table.  On the
     row path the rows' exclusion mask is refreshed when an event fired."""
-    if cfg.rx_compact:
-        s1 = side1_mask(spec, cfg, state)
-        order = torch.argsort((~s1).to(torch.uint8), stable=True)
-        rowsel = order[:cfg.rx_rows_cap].to(I32)
-        row_ok = s1[rowsel.long()]
-        rx_overflow = s1.sum() > cfg.rx_rows_cap
-        if cfg.lazy_rows:
-            cand, excl_hit, c_ovf = compact_candidates_from_cells(
-                spec, cfg, state, rowsel)
-            rx_overflow = rx_overflow | c_ovf
+    with perf.span(perf.RX_MATCH):
+        if cfg.rx_compact:
+            s1 = side1_mask(spec, cfg, state)
+            order = torch.argsort((~s1).to(torch.uint8), stable=True)
+            rowsel = order[:cfg.rx_rows_cap].to(I32)
+            row_ok = s1[rowsel.long()]
+            rx_overflow = s1.sum() > cfg.rx_rows_cap
+            if cfg.lazy_rows:
+                cand, excl_hit, c_ovf = compact_candidates_from_cells(
+                    spec, cfg, state, rowsel)
+                rx_overflow = rx_overflow | c_ovf
+            else:
+                cand, excl_hit = compact_candidates_from_rows(state, rowsel)
+            ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions_compact(
+                spec, cfg, state, rng_seed, rowsel, row_ok, cand, excl_hit)
+        elif cfg.lazy_rows:
+            # rows exist only here, on the reaction-sized grid
+            rx_nbr = neighbor.build_neighbor_state(
+                state.pos, state.box, state.active, state.excl, cfg.rx_rc,
+                dims=cfg.rx_dims, cell_cap=cfg.rx_cell_cap,
+                max_neighbors=cfg.rx_k, excl_cap=cfg.excl_cap)
+            rx_overflow = rx_nbr.overflow
+            ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
+                spec, cfg, state, rng_seed, rx_nbr.idx, rx_nbr.excl_mask)
         else:
-            cand, excl_hit = compact_candidates_from_rows(state, rowsel)
-        ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions_compact(
-            spec, cfg, state, rng_seed, rowsel, row_ok, cand, excl_hit)
-    elif cfg.lazy_rows:
-        # rows exist only here, on the reaction-sized grid
-        rx_nbr = neighbor.build_neighbor_state(
-            state.pos, state.box, state.active, state.excl, cfg.rx_rc,
-            dims=cfg.rx_dims, cell_cap=cfg.rx_cell_cap,
-            max_neighbors=cfg.rx_k, excl_cap=cfg.excl_cap)
-        rx_overflow = rx_nbr.overflow
-        ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
-            spec, cfg, state, rng_seed, rx_nbr.idx, rx_nbr.excl_mask)
-    else:
-        rx_overflow = torch.zeros((), dtype=torch.bool,
-                                  device=state.pos.device)
-        ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
-            spec, cfg, state, rng_seed, state.nbr.idx, state.nbr.excl_mask)
+            rx_overflow = torch.zeros((), dtype=torch.bool,
+                                      device=state.pos.device)
+            ev_valid, ev_a, ev_b, ev_r, ev_dist = match_reactions(
+                spec, cfg, state, rng_seed, state.nbr.idx, state.nbr.excl_mask)
     state = dataclasses.replace(
         state, ev_log_step=state.step.clone(), ev_log_a=ev_a, ev_log_b=ev_b,
         ev_log_r=ev_r, ev_log_dist=ev_dist.to(state.ev_log_dist.dtype))
-    state, topo_overflow = apply_reaction_events(spec, cfg, state, ev_valid,
-                                                 ev_a, ev_b, ev_r)
+    with perf.span(perf.RX_APPLY):
+        state, topo_overflow = apply_reaction_events(spec, cfg, state,
+                                                     ev_valid, ev_a, ev_b,
+                                                     ev_r)
     any_event = torch.any(ev_valid)
     if cfg.has_dissociation:
-        dv, drow, dr = match_dissociations(spec, cfg, state, rng_seed)
-        state = apply_dissociation_events(spec, cfg, state, dv, drow, dr)
+        with perf.span(perf.RX_DISSOCIATE):
+            dv, drow, dr = match_dissociations(spec, cfg, state, rng_seed)
+            state = apply_dissociation_events(spec, cfg, state, dv, drow,
+                                              dr)
         any_event = any_event | torch.any(dv)
     if not cfg.lazy_rows and bool(any_event):
         # positions did not move, so the rows stay valid: only the

@@ -32,7 +32,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from . import bonded_dense, excl_dense, integrate, observables, reactions
+from . import (bonded_dense, excl_dense, integrate, observables, perf,
+               reactions)
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -78,8 +79,10 @@ def _hybrid_lambda_ramp(spec, state, cfg=None):
 def _fire_reactions(spec, cfg, state, rng_seed: int):
     """A reaction step, then the dense operands re-derived from the changed
     tables (the only place inside a block where the tables change)."""
-    state = reactions.reaction_step(spec, cfg, state, rng_seed)
-    return excl_dense.rederive(cfg, bonded_dense.rederive(cfg, state))
+    with perf.span(perf.REACTION_STEP):
+        state = reactions.reaction_step(spec, cfg, state, rng_seed)
+        with perf.span(perf.REDERIVE):
+            return excl_dense.rederive(cfg, bonded_dense.rederive(cfg, state))
 
 
 def _gates(cfg, on: bool, step: int) -> dict:
@@ -120,13 +123,17 @@ def step_with_extensions(spec, cfg, state, rng_seed: int = 0, gen=None,
         if gates["reaction"]:
             state = _fire_reactions(spec, cfg, state, rng_seed)
     if cfg.has_atrp and gates["atrp"]:
-        state = reactions.atrp_step(spec, cfg, state, draws.get("atrp"), gen)
+        with perf.span(perf.ATRP):
+            state = reactions.atrp_step(spec, cfg, state, draws.get("atrp"),
+                                        gen)
     if cfg.has_freeze:
-        state = reactions.freeze_region_step(spec, cfg, state,
-                                             draws.get("freeze"), gen)
+        with perf.span(perf.FREEZE):
+            state = reactions.freeze_region_step(spec, cfg, state,
+                                                 draws.get("freeze"), gen)
     if cfg.has_cpt and gates["cpt"]:
-        state = reactions.change_particle_type_step(spec, cfg, state,
-                                                    draws.get("cpt"), gen)
+        with perf.span(perf.CPT):
+            state = reactions.change_particle_type_step(
+                spec, cfg, state, draws.get("cpt"), gen)
     return state
 
 
@@ -136,14 +143,15 @@ def run_block(spec, cfg, state, n_steps: int, rng_seed: int = 0, gen=None,
     ``pair_kernel``; under a mesh, then check that the ranks' replicas still
     agree.  The gates of the reaction, ATRP and ChangeParticleType steps
     come from one read of the step and the switch."""
-    on = bool(state.reactions_on)
-    step0 = int(state.step)
-    for k in range(n_steps):
-        state = step_with_extensions(spec, cfg, state, rng_seed, gen=gen,
-                                     gates=_gates(cfg, on, step0 + k + 1),
-                                     pair_kernel=pair_kernel)
-    check_replicas(cfg, state)
-    return state
+    with perf.span(perf.BLOCK):
+        on = bool(state.reactions_on)
+        step0 = int(state.step)
+        for k in range(n_steps):
+            state = step_with_extensions(
+                spec, cfg, state, rng_seed, gen=gen,
+                gates=_gates(cfg, on, step0 + k + 1), pair_kernel=pair_kernel)
+        check_replicas(cfg, state)
+        return state
 
 
 def _replica_fields(state):
@@ -231,10 +239,11 @@ def _counts(cfg, state, out):
 
 def measure_cheap(spec, cfg, state):
     """Per-block bookkeeping without the force recompute."""
-    out = {"conversions": observables.conversions(
-               spec, state.type_id, state.chem_state, state.active),
-           "overflow": state.nbr.overflow}
-    return _counts(cfg, state, out)
+    with perf.span(perf.MEASURE):
+        out = {"conversions": observables.conversions(
+                   spec, state.type_id, state.chem_state, state.active),
+               "overflow": state.nbr.overflow}
+        return _counts(cfg, state, out)
 
 
 def measure(spec, cfg, state):
@@ -242,33 +251,37 @@ def measure(spec, cfg, state):
     and box edge under a barostat or ``store_pressure``, and the count of
     func-14 pairs in the rows (``pair_scale``) where the system has
     them."""
-    force, energies, _ = integrate.compute_forces(spec, cfg, state)
-    out = dict(energies)
-    out["T"] = observables.temperature(state.mass, state.vel, state.active,
-                                       spec.thermal_type_mask, state.type_id)
-    out["ekin"] = observables.kinetic_energy(state.mass, state.vel,
-                                             state.active)
-    out["epot"] = sum(energies.values())
-    out["conversions"] = observables.conversions(
-        spec, state.type_id, state.chem_state, state.active)
-    if cfg.barostat != "no" or cfg.store_pressure:
-        out["P"] = integrate.virial_pressure(spec, cfg, state)
-        out["boxL"] = state.box[0]
-    _counts(cfg, state, out)
-    out["n_part"] = state.active.sum(dtype=torch.int32)
-    out["max_force"] = observables.max_force(force, state.active)
-    if cfg.has_pps:
-        # the func-14 pairs in the rows (each is in both of its rows)
-        j = state.nbr.idx.long()
-        slot_ok = j != torch.arange(state.pos.shape[0],
-                                    device=j.device)[:, None]
-        pp = state.type_id.long()[:, None] * cfg.n_types + state.type_id[j]
-        out["pair_scale"] = torch.sum(
-            (slot_ok & (spec.pair_pps_incr[pp] > 0.0)).to(torch.int32)) // 2
-    if cfg.has_reactions:
-        chem_rows = state.bonds.valid & (state.bonds.group >= 0)
-        nsel = torch.clamp(chem_rows.sum(), min=1)
-        out["res_fpl"] = torch.sum(torch.where(chem_rows, state.bonds.lam,
-                                               0.0)) / nsel
-    out["overflow"] = state.nbr.overflow
-    return out
+    with perf.span(perf.MEASURE):
+        force, energies, _ = integrate.compute_forces(spec, cfg, state)
+        out = dict(energies)
+        out["T"] = observables.temperature(
+            state.mass, state.vel, state.active, spec.thermal_type_mask,
+            state.type_id)
+        out["ekin"] = observables.kinetic_energy(state.mass, state.vel,
+                                                 state.active)
+        out["epot"] = sum(energies.values())
+        out["conversions"] = observables.conversions(
+            spec, state.type_id, state.chem_state, state.active)
+        if cfg.barostat != "no" or cfg.store_pressure:
+            out["P"] = integrate.virial_pressure(spec, cfg, state)
+            out["boxL"] = state.box[0]
+        _counts(cfg, state, out)
+        out["n_part"] = state.active.sum(dtype=torch.int32)
+        out["max_force"] = observables.max_force(force, state.active)
+        if cfg.has_pps:
+            # the func-14 pairs in the rows (each is in both of its rows)
+            j = state.nbr.idx.long()
+            slot_ok = j != torch.arange(state.pos.shape[0],
+                                        device=j.device)[:, None]
+            pp = (state.type_id.long()[:, None] * cfg.n_types
+                  + state.type_id[j])
+            out["pair_scale"] = torch.sum(
+                (slot_ok & (spec.pair_pps_incr[pp] > 0.0)).to(torch.int32)
+            ) // 2
+        if cfg.has_reactions:
+            chem_rows = state.bonds.valid & (state.bonds.group >= 0)
+            nsel = torch.clamp(chem_rows.sum(), min=1)
+            out["res_fpl"] = torch.sum(torch.where(
+                chem_rows, state.bonds.lam, 0.0)) / nsel
+        out["overflow"] = state.nbr.overflow
+        return out

@@ -30,7 +30,7 @@ import torch
 
 from . import testsystems
 from .engine import (bonded_dense, bonded_forces, cell_pair, excl_dense,
-                     integrate, neighbor, reactions, runner)
+                     integrate, neighbor, perf, reactions, runner)
 
 N_MOLS = 3334   # trimers: the 10 002-particle cells of PERF.md
 CHAIN_MOLS = 2500   # tetramers: 10 000 particles
@@ -188,7 +188,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not perf.is_span(e.name)]
     busy = sum(e.device_time_total for e in kern) / 1e3 / steps
     print("profiled: %.3f ms per step (profiler on), device busy %.4f ms, "
           "busy share %.4f, %.1f kernel launches per step"

@@ -2989,7 +2989,7 @@ def ext_launches(spec, cfg, state, gen):
     off)."""
     import torch
 
-    from chemlab_tpu_torch.engine import runner
+    from chemlab_tpu_torch.engine import perf, runner
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -2998,7 +2998,8 @@ def ext_launches(spec, cfg, state, gen):
 
     def kernels(prof):
         return len([e for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA])
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not perf.is_span(e.name)])
 
     with torch.profiler.profile(activities=acts) as prof:
         s = st
@@ -3162,7 +3163,7 @@ def _row_ms(spec, cfg, state):
     ``torch.profiler``)."""
     import torch
 
-    from chemlab_tpu_torch.engine import integrate, observables, runner
+    from chemlab_tpu_torch.engine import integrate, observables, perf, runner
 
     obs = observables.conversions(spec, state.type_id, state.chem_state,
                                   state.active)
@@ -3184,7 +3185,8 @@ def _row_ms(spec, cfg, state):
         _sync()
     out["launches_step"] = len(
         [e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA]) / 10.0
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not perf.is_span(e.name)]) / 10.0
     return out
 
 

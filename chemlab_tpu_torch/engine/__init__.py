@@ -9,7 +9,9 @@
   - ``cell_pair_halo``    the pair sum split by x-slab over a mesh's ranks
   - ``excl_dense``        exclusion correction on rolled planes
   - ``bonded_forces``     bonds, angles, dihedrals and 1-4 pairs (tabulated
-                          func 8 through ``tables``), forces by autograd
+                          func 8 through ``tables``): bonds and angles by
+                          a CUDA kernel (plain twin on the CPU), the rest
+                          by autograd
   - ``bonded_dense``      chain terms on rolled planes
   - ``integrate``         velocity Verlet + Langevin
   - ``reactions``, ``topo``  the reactive layer

@@ -62,7 +62,7 @@ def row_layers(spec, cfg, st):
         ("md_step", lambda: integrate.md_step(spec, cfg, st, gen=gen), 1),
         ("compute_forces", lambda: integrate.compute_forces(
             spec, cfg, st, want_energy=False), 1),
-        ("bonded_forces (autograd)", lambda: bonded_forces.bonded_forces(
+        ("bonded_forces", lambda: bonded_forces.bonded_forces(
             spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds,
             st.angles, st.dihedrals, st.pairs14,
             dense=integrate._dense_of(cfg, st)), 1),
@@ -93,7 +93,7 @@ def layers(spec, cfg, st):
         ("md_step", lambda: integrate.md_step(spec, cfg, st, gen=gen), 1),
         ("compute_forces", lambda: integrate.compute_forces(
             spec, cfg, st, want_energy=False), 1),
-        ("bonded_forces (autograd)", lambda: bonded_forces.bonded_forces(
+        ("bonded_forces", lambda: bonded_forces.bonded_forces(
             spec, cfg, st.pos, st.box, st.type_id, st.q, st.bonds,
             st.angles, st.dihedrals, st.pairs14,
             dense=integrate._dense_of(cfg, st)), 1),

@@ -163,10 +163,20 @@ once) and drives the port's paths at 10k particles:
      rank from the same state and seed: the integer state equal, positions
      bitwise on the K1f paths, every mechanism fired, the row path's
      max|dF|, energies and virial pressure, the replicas, the launches a
-     step and the particle-steps/s; then the phase's wall time.  The total
-     wall time is printed last.  ``python3 chip_smoke.py --only m14``
-     builds the kernels and runs this phase alone (no kernels line and no
-     result line).
+     step and the particle-steps/s; then the phase's wall time;
+  13. the bonded kernel (``bonded_kernel``, ``csrc/bonded.cu``) at the
+     benchmark cell's shapes: the 400 002-particle ATRP melt after a
+     capped descent, the caps' retune, 1 333 initiators and two reactive
+     blocks with the CLI's cap decisions after each, as the cell sets up:
+     the kernel
+     against its plain twin and the autograd path on the card, a second
+     call bit for bit, one launch count a call, the device operations of
+     one ``bonded_forces`` call by the profiler (no autograd kernel), the
+     kernel's device time beside its byte bound, the twin's and the
+     autograd path's, and one main-path block with the kernel once a
+     step.  The total wall time is printed last.  ``python3 chip_smoke.py
+     --only m14`` (or ``--only bonded_kernel``) builds the kernels and
+     runs that phase alone (no kernels line and no result line).
   Each path checks that its kernel ran on every step, that events fired,
   that the topology grew by exactly the accepted events, that no capacity
   overflowed and that the temperature held; the NPT path also that the
@@ -3922,6 +3932,205 @@ def m14_path(card: str):
     return dict(ranks, cli_launches=cli["launches"])
 
 
+# ---- the bonded kernel at the benchmark cell's shapes -----------------------
+
+BK_MOLS = 133334        # trimers: 400 002 particles, the benchmark cell's melt
+BK_DESCENT = 200        # capped descent steps (the cell takes 600)
+BK_INITIATORS = 1333    # the cell's: one living end per 300 particles
+BK_EVENTS = 2048        # the cell's max_events, above the living ends
+BK_BLOCKS = 2           # reactive blocks before the timing (the cell's
+                        # untimed block and first regrowth block)
+BK_ROW_BYTES = 33       # func, 6 params, typelookup, lambda of a term row
+
+
+def bonded_bytes(n: int, tables) -> int:
+    """Bytes the bonded kernel's work needs, each read or written once:
+    positions and types in, forces out, each dense row's first index and
+    term row, each listed slot's first index and, where live, its other
+    indices and term row (``tables``: (table, arity, dense) triples)."""
+    total = 16 * n + 12 * n
+    for table, arity, dense in tables:
+        if table is None:
+            continue
+        if dense:
+            total += (4 + BK_ROW_BYTES) * n
+        else:
+            live = int(table.valid.sum())
+            total += 4 * table.capacity + (4 * (arity - 1) + BK_ROW_BYTES) \
+                * live
+    return total
+
+
+def _autograd_bonded(spec, cfg, state, dense):
+    """The bonds' and angles' forces by autograd, as the port took them
+    before the kernel: -grad of ``bonded_energy_terms``."""
+    import torch
+
+    from chemlab_tpu_torch.engine import bonded_forces
+
+    with torch.enable_grad():
+        p = state.pos.detach().requires_grad_(True)
+        terms = bonded_forces.bonded_energy_terms(
+            spec, cfg, p, state.box, state.type_id, state.q, state.bonds,
+            state.angles, state.dihedrals, state.pairs14, dense=dense)
+        (g,) = torch.autograd.grad(sum(terms.values()), p)
+    return -g, {k: v.detach() for k, v in terms.items()}
+
+
+def bonded_kernel_path(card: str):
+    """The bonded kernel at the benchmark cell's shapes (docstring item
+    13)."""
+    import math
+
+    import torch
+
+    from chemlab_tpu_torch import testsystems
+    from chemlab_tpu_torch.engine import (bonded_forces, build, cell_pair,
+                                          integrate, runner)
+
+    def caps(cfg, state):
+        """The CLI's decisions at a block's end (as the benchmark takes
+        them): the term tables regrown before they fill, the neighbour
+        caps after an overflow."""
+        m = runner.measure_cheap(spec, cfg, state)
+        counts = {k: int(m[k]) for k in ("n_bonds", "n_angles",
+                                         "n_dihedrals", "n_excl",
+                                         "n_bonds_irr", "n_angles_irr")}
+        counts["excl_pair_cap"] = state.excl.shape[0]
+        if build.term_caps_near_full(cfg, counts):
+            return build.grow_term_caps(cfg, state, counts=counts)
+        if bool(m["overflow"]):
+            return build.grow_neighbor_caps(cfg, spec, state)
+        return cfg, state
+
+    t0 = time.perf_counter()
+    built, systop, _ = testsystems.build_melt(n_mols=BK_MOLS, device=DEVICE,
+                                              max_events=BK_EVENTS)
+    cfg, spec = built.cfg, built.spec
+    state = runner.initial_forces(spec, cfg, built.state)
+    state = testsystems.warmup(built, state, steps=BK_DESCENT, max_disp=0.05)
+    cfg, state = build.shrink_neighbor_caps(cfg, spec, state)
+    cfg, state = build.shrink_term_caps(cfg, state)
+    state = testsystems.activate_initiators(built, systop, state,
+                                            n=BK_INITIATORS)
+    gen = runner.make_generator(20, DEVICE)
+    for _ in range(BK_BLOCKS):
+        state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+        cfg, state = caps(cfg, state)
+    torch.cuda.synchronize()
+    dense = integrate._dense_of(cfg, state)
+    bd, ad, bl, al = bonded_forces.bond_angle_tables(
+        cfg, state.bonds, state.angles, dense)
+    print("bonded kernel: %d particles, built, descended, retuned and %d "
+          "reactive blocks in %.1f s; events %d; irregular bonds %d live of "
+          "%d, angles %d live of %d"
+          % (cfg.n_particles, BK_BLOCKS, time.perf_counter() - t0,
+             int(state.reaction_counts.sum()), int(bl.valid.sum()),
+             bl.capacity, int(al.valid.sum()), al.capacity))
+
+    args = (spec, cfg, state.pos, state.box, state.type_id, state.bonds,
+            state.angles, dense)
+    k0 = bonded_forces.BOND_ANGLE.launches
+    f_k, e_k = bonded_forces.bond_angle_forces(*args)
+    f_k2, e_k2 = bonded_forces.bond_angle_forces(*args)
+    calls = bonded_forces.BOND_ANGLE.launches - k0
+    f_p, e_p = bonded_forces.bond_angle_forces_plain(*args)
+    f_a, e_a = _autograd_bonded(spec, cfg, state, dense)
+    checks = {}
+    for label, f_r, e_r in (("twin", f_p, e_p), ("autograd", f_a, e_a)):
+        dF = (f_k - f_r).abs().max().item()
+        dE = max(abs(float(e_k[k]) - float(e_r[k]))
+                 / (1.0 + abs(float(e_r[k]))) for k in e_r)
+        print("bonded kernel vs %s on the card: max|dF| %.3e (tol %.3e), "
+              "energies max rel %.3e, %s" % (label, dF, _tol(f_r), dE,
+                                              {k: float(e_k[k]) for k in e_k}))
+        checks["(a) forces = %s" % label] = dF <= _tol(f_r)
+        checks["(a) energies = %s" % label] = dE <= 2e-5 \
+            and sorted(e_k) == sorted(e_r)
+    checks["(b) a second call bit for bit"] = torch.equal(f_k, f_k2) and all(
+        torch.equal(e_k[k], e_k2[k]) for k in e_k)
+    checks["(b) one launch count a call"] = calls == 2
+    checks["(b) forces finite"] = bool(torch.isfinite(f_k).all())
+
+    call = (spec, cfg, state.pos, state.box, state.type_id, state.q,
+            state.bonds, state.angles, state.dihedrals, state.pairs14)
+    # a profiler session late in a long process may record no device op
+    # (kernel_matrix.device_ms retries for the same reason): up to three
+    dev_events = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            bonded_forces.bonded_forces(*call, dense=dense)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("bonded_particle_kernel" in e.name for e in dev_events):
+            break
+    ops = [e.name for e in dev_events]
+    kernels = [o for o in ops if not o.startswith(("Memcpy", "Memset"))]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    if any("bonded_particle_kernel" in o for o in ops):
+        print("bonded_forces device operations (profiler): %d, kernels %d, "
+              "%.1f us busy: %s" % (len(ops), len(kernels), busy_us,
+                                    [(e.name[:48], e.time_range.elapsed_us())
+                                     for e in dev_events]))
+        checks["(c) no autograd kernel in bonded_forces"] = not any(
+            "backward" in o or "index_put" in o or "sort" in o.lower()
+            for o in ops)
+        checks["(c) at most 10 launches a call"] = len(kernels) <= 10
+    else:
+        busy_us = float("nan")
+        print("bonded_forces device operations: not measured (three "
+              "profiler sessions recorded %d device ops, none the bonded "
+              "kernel's)" % len(ops))
+
+    n = cfg.n_particles
+    nbytes = bonded_bytes(state.pos.shape[0], ((bd, 2, True), (ad, 3, True),
+                                               (bl, 2, False),
+                                               (al, 3, False)))
+    bound_ms = 1e3 * nbytes / HBM_BYTES_S
+    kernel_ms = _time_ms(lambda: bonded_forces.bond_angle_forces(*args), 50)
+    layer_ms = _time_ms(lambda: bonded_forces.bonded_forces(
+        *call, dense=dense), 20)
+    plain_ms = _time_ms(lambda: bonded_forces.bond_angle_forces_plain(
+        *args), 5)
+    autograd_ms = _time_ms(lambda: _autograd_bonded(spec, cfg, state, dense),
+                           5)
+    print("bonded kernel at %d particles: %.4f ms a call (CUDA events, 50 "
+          "calls), bound %.4f ms (%.2f MB at %.2f TB/s, bytes), %.1f %% of "
+          "it; bonded_forces %.4f ms; plain twin on the card %.4f ms; the "
+          "autograd path %.4f ms on %s"
+          % (n, kernel_ms, bound_ms, nbytes / 1e6, HBM_BYTES_S / 1e12,
+             100.0 * bound_ms / kernel_ms, layer_ms, plain_ms, autograd_ms,
+             card))
+
+    bonded_forces.BOND_ANGLE.launches = 0
+    cell_pair.K1.launches = 0
+    t1 = time.perf_counter()
+    state = runner.run_block(spec, cfg, state, BLOCK_STEPS, gen=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    calls, k1 = bonded_forces.BOND_ANGLE.launches, cell_pair.K1.launches
+    m = runner.measure(spec, cfg, state)
+    T = float(m["T"])
+    print("bonded kernel main path: one %d-step block in %.3f s, %.1f "
+          "particle-steps/s, bonded kernel launches %d, K1 %d, events %d, T "
+          "%.4f on %s" % (BLOCK_STEPS, wall, n * BLOCK_STEPS / wall, calls,
+                          k1, int(state.reaction_counts.sum()), T, card))
+    checks["(d) the kernel once a step"] = calls == k1 == BLOCK_STEPS
+    checks["(d) T finite, within 0.5-1.5 kT"] = math.isfinite(T) and \
+        0.5 * float(spec.kT) <= T <= 1.5 * float(spec.kT)
+    checks["(d) no capacity overflow"] = not bool(m["overflow"])
+    checks["(d) no jax, no JAX package"] = _no_reference_modules()
+    _require(checks, "bonded kernel")
+    print("bonded kernel phase wall time: %.1f s" % (time.perf_counter()
+                                                     - t0))
+    return {"kernel_ms": kernel_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "autograd_ms": autograd_ms,
+            "layer_ms": layer_ms, "busy_us": busy_us}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3930,7 +4139,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from chemlab_tpu_torch.engine import _kernels, cell_pair
+    from chemlab_tpu_torch.engine import _kernels, bonded_forces, cell_pair
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3938,12 +4147,15 @@ def main(argv=None) -> int:
     print(card)
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)))
-    build_s = _kernels.build_all(cell_pair.KERNELS)
+    kernels = cell_pair.KERNELS + (bonded_forces.BOND_ANGLE,)
+    build_s = _kernels.build_all(kernels)
     print("kernel build (%d sources in parallel): %.2f s"
-          % (len({k.source for k in cell_pair.KERNELS}), build_s))
-    if argv == ["--only", "m14"]:
-        m14_path(card)
-        print("chip_smoke: the m14 phase alone (no kernels line, no result)")
+          % (len({k.source for k in kernels}), build_s))
+    alone = {"m14": m14_path, "bonded_kernel": bonded_kernel_path}
+    if len(argv) == 2 and argv[0] == "--only" and argv[1] in alone:
+        alone[argv[1]](card)
+        print("chip_smoke: the %s phase alone (no kernels line, no result)"
+              % argv[1])
         return 0
 
     def done(phase):
@@ -3988,6 +4200,8 @@ def main(argv=None) -> int:
     done("tools")
     m14 = m14_path(card)
     done("m14")
+    bk = bonded_kernel_path(card)
+    done("bonded kernel")
     k1f_row = next(r for r in rows if r["name"] == K1F_ROWS["K1f"][0])
     k1f_row["m14_cli_launches"] = m14["cli_launches"]
     k1f_row["m14_launches"] = m14["launches"]
@@ -4027,6 +4241,11 @@ def main(argv=None) -> int:
           "max|dF| %.3e, virial rel %.3e on %s"
           % (M14_CLI_RANKS, m14["cli_launches"], m14["launches"],
              M14_RANKS, m14["row_pps"], m14["row_dF"], m14["row_dP"], card))
+    print("bonded kernel (400k, csrc/bonded.cu): %.4f ms a call (events), "
+          "%.1f us device busy (profiler; nan: not measured), bound %.4f ms, bonded_forces "
+          "%.4f ms, plain twin %.4f ms, autograd %.4f ms on %s"
+          % (bk["kernel_ms"], bk["busy_us"], bk["bound_ms"], bk["layer_ms"],
+             bk["plain_ms"], bk["autograd_ms"], card))
     print("kernel matrix (ms): %s" % json.dumps(km))
     print("cli (examples/atrp_melt, 6000 particles): %.1f particle-steps/s, "
           "K1 launches %d (%d within the loop's %d steps), cell_cap 40 -> "

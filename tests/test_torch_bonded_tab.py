@@ -285,6 +285,31 @@ def test_padding_rows_give_finite_forces(chain):
                                atol=2e-5 * (1.0 + np.abs(f_r).max()))
 
 
+def test_padding_slots_read_their_own_rows(chain):
+    """The dihedrals' and 1-4 pairs' autograd pass gives each padding slot
+    a zero row of its own past the particles (one shared row would be a
+    serial run of equal indices in the card's backward): the forces are
+    bit for bit those of a gather that clamps every padding index to
+    particle 0."""
+    cfg, spec, st = _inputs(chain)
+    cfg = dataclasses.replace(cfg, bond_funcs=(), angle_funcs=())
+    assert int((st.dihedrals.idx[:, 0] < 0).sum()) > 0
+    assert int((st.pairs14.idx[:, 0] < 0).sum()) > 0
+    p = st.pos.clone().requires_grad_(True)
+    pos4 = torch.cat([p, st.type_id.to(p.dtype)[:, None]], dim=-1)
+    d_rows = pos4[torch.clamp(st.dihedrals.idx, min=0).long()]
+    p_rows = pos4[torch.clamp(st.pairs14.idx, min=0).long()]
+    terms = {**pbf.dihedral_energies(spec, cfg.dihedral_funcs, d_rows, st.box,
+                                     st.dihedrals),
+             **pbf.pair14_energies(spec, p_rows, st.box, st.q, st.pairs14)}
+    (g,) = torch.autograd.grad(sum(terms.values()), p)
+    f, e = pbf.bonded_forces(spec, cfg, st.pos, st.box, st.type_id, st.q,
+                             st.bonds, st.angles, st.dihedrals, st.pairs14)
+    assert torch.equal(f, -g)
+    assert {k: float(v) for k, v in e.items()} \
+        == {k: float(v) for k, v in terms.items()}
+
+
 def _dihedral_rows(pos, type_id, table):
     pos4 = torch.cat([pos, type_id.to(pos.dtype)[:, None]], dim=-1)
     return pos4[torch.clamp(table.idx, min=0).long()]

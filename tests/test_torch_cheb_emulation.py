@@ -251,14 +251,14 @@ def _host_source(text: str) -> str:
                   text, flags=re.S)
 
 
-def compile_for_host(source, d):
+def compile_for_host(source, d, runtime_extra: str = ""):
     """Compile the CUDA ``source`` and the headers it includes (the
-    kernels' ``csrc/``) with g++ against the stand-in, in directory ``d``;
-    skips without g++."""
+    kernels' ``csrc/``) with g++ against the stand-in, extended by
+    ``runtime_extra``, in directory ``d``; skips without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA source for the CPU")
-    (d / "emu.h").write_text(RUNTIME)
+    (d / "emu.h").write_text(RUNTIME + runtime_extra)
     for header in _kernels.source_files(source)[1:]:
         (d / header.name).write_text(_host_source(header.read_text()))
     src = d / (source.stem + ".cpp")

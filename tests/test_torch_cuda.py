@@ -6,6 +6,8 @@ cellwise baselines bit for bit, the cancellation at r -> 0, and short
 runs on the card against the CPU path: LJ, tabulated, and NPT on the K2
 grid; the bonded layer of the step-growth chain melt (dihedrals, 1-4 pairs,
 func-8 bonds and angles) and its full-row reaction step against the CPU;
+the bonded kernel (bonds and angles) against its plain twin and the
+autograd path, and once a step on the main path;
 one reaction step of the break and release melts (the sequential event
 scan, dissociation, restrict, releases, joins) and the ATRP,
 ChangeParticleType and FreezeRegion steps against the CPU; the Verlet
@@ -1632,6 +1634,101 @@ def test_cuda_fullrow_events_equal_cpu(chain_melt):
         for k in ("idx", "func", "params", "lam"):
             assert torch.equal(getattr(getattr(outs[1], t), k).cpu(),
                                getattr(getattr(outs[0], t), k)), (t, k)
+
+
+# ---- the bonded kernel (csrc/bonded.cu): bonds and angles -------------------
+
+BONDED_CASES = ["bonds-dense", "bonds-flat", "forms-dense", "forms-flat",
+                "padded-dense", "full-flat", "tab-dense", "tab-flat"]
+
+
+@pytest.fixture(scope="module")
+def bonded_melts(tmp_path_factory):
+    """The emulation tests' inputs (``test_torch_bonded_emulation``): the
+    70-trimer melt and the 40-tetramer chain melt, built on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    built, _, _ = testsystems.build_melt(n_mols=70, reactive=True,
+                                         device="cpu")
+    d = tmp_path_factory.mktemp("bonded_tables")
+    testsystems.write_chain_tables(str(d))
+    chain, _, _ = testsystems.build_chain_melt(n_mols=40, device="cpu",
+                                               table_dir=str(d))
+    return built, chain
+
+
+def _autograd_bonds_angles(spec, cfg, st, dense):
+    """The autograd path over the bonds and angles alone: -grad of
+    ``bonded_energy_terms`` with no dihedral or 1-4 term."""
+    from chemlab_tpu_torch.engine import bonded_forces
+
+    cfg = dataclasses.replace(cfg, dihedral_funcs=(), pair14_cap=0)
+    with torch.enable_grad():
+        p = st.pos.detach().requires_grad_(True)
+        terms = bonded_forces.bonded_energy_terms(
+            spec, cfg, p, st.box, st.type_id, st.q, st.bonds, st.angles,
+            st.dihedrals, st.pairs14, dense=dense)
+        (g,) = torch.autograd.grad(sum(terms.values()), p)
+    return -g, {k: v.detach() for k, v in terms.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BONDED_CASES)
+def test_cuda_bonded_kernel_matches_twin_and_autograd(bonded_melts, case):
+    """The kernel against the plain twin on the CPU and the autograd path
+    on the card: bond funcs 1, 7, 8, 9 and angle funcs 1, 8, 11, the dense
+    and irregular legs and the flat tables, type-looked-up rows turned by
+    a type change, lambdas below 1, an all-padding irregular table and a
+    full one; a second call gives the same bits and each call counts one
+    launch."""
+    from test_torch_bonded_emulation import _case
+
+    from chemlab_tpu_torch.engine import bonded_forces
+
+    cfg, spec, st, _ = _case(*bonded_melts, case)
+    leg = case.rsplit("-", 1)[1]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s, sp = st.to(dev), spec.to(dev)
+        dense = integrate._dense_of(cfg, s) if leg == "dense" else None
+        args = (sp, cfg, s.pos, s.box, s.type_id, s.bonds, s.angles, dense)
+        before = bonded_forces.BOND_ANGLE.launches
+        f, e = bonded_forces.bond_angle_forces(*args)
+        if dev == "cuda":
+            f2, e2 = bonded_forces.bond_angle_forces(*args)
+            assert bonded_forces.BOND_ANGLE.launches == before + 2
+            assert torch.equal(f, f2)
+            assert all(torch.equal(e[k], e2[k]) for k in e)
+            out["autograd"] = _autograd_bonds_angles(sp, cfg, s, dense)
+        else:
+            assert bonded_forces.BOND_ANGLE.launches == before
+        out[dev] = (f, e)
+    f_k, e_k = out["cuda"]
+    assert torch.isfinite(f_k).all()
+    for ref in ("cpu", "autograd"):
+        f_r, e_r = out[ref]
+        assert sorted(e_k) == sorted(e_r), ref
+        for k in e_r:
+            r = float(e_r[k])
+            assert abs(float(e_k[k]) - r) <= 2e-5 * (1.0 + abs(r)), (ref, k)
+        f_r = f_r.cpu()
+        torch.testing.assert_close(f_k.cpu(), f_r, rtol=0, atol=_tol(f_r))
+
+
+@pytest.mark.cuda
+def test_cuda_bonded_kernel_once_a_step(melt):
+    """On the main path the kernel runs once a step, and no other force
+    call reaches it."""
+    from chemlab_tpu_torch.engine import bonded_forces
+
+    built, _, st = melt
+    spec, cfg = built.spec.to("cuda"), built.cfg
+    st = st.to("cuda")
+    gen = runner.make_generator(3, "cuda")
+    before = bonded_forces.BOND_ANGLE.launches
+    runner.run_block(spec, cfg, st, 20, gen=gen)
+    torch.cuda.synchronize()
+    assert bonded_forces.BOND_ANGLE.launches == before + 20
 
 
 # ---- the reaction extensions: the break and release melts -------------------

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import chemlab_tpu_torch
-from chemlab_tpu_torch.engine import _kernels, cell_pair
+from chemlab_tpu_torch.engine import _kernels, bonded_forces, cell_pair
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -158,6 +158,27 @@ def test_kernel_source_rounds_half_to_even():
     x = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5], np.float32)
     np.testing.assert_array_equal(torch.round(torch.from_numpy(x)).numpy(),
                                   np.round(x))
+
+
+def test_bonded_kernel_source_and_flags():
+    """The bonded kernel builds by the same route and flags, exports its
+    entry point, rounds half to even, divides and takes square roots in
+    IEEE, writes no FMA and adds no float atomically (its sums have one
+    order)."""
+    k = bonded_forces.BOND_ANGLE
+    assert k.source.name == "bonded.cu" and k.source.is_file()
+    assert _kernels.source_files(k.source) == [k.source]
+    assert k.library_path().parent == _kernels.BUILD_DIR
+    cmd = _kernels.nvcc_command("nvcc", k.source, Path("x.so"))
+    assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
+    assert "--fmad=false" in cmd
+    src = k.source.read_text()
+    assert 'extern "C" int %s(' % k.symbol in src
+    assert "rintf(" in src and "sqrtf(" in src
+    for bad in ("roundf(", "rsqrtf(", "__fdividef", "fmaf(", "__fma",
+                "atomicAdd", "asm volatile"):
+        assert bad not in src, bad
+    assert len(k.argtypes) == 52
 
 
 def test_every_header_is_in_the_source_scan():

@@ -29,6 +29,11 @@ from . import check, roofline, trace
 from .reference import system as ref_system
 
 BANNED = ("jax", "jaxlib", "flax", "chemlab_tpu")
+# the settings of each barostat form: the configuration's name, the
+# program's field of its spec
+BAROSTAT_FIELDS = {"br": {"tau": "barostat_tau"},
+                   "lv": {"mass": "barostat_mass",
+                          "gammaP": "barostat_gammaP"}}
 
 
 def load_json(root: Path, kind: str, name: str) -> dict:
@@ -152,6 +157,27 @@ def cap_step(prog: Program, cfg, spec, state, prev_counts):
     return cfg, state, counts, flagged
 
 
+def check_barostat(sys_, cfg, spec):
+    """Raise where the barostat the program built is not the
+    configuration's ``system.barostat`` (its form, P0, and tau or the
+    piston's mass and friction), or where it built one the configuration
+    has not."""
+    want = sys_.barostat
+    if want is None:
+        if cfg.barostat != "no":
+            raise RuntimeError("the program runs the barostat %r, the "
+                               "configuration none" % cfg.barostat)
+        return
+    got = {"form": cfg.barostat, "pressure": float(spec.pressure)}
+    ref = {"form": want.form, "pressure": float(np.float32(want.pressure))}
+    for mine, theirs in BAROSTAT_FIELDS[want.form].items():
+        got[mine] = float(getattr(spec, theirs))
+        ref[mine] = float(np.float32(getattr(want, mine)))
+    if got != ref:
+        raise RuntimeError("the program's barostat %s, the configuration's "
+                           "%s" % (got, ref))
+
+
 @dataclasses.dataclass
 class Setup:
     spec: object
@@ -186,6 +212,7 @@ def set_up(prog: Program, conf: dict, traffic: dict, seeds: dict, device,
         raise RuntimeError("the program numbers the types %s, the "
                            "configuration %s" % (systop.atomsym_atomtype,
                                                  want))
+    check_barostat(sys_, built.cfg, built.spec)
     start = check.snapshot_topology(built.state)
     spec, cfg = built.spec, built.cfg
     steps = overrides.get("descent_steps", traffic["descent_steps"])
@@ -292,7 +319,10 @@ def program_step(prog: Program, su: Setup, win: Window, seeds: dict,
                  device) -> dict:
     """The program's outputs for the check, as host arrays: one more step
     from the window's end state with noise from the seed, and the
-    topology before and after the window's last reaction step.  The
+    topology before and after the window's last reaction step.  Under a
+    barostat also the box after the step, the piston's velocity before it
+    and its draw, the positions before the scaling (``check.unscale``)
+    and the program's pressure of the state its barostat read.  The
     program's state is freed here, before the reference runs."""
     t = time.perf_counter()
     state, spec, cfg = win.state, su.spec, win.cfg
@@ -301,15 +331,37 @@ def program_step(prog: Program, su: Setup, win: Window, seeds: dict,
     g.manual_seed(seeds["check"])
     noise = torch.randn((n, 3), generator=g, dtype=torch.float32,
                         device=device)
+    draws = None
+    if cfg.barostat == "lv":
+        draws = {"baro": torch.randn((), generator=g, dtype=torch.float32,
+                                     device=device)}
     gates = {"reaction": False, "atrp": False, "cpt": False}
     s1 = prog.runner.step_with_extensions(spec, cfg, state,
                                           seeds["reactions"], gates=gates,
-                                          noise=noise)
+                                          noise=noise, draws=draws)
     n_act = check.active_count(state)
     arrays = {k: check._np(v)[:n_act] for k, v in dict(
         x0=state.pos, v0=state.vel, f0=state.force, mass=state.mass,
         noise=noise, x1=s1.pos, v1=s1.vel, f1=s1.force).items()}
     arrays["box"] = check._np(state.box)
+    if cfg.barostat != "no":
+        # the state the barostat read is the step's end state before the
+        # scaling: the same but for the positions, the box and the
+        # piston's velocity, which the barostat alone writes.  Its
+        # positions are worked out from the scaled ones (float32 products
+        # with one mu, so exactly, or within a rounding where the product
+        # was taken otherwise); the program's own virial_pressure reads it.
+        x1, _ = check.unscale(arrays["x1"], arrays["box"], check._np(s1.box))
+        pos = s1.pos.clone()
+        pos[:n_act] = torch.as_tensor(x1, device=pos.device)
+        read = dataclasses.replace(s1, pos=pos, box=state.box,
+                                   baro_v=state.baro_v)
+        arrays.update(
+            x1s=arrays["x1"], x1=x1, box1=check._np(s1.box),
+            p1=float(prog.integrate.virial_pressure(spec, cfg, read)),
+            baro_v0=float(state.baro_v),
+            xi=float(draws["baro"]) if draws else 0.0)
+        del read, pos
     out = {"pre": check.snapshot_topology(win.prev_state),
            "post": check.snapshot_topology(state), "arrays": arrays,
            "step": int(state.step)}
@@ -339,16 +391,29 @@ def compare(sys_, su: Setup, out: dict, seeds: dict, device,
                                         seeds["reactions"], start.res,
                                         device)
     numbers["reaction_mismatch"] = float(bad)
+    topo = (want["type_id"], want["bonds"], want["angles"], want["excl"])
+    # the pressure's: no angle term changes under a uniform scaling
+    baro_topo = (want["type_id"], want["bonds"], want["excl"])
     if control_dtype is not None:
         a["x1"], a["v1"], a["f1"] = check.reference_step(
             sys_, a["x0"], a["v0"], a["f0"], a["mass"], a["box"],
-            a["noise"], want["type_id"], want["bonds"], want["angles"],
-            want["excl"], su.tables, device, control_dtype)
+            a["noise"], *topo, su.tables, device, control_dtype)
+        if sys_.barostat is not None:
+            a["x1s"], a["box1"], a["p1"] = check.reference_barostat(
+                sys_, a["x1"], a["v1"], a["mass"], a["box"], a["baro_v0"],
+                a["xi"], *baro_topo, su.tables, device, control_dtype)
+    scaled = None
+    if sys_.barostat is not None:
+        pg, bg, mu = check.barostat_gaps(
+            sys_, a["x1"], a["v1"], a["mass"], a["box"], a["box1"], a["p1"],
+            a["baro_v0"], a["xi"], *baro_topo, su.tables, device)
+        scaled = (a["x1s"], mu)
     fg, dg, vg = check.step_gaps(
         sys_, a["x0"], a["v0"], a["f0"], a["mass"], a["box"], a["noise"],
-        a["x1"], a["v1"], a["f1"], want["type_id"], want["bonds"],
-        want["angles"], want["excl"], su.tables, device)
+        a["x1"], a["v1"], a["f1"], *topo, su.tables, device, scaled=scaled)
     numbers.update(force_gap=fg, drift_gap=dg, vel_gap=vg)
+    if scaled is not None:
+        numbers.update(pressure_gap=pg, box_gap=bg)
     _stage("check: the reference", device, t)
     return numbers, len(want["events"])
 
@@ -360,7 +425,7 @@ def check_run(prog: Program, su: Setup, win: Window, sys_, seeds: dict,
     out = program_step(prog, su, win, seeds, device)
     numbers, events = compare(sys_, su, out, seeds, device)
     checks = {k: {"value": numbers[k], "limit": limits.get(k)}
-              for k in check.NAMES}
+              for k in check.names(sys_)}
     return check.judge(numbers, limits), checks, events
 
 

@@ -77,15 +77,12 @@ def _excluded(keys_sorted, i, j, n):
     return keys_sorted[at] == k
 
 
-def pair_forces(pos, box, type_id, excl, pair: dict, dtype, tables=None,
-                band: float = 0.0):
-    """(N, 3) nonbonded forces in ``dtype``.  ``excl`` (X, 2) are the
-    excluded pairs; ``pair`` the configuration's pair block; ``tables``
-    (r grid (P,), F (T, T, P)) for a tabulated pair.  With ``band`` > 0,
-    the pairs whose r^2 lies within ``band`` of the cutoff's, on either
-    side of it, are left out of the sum and returned apart: (forces, rows
-    (M,), their pair forces (M, 3)); whether such a pair is inside is
-    rounding's choice."""
+def _pair_blocks(pos, box, type_id, excl, pair: dict, dtype, tables=None,
+                 band: float = 0.0):
+    """The nonbonded pairs of each block of rows, in ``dtype``: yields
+    (lo, hi, rows, d, r2, fs, near), the pair force of (rows, candidate)
+    being fs * d (0 where the pair is not summed), and ``near`` the pairs
+    within ``band`` of the cutoff (all False where ``band`` is 0)."""
     n = pos.shape[0]
     dev = pos.device
     rc = float(pair["cutoff"])
@@ -104,8 +101,6 @@ def pair_forces(pos, box, type_id, excl, pair: dict, dtype, tables=None,
         dr = float(r_grid[1] - r_grid[0])
         n_bins = len(r_grid)
         ft = torch.as_tensor(ftab, dtype=dtype, device=dev)
-    out = torch.zeros((n, 3), dtype=dtype, device=dev)
-    amb_rows, amb_f = [], []
     for lo in range(0, n, ROWS_PER_BLOCK):
         hi = min(lo + ROWS_PER_BLOCK, n)
         cand = find(lo, hi)
@@ -138,6 +133,22 @@ def pair_forces(pos, box, type_id, excl, pair: dict, dtype, tables=None,
         else:
             raise NotImplementedError("pair kind %r" % pair["kind"])
         fs = torch.where(ok, fs, torch.zeros_like(fs))
+        yield lo, hi, rows, d, r2, fs, near
+
+
+def pair_forces(pos, box, type_id, excl, pair: dict, dtype, tables=None,
+                band: float = 0.0):
+    """(N, 3) nonbonded forces in ``dtype``.  ``excl`` (X, 2) are the
+    excluded pairs; ``pair`` the configuration's pair block; ``tables``
+    (r grid (P,), F (T, T, P)) for a tabulated pair.  With ``band`` > 0,
+    the pairs whose r^2 lies within ``band`` of the cutoff's, on either
+    side of it, are left out of the sum and returned apart: (forces, rows
+    (M,), their pair forces (M, 3)); whether such a pair is inside is
+    rounding's choice."""
+    out = torch.zeros((pos.shape[0], 3), dtype=dtype, device=pos.device)
+    amb_rows, amb_f = [], []
+    for lo, hi, rows, d, _, fs, near in _pair_blocks(
+            pos, box, type_id, excl, pair, dtype, tables, band):
         if band > 0.0:
             amb_rows.append(rows[near])
             amb_f.append(fs[near][:, None] * d[near])
@@ -167,26 +178,34 @@ def bonded_forces(pos, box, bonds, angles, k_bond, r0, k_angle, theta0,
         out.index_add_(0, b[:, 1], -f)
     a = torch.as_tensor(np.asarray(angles), dtype=torch.long, device=dev)
     if a.numel():
-        rij = _min_image(x[a[:, 0]] - x[a[:, 1]], bx)
-        rkj = _min_image(x[a[:, 2]] - x[a[:, 1]], bx)
-        nij = torch.sqrt(torch.sum(rij * rij, dim=-1))
-        nkj = torch.sqrt(torch.sum(rkj * rkj, dim=-1))
-        dot = torch.sum(rij * rkj, dim=-1)
-        cross = torch.linalg.cross(rij, rkj)
-        sin_nn = torch.sqrt(torch.sum(cross * cross, dim=-1))
-        theta = torch.atan2(sin_nn, dot)
-        c = dot / (nij * nkj)
-        sin_t = torch.clamp(sin_nn / (nij * nkj), min=1e-12)
-        # F_i = dU/dtheta / sin(theta) * dcos(theta)/dx_i
-        g = (2.0 * k_angle) * (theta - theta0) / sin_t
-        fi = g[:, None] * (rkj / (nij * nkj)[:, None]
-                           - (c / (nij * nij))[:, None] * rij)
-        fk = g[:, None] * (rij / (nij * nkj)[:, None]
-                           - (c / (nkj * nkj))[:, None] * rkj)
+        fi, fk, _ = angle_end_forces(x, bx, a, k_angle, theta0)
         out.index_add_(0, a[:, 0], fi)
         out.index_add_(0, a[:, 2], fk)
         out.index_add_(0, a[:, 1], -(fi + fk))
     return out
+
+
+def angle_end_forces(x, bx, a, k_angle, theta0):
+    """(F_i, F_k, cos theta) of U = k_angle (theta - theta0)^2 on each
+    angle (i, j, k) of ``a`` (A, 3), j the apex, in the dtype of ``x``;
+    the apex takes -(F_i + F_k)."""
+    rij = _min_image(x[a[:, 0]] - x[a[:, 1]], bx)
+    rkj = _min_image(x[a[:, 2]] - x[a[:, 1]], bx)
+    nij = torch.sqrt(torch.sum(rij * rij, dim=-1))
+    nkj = torch.sqrt(torch.sum(rkj * rkj, dim=-1))
+    dot = torch.sum(rij * rkj, dim=-1)
+    cross = torch.linalg.cross(rij, rkj)
+    sin_nn = torch.sqrt(torch.sum(cross * cross, dim=-1))
+    theta = torch.atan2(sin_nn, dot)
+    c = dot / (nij * nkj)
+    sin_t = torch.clamp(sin_nn / (nij * nkj), min=1e-12)
+    # F_i = dU/dtheta / sin(theta) * dcos(theta)/dx_i
+    g = (2.0 * k_angle) * (theta - theta0) / sin_t
+    fi = g[:, None] * (rkj / (nij * nkj)[:, None]
+                       - (c / (nij * nij))[:, None] * rij)
+    fk = g[:, None] * (rij / (nij * nkj)[:, None]
+                       - (c / (nkj * nkj))[:, None] * rkj)
+    return fi, fk, c
 
 
 def forces(sys_, pos, box, type_id, bonds, angles, excl, dtype,

@@ -43,6 +43,35 @@ class Transfer:
 
 
 @dataclasses.dataclass
+class Barostat:
+    form: str                   # 'br' (Berendsen) or 'lv' (Langevin piston)
+    pressure: float             # P0
+    tau: float = 0.0            # 'br'
+    mass: float = 0.0           # 'lv': the piston's mass W
+    gammaP: float = 0.0         # 'lv': the piston's friction
+
+
+def load_barostat(block):
+    """The ``system.barostat`` block (``form``, ``pressure``, and ``tau``
+    or ``mass`` and ``gammaP``) as a ``Barostat``; None without one."""
+    if block is None:
+        return None
+    form = block["form"]
+    if form == "br":
+        b = Barostat(form, float(block["pressure"]), tau=float(block["tau"]))
+    elif form == "lv":
+        b = Barostat(form, float(block["pressure"]),
+                     mass=float(block["mass"]),
+                     gammaP=float(block["gammaP"]))
+    else:
+        raise ValueError("barostat form %r: 'br' or 'lv'" % form)
+    if b.pressure <= 0.0:
+        raise ValueError("a barostat at pressure %r: the system runs none "
+                         "at P0 <= 0" % b.pressure)
+    return b
+
+
+@dataclasses.dataclass
 class System:
     types: list
     mass: float
@@ -63,13 +92,15 @@ class System:
     interval: int
     channels: list
     transfers: list
+    barostat: Barostat = None   # None: constant volume
 
 
 def load_system(block: dict) -> System:
-    """The configuration's ``system`` block as a ``System``.  The bond of a
-    bond type and the bond a reaction makes must be one potential, and so
-    must every angle type: the reference then needs no table of
-    per-type parameters."""
+    """The configuration's ``system`` block as a ``System`` (its
+    ``barostat`` block optional: without one the volume is constant).  The
+    bond of a bond type and the bond a reaction makes must be one
+    potential, and so must every angle type: the reference then needs no
+    table of per-type parameters."""
     types = list(block["types"])
     tid = {t: k for k, t in enumerate(types)}
     state0 = np.zeros(len(types), dtype=np.int64)
@@ -111,7 +142,8 @@ def load_system(block: dict) -> System:
         angle_theta0=math.radians(angle["theta0_deg"]),
         angle_types=angle_types, dt=integ["dt"], kT=integ["kT"],
         gamma=integ["gamma"], interval=int(rx.get("interval", 0)),
-        channels=channels, transfers=transfers)
+        channels=channels, transfers=transfers,
+        barostat=load_barostat(block.get("barostat")))
 
 
 @dataclasses.dataclass

@@ -7,7 +7,7 @@ import re
 import pytest
 
 from conftest import ROOT
-from portbench import harness
+from portbench import check, harness
 from portbench.reference import system as ref_system
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -51,8 +51,10 @@ def test_cell_files_agree_with_benchmark_json(cell):
     assert (c["config"], c["traffic"], c["chips"], c["why"]) == (
         entry["config"], entry["traffic"], entry["chips"], entry["why"])
     assert conf["name"] == entry["config"]
-    assert set(c["limits"]) == {"start_mismatch", "reaction_mismatch",
-                                "force_gap", "drift_gap", "vel_gap"}
+    # a limit for each number compared: the five, and under a barostat
+    # pressure_gap and box_gap
+    sys_ = ref_system.load_system(conf["system"])
+    assert set(c["limits"]) == set(check.names(sys_))
     assert traffic["block_steps"] == traffic["reaction_interval"]
     # room for every event a reaction step can fire: each living end
     # (one per initiator) takes part in at most one

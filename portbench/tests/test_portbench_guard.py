@@ -58,8 +58,8 @@ def test_run_exits_when_jax_is_loaded(monkeypatch, capsys):
 
 def test_reference_imports_nothing_of_the_program():
     code = ("import sys; import portbench.check, portbench.roofline, "
-            "portbench.reference.forces, portbench.reference.reactions, "
-            "portbench.reference.system; "
+            "portbench.reference.barostat, portbench.reference.forces, "
+            "portbench.reference.reactions, portbench.reference.system; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'chemlab_tpu_torch', 'chemlab_tpu', 'jax'}); print(bad)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
